@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: the CUDA kernels from the sources in this checkout, with
-   nvcc's ``-Xptxas -v`` report (registers, shared memory, spills);
+2. build: the CUDA kernels (flash attention with its ring step, matmul)
+   from the sources in this checkout, one nvcc per source, all started
+   together, with nvcc's ``-Xptxas -v`` report (registers, shared memory,
+   spills);
 3. kernel parity: each kernel against its plain torch version on the card,
    at the reference kernel tests' shapes and tolerances (float32 2e-5,
    bfloat16 2e-2), ragged lengths, GQA and the serving path's shape;
@@ -17,7 +19,31 @@
    one decode step under torch.profiler (device busy time, idle share,
    device time by kernel kind);
 6. slice parity: full width, 2 layers, float32, the same weights on the
-   card (kernel path) and on the CPU (plain path).
+   card (kernel path) and on the CPU (plain path);
+7. matmul parity: the kernel against its plain version at the reference
+   tests' shapes, ragged shapes, strided views and every product shape of
+   llama-7b's prefill graph (b=4, s=512), float32 (1e-4) and bf16 (3e-2,
+   atol x8);
+8. ring-step parity: the step kernel chained over r = 2 and 4 kv blocks
+   from every ring position, causal, windowed and GQA (float32 2e-5,
+   bf16 2e-2), each carry against the plain step and the finalised chain
+   against the forward kernel, at the serving shape cut 4 ways too;
+9. timing (CUDA events): matmul at the q_proj shape in float32 and bf16,
+   the ring step at the serving shape cut 4 ways, each beside its plain
+   version, its library call (none for the step) and its bound; and the
+   bound and ``torch.bmm`` time of the still unported ``gmm`` at
+   mixtral-8x7b's expert shape;
+10. executor path: llama-7b's prefill graph at full width (embed, one
+   block period, lm_head) planned through a plan-cache file on a 1x1 mesh
+   (cold, then a hit), run with ``executor="shard_map"`` in float32 and in
+   bf16 with the launch counters set to 0 just before each call and read
+   just after (every clean contraction through the matmul kernel, one
+   flash-attention launch), its logits held against the dense
+   ``executor="gspmd"`` run on the card, then profiled;
+11. ring path: the same graph on 4 gloo ranks that share the card (blocks
+   staged through the host), sequence-parallel (every ``s`` label on the
+   ``seq`` axis), float32: attention rides the ring through the step
+   kernel; counters per rank, logits against the one-card dense run.
 
 Any failure raises and exits non-zero before the last line.  The last
 three lines are the ``nvidia-smi`` name and power limit, a JSON line of
@@ -32,6 +58,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -115,7 +142,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
@@ -138,13 +167,22 @@ def main() -> int:
     results["device"] = {"kind": kind, "count": count, "nvidia_smi": smi}
 
     # 2. build ----------------------------------------------------------------
-    built = fa.build_info()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "ptxas info" in ln or "spill" in ln]
-    log("build", f"flash_attention.cu in {built.build_s:.1f} s -> {built.path.name}")
-    for ln in ptxas:
-        log("build", ln)
-    results["build"] = {"flash_attention_s": built.build_s, "ptxas": ptxas}
+    t0 = time.perf_counter()
+    names = ["flash_attention", "matmul"]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc each
+        builds = dict(zip(names, pool.map(_build.build, names)))
+    t_build = time.perf_counter() - t0
+    fa.build_info(), mm.build_info()  # bind both libraries' entry points
+    results["build"] = {"wall_s": t_build}
+    for name, built in builds.items():
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "ptxas info" in ln or "spill" in ln]
+        log("build", f"{name}.cu in {built.build_s:.1f} s -> {built.path.name}")
+        for ln in ptxas:
+            log("build", ln)
+        results["build"][f"{name}_s"] = built.build_s
+        results["build"][f"{name}_ptxas"] = ptxas
+    log("build", f"both sources built side by side in {t_build:.1f} s")
 
     # 3. kernel parity ----------------------------------------------------------
     parity = []
@@ -273,13 +311,48 @@ def main() -> int:
     results["slice_parity"] = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
                                "tokens": g_gpu.tolist()}
 
-    kernels = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:134",
-        "launches": launches["flash_attention"], "max_abs_err": slice_err,
-        "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": t_lib}]}
+    del cpu_params, gpu_params
+    torch.cuda.empty_cache()
+
+    # 7-8. matmul and ring-step parity --------------------------------------------
+    results["matmul_parity"] = _matmul_parity(cfg, ops, ref)
+    mm_err = results["matmul_parity"]["qproj_bf16_max_abs_err"]
+    results["step_parity"] = _step_parity(ops, ref)
+    step_err = results["step_parity"]["serving_bf16_max_abs_err"]
+
+    # 9. timing of the new kernels, and gmm's yardsticks ------------------------------
+    results["matmul_timing"] = _matmul_timing(ops, ref)
+    results["step_timing"] = _step_timing(ops, ref)
+    results["gmm"] = _gmm_yardsticks(get_config("mixtral-8x7b"), ref)
+
+    # 10. the executor path on one card -------------------------------------------
+    results["executor"] = _executor_path(cfg, ops)
+
+    # 11. the ring path: 4 gloo ranks on the card ---------------------------------------
+    results["ring"] = _ring_path()
+
+    mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
+    kernels = {"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:134",
+         "launches": launches["flash_attention"], "max_abs_err": slice_err,
+         "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": t_lib},
+        {"name": "flash_attention_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:274",
+         "launches": results["ring"]["launches_total"]["flash_attention_step"],
+         "max_abs_err": step_err, "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:57",
+         "launches": results["executor"]["bfloat16"]["launches"]["matmul"],
+         "max_abs_err": mm_err, "ms": mt["kernel_ms"], "plain_ms": mt["plain_ms"],
+         "bound_ms": mt["bound_ms"], "bound_by": mt["bound_by"],
+         "library_ms": mt["library_ms"]},
+    ]}
     results.update(kernels)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -295,8 +368,9 @@ def main() -> int:
 def _profile(fn) -> dict:
     """``fn`` warmed up, timed once on the host clock (ending in a
     synchronize), then run once more under torch.profiler: the device time
-    of its kernels, by kind (this port's flash-attention kernel, cuBLAS
-    matrix products, everything else), and the idle share of the
+    of its kernels, by kind (this port's flash-attention, ring-step and
+    matmul kernels, cuBLAS matrix products, everything else), and the idle
+    share of the
     unprofiled wall time (tracing itself slows the host down)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -310,7 +384,8 @@ def _profile(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kind = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    by_kind = {"flash_attention": 0.0, "flash_step": 0.0, "matmul": 0.0,
+               "gemm": 0.0, "other": 0.0}
     by_name: dict[str, float] = {}
     n = 0
     for e in prof.events():
@@ -319,7 +394,10 @@ def _profile(fn) -> dict:
         n += 1
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
-        kind = ("flash_attention" if "flash_fwd_kernel" in name else
+        step = "true>" in name or "lb1e" in name  # flash_fwd_kernel<T, NCOL, STEP>
+        kind = ("flash_step" if "flash_fwd_kernel" in name and step else
+                "flash_attention" if "flash_fwd_kernel" in name else
+                "matmul" if "mm_f32_kernel" in name or "mm_bf16_kernel" in name else
                 "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
                 else "other")
         by_kind[kind] += ms
@@ -330,6 +408,360 @@ def _profile(fn) -> dict:
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "by_kind_ms": {k: round(v, 4) for k, v in by_kind.items()},
             "top_kernels_ms": [(k, round(v, 4)) for k, v in top]}
+
+
+def _bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
+    """(least ms on this card, what bounds it): bytes over the memory rate
+    against operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(got, want, tol: float, what: str) -> float:
+    """max |got - want|; raises where |got - want| > tol + tol * |want|."""
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"{what}: max|kernel - plain| = {float(err.max()):.3e} "
+                             f"beyond tol {tol}")
+    return float(err.max())
+
+
+MM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # tests/test_kernels.py
+
+
+def _mm_shapes(cfg, m: int = 4 * 512) -> dict[str, tuple[int, int, int]]:
+    """(m, k, n) of every product of llama-7b's prefill graph at b=4, s=512."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_padded
+    return {"qkvo_proj": (m, d, cfg.n_heads * cfg.head_dim), "up_gate": (m, d, f),
+            "down": (m, f, d), "lm_head": (m, d, v)}
+
+
+def _mm_inputs(m, k, n, dt, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dt)
+    w = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dt)
+    return x, w
+
+
+def _matmul_parity(cfg, ops, ref) -> dict:
+    """The matmul kernel against ``ref.matmul`` on the card."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((128, 128, 128), f32), ((256, 384, 128), f32), ((128, 256, 512), bf16),
+             ((64, 64, 64), f32),                                # tests/test_kernels.py
+             ((200, 300, 77), f32), ((200, 300, 77), bf16),      # ragged
+             ((1, 5, 3), f32), ((130, 17, 129), bf16)]
+    cases += [(shape, dt) for shape in _mm_shapes(cfg).values() for dt in (f32, bf16)]
+    out, qproj_err = [], None
+    for (m, k, n), dt in cases:
+        x, w = _mm_inputs(m, k, n, dt)
+        got = ops.matmul(x, w, impl="kernel")
+        torch.cuda.synchronize()
+        err = _max_err(got, ref.matmul(x, w), MM_TOL[dt], f"matmul {(m, k, n)} {dt}")
+        out.append({"shape": [m, k, n], "dtype": str(dt), "max_abs_err": err})
+        log("mm-parity", f"{(m, k, n)} {dt}: max|kernel - plain| = {err:.3e} ok")
+        if (m, k, n) == _mm_shapes(cfg)["qkvo_proj"] and dt == bf16:
+            qproj_err = err
+    for dt in (f32, bf16):  # strided views: a column-major x, w at column stride 2
+        x, w = _mm_inputs(150, 96, 70, dt, seed=1)
+        xt = x.t().contiguous().t()
+        ws = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]
+        err = _max_err(ops.matmul(xt, ws, impl="kernel"), ref.matmul(x, w), MM_TOL[dt],
+                       f"matmul strided {dt}")
+        out.append({"shape": [150, 96, 70], "dtype": str(dt), "strided": True,
+                    "max_abs_err": err})
+        log("mm-parity", f"strided (150, 96, 70) {dt}: max|kernel - plain| = {err:.3e} ok")
+    return {"cases": out, "qproj_bf16_max_abs_err": qproj_err}
+
+
+STEP_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
+    (2, 4, 4, 64, 32, True, 0, torch.float32),
+    (2, 4, 2, 64, 32, True, 0, torch.float32),     # GQA
+    (1, 4, 1, 96, 64, True, 24, torch.float32),    # window, MQA
+    (1, 4, 2, 64, 16, False, 0, torch.float32),
+    (2, 4, 2, 128, 64, True, 0, torch.bfloat16),
+    (1, 8, 2, 200, 128, True, 40, torch.bfloat16),  # blocks that divide no tile
+]
+STEP_SERVING = (4, 32, 32, 512, 128, True, 0, torch.bfloat16)  # r = 4: blocks of 128
+
+
+def _step_parity(ops, ref) -> dict:
+    """The ring as each rank runs it: q block i at i*blk, the kv blocks in
+    ring order (i, i-1, ...), fully masked blocks included.  Every carry
+    against the plain step; the finalised chain against the forward
+    kernel over the whole kv."""
+    out, serving_err = [], 0.0
+    for case, r in [(c, r) for c in STEP_CASES for r in (2, 4)] + [(STEP_SERVING, 4)]:
+        b, hq, hkv, s, d, causal, window, dt = case
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q, k, v = (torch.randn(sh, generator=g, device="cuda").to(dt)
+                   for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+        blk, tol, worst = s // r, TOL[dt], 0.0
+        kw = dict(causal=causal, window=window)
+        for i in range(r):
+            qi = q[:, :, i * blk:(i + 1) * blk]
+            carry = plain = None
+            for t in range(r):
+                j = (i - t) % r
+                kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
+                off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
+                carry = ops.flash_attention_step(qi, kj, vj, carry, impl="kernel", **off)
+                plain = ref.attention_step(qi, kj, vj, plain, **off)
+                torch.cuda.synchronize()
+                for part, got, want in zip("mla", carry, plain):
+                    worst = max(worst, _max_err(got, want, tol,
+                                                f"step {case} r={r} i={i} t={t} {part}"))
+            fin = ops.attention_finalize(carry, dt)
+            fwd = ops.flash_attention(qi, k, v, q_offset=i * blk, impl="kernel", **kw)
+            worst = max(worst, _max_err(fin, fwd, tol, f"step chain {case} r={r} i={i}"))
+        out.append({"case": str(case), "r": r, "max_abs_err": worst})
+        log("step-parity", f"{case} r={r}: max|kernel - plain| = {worst:.3e} "
+                           f"(tol {tol}) ok")
+        if case == STEP_SERVING:
+            serving_err = worst
+    return {"cases": out, "serving_bf16_max_abs_err": serving_err}
+
+
+def _matmul_timing(ops, ref) -> dict:
+    """The kernel, its plain version and ``torch.matmul`` (TF32 off) at the
+    q_proj shape of llama-7b's prefill (2048 x 4096 x 4096)."""
+    res = {}
+    m, k, n = 2048, 4096, 4096
+    for dt, iters in ((torch.float32, 10), (torch.bfloat16, 50)):
+        x, w = _mm_inputs(m, k, n, dt, seed=3)
+        item = x.element_size()
+        nbytes, nops = (m * k + k * n + m * n) * item, 2 * m * k * n
+        bound_ms, bound_by = _bound(nbytes, nops, dt)
+        t_kernel = _time_ms(lambda: ops.matmul(x, w, impl="kernel"), iters)
+        t_plain = _time_ms(lambda: ref.matmul(x, w), iters)
+        t_lib = _time_ms(lambda: torch.matmul(x, w), iters)
+        res[str(dt).split(".")[1]] = {
+            "shape": [m, k, n], "kernel_ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": nops,
+            "kernel_tflops": nops / t_kernel / 1e9, "library_tflops": nops / t_lib / 1e9}
+        log("timing", f"matmul {(m, k, n)} {dt}: kernel {t_kernel:.4f} ms "
+                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s), plain {t_plain:.4f} ms, "
+                      f"torch.matmul {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return res
+
+
+def _step_timing(ops, ref) -> dict:
+    """One ring step at the serving shape cut 4 ways: q, k, v (4, 32, 128,
+    128) bf16 and the f32 carry, which the kernel updates in place.  No
+    tile is skipped, so every (q, k) pair is computed; no single PyTorch
+    call computes one step, so there is no library time."""
+    b, h, blk, d = 4, 32, 128, 128
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(b, h, blk, d, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    off = dict(q_offset=3 * blk, kv_offset=blk)
+    carry = ops.flash_attention_step(q, k, v, None, impl="kernel", **off)
+    plain_carry = tuple(t.clone() for t in carry)
+    t_kernel = _time_ms(lambda: ops.flash_attention_step(q, k, v, carry, impl="kernel",
+                                                         **off), 100)
+    t_plain = _time_ms(lambda: ref.attention_step(q, k, v, plain_carry, **off), 20)
+    nbytes = 3 * q.numel() * 2 + 2 * (2 * b * h * blk + b * h * blk * d) * 4
+    nops = 4 * b * h * blk * blk * d
+    bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
+    log("timing", f"flash_attention_step {(b, h, blk, d)} bf16: kernel {t_kernel:.4f} ms, "
+                  f"plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{nbytes} B, {nops} ops); library: none")
+    return {"shape": [b, h, blk, d], "kernel_ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": nops}
+
+
+def _gmm_yardsticks(cfg, ref) -> dict:
+    """gmm is still to port (the MoE slice): its bound, its plain version's
+    time and ``torch.bmm``'s at mixtral-8x7b's first expert product, b=4,
+    s=512, bf16: (e, c, d_model) @ (e, d_model, d_ff), c the dispatch
+    capacity of the reference's ``models/moe.py``."""
+    e, k, n = cfg.n_e, cfg.d_model, cfg.d_ff
+    c = int(4 * 512 * cfg.top_k / e * cfg.capacity_factor)
+    c = max(128, -(-c // 128) * 128)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(e, c, k, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(e, k, n, generator=g, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    nbytes, nops = (e * c * k + e * k * n + e * c * n) * 2, 2 * e * c * k * n
+    bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
+    t_lib = _time_ms(lambda: torch.bmm(x, w), 20)
+    t_plain = _time_ms(lambda: ref.gmm(x, w), 5)
+    log("timing", f"gmm (unported) {(e, c, k, n)} bf16: bound {bound_ms:.4f} ms "
+                  f"({bound_by}), torch.bmm {t_lib:.4f} ms, plain {t_plain:.4f} ms")
+    return {"shape": [e, c, k, n], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t_lib, "plain_ms": t_plain, "bytes": nbytes, "ops": nops}
+
+
+def _llama_feeds(g, cfg, dtype, seed: int, device="cuda") -> dict:
+    """Seeded feeds for llama's prefill graph, made on the card: token ids,
+    and weights scaled by their fan-in (the embedding table at 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fan_in = {"embed": 1, "w2": cfg.d_ff}
+    feeds = {}
+    for n in g.nodes:
+        if n.kind != "input":
+            continue
+        if str(np.dtype(n.dtype)) == "int32":
+            feeds[n.name] = torch.randint(0, cfg.vocab, n.shape, generator=gen,
+                                          device=device, dtype=torch.int32)
+        else:
+            scale = fan_in.get(n.name, cfg.d_model) ** -0.5
+            feeds[n.name] = (torch.randn(n.shape, generator=gen, device=device)
+                             * scale).to(dtype)
+    return feeds
+
+
+def _executor_path(cfg, ops) -> dict:
+    """llama-7b's prefill graph through ``executor="shard_map"`` on a 1x1
+    mesh on the card, in float32 and bf16, against the dense run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import spmd
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    g = prog.graph
+    n_mm = sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec))
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(Path(tmp) / "plans.json")
+        cold = PlanCache.open(store)
+        t0 = time.perf_counter()
+        prog.compile(mesh=mesh, executor="shard_map", cache=cold)
+        t_cold = time.perf_counter() - t0
+        warm = PlanCache.open(store)
+        t0 = time.perf_counter()
+        run = prog.compile(mesh=mesh, executor="shard_map", cache=warm)
+        t_warm = time.perf_counter() - t0
+    assert cold.stats["misses"] == 1 and warm.stats["hits"] == 1, (cold.stats, warm.stats)
+    dense = prog.compile(mesh_axes=dict(mesh.sizes), device="cuda")
+    log("executor", f"llama-7b prefill graph: {len(g.nodes)} nodes, {n_mm} clean "
+                    f"contractions; planned cold {t_cold:.4f} s, hit {t_warm:.4f} s; "
+                    f"schedule: {run.collectives.summary()}")
+    res = {"nodes": len(g.nodes), "n_matmul_nodes": n_mm, "t_plan_cold_s": t_cold,
+           "t_plan_hit_s": t_warm}
+    # both runs round every product to bf16 after an f32 sum; they may sum
+    # in other orders, so allow a few bf16 ulps (2^-8 ≈ 3.9e-3 of the
+    # scale) of the largest logit; float32 differs only in its sum order
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    for dt in (torch.float32, torch.bfloat16):
+        feeds = _llama_feeds(g, cfg, dt, seed=7)
+        with torch.inference_mode():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run(feeds)["logits"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            want = dense(feeds)["logits"]
+            torch.cuda.synchronize()
+            # the yardstick's products are torch.einsum (cuBLAS), not the kernel
+            assert ops.launch_counts()["matmul"] == n_mm, ops.launch_counts()
+            prof = _profile(lambda: run(feeds))
+        assert launches == {"flash_attention": 1, "flash_attention_step": 0,
+                            "matmul": n_mm}, launches
+        assert got.shape == (4, 512, cfg.vocab_padded) and got.dtype == dt
+        assert bool(torch.isfinite(got).all()), "non-finite logits"
+        scale = float(want.float().abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        if not diff <= tol[dt] * scale:
+            raise AssertionError(f"executor {dt}: max|shard_map - dense| = {diff:.3e} "
+                                 f"> {tol[dt]} x max|logit| {scale:.3f}")
+        name = str(dt).split(".")[1]
+        log("executor", f"{name}: launches {launches}; max|shard_map - gspmd| = {diff:.3e} "
+                        f"(max|logit| {scale:.3f}, tol {tol[dt]} x that); wall "
+                        f"{1e3 * wall:.3f} ms; profiled wall {prof['wall_ms']:.3f} ms, "
+                        f"device busy {prof['device_ms']:.3f} ms (idle share "
+                        f"{prof['idle_share']:.3f}); device ms by kind {prof['by_kind_ms']}; "
+                        f"top {prof['top_kernels_ms'][:4]}")
+        res[name] = {"launches": launches, "max_abs_logit_diff": diff,
+                     "max_abs_logit": scale, "tol_rel": tol[dt], "wall_ms": 1e3 * wall,
+                     "profile": prof}
+        del feeds, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
+RING_RANKS = 4
+
+
+def _sequence_parallel_plan(g, axis: str, r: int):
+    """A mesh-mode plan that shards every ``s`` label on ``axis``: no
+    product moves anything, and attention rides the ring."""
+    from repro_torch.core.decomp import Plan
+
+    plan = Plan(p=r, mode="mesh")
+    for n in g.nodes:
+        labels = n.spec.all_labels if n.kind == "einsum" else n.labels
+        plan.d_by_node[n.nid] = {l: (r if l == "s" else 1) for l in labels}
+        plan.axes_by_node[n.nid] = {"s": (axis,)} if "s" in labels else {}
+    return plan
+
+
+def ring_rank(rank: int, world: int) -> dict:
+    """One gloo rank of the ring path (run by ``launch.mesh.spawn``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama-7b")
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    mesh = Mesh({"seq": world}, device="cuda:0")
+    run = prog.compile(mesh=mesh, executor="shard_map",
+                       plan=_sequence_parallel_plan(prog.graph, "seq", world))
+    feeds = _llama_feeds(prog.graph, cfg, torch.float32, seed=7)
+    with torch.inference_mode():
+        run(feeds)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run(feeds)["logits"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        out = {"launches": launches, "wall_s": wall,
+               "issued": sorted({e[1] for e in run._fn.issued}),
+               "schedule": run.collectives.summary()}
+        if rank == 0:  # against the dense run of the same feeds on the card
+            want = prog.compile(device="cuda:0")(feeds)["logits"]
+            out["max_abs_logit"] = float(want.abs().max())
+            out["max_abs_logit_diff"] = float((got - want).abs().max())
+    return out
+
+
+def _ring_path() -> dict:
+    from repro_torch.launch.mesh import spawn
+
+    torch.cuda.empty_cache()  # the ranks share this card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(RING_RANKS, ring_rank, tmpdir=tmp, backend="gloo", timeout=600)
+        t_spawn = time.perf_counter() - t0
+    r0 = ranks[0]
+    total = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    for r in ranks:
+        assert r["launches"] == {"flash_attention": 0, "flash_attention_step": RING_RANKS,
+                                 "matmul": 8}, r["launches"]
+    scale, diff = r0["max_abs_logit"], r0["max_abs_logit_diff"]
+    if not diff <= 1e-4 * scale:  # float32: the sums run in other orders
+        raise AssertionError(f"ring path: max|ring - dense| = {diff:.3e} > 1e-4 x "
+                             f"max|logit| {scale:.3f}")
+    log("ring", f"{RING_RANKS} gloo ranks on one card, sequence-parallel llama-7b "
+                f"prefill f32: launches per rank {r0['launches']}; collectives issued "
+                f"{r0['issued']}; max|ring - dense| = {diff:.3e} (max|logit| "
+                f"{scale:.3f}); rank walls {[round(r['wall_s'], 3) for r in ranks]} s "
+                f"(host-staged gloo, not a speed path); all ranks in {t_spawn:.1f} s")
+    log("ring", f"schedule: {r0['schedule']}")
+    return {"ranks": RING_RANKS, "launches_per_rank": [r["launches"] for r in ranks],
+            "launches_total": total, "max_abs_logit_diff": diff, "max_abs_logit": scale,
+            "wall_s": [r["wall_s"] for r in ranks], "spawn_s": t_spawn,
+            "issued": r0["issued"]}
 
 
 def _leaves(tree):

@@ -1,0 +1,258 @@
+"""Execute an EinGraph with PyTorch, optionally under an EinDecomp plan.
+
+Each node lowers to the corresponding torch op on the caller's device: a
+contraction to ``torch.einsum``, a general (⊗, ⊕) node to broadcast +
+reduce over the ``_COMBINE2`` / ``_COMBINE1`` / ``_AGG`` tables, a map or
+opaque node to its OpDef's executable (the kernel dispatcher where the op
+has one, so flash attention launches its kernel on a card).
+
+Two executors realize a plan (``EXECUTORS``):
+
+  * ``gspmd`` — the dense run on one device.  The reference applies the
+    plan as per-node sharding constraints that XLA's partitioner realizes;
+    the port's counterpart (DTensor placements per node) is a later slice,
+    so on a mesh of more than one rank ``make_runner`` raises.
+  * ``shard_map`` — core/spmd.py: the plan's TRA dataflow as explicit
+    ``torch.distributed`` collectives between the ranks of a
+    ``launch.mesh.Mesh``, every clean contraction through the matmul kernel,
+    opaque nodes through the shard-rule registry.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Sequence
+
+import torch
+
+from repro_torch.core.einsum import EinGraph, EinSpec, resolve_feeds
+
+# ---------------------------------------------------------------------------
+# Per-node lowering
+# ---------------------------------------------------------------------------
+
+_COMBINE2 = {
+    "mul": lambda x, y: x * y,
+    "add": lambda x, y: x + y,
+    "sub": lambda x, y: x - y,
+    "div": lambda x, y: x / y,
+    "sqdiff": lambda x, y: (x - y) ** 2,
+    "absdiff": lambda x, y: torch.abs(x - y),
+    "maximum": torch.maximum,
+    "expsub": lambda x, y: torch.exp(x - y),
+}
+
+_COMBINE1 = {
+    "id": lambda x: x,
+    "exp": torch.exp,
+    "neg": lambda x: -x,
+    "abs": torch.abs,
+    "square": lambda x: x * x,
+}
+
+_AGG = {
+    "sum": lambda x, dims: torch.sum(x, dim=dims),
+    "max": lambda x, dims: torch.amax(x, dim=dims),
+    "min": lambda x, dims: torch.amin(x, dim=dims),
+    "prod": lambda x, dims: _prod(x, dims),
+}
+
+
+def _prod(x, dims):
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d)
+    return x
+
+
+def lower_einsum(spec: EinSpec, *args):
+    """One EinSum node -> torch.  Contractions go straight to
+    ``torch.einsum``; general (⊗, ⊕) nodes lower to broadcast + reduce."""
+    if spec.is_contraction and len(spec.in_labels) == 2:
+        return torch.einsum(spec.einsum_str(), *args)
+    if spec.is_contraction and len(spec.in_labels) == 1 and spec.combine == "id":
+        return torch.einsum(spec.einsum_str(), *args)
+
+    all_labels = spec.all_labels
+
+    def lift(arr, labels):
+        perm_src = list(labels)
+        for l in all_labels:
+            if l not in perm_src:
+                arr = arr[..., None]
+                perm_src.append(l)
+        return arr.permute([perm_src.index(l) for l in all_labels])
+
+    lifted = [lift(a, ls) for a, ls in zip(args, spec.in_labels)]
+    if len(lifted) == 2:
+        joined = _COMBINE2[spec.combine](*lifted)
+    else:
+        joined = _COMBINE1[spec.combine](lifted[0])
+    if spec.agg and spec.agg_labels:
+        dims = tuple(i for i, l in enumerate(all_labels) if l in spec.agg_labels)
+        joined = _AGG[spec.agg](joined, dims)
+    kept = [l for l in all_labels if l not in spec.agg_labels]
+    return joined.permute([kept.index(l) for l in spec.out_labels])
+
+
+# map / opaque execution registries: live views over the one OpDef
+# registry (core/opdef.py), as in the reference
+from repro_torch.core.opdef import MAP_FNS, OPAQUE_FNS  # noqa: E402
+
+
+def mesh_axes_dict(mesh) -> dict[str, int]:
+    """{axis name: size} for a ``launch.mesh.Mesh`` — the planner's mesh
+    description.  (Re-exported by launch/mesh.py; lives here so core never
+    imports launch.)"""
+    return dict(mesh.sizes)
+
+
+# ---------------------------------------------------------------------------
+# Graph execution
+# ---------------------------------------------------------------------------
+
+
+def _on(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device)
+
+
+def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
+        keep: set[int] | None = None) -> dict[int, torch.Tensor]:
+    """Evaluate the graph densely with torch on ``device`` (default: where
+    the feeds are).  ``feeds`` may be keyed by input *name* or node id
+    (``resolve_feeds``).  Returns every node's value, or with ``keep``
+    only those in ``keep`` (the others are dropped after their last
+    reader)."""
+    feeds = resolve_feeds(g, feeds)
+    last: dict[int, int] = {}
+    if keep is not None:
+        for n in g.nodes:
+            for a in n.inputs:
+                last[a] = max(last.get(a, -1), n.nid)
+    vals: dict[int, torch.Tensor] = {}
+    for nid in g.topo_order():
+        n = g.nodes[nid]
+        if n.kind == "input":
+            v = _on(feeds[nid], device)
+        elif n.kind == "einsum":
+            v = lower_einsum(n.spec, *[vals[a] for a in n.inputs])
+        elif n.kind == "map":
+            v = MAP_FNS[n.op](vals[n.inputs[0]], **n.params)
+        else:
+            v = OPAQUE_FNS[n.op](*[vals[a] for a in n.inputs], **n.call_params)
+        vals[nid] = v
+        if keep is not None:
+            for a in set(n.inputs):
+                if last[a] == nid and a not in keep:
+                    vals.pop(a, None)
+    return vals
+
+
+#: executors ``make_runner`` / ``Program.compile`` can build:
+#:   gspmd     — the dense run on one device (sharding-constraint hints in
+#:               the reference; DTensor placements on a multi-rank mesh are
+#:               a later slice of the port and raise until then).
+#:   shard_map — core/spmd.py: the plan's TRA dataflow emitted literally as
+#:               torch.distributed collectives between the mesh's ranks;
+#:               opaque nodes dispatch per rank through the shard-rule
+#:               registry (core/opaque_rules.py).
+EXECUTORS = ("gspmd", "shard_map")
+
+
+def _multi_rank(mesh) -> bool:
+    return mesh is not None and math.prod(mesh_axes_dict(mesh).values()) > 1
+
+
+def make_runner(g: EinGraph, out_ids: Sequence[int] | None = None, *,
+                plan=None, mesh=None, cache=None,
+                mesh_axes: dict[str, int] | None = None, p: int | None = None,
+                cost_mode: str = "paper",
+                offpath_repart: bool = True,
+                executor: str = "gspmd",
+                collective_trace=None,
+                fuse: bool = True,
+                lookahead: int = 1,
+                device=None) -> Callable:
+    """Build ``f(*feeds) -> outputs`` for the graph (feeds positional in
+    input-node order; one output is returned bare, several as a tuple).
+
+    ``executor`` selects how the plan is realized (see ``EXECUTORS``):
+    ``"gspmd"`` runs densely on ``device`` (on ``mesh.device`` when a
+    one-rank mesh is given; on the card when neither is, raising where
+    there is none — pass ``device="cpu"`` for the host); ``"shard_map"`` runs the plan's
+    join→agg→repartition dataflow with explicit collectives over ``mesh``
+    (a ``launch.mesh.Mesh``; it needs a mesh-mode plan, so a bare mesh
+    self-plans).  ``collective_trace`` (a ``core.spmd.CollectiveTrace``)
+    receives the shard_map executor's static collective schedule;
+    ``fuse`` and ``lookahead`` are its repartition-fusion and overlap
+    knobs (see ``spmd.build_schedule``).
+
+    Planning inputs (``p``, ``mesh_axes``, or a ``mesh`` with a ``cache``)
+    plan the graph here when no ``plan`` is given — consulting ``cache``
+    (a ``core.plancache.PlanCache``) before running the DP.  An explicit
+    ``plan`` always takes precedence."""
+    if executor not in EXECUTORS:
+        raise ValueError(f"make_runner: unknown executor {executor!r}; "
+                         f"choose from {EXECUTORS}")
+    if collective_trace is not None and executor != "shard_map":
+        raise ValueError("make_runner: collective_trace is only produced by "
+                         "the shard_map executor")
+    if executor == "gspmd" and _multi_rank(mesh):
+        raise NotImplementedError(
+            "make_runner: executor='gspmd' on a mesh of more than one rank "
+            "needs DTensor placements per node — the DTensor slice of the "
+            "port, not ported yet; use executor='shard_map'")
+    if (plan is None and cache is not None and mesh is None
+            and p is None and mesh_axes is None):
+        raise ValueError(
+            "make_runner: cache given but nothing to plan with — pass "
+            "mesh, mesh_axes, or p")
+    if plan is None and (p is not None or mesh_axes is not None
+                         or (cache is not None and mesh is not None)
+                         or (executor == "shard_map" and mesh is not None)):
+        from repro_torch.core.decomp import eindecomp
+
+        if mesh is None and cache is None:
+            raise ValueError(
+                "make_runner: planning inputs (p/mesh_axes) have no effect "
+                "without a mesh to shard by or a cache to warm")
+        if mesh_axes is None and mesh is not None:
+            mesh_axes = mesh_axes_dict(mesh)
+        if p is None:
+            if not mesh_axes:
+                raise ValueError("make_runner: planning needs p or mesh/mesh_axes")
+            p = math.prod(mesh_axes.values())
+        plan = eindecomp(g, p, mesh_axes=mesh_axes, cost_mode=cost_mode,
+                         offpath_repart=offpath_repart, cache=cache)
+    in_ids = g.input_ids()
+    out_ids = list(out_ids) if out_ids is not None else g.outputs()
+
+    if executor == "shard_map":
+        from repro_torch.core import spmd
+
+        if mesh is None or plan is None:
+            raise ValueError("make_runner: executor='shard_map' needs a "
+                             "mesh and a (mesh-mode) plan")
+        mapped = spmd.make_spmd_runner(g, out_ids, plan=plan, mesh=mesh,
+                                       trace=collective_trace, fuse=fuse,
+                                       lookahead=lookahead)
+
+        def f_spmd(*arrays):
+            outs = mapped(*arrays)
+            return outs[0] if len(outs) == 1 else outs
+
+        f_spmd.runner = mapped
+        return f_spmd
+
+    if device is None and mesh is not None:
+        device = mesh.device
+    else:
+        from repro_torch.models.common import resolve_device
+
+        device = resolve_device(device)  # the card unless asked otherwise
+    keep = set(out_ids)
+
+    def f(*arrays):
+        vals = run(g, dict(zip(in_ids, arrays)), device=device, keep=keep)
+        outs = tuple(vals[o] for o in out_ids)
+        return outs[0] if len(outs) == 1 else outs
+
+    return f

@@ -1,4 +1,4 @@
-"""`Program`: one object owning the graph → plan → cache lifecycle.
+"""`Program`: one object owning the graph → plan → cache → runner lifecycle.
 
 The paper's workflow is declare → decompose → execute:
 
@@ -6,20 +6,25 @@ The paper's workflow is declare → decompose → execute:
     w = ein.tensor("w", "a f", (64, 128))
     y = ein.einsum("b a, a f -> b f", x, w)
     prog = ein.Program({"y": y})
-    compiled = prog.compile(mesh_axes={"data": 2, "model": 4},
-                            cache="plans.json")   # eindecomp + plan cache
+    run = prog.compile(p=8, cache="plans.json")     # eindecomp + plan cache
+    out = run({"x": X, "w": W})["y"]                # name-keyed I/O
 
 ``compile`` runs EinDecomp through the persistent plan cache (a hit skips
-the §8 DP), exactly as the reference does.  ``.plan`` exposes the
-decomposition, ``.lower()`` the per-node partitionings and mesh-axis
-assignments, ``.policy()`` the production ShardingPolicy projection and
-``.canonical_key`` the compiled handle's identity.
+the §8 DP), exactly as the reference does, and builds the runner: the
+dense run on one device (``executor="gspmd"``), or the plan's TRA dataflow
+with explicit ``torch.distributed`` collectives over a ``launch.mesh.Mesh``
+(``executor="shard_map"``).  The result takes and returns name-keyed
+dicts.  ``.plan`` exposes the decomposition, ``.lower()`` the per-node
+partitionings and mesh-axis assignments, ``.policy()`` the production
+ShardingPolicy projection, ``.collectives`` the shard_map executor's static
+collective schedule and ``.canonical_key`` the compiled handle's identity.
 
-Executing a compiled program needs the dense executor (core/engine.py),
-which is the next slice of the port; until then calling a
-``CompiledProgram`` raises ``NotImplementedError``.  The model stack
-(models/transformer.py) runs the model itself and takes only the plan's
-policy from here, as the reference's serving path does.
+Runners run on the card unless the caller asks for another device
+(``device="cpu"``, or a mesh on the CPU); with no card and no device asked
+for, calling a compiled program raises.  The runner is eager: there is no
+jit, and no buffer donation — a value's memory goes back to the allocator
+when its last reference goes, and the runner drops every intermediate
+after its last reader.
 """
 from __future__ import annotations
 
@@ -29,10 +34,6 @@ from typing import Any, Mapping, Sequence
 
 from repro_torch.core.einsum import EinGraph
 from repro_torch.frontend.expr import Expr, trace
-
-#: plan realizations the port supports so far (the reference also has
-#: "shard_map", which arrives with core/spmd.py)
-EXECUTORS = ("gspmd",)
 
 
 class Program:
@@ -67,28 +68,63 @@ class Program:
 
     # -- compile --------------------------------------------------------------
 
-    def compile(self, *, mesh_axes: dict[str, int] | None = None,
+    def compile(self, *, mesh=None, mesh_axes: dict[str, int] | None = None,
                 p: int | None = None, cost_model: str = "paper",
                 cache=None, offpath_repart: bool = True,
-                executor: str = "gspmd", plan=None) -> "CompiledProgram":
-        """Run EinDecomp (through the plan cache).
+                executor: str = "gspmd", fuse: bool = True,
+                lookahead: int = 1, donate: bool | Sequence[str] = False,
+                pipeline=None, plan=None, device=None) -> "CompiledProgram":
+        """Run EinDecomp (through the plan cache) and build the runner.
 
-        ``mesh_axes`` (``{axis: size}``) selects torus-conformable mesh
-        mode; a bare ``p`` selects the paper's power-of-two mode; neither
-        means no planning at all.  ``cache`` is a ``PlanCache`` or a path to
-        its JSON store; a hit skips the §8 DP entirely.  ``cost_model`` is
-        ``"paper"``, ``"collective"`` or a ``core.cost.CostModel``.
-        ``plan=`` short-circuits planning with a caller-supplied plan.
+        ``mesh`` (a ``launch.mesh.Mesh``) or ``mesh_axes`` (``{axis:
+        size}``) selects torus-conformable mesh mode; a bare ``p`` selects
+        the paper's power-of-two mode; neither means no planning at all.
+        ``cache`` is a ``PlanCache`` or a path to its JSON store; a hit
+        skips the §8 DP entirely.  ``cost_model`` is ``"paper"``,
+        ``"collective"`` or a ``core.cost.CostModel``.  ``plan=``
+        short-circuits planning with a caller-supplied plan.
+
+        ``executor`` picks how the plan is realized
+        (``engine.EXECUTORS``): ``"gspmd"`` runs densely on one device
+        (``device``, or the card); ``"shard_map"`` runs the plan's
+        join→agg→repartition dataflow with explicit collectives between
+        the ranks of ``mesh`` (required), on ``mesh.device``, and exposes
+        its static schedule as ``.collectives``.  ``fuse`` and
+        ``lookahead`` (shard_map only) are the fused repartition planner
+        and the graph-wide overlap window, as in the reference: outputs
+        are bit-identical across both knobs.
+
+        Not ported yet, and raising ``NotImplementedError``: ``gspmd`` on a
+        mesh of more than one rank (DTensor placements per node, a later
+        slice), ``pipeline=`` (the pipeline slice) and ``donate=`` (buffer
+        donation: PyTorch has no jit to donate to; the eager runner
+        already frees each value after its last reader).
         """
         from repro_torch.core.decomp import eindecomp
+        from repro_torch.core.engine import EXECUTORS, mesh_axes_dict
         from repro_torch.core.plancache import PlanCache
 
         if executor not in EXECUTORS:
+            raise ValueError(f"compile: unknown executor {executor!r}; "
+                             f"choose from {EXECUTORS}")
+        if pipeline is not None:
             raise NotImplementedError(
-                f"compile: executor {executor!r} is not ported yet (the "
-                "explicit-collective executor arrives with core/spmd.py); "
-                f"choose from {EXECUTORS}")
+                "compile: pipeline= belongs to the pipeline slice of the "
+                "port (pipeline/partition, plan, schedule, exec), not "
+                "ported yet")
+        if donate:
+            raise NotImplementedError(
+                "compile: donate= is not ported — PyTorch has no jit "
+                "donation; the eager runner frees each intermediate after "
+                "its last reader, and donating the feeds themselves is a "
+                "later slice")
         cache = PlanCache.coerce(cache)
+        if mesh is not None and mesh_axes is None:
+            mesh_axes = mesh_axes_dict(mesh)
+        if executor == "shard_map" and mesh is None:
+            raise ValueError("compile: executor='shard_map' needs a mesh "
+                             "(launch.mesh.Mesh; mesh_axes alone cannot "
+                             "place shards)")
         if plan is not None:
             pass  # caller-supplied plan
         elif mesh_axes is not None or p is not None:
@@ -99,24 +135,56 @@ class Program:
                              offpath_repart=offpath_repart, cache=cache)
         elif cache is not None:
             raise ValueError("compile: cache given but nothing to plan "
-                             "with — pass mesh_axes or p")
-        return CompiledProgram(self, plan=plan, executor=executor)
+                             "with — pass mesh, mesh_axes or p")
+        return CompiledProgram(self, plan=plan, mesh=mesh, executor=executor,
+                               fuse=fuse, lookahead=lookahead, device=device)
 
 
 class CompiledProgram:
-    """A planned Program.
+    """A planned Program, callable with name-keyed feeds.
 
-    ``.plan`` is the EinDecomp result (None if compiled without planning
-    inputs), ``.lower()`` the introspection surface, ``.policy()`` the
-    production ShardingPolicy and ``.canonical_key`` the handle's identity.
-    Calling it needs the dense executor, which is not ported yet.
+    ``run({"x": X, ...})`` (or ``run(x=X, ...)``) returns ``{output name:
+    tensor}``; feeds may be numpy arrays or tensors.  ``.plan`` is the
+    EinDecomp result (None if compiled without planning inputs),
+    ``.lower()`` the introspection surface, ``.policy()`` the production
+    ShardingPolicy.  ``.executor`` names the execution strategy; for
+    ``"shard_map"``, ``.collectives`` is the static ``CollectiveTrace`` the
+    program executes (None under gspmd), ``.collectives_by_rule`` its
+    per-shard-rule view, and ``.lookahead`` the overlap window.
+
+    The device is resolved at the first call: ``mesh.device`` under
+    shard_map, else ``device`` as compiled, else the card — raising where
+    there is none.
     """
 
-    def __init__(self, program: Program, *, plan=None,
-                 executor: str = "gspmd"):
+    def __init__(self, program: Program, *, plan=None, mesh=None,
+                 executor: str = "gspmd", fuse: bool = True,
+                 lookahead: int = 1, device=None):
         self.program = program
         self.plan = plan
+        self.mesh = mesh
         self.executor = executor
+        self.fuse = fuse
+        self.lookahead = int(lookahead)
+        self.device = device
+        self.collectives = None
+        g = program.graph
+        self._in_names = tuple(g.nodes[i].name for i in g.input_ids())
+        self._out_names = tuple(program._out)
+        self._out_ids = [program._out[k] for k in self._out_names]
+        self._fn = None
+        if executor == "shard_map":
+            from repro_torch.core import spmd
+
+            self.collectives = spmd.CollectiveTrace()
+            self._fn = spmd.make_spmd_runner(
+                g, self._out_ids, plan=plan, mesh=mesh,
+                trace=self.collectives, fuse=fuse, lookahead=lookahead)
+        elif mesh is not None and math.prod(mesh.sizes.values()) > 1:
+            raise NotImplementedError(
+                "compile: executor='gspmd' on a mesh of more than one rank "
+                "needs DTensor placements per node — the DTensor slice of "
+                "the port, not ported yet; use executor='shard_map'")
 
     @property
     def graph(self) -> EinGraph:
@@ -134,11 +202,42 @@ class CompiledProgram:
             return f"{gk}:unplanned:{self.executor}"
         return f"{gk}:p{self.plan.p}:{self.plan.mode}:{self.executor}"
 
-    def __call__(self, feeds: Mapping[str, Any] | None = None, /, **kw):
-        raise NotImplementedError(
-            "CompiledProgram execution needs the dense executor "
-            "(core/engine.py), which is the next slice of the port; the "
-            "model stack runs models directly (models/transformer.py)")
+    @property
+    def collectives_by_rule(self) -> dict | None:
+        """{rule: {kind: {count, elems, bytes}}} for the shard_map executor
+        (None under gspmd) — the per-rule view of ``.collectives``."""
+        return None if self.collectives is None else self.collectives.by_rule()
+
+    def _runner(self):
+        if self._fn is None:
+            from repro_torch.core import engine
+            from repro_torch.models.common import resolve_device
+
+            dev = self.mesh.device if self.mesh is not None else \
+                resolve_device(self.device)
+            g, in_ids, out_ids = self.graph, self.graph.input_ids(), self._out_ids
+            keep = set(out_ids)
+
+            def dense(*arrays):
+                vals = engine.run(g, dict(zip(in_ids, arrays)), device=dev,
+                                  keep=keep)
+                return tuple(vals[o] for o in out_ids)
+
+            self._fn = dense
+        return self._fn
+
+    def __call__(self, feeds: Mapping[str, Any] | None = None, /,
+                 **kw) -> dict[str, Any]:
+        feeds = {**(feeds or {}), **kw}
+        unknown = sorted(set(feeds) - set(self._in_names))
+        if unknown:
+            raise KeyError(f"unknown inputs {unknown}; "
+                           f"program inputs are {sorted(self._in_names)}")
+        missing = sorted(n for n in self._in_names if n not in feeds)
+        if missing:
+            raise ValueError(f"missing feeds for inputs {missing}")
+        outs = self._runner()(*[feeds[n] for n in self._in_names])
+        return dict(zip(self._out_names, outs))
 
     def policy(self, *, fsdp_axes: Sequence[str] = (), remat: bool = True):
         """Collapse the mesh-mode plan to the production ``ShardingPolicy``

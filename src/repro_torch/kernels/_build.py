@@ -40,7 +40,7 @@ class BuiltKernel:
 
 
 _LOADED: dict[str, BuiltKernel] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOADED; nvcc runs outside it
 
 
 def nvcc_path() -> str:
@@ -64,31 +64,33 @@ def _digest(source: Path) -> str:
 
 def build(name: str) -> BuiltKernel:
     """Compile ``csrc/<name>.cu`` (once per process and source hash) and
-    load it.  Raises :class:`KernelBuildError` with nvcc's stderr."""
+    load it.  Raises :class:`KernelBuildError` with nvcc's stderr.  Builds
+    of different sources may run side by side in threads; two of the same
+    source both compile and the second rename wins, which is harmless."""
     with _LOCK:
         if name in _LOADED:
             return _LOADED[name]
-        src = CSRC / f"{name}.cu"
-        out = BUILD_DIR / f"{name}-{_digest(src)}.so"
-        log_path = out.with_suffix(".log")
-        build_s = 0.0
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
-            build_s = time.perf_counter() - t0
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise KernelBuildError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stderr}{proc.stdout}")
-            log_path.write_text(proc.stderr + proc.stdout)
-            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-        log = log_path.read_text() if log_path.exists() else ""
-        built = BuiltKernel(lib=ctypes.CDLL(str(out)), path=out, log=log,
-                            build_s=build_s)
-        _LOADED[name] = built
-        return built
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"{name}-{_digest(src)}.so"
+    log_path = out.with_suffix(".log")
+    build_s = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        build_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                f"{proc.stderr}{proc.stdout}")
+        log_path.write_text(proc.stderr + proc.stdout)
+        os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    log = log_path.read_text() if log_path.exists() else ""
+    built = BuiltKernel(lib=ctypes.CDLL(str(out)), path=out, log=log,
+                        build_s=build_s)
+    with _LOCK:
+        return _LOADED.setdefault(name, built)

@@ -1,7 +1,9 @@
-// Forward flash attention for Hopper (sm_90a), CUDA C++ with a plain C entry.
+// Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: the
+// forward kernel and the ring-attention step kernel.
 //
-// Replaces: src/repro/kernels/flash_attention.py::flash_attention, the
-// Pallas TPU kernel whose body is _flash_kernel.  Same function: q is upcast
+// Forward (flash_attention_fwd).  Replaces:
+// src/repro/kernels/flash_attention.py::flash_attention, the Pallas TPU
+// kernel whose body is _flash_kernel.  Same function: q is upcast
 // to f32 and scaled; scores, the running max m, the running sum l and the
 // accumulator are f32; causal and sliding-window masks use the absolute
 // positions q_offset + i and kv_offset + j; masked scores inside a relevant
@@ -28,6 +30,27 @@
 // (chip_smoke.py measured 0.83 ms a launch, 41x the bound, on an NVIDIA H100
 // 80GB HBM3 at a 700 W power limit).  Tensor cores (wgmma), TMA loads and
 // warp specialisation are later work.
+//
+// Step (flash_attention_step).  Replaces:
+// src/repro/kernels/flash_attention.py::flash_attention_step, the Pallas
+// TPU kernel whose body is _flash_step_kernel.  Folds one KV block into a
+// carried f32 state (m, l, acc) of shapes (b, hq, sq), (b, hq, sq) and
+// (b, hq, sq, d), read at the start of a block's rows and written back at
+// the end, in place (each row belongs to one block; the TPU kernel aliases
+// the carry the same way).  With init set the state starts at
+// (-1e30, 0, 0) without being read.  Unlike the forward kernel it skips no
+// tile: every tile runs with masked scores at the finite -1e30, so the
+// transition equals kernels/ref.py attention_step exactly.  A row that is
+// fully masked so far has m = -1e30, so its masked scores get weight
+// exp(0) = 1 until a real key arrives, whose alpha = 0 wipes them; keys past
+// sk (the ragged edge of a tile) still get weight exactly 0.  Offsets are
+// plain ints at launch.  Bound at a ring step of the serving shape cut 4
+// ways (q and k/v (4, 32, 128, 128) bf16, the f32 carry read and written):
+// 4.2 MB each of q, k, v read, 8.4 MB of acc and 0.13 MB of (m, l) read and
+// as much written, about 29.6 MB, about 8.8 us at 3.35 TB/s, against 1.07
+// GFLOP (1.1 us at the bf16 peak), so bounded by bytes; the design is the forward
+// kernel's (same tiles, f32 FMAs on CUDA cores), so it is far above that
+// bound, as the forward kernel is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +84,11 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   float scale;
   int causal, window, q_offset, kv_offset;
+  // step kernel only: the carried state, contiguous f32, updated in place
+  float* m_io;
+  float* l_io;
+  float* acc_io;
+  int init;  // 1: start from (-1e30, 0, 0) without reading the carry
 };
 
 __host__ __device__ constexpr size_t smem_floats(int d) {
@@ -71,7 +99,8 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
 }
 
 // NCOL: output columns each thread owns (tx + 16 * c, c < NCOL), so d <= 16 * NCOL.
-template <typename T, int NCOL>
+// STEP: the ring-attention step (carry in and out, no tile skipping).
+template <typename T, int NCOL, bool STEP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
   const int d = p.d;
@@ -104,13 +133,27 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     Qs[r * ldq + c] = x;
   }
 
+  // first element of this block's rows in the carried state
+  const long long row0 = ((long long)bi * p.hq + h) * p.sq + q0;
   float m[4], l[4], acc[4][NCOL];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
+    m[i] = STEP ? NEG_INF : -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.f;
+    if constexpr (STEP) {
+      const int r = ty + 16 * i;
+      if (!p.init && r < nq) {
+        m[i] = p.m_io[row0 + r];
+        l[i] = p.l_io[row0 + r];
+#pragma unroll
+        for (int c = 0; c < NCOL; ++c) {
+          const int col = tx + 16 * c;
+          if (col < d) acc[i][c] = p.acc_io[(row0 + r) * d + col];
+        }
+      }
+    }
   }
 
   const int q_first = p.q_offset + q0;
@@ -121,9 +164,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int nk = min(BLK_K, p.sk - k0);
     const int k_first = p.kv_offset + k0;
     const int k_last = k_first + nk - 1;
-    // tile relevance, uniform over the block: skip fully masked tiles
-    if (p.causal && k_first > q_last) continue;
-    if (p.window && k_last <= q_first - p.window) continue;
+    if constexpr (!STEP) {
+      // tile relevance, uniform over the block: skip fully masked tiles
+      if (p.causal && k_first > q_last) continue;
+      if (p.window && k_last <= q_first - p.window) continue;
+    }
 
     __syncthreads();  // Q is stored; the previous tile's readers are done
     for (int idx = tid; idx < BLK_K * d; idx += THREADS) {
@@ -176,6 +221,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       for (int off = 8; off > 0; off >>= 1)
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_new = fmaxf(m[i], mt);  // finite: every tile holds a key
+      // (in the step kernel m[i] = m_new = -1e30 for a row fully masked so
+      // far: alpha = 1 and each masked score weighs exp(0) = 1, as in
+      // ref.attention_step)
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
@@ -211,40 +259,74 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
   }
 
+  if constexpr (STEP) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nq) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    T* orow = og + (long long)(q0 + r) * p.o_ss;
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= nq) continue;
+      if (tx == 0) {
+        p.m_io[row0 + r] = m[i];
+        p.l_io[row0 + r] = l[i];
+      }
 #pragma unroll
-    for (int cc = 0; cc < NCOL; ++cc) {
-      const int col = tx + 16 * cc;
-      if (col < d) orow[col] = from_f32<T>(acc[i][cc] * inv);
+      for (int c = 0; c < NCOL; ++c) {
+        const int col = tx + 16 * c;
+        if (col < d) p.acc_io[(row0 + r) * d + col] = acc[i][c];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      if (r >= nq) continue;
+      const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+      T* orow = og + (long long)(q0 + r) * p.o_ss;
+#pragma unroll
+      for (int cc = 0; cc < NCOL; ++cc) {
+        const int col = tx + 16 * cc;
+        if (col < d) orow[col] = from_f32<T>(acc[i][cc] * inv);
+      }
     }
   }
 }
 
-template <typename T, int NCOL>
+template <typename T, int NCOL, bool STEP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_floats(p.d) * sizeof(float);
   // above 48 KB a block's dynamic shared memory needs this opt-in, or the
   // launch is refused (reported only by cudaGetLastError)
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NCOL>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NCOL, STEP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + BLK_Q - 1) / BLK_Q, p.hq, p.b);
-  flash_fwd_kernel<T, NCOL><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, NCOL, STEP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool STEP>
 cudaError_t dispatch_head_dim(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch<T, 2>(p, stream);
-  if (p.d <= 64) return launch<T, 4>(p, stream);
-  if (p.d <= 128) return launch<T, 8>(p, stream);
-  return launch<T, 16>(p, stream);
+  if (p.d <= 32) return launch<T, 2, STEP>(p, stream);
+  if (p.d <= 64) return launch<T, 4, STEP>(p, stream);
+  if (p.d <= 128) return launch<T, 8, STEP>(p, stream);
+  return launch<T, 16, STEP>(p, stream);
+}
+
+template <bool STEP>
+int dispatch_dtype(const Params& p, int dtype, cudaStream_t s) {
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch_head_dim<float, STEP>(p, s);
+  else if (dtype == 1)
+    err = dispatch_head_dim<__nv_bfloat16, STEP>(p, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+bool bad_shape(int b, int hq, int hkv, int sq, int sk, int d) {
+  return d < 1 || d > 256 || b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
+         sk < 1;
 }
 
 }  // namespace
@@ -260,20 +342,30 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
                         long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss, float scale,
                         int causal, int window, int q_offset, int kv_offset, void* stream) {
-  if (d < 1 || d > 256 || b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, hq, hkv, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    b,    hq,   hkv,   sq,     sk,     d,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,  v_sh,   v_ss,   o_sb,
-                 o_sh, o_ss, scale, causal, window, q_offset, kv_offset};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_head_dim<float>(p, s);
-  else if (dtype == 1)
-    err = dispatch_head_dim<__nv_bfloat16>(p, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+                 o_sh, o_ss, scale, causal, window, q_offset, kv_offset,
+                 nullptr, nullptr, nullptr, 0};
+  return dispatch_dtype<false>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// One ring-attention step: fold k/v into the carry (m, l, acc), contiguous
+// f32 of shapes (b, hq, sq), (b, hq, sq), (b, hq, sq, d), updated in place.
+// Strides of q, k, v as for flash_attention_fwd.  Returns cudaGetLastError().
+int flash_attention_step(const void* q, const void* k, const void* v, void* m_io,
+                         void* l_io, void* acc_io, int init, int dtype, int b, int hq,
+                         int hkv, int sq, int sk, int d, long long q_sb, long long q_sh,
+                         long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                         long long v_sb, long long v_sh, long long v_ss, float scale,
+                         int causal, int window, int q_offset, int kv_offset, void* stream) {
+  if (bad_shape(b, hq, hkv, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{q,    k,    v,    nullptr, b,    hq,   hkv,   sq,    sk,     d,
+                 q_sb, q_sh, q_ss, k_sb,    k_sh, k_ss, v_sb,  v_sh,  v_ss,   0,
+                 0,    0,    scale, causal, window, q_offset, kv_offset,
+                 static_cast<float*>(m_io), static_cast<float*>(l_io),
+                 static_cast<float*>(acc_io), init};
+  return dispatch_dtype<true>(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,6 +1,7 @@
-"""Forward flash attention on the card: the wrapper around
-``csrc/flash_attention.cu`` (the port of the Pallas kernel
-``repro/kernels/flash_attention.py::flash_attention``).
+"""Flash attention on the card: the wrappers around
+``csrc/flash_attention.cu`` — the forward kernel (the port of the Pallas
+kernel ``repro/kernels/flash_attention.py::flash_attention``) and the
+ring-attention step kernel (the port of ``flash_attention_step``).
 
 The kernel computes exactly what ``kernels/ref.attention`` computes — f32
 online-softmax state, absolute-position causal / sliding-window masks,
@@ -11,8 +12,13 @@ and raises if the launch was refused.  It never falls back: a CPU tensor is
 an error here (the dispatcher in ``kernels/ops.py`` routes CPU tensors to
 the plain version before they reach this module).
 
-``flash_attention.launches`` counts successful launches, so a run can show
-that its main path went through the kernel.
+The step kernel folds one KV block into a carried f32 state ``(m, l,
+acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
+and no tile skipping; it updates the carry it is given in place.
+
+``flash_attention.launches`` and ``flash_attention_step.launches`` count
+successful launches, so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -37,6 +43,11 @@ def _lib():
         err = built.lib.flash_attention_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        step = built.lib.flash_attention_step
+        step.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                         + [ctypes.c_longlong] * 9 + [ctypes.c_float]
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        step.restype = ctypes.c_int
     return built.lib
 
 
@@ -120,3 +131,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         carry: tuple | None = None, *, causal: bool = True,
+                         window: int = 0, scale: float | None = None,
+                         q_offset: int = 0, kv_offset: int = 0) -> tuple:
+    """Fold the KV block k/v (b, hkv, blk, d) into the carry ``(m, l, acc)``
+    of q (b, hq, sq, d) — f32 (b, hq, sq), (b, hq, sq), (b, hq, sq, d) — and
+    return it.  A given carry is updated in place (non-contiguous or
+    non-f32 parts are copied first and the copies updated); ``None``
+    starts from ``(-1e30, 0, 0)``.  ``q_offset`` / ``kv_offset`` are the
+    absolute positions of q[0] and k[0]."""
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if carry is None:
+        m = torch.empty((b, hq, sq), **f32)
+        l = torch.empty((b, hq, sq), **f32)
+        acc = torch.empty((b, hq, sq, d), **f32)
+    else:
+        m, l, acc = (t.to(torch.float32).contiguous() for t in carry)
+        want = ((b, hq, sq), (b, hq, sq), (b, hq, sq, d))
+        if tuple(tuple(t.shape) for t in (m, l, acc)) != want or any(
+                t.device != q.device for t in (m, l, acc)):
+            raise ValueError(
+                f"flash_attention_step kernel: carry shapes "
+                f"{[tuple(t.shape) for t in (m, l, acc)]} on "
+                f"{[str(t.device) for t in (m, l, acc)]}, want {list(want)} "
+                f"on {q.device}")
+    if sq == 0:
+        return m, l, acc
+    q, k, v = (_last_dim_contiguous(t) for t in (q, k, v))
+    scale = (d ** -0.5) if scale is None else float(scale)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_step(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), int(carry is None),
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            scale, int(bool(causal)), int(window), int(q_offset),
+            int(kv_offset), stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_step kernel launch failed: {msg} "
+                           f"(cudaError {err}) at q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}, {q.dtype}")
+    flash_attention_step.launches += 1
+    return m, l, acc
+
+
+flash_attention_step.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
 
 IMPLS = ("auto", "kernel", "ref")
@@ -35,6 +36,35 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale, q_offset=q_offset,
                                kv_offset=kv_offset)
+
+
+def flash_attention_step(q, k, v, carry=None, *, causal=True, window=0,
+                         scale=None, q_offset=0, kv_offset=0,
+                         impl: str = "auto"):
+    """One ring-attention step: fold a kv block into the carried f32
+    ``(m, l, acc)``.  The kernel updates a given carry in place; the plain
+    version returns new tensors.  Either way the carry passed in is
+    consumed: use the returned one."""
+    if _use_ref(impl, q):
+        return ref.attention_step(q, k, v, carry, causal=causal, window=window,
+                                  scale=scale, q_offset=q_offset,
+                                  kv_offset=kv_offset)
+    return _fa.flash_attention_step(q, k, v, carry, causal=causal,
+                                    window=window, scale=scale,
+                                    q_offset=q_offset, kv_offset=kv_offset)
+
+
+def attention_finalize(carry, dtype):
+    """Normalize a carried (m, l, acc) ring state to the attention output
+    (``acc / l``, elementwise: plain torch, as in the reference)."""
+    return ref.attention_finalize(carry, dtype)
+
+
+def matmul(x, w, *, impl: str = "auto"):
+    """(m, k) @ (k, n) with f32 accumulation, in x's dtype."""
+    if _use_ref(impl, x):
+        return ref.matmul(x, w)
+    return _mm.matmul(x, w)
 
 
 def kv_block_gather(pool, tables, kv_len: int):
@@ -61,8 +91,11 @@ def kv_block_gather(pool, tables, kv_len: int):
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {"flash_attention": _fa.flash_attention.launches}
+    return {"flash_attention": _fa.flash_attention.launches,
+            "flash_attention_step": _fa.flash_attention_step.launches,
+            "matmul": _mm.matmul.launches}
 
 
 def reset_launch_counts() -> None:
-    _fa.flash_attention.launches = 0
+    for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul):
+        fn.launches = 0

@@ -8,9 +8,11 @@ collected K/V into preallocated decode caches and decodes greedily, writing
 each step's K/V into those caches in place.  Sliding-window archs keep
 ring-buffer caches.
 
-The explicit-collective executor (``--executor shard_map``) and the
-continuous-batching engine (``--continuous``) of the reference are not
-ported yet.
+With ``--executor shard_map`` the cell's program is also compiled for the
+explicit-collective executor on the one-rank mesh, and its static
+collective schedule is printed (the serving steps themselves still run the
+model stack, as in the reference).  The continuous-batching engine
+(``--continuous``) of the reference is not ported yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b
 """
@@ -26,6 +28,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.plancache import PlanCache
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import resolve_device
@@ -99,7 +102,7 @@ def decode_loop(decode, params, caches, first_tok, prompt_len: int,
 
 def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
           kv_len: int | None = None, params=None, seed: int = 0,
-          plan_cache=None, device=None):
+          plan_cache=None, device=None, executor: str = "gspmd"):
     """prompts: (b, prompt_len) int32.  Returns (generations (b, max_new),
     stats).
 
@@ -110,6 +113,10 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
     identical graph planned by any earlier process, by this package or the
     JAX one, is a cache hit that skips the §8 DP) and persists the plan it
     used.
+
+    ``executor`` selects how the cell's Program realizes its plan
+    (``engine.EXECUTORS``); with ``"shard_map"`` the compiled program's
+    static collective schedule is printed.
     """
     dev = resolve_device(device)
     b, prompt_len = prompts.shape
@@ -118,9 +125,14 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
     shape = ShapeConfig("serve", "prefill", prompt_len, b)
     # declare -> trace -> decompose (through the plan cache) -> project
     t0 = time.perf_counter()
+    mesh = Mesh(ONE_DEVICE_MESH, device=dev) if executor == "shard_map" else None
     compiled = program_for(cfg, shape).compile(
-        mesh_axes=dict(ONE_DEVICE_MESH), cache=PlanCache.coerce(plan_cache))
+        mesh_axes=dict(ONE_DEVICE_MESH), cache=PlanCache.coerce(plan_cache),
+        mesh=mesh, executor=executor, device=dev)
     policy = compiled.policy()
+    if compiled.collectives is not None:
+        print(f"[serve] shard_map executor schedule for {cfg.name}:")
+        print(compiled.collectives.summary())
     t_plan = time.perf_counter() - t0
 
     if params is None:
@@ -163,6 +175,10 @@ def main() -> None:
                          "warm-starts the planner across restarts")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
+    ap.add_argument("--executor", default="gspmd",
+                    choices=["gspmd", "shard_map"],
+                    help="plan realization; shard_map prints the compiled "
+                         "program's static collective schedule")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -172,7 +188,8 @@ def main() -> None:
     prompts = rng.integers(0, cfg.vocab,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
     gen, stats = serve(cfg, prompts, max_new=args.max_new,
-                       plan_cache=args.plan_cache, device=args.device)
+                       plan_cache=args.plan_cache, device=args.device,
+                       executor=args.executor)
     print("generations:\n", gen)
     print(stats)
 

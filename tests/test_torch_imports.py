@@ -31,7 +31,9 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_exist():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
     for want in ("repro_torch/core/decomp.py", "repro_torch/kernels/ops.py",
-                 "repro_torch/models/transformer.py", "repro_torch/launch/serve.py"):
+                 "repro_torch/models/transformer.py", "repro_torch/launch/serve.py",
+                 "repro_torch/core/engine.py", "repro_torch/core/spmd.py",
+                 "repro_torch/launch/mesh.py", "repro_torch/kernels/matmul.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -65,3 +67,25 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tf.init_caches(cfg, 1, 8)
     assert tf.init_caches(cfg, 1, 8, device="cpu")[0].k.device.type == "cpu"
+
+
+def test_compiled_program_without_device_raises_when_cuda_is_absent(monkeypatch):
+    """A compiled program runs on the card unless asked otherwise; the
+    same program with device="cpu" runs."""
+    from repro_torch import frontend as ein
+    from repro_torch.core import engine
+    from repro_torch.launch.mesh import Mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ein.tensor("x", "b a", (4, 8))
+    prog = ein.Program({"y": x.map("relu")})
+    feeds = {"x": np.ones((4, 8), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prog.compile(p=1)(feeds)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Mesh({"data": 1, "model": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_runner(prog.graph)
+    assert prog.compile(p=1, device="cpu")(feeds)["y"].device.type == "cpu"
+    y = engine.make_runner(prog.graph, device="cpu")(feeds["x"])
+    assert y.device.type == "cpu"

@@ -1,6 +1,7 @@
-"""The port's attention kernels: plain versions against the reference and
-the dispatcher's routing (the CUDA kernel itself is held against its plain
-version in tests/test_torch_kernels_gpu.py, on a card).
+"""The port's kernels (flash attention, the ring-attention step, matmul):
+plain versions against the reference and the dispatcher's routing (the CUDA
+kernels themselves are held against their plain versions in
+tests/test_torch_kernels_gpu.py, on a card).
 
 Inputs come from a seeded numpy generator and go to both packages.  The
 tolerances are the reference kernel tests' own: 2e-5 in float32, 2e-2 in
@@ -17,9 +18,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_step as pallas_step  # noqa: E402
+from repro.kernels.matmul import matmul as pallas_matmul  # noqa: E402
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 
 # (b, hq, hkv, sq, sk, d, causal, window, dtype): tests/test_kernels.py's cases
 ATT_CASES = [
@@ -139,7 +143,8 @@ def test_auto_on_cpu_takes_plain_version_and_counts_no_launch():
     ops.reset_launch_counts()
     args = [torch.from_numpy(x) for x in (q, k, v)]
     got = ops.flash_attention(*args, **kw)
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
+                                   "matmul": 0}
     torch.testing.assert_close(got, ref.attention(*args, **kw), rtol=0, atol=0)
 
 
@@ -149,7 +154,8 @@ def test_kernel_impl_on_cpu_raises():
         ops.flash_attention(*args, impl="kernel")
     with pytest.raises(ValueError, match="impl must be"):
         ops.flash_attention(*args, impl="pallas")
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
+                                   "matmul": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -187,3 +193,108 @@ def test_ref_matmul_gmm_rmsnorm_match_reference(dt, tol):
     for got, want in pairs:
         assert got.dtype == getattr(torch, dt)
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol * 8)
+
+
+# ---------------------------------------------------------------------------
+# matmul and the ring-attention step
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's matmul cases and tolerances (f32 1e-4, bf16 3e-2,
+# atol x8)
+MM_CASES = [(128, 128, 128, "float32"), (256, 384, 128, "float32"),
+            (128, 256, 512, "bfloat16"), (64, 64, 64, "float32")]
+MM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("m,k,n,dt", MM_CASES)
+def test_matmul_on_cpu_matches_pallas_interpret(m, k, n, dt):
+    rng = np.random.default_rng(11)
+    x, w = (rng.normal(size=s).astype(np.float32) for s in ((m, k), (k, n)))
+    got = ops.matmul(_torch(x, dt), _torch(w, dt))
+    want = pallas_matmul(_jax(x, dt), _jax(w, dt), interpret=True)
+    assert got.dtype == getattr(torch, dt) and got.shape == (m, n)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=MM_TOL[dt],
+                               atol=MM_TOL[dt] * 8)
+
+
+# (b, hq, hkv, s, d, causal, window): GQA, MQA, a window, no mask
+STEP_CASES = [(1, 4, 2, 64, 16, True, 0), (2, 4, 1, 64, 32, True, 24),
+              (1, 2, 2, 64, 16, False, 0)]
+
+
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: "h{}k{}{}w{}".format(
+    c[1], c[2], "c" if c[5] else "", c[6]))
+def test_step_chain_matches_pallas_interpret_at_every_ring_offset(case, r):
+    """The ring as rank i runs it, for every i: its q block at i*blk, the kv
+    blocks arriving in ring order (i, i-1, ...).  Under the causal mask the
+    later blocks are fully masked for the early ranks -- the finite -1e30
+    semantics the carries must share.  Every carry equals the Pallas step
+    kernel's; the finalized chain equals dense attention."""
+    b, hq, hkv, s, d, causal, window = case
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    blk = s // r
+    kw = dict(causal=causal, window=window)
+    for i in range(r):
+        qi = q[:, :, i * blk:(i + 1) * blk]
+        carry = want = None
+        for t in range(r):
+            j = (i - t) % r
+            kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
+            off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
+            carry = ops.flash_attention_step(
+                *(torch.from_numpy(a) for a in (qi, kj, vj)), carry, **off)
+            want = pallas_step(*(jnp.asarray(a) for a in (qi, kj, vj)), want,
+                               interpret=True, **off)
+            for got_t, want_t in zip(carry, want):
+                np.testing.assert_allclose(_f32(got_t), _f32(want_t),
+                                           rtol=2e-5, atol=2e-5)
+        out = ops.attention_finalize(carry, torch.float32)
+        dense = ref.attention(*(torch.from_numpy(a) for a in (qi, k, v)),
+                              q_offset=i * blk, **kw)
+        np.testing.assert_allclose(_f32(out), _f32(dense), rtol=2e-5, atol=2e-5)
+
+
+def test_matmul_and_step_auto_on_cpu_count_no_launch():
+    rng = np.random.default_rng(2)
+    x, w = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((8, 4), (4, 6)))
+    q = torch.from_numpy(rng.normal(size=(1, 2, 8, 4)).astype(np.float32))
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.matmul(x, w), ref.matmul(x, w), rtol=0, atol=0)
+    got = ops.flash_attention_step(q, q, q, kv_offset=0)
+    for a, b in zip(got, ref.attention_step(q, q, q, kv_offset=0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
+                                   "matmul": 0}
+
+
+def test_matmul_and_step_kernel_impl_on_cpu_raises():
+    x = torch.zeros(8, 8)
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.matmul(x, x, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.flash_attention_step(q, q, q, impl="kernel")
+    with pytest.raises(ValueError, match="impl must be"):
+        ops.matmul(x, x, impl="pallas")
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
+                                   "matmul": 0}
+    assert "matmul" not in _build._LOADED
+    assert (_build.CSRC / "matmul.cu").exists()
+
+
+@pytest.mark.parametrize("shapes,dt,match", [
+    (((2, 3, 4), (4, 5)), torch.float32, "2-d"),
+    (((3, 4), (5, 6)), torch.float32, "do not chain"),
+    (((3, 4), (4, 6)), torch.float16, "dtype"),
+])
+def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match):
+    """Checked before any build; meta tensors stand in for CUDA ones."""
+    x, w = (torch.empty(s, dtype=dt, device="meta") for s in shapes)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mm.matmul(x, w)
+    with pytest.raises(ValueError, match=match):
+        mm.check_args(x, w)

@@ -1,5 +1,8 @@
-"""On a card: the CUDA flash-attention kernel against its plain torch
-version, and the reduced serving path on the card against the CPU.
+"""On a card: the CUDA kernels (flash attention, the ring-attention step,
+matmul) against their plain torch versions, the reduced serving path on
+the card against the CPU, a reduced llama program through the
+explicit-collective executor on the one-card mesh, and the ring on two
+gloo ranks that share the card.
 
 Imports torch and the port only, so it runs on a machine without jax:
 
@@ -7,7 +10,8 @@ Imports torch and the port only, so it runs on a machine without jax:
 
 Without a card every test skips (inside the test, so every worker collects
 the same tests).  Tolerances are the reference kernel tests' own: 2e-5 in
-float32, 2e-2 in bfloat16.
+float32, 2e-2 in bfloat16 for attention; 1e-4 and 3e-2 (atol x8) for
+matmul.
 """
 import dataclasses
 
@@ -103,3 +107,183 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# matmul kernel (tolerances of tests/test_kernels.py: f32 1e-4, bf16 3e-2,
+# atol x8)
+# ---------------------------------------------------------------------------
+
+MM_CASES = [
+    (128, 128, 128, "float32"), (256, 384, 128, "float32"),     # test_kernels.py
+    (128, 256, 512, "bfloat16"), (64, 64, 64, "float32"),
+    (200, 300, 77, "float32"), (200, 300, 77, "bfloat16"),      # ragged
+    (1, 5, 3, "float32"), (130, 17, 129, "bfloat16"),
+]
+MM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _mm_inputs(m, k, n, dt, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    x, w = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device=cuda, dtype=getattr(torch, dt)) for s in ((m, k), (k, n)))
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dt", MM_CASES)
+def test_cuda_matmul_matches_plain_version(m, k, n, dt, cuda):
+    x, w = _mm_inputs(m, k, n, dt, cuda)
+    before = ops.launch_counts()["matmul"]
+    got = ops.matmul(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul"] == before + 1
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    want = ref.matmul(x, w)
+    tol = MM_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_matmul_takes_strided_views(dt, cuda):
+    """Transposed and sliced operands are read through their strides."""
+    x, w = _mm_inputs(150, 96, 70, dt, cuda, seed=1)
+    xt = x.t().contiguous().t()                  # column-major x
+    ws = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]  # w, column stride 2
+    got = ops.matmul(xt, ws)
+    want = ref.matmul(x, w)
+    tol = MM_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 8)
+
+
+# ---------------------------------------------------------------------------
+# ring-attention step kernel: chained over r blocks from every rotation
+# offset, against the plain chain and the forward kernel
+# ---------------------------------------------------------------------------
+
+STEP_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
+    (2, 4, 4, 64, 32, True, 0, "float32"),
+    (2, 4, 2, 64, 32, True, 0, "float32"),     # GQA
+    (1, 4, 1, 96, 64, True, 24, "float32"),    # window, MQA
+    (1, 4, 2, 64, 16, False, 0, "float32"),
+    (2, 4, 2, 128, 64, True, 0, "bfloat16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: "h{}k{}s{}d{}{}w{}{}".format(
+    c[1], c[2], c[3], c[4], "c" if c[5] else "", c[6], c[7][:2]))
+def test_cuda_step_chain_matches_plain_every_offset(case, r, cuda):
+    b, hq, hkv, s, d, causal, window, dt = case
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(
+        device=cuda, dtype=getattr(torch, dt))
+        for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    blk, tol = s // r, TOL[dt]
+    kw = dict(causal=causal, window=window)
+    for start in range(r):
+        carry = plain = None
+        for t in range(r):
+            j = (start - t) % r
+            kb, vb = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
+            plain = ref.attention_step(q, kb, vb, plain, kv_offset=j * blk, **kw)
+            carry = ops.flash_attention_step(q, kb, vb, carry, kv_offset=j * blk, **kw)
+            torch.cuda.synchronize()
+            for got, want in zip(carry, plain):
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        out = ops.attention_finalize(carry, q.dtype)
+        fwd = ops.flash_attention(q, k, v, **kw)
+        np.testing.assert_allclose(out.float().cpu().numpy(), fwd.float().cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_step_updates_carry_in_place(cuda):
+    q = torch.randn(1, 2, 40, 16, device=cuda)
+    k = torch.randn(1, 2, 24, 16, device=cuda)
+    carry = ops.flash_attention_step(q, k, k, None, kv_offset=16)
+    m_ptr = carry[0].data_ptr()
+    before = ops.launch_counts()["flash_attention_step"]
+    again = ops.flash_attention_step(q, k, k, carry, kv_offset=0)
+    assert again[0].data_ptr() == m_ptr
+    assert ops.launch_counts()["flash_attention_step"] == before + 1
+
+
+@pytest.mark.gpu
+def test_reduced_llama_program_on_card_runs_through_kernels(cuda):
+    """The explicit-collective executor on the one-card mesh: every clean
+    contraction through the matmul kernel, attention through the flash
+    kernel; logits equal the dense run's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import spmd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    cfg = reduced(get_config("llama-7b"))
+    prog = program_for(cfg, ShapeConfig("eq", "prefill", 64, 2))
+    g = prog.graph
+    rng = np.random.default_rng(0)
+    feeds = {n.name: (rng.integers(0, cfg.vocab, size=n.shape).astype(np.int32)
+                      if str(np.dtype(n.dtype)) == "int32"
+                      else (rng.normal(size=n.shape) * 0.05).astype(np.float32))
+             for n in g.nodes if n.kind == "input"}
+    mesh = Mesh({"data": 1, "model": 1}, device=cuda)
+    run = prog.compile(mesh=mesh, executor="shard_map")
+    ops.reset_launch_counts()
+    got = run(feeds)["logits"]
+    torch.cuda.synchronize()
+    n_mm = sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec))
+    assert ops.launch_counts() == {"flash_attention": 1, "flash_attention_step": 0,
+                                   "matmul": n_mm}
+    want = prog.compile(mesh_axes=mesh.sizes, device=cuda)(feeds)["logits"]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _ring_rank_on_card(rank, world):
+    """One of the gloo ranks that share the card: sequence-sharded
+    attention through the ring rule (blocks staged through the host)."""
+    from repro_torch.core.decomp import Plan
+    from repro_torch.core import engine
+    from repro_torch.core.einsum import EinGraph
+    from repro_torch.launch.mesh import Mesh
+
+    b, h, k, s, d = 2, 4, 2, 64, 32
+    g = EinGraph("ring")
+    ids = [g.input(n, lab, shp) for n, lab, shp in (
+        ("q", "b h s d", (b, h, s, d)), ("k", "b k s d", (b, k, s, d)),
+        ("v", "b k s d", (b, k, s, d)))]
+    o = g.opaque("flash_attention", ids, "b h s d", (b, h, s, d),
+                 in_labels=[("b", "h", "s", "d"), ("b", "k", "s", "d"),
+                            ("b", "k", "s", "d")],
+                 shardable={"b", "h", "k", "s"},
+                 comm=[{"kind": "ring", "label": "s", "input": i, "rule": "ring"}
+                       for i in (1, 2)])
+    plan = Plan(p=world, mode="mesh")
+    for n in g.nodes:
+        plan.d_by_node[n.nid] = {l: (world if l == "s" else 1) for l in n.labels}
+        plan.axes_by_node[n.nid] = {} if n.kind == "input" else {"s": ("seq",)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    feeds = [torch.randn(g.nodes[i].shape, generator=gen, device="cuda") for i in ids]
+    mesh = Mesh({"seq": world}, device="cuda:0")
+    run = engine.make_runner(g, [o], plan=plan, mesh=mesh, executor="shard_map")
+    ops.reset_launch_counts()
+    got = run(*feeds)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = ops.flash_attention(*feeds)
+    return launches, float((got - want).abs().max())
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_sharing_the_card_run_the_ring(cuda, tmp_path):
+    """Two gloo ranks on one card (NCCL takes one rank per card): the ring
+    at r = 2 through the step kernel equals the forward kernel."""
+    from repro_torch.launch.mesh import spawn
+
+    for launches, err in spawn(2, _ring_rank_on_card, tmpdir=tmp_path):
+        assert launches == {"flash_attention": 0, "flash_attention_step": 2,
+                            "matmul": 0}
+        assert err <= 2e-5

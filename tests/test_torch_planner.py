@@ -273,23 +273,39 @@ def test_builtin_map_impl_matches_reference(kind):
 
 
 def test_unported_lowering_and_vjp_raise():
+    """What runs now (the ring rule lowers; a program runs) and what still
+    raises, naming its slice: derived VJPs, the MoE rule's run, pipeline=
+    and donate=."""
     g = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1)).graph
     attn = next(n for n in g.nodes if n.op == "flash_attention")
     assert opaque_rules.resolve_rule_name(attn) == "ring"
-    with pytest.raises(NotImplementedError, match="spmd"):
-        opaque_rules.get_rule("ring").lower(g, attn, {}, {})
+    low = opaque_rules.get_rule("ring").lower(g, attn, {}, {})
+    assert low.events == [] and low.out_layout == ((), (), (), ())
     with pytest.raises(NotImplementedError, match="autodiff"):
         opdef.executable("flash_attention@vjp0")()
     with pytest.raises(NotImplementedError, match="autodiff"):
         opdef.build_vjp(g, attn, 0)
-    compiled = program_for(get_config("llama-7b"),
-                           ShapeConfig("s", "prefill", 64, 1)).compile(p=1)
-    with pytest.raises(NotImplementedError, match="engine"):
-        compiled({})
-    with pytest.raises(NotImplementedError, match="spmd"):
-        program_for(get_config("llama-7b"),
-                    ShapeConfig("s", "prefill", 64, 1)).compile(
-            p=1, executor="shard_map")
+    mg = EinGraph("moe")
+    x = mg.input("x", "b s a", (2, 8, 4))
+    route = mg.input("route", "b s e", (2, 8, 4))
+    disp = mg.opaque("moe_dispatch", [x, route], "e c a", (4, 4, 4),
+                     in_labels=[("b", "s", "a"), ("b", "s", "e")],
+                     shardable={"e", "c", "b", "s"},
+                     comm=[{"kind": "a2a", "label": "e", "input": 0}])
+    low = opaque_rules.get_rule("a2a").lower(mg, mg.nodes[disp],
+                                            {"e": ("model",)}, {"model": 2})
+    assert [ev[0] for ev in low.events] == ["all_gather", "all_to_all", "all_to_all"]
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        low.run([], None)
+    prog = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1))
+    with pytest.raises(ValueError, match="missing feeds"):
+        prog.compile(p=1)({})
+    with pytest.raises(ValueError, match="needs a mesh"):
+        prog.compile(p=1, executor="shard_map")
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
+        prog.compile(p=1, pipeline=object())
+    with pytest.raises(NotImplementedError, match="donat"):
+        prog.compile(p=1, donate=True)
 
 
 def test_eval_graph_dense_matches_reference():
