@@ -24,10 +24,11 @@ Built-in rules (the registry; ``register_rule`` admits new ones):
                   collectives.
   ``replicate`` — the fallback: gather inputs, run the fused op densely on
                   every rank, re-slice the output to the plan layout.
-  ``a2a``       — expert-parallel MoE dispatch/combine.  Its static
-                  schedule (layouts, the all_to_all events the trace
-                  prices) is here; running it belongs to the MoE slice of
-                  the port and raises until then.
+  ``a2a``       — expert-parallel MoE dispatch/combine: tokens stay
+                  sequence-sharded, expert buffers expert-sharded; a tiny
+                  all-gather of per-expert counts fixes every token's
+                  global capacity slot, and ``all_to_all`` moves the slot
+                  indices and the token payloads.
 
 A rule's ``run(args, ctx)`` executes on every rank: ``args`` are the local
 blocks, ``ctx`` the ``spmd.StepContext`` (this rank's mesh coordinate and
@@ -38,6 +39,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Protocol, Sequence, runtime_checkable
+
+import torch
 
 from repro_torch.core import spmd as _spmd
 from repro_torch.core.einsum import EinGraph, Node
@@ -155,6 +158,42 @@ def _prod(xs) -> int:
 
 # byte accounting must match the einsum path's exactly: share spmd's helper
 _itemsize = _spmd._itemsize
+
+
+def moe_route(route):
+    """Deterministic top-1 routing in sequence-major token order.
+
+    ``route (B, S, E)`` -> ``(expert (T,), pos (T,), gate (T,), cnt (E,))``
+    with ``T = S*B`` and token ``t = s*B + b``.  ``pos`` is the token's
+    global slot within its expert — the count of *earlier* (sequence-major)
+    tokens routed to the same expert — so capacity cutoffs (``pos >=
+    capacity`` drops the token) are identical between the dense stubs
+    (``models/opaque_stubs.py``) and the sharded a2a rule, whose per-rank
+    counts only need a prefix over earlier sequence shards.  ``argmax``
+    takes the first maximum, as ``jnp.argmax`` does; slots and counts are
+    int32.
+    """
+    route = torch.as_tensor(route)
+    B, S, E = route.shape
+    r2 = route.transpose(0, 1).reshape(S * B, E)
+    gates = torch.softmax(r2, dim=-1)
+    expert = torch.argmax(r2, dim=-1)
+    oneh = (expert[:, None] == torch.arange(E, device=route.device)[None, :]
+            ).to(torch.int32)
+    pos = (torch.cumsum(oneh, 0, dtype=torch.int32) - oneh).gather(
+        1, expert[:, None])[:, 0]
+    gate = gates.gather(1, expert[:, None])[:, 0]
+    cnt = torch.sum(oneh, dim=0, dtype=torch.int32)
+    return expert, pos, gate, cnt
+
+
+def _rank_by(dest, n: int):
+    """Rank of each token among the tokens sharing its destination (the
+    packing order both sides of an all_to_all agree on)."""
+    oneh = (dest[:, None] == torch.arange(n, device=dest.device)[None, :]
+            ).to(torch.int32)
+    return (torch.cumsum(oneh, 0, dtype=torch.int32) - oneh).gather(
+        1, dest[:, None])[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -434,32 +473,34 @@ class PagedKVRule:
 
 
 # ---------------------------------------------------------------------------
-# a2a: expert-parallel MoE dispatch / combine (static schedule only)
+# a2a: expert-parallel MoE dispatch / combine
 # ---------------------------------------------------------------------------
 
 
-def _moe_unported(node):
-    def run(args, ctx):
-        raise NotImplementedError(
-            f"shard rule 'a2a' ({node.op}, node {node.name!r}): running "
-            "expert-parallel MoE dispatch/combine belongs to the MoE slice "
-            "of the port (models/moe.py, the a2a rule's run and the gmm "
-            "kernel), not ported yet")
-
-    return run
+def _global_slots(route, ctx, a2a_axes, r: int, e_blk: int, cap: int):
+    """This rank's tokens (sequence-major): (gate, keep, the rank owning
+    the expert, the slot in its (e_blk*cap) buffer or -1, the token's rank
+    among those bound for the same owner).  Global slots add the counts of
+    the earlier sequence shards (one all-gather)."""
+    expert, pos_l, gate, cnt = moe_route(route)
+    idx = ctx.mesh.linear_index(a2a_axes)
+    allc = ctx.all_gather_stacked(cnt, a2a_axes)               # (r, E)
+    pos = pos_l + torch.sum(allc[:idx], dim=0, dtype=torch.int32)[expert]
+    keep = pos < cap
+    owner = expert // e_blk
+    slot = torch.where(keep, (expert % e_blk) * cap + pos,
+                       -1).to(torch.int32)
+    return gate, keep, owner, slot, _rank_by(owner, r)
 
 
 class A2AMoERule:
     """Tokens stay sequence-sharded; expert buffers stay expert-sharded;
     the only bulk movement is an all_to_all of token payloads (plus a tiny
     all-gather of per-expert counts that fixes the global capacity slots,
-    and for combine an int32 slot-request all_to_all).  Preconditions: the
-    expert label carries the a2a mesh axes and divides E; the sequence
-    extent divides the shard count.
-
-    ``lower`` gives the reference's static schedule (layouts and priced
-    events), so MoE graphs plan, schedule and trace as in the reference;
-    the per-rank program is the MoE slice's and its ``run`` raises."""
+    and for dispatch or combine an int32 slot all_to_all).  Preconditions:
+    the expert label carries the a2a mesh axes and divides E; the sequence
+    extent divides the shard count.  The three collectives each rank
+    issues per node are the three static events of ``_events``."""
 
     name = "a2a"
 
@@ -512,10 +553,32 @@ class A2AMoERule:
         events = self._events(a2a_axes, _prod(sizes.values()), r, n_exp,
                               batch * (seq // r), d_model,
                               _itemsize(xn.dtype))
+        e_blk = n_exp // r
+
+        def run(args, ctx):
+            x, route = args
+            _gate, _keep, dest, slot, rank = _global_slots(
+                route, ctx, a2a_axes, r, e_blk, cap)
+            d = x.shape[-1]
+            xt = x.transpose(0, 1).reshape(-1, d)                # (t_loc, D)
+            t_loc = xt.shape[0]
+            send_val = torch.zeros((r, t_loc, d), dtype=x.dtype,
+                                   device=x.device)
+            send_val[dest, rank] = xt
+            send_slot = torch.full((r, t_loc), -1, dtype=torch.int32,
+                                   device=x.device)
+            send_slot[dest, rank] = slot
+            recv_val = ctx.all_to_all_stacked(send_val, a2a_axes)
+            recv_slot = ctx.all_to_all_stacked(send_slot, a2a_axes)
+            rs = recv_slot.reshape(-1).long()
+            valid = rs >= 0
+            out = torch.zeros((e_blk * cap, d), dtype=x.dtype, device=x.device)
+            out[rs[valid]] = recv_val.reshape(-1, d)[valid]  # slots are unique
+            return out.reshape(e_blk, cap, d)
+
         return RuleLowering(
             arg_layouts=[((), tuple(a2a_axes), ()), ((), tuple(a2a_axes), ())],
-            out_layout=(tuple(a2a_axes), tuple(ca), ()),
-            run=_moe_unported(node),
+            out_layout=(tuple(a2a_axes), tuple(ca), ()), run=run,
             post_steps=[("slice", ax, 1) for ax in ca], events=events)
 
     def _lower_combine(self, g, node, ax_n, sizes):
@@ -543,10 +606,27 @@ class A2AMoERule:
         events = self._events(a2a_axes, _prod(sizes.values()), r, n_exp,
                               batch * (seq // r), d_model,
                               _itemsize(yn.dtype))
+        e_blk = n_exp // r
+
+        def run(args, ctx):
+            y, route = args
+            gate, keep, owner, slot, rank = _global_slots(
+                route, ctx, a2a_axes, r, e_blk, cap)
+            t_loc = owner.shape[0]
+            send_req = torch.full((r, t_loc), -1, dtype=torch.int32,
+                                  device=y.device)
+            send_req[owner, rank] = slot
+            recv_req = ctx.all_to_all_stacked(send_req, a2a_axes).long()
+            valid = (recv_req >= 0)[..., None].to(y.dtype)
+            vals = y.reshape(e_blk * cap, d_model)[recv_req.clamp(min=0)] * valid
+            back = ctx.all_to_all_stacked(vals, a2a_axes)          # (r, t_loc, D)
+            out = back[owner, rank] * (gate * keep).to(y.dtype)[:, None]
+            b_loc, s_loc = route.shape[0], route.shape[1]
+            return out.reshape(s_loc, b_loc, d_model).transpose(0, 1)
+
         return RuleLowering(
             arg_layouts=[(tuple(a2a_axes), (), ()), ((), tuple(a2a_axes), ())],
-            out_layout=((), tuple(a2a_axes), ()), run=_moe_unported(node),
-            events=events)
+            out_layout=((), tuple(a2a_axes), ()), run=run, events=events)
 
 
 register_rule(ReplicateRule())

@@ -1301,6 +1301,55 @@ class StepContext:
                               mesh.rank_at_linear(axes, (idx - 1) % r),
                               finish)
 
+    # -- the a2a rule's collectives ------------------------------------------------
+    #
+    # Both index their stacked entries by the row-major linear index along
+    # ``axes`` (``mesh.linear_index``), as the reference's tuple-axis
+    # collectives do; a process group orders its members by global rank, so
+    # the entries are permuted between the two orders around the call.
+
+    def _group_order(self, axes) -> torch.Tensor | None:
+        order = self.mesh.member_indices(axes)
+        return None if order == sorted(order) else torch.tensor(order)
+
+    def all_gather_stacked(self, x, axes: tuple[str, ...]):
+        """(r, *x.shape): entry i is the block of the rank at linear index
+        i along ``axes``.  Recorded as one all_gather event."""
+        r = math.prod(self.sizes[a] for a in axes)
+        self.issued.append((self.nid, "all_gather", tuple(axes),
+                            self.n_dev * (r - 1) * x.numel()))
+        dev = x.device
+        y = x.contiguous()
+        if self._stage:
+            y = y.cpu()
+        out = torch.empty((r,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+        dist.all_gather_into_tensor(out.view(-1), y.view(-1),
+                                    group=self.mesh.group(axes))
+        order = self._group_order(axes)
+        if order is not None:
+            out = out[torch.argsort(order).to(out.device)]
+        return out.to(dev)
+
+    def all_to_all_stacked(self, x, axes: tuple[str, ...]):
+        """``x (r, ...)``: entry i goes to the rank at linear index i along
+        ``axes``; entry j of the result came from the rank at index j.
+        Recorded as one all_to_all event."""
+        r = math.prod(self.sizes[a] for a in axes)
+        self.issued.append((self.nid, "all_to_all", tuple(axes),
+                            self.n_dev * (r - 1) * x.numel() // r))
+        dev = x.device
+        order = self._group_order(axes)
+        if order is not None:
+            x = x[order.to(dev)]
+        inp = x.contiguous()
+        if self._stage:
+            inp = inp.cpu()
+        out = torch.empty_like(inp)
+        dist.all_to_all_single(out, inp, group=self.mesh.group(axes))
+        if order is not None:
+            out = out[torch.argsort(order).to(out.device)]
+        return out.to(dev)
+
 
 def _backend() -> str | None:
     return dist.get_backend() if dist.is_initialized() else None

@@ -1,10 +1,23 @@
-// Tiled matrix product for Hopper (sm_90a), CUDA C++ with a plain C entry.
+// Tiled matrix product for Hopper (sm_90a), CUDA C++ with two plain C
+// entries: matmul_fwd and gmm_fwd, the grouped (expert) product.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul, the Pallas TPU kernel whose
 // body is _mm_kernel: (m, k) @ (k, n), every tile widened to f32, the sum
 // accumulated in f32, the result cast to x's dtype.  It is the TRA kernel
 // function of every clean contraction the explicit-collective executor
 // runs (core/spmd.py local_einsum), one call per rank and node.
+//
+// Also replaces: src/repro/kernels/moe_gmm.py::gmm (_gmm_kernel), the same
+// product per expert on capacity-padded MoE buffers, (e, c, k) @ (e, k, n)
+// -> (e, c, n): three calls per MoE FFN (models/moe.py).  At qwen2-moe's
+// prefill (b=4, s=512: e=64, c=256, k/n = 2048/1408) a call does 94.5 GFLOP
+// on 482 MB in bf16: bounded by bytes, 144 us at 3.35 TB/s (the expert
+// weights dominate); mixtral's (8, 640, 4096) @ (8, 4096, 14336) is bounded
+// by operations, 608 us at 989 TFLOP/s.  The design is the matmul's with
+// one more grid axis: blockIdx.z selects the expert and the operands'
+// expert strides offset the three pointers, so each block still owns one
+// 128 x 128 output tile of one expert.  Capacity rows past an expert's
+// count hold zeros and are computed anyway, as on the TPU.
 //
 // What bounds it on this card.  At the shapes of llama-7b's prefill graph
 // on one card (m = b*s = 2048; k, n = 4096 / 11008 / 32000) a product does
@@ -37,13 +50,14 @@
 namespace {
 
 struct Params {
-  const void* a;  // (m, k)
-  const void* b;  // (k, n)
-  void* c;        // (m, n)
+  const void* a;  // (e, m, k)
+  const void* b;  // (e, k, n)
+  void* c;        // (e, m, n)
   int m, n, k;
   long long a_sm, a_sk;  // element strides
   long long b_sk, b_sn;
   long long c_sm, c_sn;
+  long long a_se, b_se, c_se;  // expert strides (blockIdx.z); 0 for matmul
 };
 
 // ---------------------------------------------------------------------------
@@ -53,12 +67,16 @@ struct Params {
 constexpr int F_BM = 128, F_BN = 128, F_BK = 8, F_THREADS = 256;
 constexpr int F_LDA = F_BM + 4;  // padded: the transposed A stores hit 32 banks
 
+// GROUPED: blockIdx.z selects the expert (gmm_fwd); the flag only names the
+// instantiation apart from the plain product's in a profile.
+template <bool GROUPED>
 __global__ void __launch_bounds__(F_THREADS) mm_f32_kernel(const Params p) {
   __shared__ __align__(16) float As[F_BK][F_LDA];  // A tile, k-major
   __shared__ __align__(16) float Bs[F_BK][F_BN];
-  const float* A = static_cast<const float*>(p.a);
-  const float* B = static_cast<const float*>(p.b);
-  float* C = static_cast<float*>(p.c);
+  const long long e = GROUPED ? blockIdx.z : 0;
+  const float* A = static_cast<const float*>(p.a) + e * p.a_se;
+  const float* B = static_cast<const float*>(p.b) + e * p.b_se;
+  float* C = static_cast<float*>(p.c) + e * p.c_se;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // columns tx*4 + j and 64 + tx*4 + j
@@ -129,6 +147,7 @@ constexpr size_t H_SMEM_AB = (size_t)(H_BM * H_LDA + H_BK * H_LDB) * sizeof(__nv
 constexpr size_t H_SMEM_C = (size_t)H_BM * H_LDC * sizeof(float);
 constexpr size_t H_SMEM = H_SMEM_AB > H_SMEM_C ? H_SMEM_AB : H_SMEM_C;
 
+template <bool GROUPED>
 __global__ void __launch_bounds__(H_THREADS) mm_bf16_kernel(const Params p) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -136,9 +155,10 @@ __global__ void __launch_bounds__(H_THREADS) mm_bf16_kernel(const Params p) {
   __nv_bfloat16* Bs = As + H_BM * H_LDA;
   float* Cs = reinterpret_cast<float*>(smem);  // reused after the k loop
 
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
-  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(p.c);
+  const long long e = GROUPED ? blockIdx.z : 0;
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a) + e * p.a_se;
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b) + e * p.b_se;
+  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(p.c) + e * p.c_se;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
   const int tid = threadIdx.x;
@@ -202,21 +222,32 @@ __global__ void __launch_bounds__(H_THREADS) mm_bf16_kernel(const Params p) {
   }
 }
 
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.n + F_BN - 1) / F_BN, (p.m + F_BM - 1) / F_BM);
-  mm_f32_kernel<<<grid, F_THREADS, 0, stream>>>(p);
+template <bool GROUPED>
+cudaError_t launch_f32(const Params& p, int e, cudaStream_t stream) {
+  const dim3 grid((p.n + F_BN - 1) / F_BN, (p.m + F_BM - 1) / F_BM, e);
+  mm_f32_kernel<GROUPED><<<grid, F_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+template <bool GROUPED>
+cudaError_t launch_bf16(const Params& p, int e, cudaStream_t stream) {
   // above 48 KB a block's dynamic shared memory needs this opt-in, or the
   // launch is refused (reported only by cudaGetLastError)
-  cudaError_t err = cudaFuncSetAttribute(
-      mm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(H_SMEM));
+  cudaError_t err = cudaFuncSetAttribute(mm_bf16_kernel<GROUPED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(H_SMEM));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + H_BN - 1) / H_BN, (p.m + H_BM - 1) / H_BM);
-  mm_bf16_kernel<<<grid, H_THREADS, H_SMEM, stream>>>(p);
+  const dim3 grid((p.n + H_BN - 1) / H_BN, (p.m + H_BM - 1) / H_BM, e);
+  mm_bf16_kernel<GROUPED><<<grid, H_THREADS, H_SMEM, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool GROUPED>
+cudaError_t launch(const Params& p, int dtype, int e, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_f32<GROUPED>(p, e, s);
+  if (dtype == 1) return launch_bf16<GROUPED>(p, e, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -230,16 +261,20 @@ int matmul_fwd(const void* a, const void* b, void* c, int dtype, int m, int n, i
                long long a_sm, long long a_sk, long long b_sk, long long b_sn,
                long long c_sm, long long c_sn, void* stream) {
   if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{a, b, c, m, n, k, a_sm, a_sk, b_sk, b_sn, c_sm, c_sn};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_f32(p, s);
-  else if (dtype == 1)
-    err = launch_bf16(p, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const Params p{a, b, c, m, n, k, a_sm, a_sk, b_sk, b_sn, c_sm, c_sn, 0, 0, 0};
+  return static_cast<int>(launch<false>(p, dtype, 1, stream));
+}
+
+// Grouped (expert) product: c[i] (m, n) = a[i] (m, k) @ b[i] (k, n) for
+// i < e, one grid slice per expert; strides in elements, the expert
+// strides first.  Same dtypes and return value as matmul_fwd.
+int gmm_fwd(const void* a, const void* b, void* c, int dtype, int e, int m, int n, int k,
+            long long a_se, long long a_sm, long long a_sk, long long b_se, long long b_sk,
+            long long b_sn, long long c_se, long long c_sm, long long c_sn, void* stream) {
+  if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{a, b, c, m, n, k, a_sm, a_sk, b_sk, b_sn, c_sm, c_sn, a_se, b_se, c_se};
+  return static_cast<int>(launch<true>(p, dtype, e, stream));
 }
 
 const char* matmul_error_string(int err) {

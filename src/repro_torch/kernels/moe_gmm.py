@@ -1,0 +1,97 @@
+"""Grouped (expert) matrix product on the card: the wrapper around the
+``gmm_fwd`` entry of ``csrc/matmul.cu`` (the port of the Pallas kernel
+``repro/kernels/moe_gmm.py::gmm``).
+
+``(e, c, k) @ (e, k, n) -> (e, c, n)`` on capacity-padded MoE dispatch
+buffers: each expert's product with f32 accumulation, rounded once to the
+operands' dtype (true f32 FMAs for float32, tensor cores with f32
+accumulators for bfloat16).  It shares the matmul kernel's tiles with one
+more grid axis over experts.  Any shape (ragged edges are masked, so an
+expert-sharded local block need not divide the tiles) and any element
+strides: the weights arrive as per-unit views of the stacked layer
+parameters and are read in place.  The wrapper checks what the kernel
+takes, allocates the output, launches on PyTorch's current stream and
+raises if the launch was refused.  It never falls back: a CPU tensor is an
+error here (``kernels/ops.py`` routes CPU tensors to the plain version).
+
+``gmm.launches`` counts successful launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    built = _build.build("matmul")
+    fn = built.lib.gmm_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = built.lib.matmul_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return built.lib
+
+
+def build_info() -> _build.BuiltKernel:
+    """Build (or load) the kernel library; its nvcc log and build time."""
+    _lib()
+    return _build.build("matmul")
+
+
+def check_args(x, w) -> None:
+    """Raise on ranks, dtypes and shapes the kernel does not take."""
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"gmm kernel: operands must be 3-d, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise ValueError(
+            "gmm kernel: x and w must share one dtype of "
+            f"{sorted(str(d) for d in _DTYPES)}, got {x.dtype}, {w.dtype}")
+    if x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"gmm kernel: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)} do not chain per expert")
+    if x.shape[0] > 65535:
+        raise ValueError(f"gmm kernel: {x.shape[0]} experts exceed the "
+                         "grid's 65535")
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (e, c, k) @ w (e, k, n) for CUDA tensors -> (e, c, n) in x's
+    dtype."""
+    for name, t in (("x", x), ("w", w)):
+        if t.device.type != "cuda":
+            raise ValueError(f"gmm kernel: {name} lies on {t.device}; "
+                             "the kernel takes CUDA tensors only")
+    if x.device != w.device:
+        raise ValueError("gmm kernel: x and w on different devices")
+    check_args(x, w)
+    (e, c, k), n = x.shape, w.shape[2]
+    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if e == 0 or c == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                          _DTYPES[x.dtype], e, c, n, k, *x.stride(),
+                          *w.stride(), *out.stride(), stream)
+    if err != 0:
+        msg = lib.matmul_error_string(err).decode()
+        raise RuntimeError(f"gmm kernel launch failed: {msg} (cudaError "
+                           f"{err}) at {tuple(x.shape)} @ {tuple(w.shape)}, "
+                           f"{x.dtype}")
+    gmm.launches += 1
+    return out
+
+
+gmm.launches = 0

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 
 IMPLS = ("auto", "kernel", "ref")
@@ -67,6 +68,14 @@ def matmul(x, w, *, impl: str = "auto"):
     return _mm.matmul(x, w)
 
 
+def gmm(x, w, *, impl: str = "auto"):
+    """Grouped (expert) product (e, c, k) @ (e, k, n) -> (e, c, n), f32
+    accumulation, in x's dtype."""
+    if _use_ref(impl, x):
+        return ref.gmm(x, w)
+    return _gmm.gmm(x, w)
+
+
 def kv_block_gather(pool, tables, kv_len: int):
     """Paged-KV block-table lookup: the serving tier's cache view.
 
@@ -93,9 +102,11 @@ def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
     return {"flash_attention": _fa.flash_attention.launches,
             "flash_attention_step": _fa.flash_attention_step.launches,
-            "matmul": _mm.matmul.launches}
+            "matmul": _mm.matmul.launches,
+            "gmm": _gmm.gmm.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul):
+    for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul,
+               _gmm.gmm):
         fn.launches = 0

@@ -3,9 +3,10 @@
 ``cfg.block_pattern`` cycles over layers; layers are grouped into *units*
 of one pattern period and their parameters are stacked with a leading unit
 axis, as in the reference.  A Python loop over units replaces the
-reference's ``lax.scan``.  This slice of the port runs the ``attn`` block
-with a dense FFN (the llama family); the MoE, hymba and xLSTM blocks raise
-``NotImplementedError`` naming the slice that brings them.
+reference's ``lax.scan``.  The port runs the ``attn`` block with a dense
+FFN (the llama family) or a MoE FFN (mixtral, qwen2-moe); the hymba and
+xLSTM blocks raise ``NotImplementedError`` naming the slice that brings
+them.
 
 Decode caches are preallocated once (``init_caches``) and written in place
 by each decode step.
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamFactory, dtype_of, embed,
                                        lm_logits, resolve_device, rmsnorm)
 
@@ -37,10 +39,6 @@ def _check_supported(cfg) -> None:
                 f"with {_UNPORTED_BLOCKS[blk]}")
         if blk != "attn":
             raise ValueError(blk)
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet; they come with the "
-            "MoE slice (models/moe.py and the grouped-matmul kernel)")
     if cfg.prefix_len:
         raise NotImplementedError(
             f"{cfg.name}: prefix embeddings (vlm / audio stubs) are not "
@@ -53,11 +51,14 @@ def _check_supported(cfg) -> None:
 
 
 def _init_block(pf: ParamFactory, cfg) -> dict:
-    """One ``attn`` block's parameters."""
+    """One ``attn`` block's parameters (a MoE FFN where ``cfg.moe``)."""
     p: dict[str, Any] = {"norm1": pf.ones(cfg.d_model)}
     p["attn"] = attn_mod.init_attention(pf, cfg)
     p["norm2"] = pf.ones(cfg.d_model)
-    p["ffn"] = ffn_mod.init_ffn(pf, cfg)
+    if cfg.moe:
+        p["moe"] = moe_mod.init_moe(pf, cfg)
+    else:
+        p["ffn"] = ffn_mod.init_ffn(pf, cfg)
     return p
 
 
@@ -148,19 +149,26 @@ def _head(params) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _ffn_or_moe(p: dict, h, cfg):
+    """The block's FFN: (out, MoE aux loss or None)."""
+    if cfg.moe:
+        return moe_mod.moe_ffn(p["moe"], h, cfg)
+    return ffn_mod.ffn(p["ffn"], h, cfg), None
+
+
 def _block_forward(p: dict, x, cfg):
-    """Full-sequence ``attn`` block.  Returns (x, (k, v))."""
+    """Full-sequence ``attn`` block.  Returns (x, (k, v), aux or None)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     a_out, kv = attn_mod.attention_full(p["attn"], h, cfg)
     x = x + a_out
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    x = x + ffn_mod.ffn(p["ffn"], h2, cfg)
-    return x, kv
+    m_out, aux = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + m_out, kv, aux
 
 
 def forward(params, tokens, cfg, *, collect_cache: bool = False,
             last_logit_only: bool = False):
-    """Full-sequence forward.  Returns (logits, caches, aux_loss).
+    """Full-sequence forward.  Returns (logits, caches, aux_loss), the
+    aux loss summed over the MoE layers (0 without MoE).
 
     ``caches`` (with ``collect_cache``) holds, per pattern position, the
     (k, v) of every unit stacked to (units, b, s, kv_heads, hd).
@@ -170,9 +178,12 @@ def forward(params, tokens, cfg, *, collect_cache: bool = False,
     x = embed(params["embed"], tokens).to(dtype_of(cfg))
     pattern = cfg.block_pattern
     per_pos: list[list] = [[] for _ in pattern]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(_n_units(cfg)):
         for ppos in range(len(pattern)):
-            x, kv = _block_forward(_unit(params["layers"][ppos], u), x, cfg)
+            x, kv, a = _block_forward(_unit(params["layers"][ppos], u), x, cfg)
+            if a is not None:
+                aux = aux + a
             if collect_cache:
                 per_pos[ppos].append(kv)
     caches = 0
@@ -182,9 +193,7 @@ def forward(params, tokens, cfg, *, collect_cache: bool = False,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_logit_only:
         x = x[:, -1:]
-    logits = lm_logits(x, _head(params))
-    return logits, caches, torch.zeros((), dtype=torch.float32,
-                                       device=logits.device)
+    return lm_logits(x, _head(params)), caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +219,8 @@ def _block_decode(p: dict, x, cache, pos: int, cfg):
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     a_out, _ = attn_mod.attention_decode(p["attn"], h, cache, pos, cfg)
     x = x + a_out
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn_mod.ffn(p["ffn"], h2, cfg)
+    m_out, _ = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + m_out
 
 
 def decode_step(params, tokens, caches, pos: int, cfg):

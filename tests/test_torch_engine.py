@@ -33,7 +33,9 @@ from repro_torch.core.einsum import EinGraph  # noqa: E402
 from repro_torch.core.plancache import PlanCache  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 
-from test_torch_spmd import SCAN_OPS, _torch_cumnorm, build_case, case_feeds  # noqa: E402
+from repro_torch.models.opaque_stubs import cumnorm  # noqa: E402
+
+from test_torch_spmd import SCAN_OPS, build_case, case_feeds  # noqa: E402
 
 TOL = 1e-5
 CASES = (["mlp", "softmax", "aggs", "ring_w0", "ring_w8"]
@@ -45,7 +47,7 @@ CASES = (["mlp", "softmax", "aggs", "ring_w0", "ring_w8"]
 def stub_scans(monkeypatch):
     """Both packages' scan stand-ins for the test's lifetime."""
     for op in SCAN_OPS:
-        monkeypatch.setitem(engine.OPAQUE_FNS, op, _torch_cumnorm)
+        monkeypatch.setitem(engine.OPAQUE_FNS, op, cumnorm)
 
     def ref_side(rg):
         for kind, fn in make_stub_opaques(capacity_of(rg), register=False).items():

@@ -144,7 +144,7 @@ def test_auto_on_cpu_takes_plain_version_and_counts_no_launch():
     args = [torch.from_numpy(x) for x in (q, k, v)]
     got = ops.flash_attention(*args, **kw)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
-                                   "matmul": 0}
+                                   "matmul": 0, "gmm": 0}
     torch.testing.assert_close(got, ref.attention(*args, **kw), rtol=0, atol=0)
 
 
@@ -155,7 +155,7 @@ def test_kernel_impl_on_cpu_raises():
     with pytest.raises(ValueError, match="impl must be"):
         ops.flash_attention(*args, impl="pallas")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
-                                   "matmul": 0}
+                                   "matmul": 0, "gmm": 0}
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -268,7 +268,7 @@ def test_matmul_and_step_auto_on_cpu_count_no_launch():
     for a, b in zip(got, ref.attention_step(q, q, q, kv_offset=0)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
-                                   "matmul": 0}
+                                   "matmul": 0, "gmm": 0}
 
 
 def test_matmul_and_step_kernel_impl_on_cpu_raises():
@@ -281,7 +281,7 @@ def test_matmul_and_step_kernel_impl_on_cpu_raises():
     with pytest.raises(ValueError, match="impl must be"):
         ops.matmul(x, x, impl="pallas")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_step": 0,
-                                   "matmul": 0}
+                                   "matmul": 0, "gmm": 0}
     assert "matmul" not in _build._LOADED
     assert (_build.CSRC / "matmul.cu").exists()
 

@@ -1,5 +1,5 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
-matmul) against their plain torch versions, the reduced serving path on
+matmul, gmm) against their plain torch versions, the reduced serving path on
 the card against the CPU, a reduced llama program through the
 explicit-collective executor on the one-card mesh, and the ring on two
 gloo ranks that share the card.
@@ -11,7 +11,7 @@ Imports torch and the port only, so it runs on a machine without jax:
 Without a card every test skips (inside the test, so every worker collects
 the same tests).  Tolerances are the reference kernel tests' own: 2e-5 in
 float32, 2e-2 in bfloat16 for attention; 1e-4 and 3e-2 (atol x8) for
-matmul.
+matmul and gmm.
 """
 import dataclasses
 
@@ -145,6 +145,63 @@ def test_cuda_matmul_matches_plain_version(m, k, n, dt, cuda):
                                rtol=tol, atol=tol * 8)
 
 
+GMM_CASES = [  # (e, c, k, n)
+    (4, 128, 256, 128), (8, 128, 128, 384), (2, 256, 128, 128),  # tests/test_kernels.py
+    (3, 200, 77, 130), (2, 1, 5, 3), (5, 33, 130, 17),           # ragged
+]
+
+
+def _gmm_inputs(e, c, k, n, dt, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device=cuda, dtype=getattr(torch, dt)) for s in ((e, c, k), (e, k, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,k,n", GMM_CASES)
+def test_cuda_gmm_matches_plain_version(e, c, k, n, dt, cuda):
+    x, w = _gmm_inputs(e, c, k, n, dt, cuda)
+    before = ops.launch_counts()["gmm"]
+    got = ops.gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gmm"] == before + 1
+    assert got.dtype == x.dtype and got.shape == (e, c, n)
+    tol = MM_TOL[dt]
+    torch.testing.assert_close(got.float(), ref.gmm(x, w).float(), rtol=tol,
+                               atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_gmm_takes_expert_strided_views(dt, cuda):
+    """A weight view out of a stacked (e, units, k, n) tensor and a
+    transposed x are read through their strides."""
+    x, w = _gmm_inputs(5, 150, 96, 70, dt, cuda, seed=1)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    stacked = torch.stack([-w, w], dim=1)
+    got = ops.gmm(xt, stacked[:, 1])
+    tol = MM_TOL[dt]
+    torch.testing.assert_close(got.float(), ref.gmm(x, w).float(), rtol=tol,
+                               atol=tol * 8)
+
+
+@pytest.mark.gpu
+def test_reduced_moe_serve_on_card_matches_cpu(cuda):
+    """Reduced qwen2-moe (pad experts, shared expert), float32: the gmm
+    kernel path on the card against the plain path on the CPU."""
+    cfg = dataclasses.replace(reduced(get_config("qwen2-moe-a2.7b")), dtype="float32",
+                              n_experts=6)
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    gpu = _to(params, cuda)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 12)).astype(np.int32)
+    ops.reset_launch_counts()
+    got, _ = port_serve.serve(cfg, prompts, max_new=4, params=gpu, device=cuda)
+    assert ops.launch_counts()["gmm"] == 3 * cfg.n_layers * 4
+    want, _ = port_serve.serve(cfg, prompts, max_new=4, params=params, device="cpu")
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_matmul_takes_strided_views(dt, cuda):
@@ -237,7 +294,7 @@ def test_reduced_llama_program_on_card_runs_through_kernels(cuda):
     torch.cuda.synchronize()
     n_mm = sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec))
     assert ops.launch_counts() == {"flash_attention": 1, "flash_attention_step": 0,
-                                   "matmul": n_mm}
+                                   "matmul": n_mm, "gmm": 0}
     want = prog.compile(mesh_axes=mesh.sizes, device=cuda)(feeds)["logits"]
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -285,5 +342,5 @@ def test_gloo_ranks_sharing_the_card_run_the_ring(cuda, tmp_path):
 
     for launches, err in spawn(2, _ring_rank_on_card, tmpdir=tmp_path):
         assert launches == {"flash_attention": 0, "flash_attention_step": 2,
-                            "matmul": 0}
+                            "matmul": 0, "gmm": 0}
         assert err <= 2e-5

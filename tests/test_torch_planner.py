@@ -273,9 +273,9 @@ def test_builtin_map_impl_matches_reference(kind):
 
 
 def test_unported_lowering_and_vjp_raise():
-    """What runs now (the ring rule lowers; a program runs) and what still
-    raises, naming its slice: derived VJPs, the MoE rule's run, pipeline=
-    and donate=."""
+    """What runs now (the ring and a2a rules lower; a program runs) and
+    what still raises, naming its slice: derived VJPs, pipeline= and
+    donate=."""
     g = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1)).graph
     attn = next(n for n in g.nodes if n.op == "flash_attention")
     assert opaque_rules.resolve_rule_name(attn) == "ring"
@@ -295,8 +295,8 @@ def test_unported_lowering_and_vjp_raise():
     low = opaque_rules.get_rule("a2a").lower(mg, mg.nodes[disp],
                                             {"e": ("model",)}, {"model": 2})
     assert [ev[0] for ev in low.events] == ["all_gather", "all_to_all", "all_to_all"]
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        low.run([], None)
+    assert low.arg_layouts == [((), ("model",), ()), ((), ("model",), ())]
+    assert low.out_layout == (("model",), (), ()) and callable(low.run)
     prog = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1))
     with pytest.raises(ValueError, match="missing feeds"):
         prog.compile(p=1)({})

@@ -12,7 +12,11 @@
    path).  On every rank the shard_map output equals the port's dense run
    and the reference's dense run; inside the port, fused vs unfused and
    lookahead 0/1/2 (and the ring's double buffer on/off) are bit-identical;
-   the collectives each rank issued equal the static trace.
+   the collectives each rank issued equal the static trace.  MoE graphs
+   (mixtral's prefill, and a dispatch/combine pair with real capacity
+   drops) run with each package's stubs (``models/opaque_stubs.py``); where
+   the plan shards the expert label, dispatch and combine go through the
+   ``a2a`` rule's all_to_all program.
 
 Tolerances: float32 throughout.  shard_map vs a dense run sums the sharded
 contractions in another order, so 1e-5 (rtol and atol) on the small graphs
@@ -40,7 +44,8 @@ from repro.core.decomp import Plan as RefPlan  # noqa: E402
 from repro.core.decomp import eindecomp as ref_eindecomp  # noqa: E402
 from repro.core.einsum import EinGraph as RefGraph  # noqa: E402
 from repro.models.eingraphs import program_for as ref_program_for  # noqa: E402
-from repro.models.opaque_stubs import capacity_of, make_stub_opaques  # noqa: E402
+from repro.models.opaque_stubs import capacity_of as ref_capacity_of  # noqa: E402
+from repro.models.opaque_stubs import make_stub_opaques as ref_stub_opaques  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
@@ -49,6 +54,7 @@ from repro_torch.core.decomp import Plan, eindecomp, plan_cost  # noqa: E402
 from repro_torch.core.einsum import EinGraph  # noqa: E402
 from repro_torch.launch.mesh import Mesh, spawn  # noqa: E402
 from repro_torch.models.eingraphs import program_for  # noqa: E402
+from repro_torch.models.opaque_stubs import capacity_of, make_stub_opaques  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ZOO = ("llama-7b", "mixtral-8x7b", "xlstm-125m", "hymba-1.5b")
@@ -163,6 +169,33 @@ def _ring(G, window):
         else {"s": ("model",), "b": ("data",)})
 
 
+E_MOE, CAP = 8, 4  # 64 tokens for 32 expert slots: real capacity drops
+# ("model", "data") orders the ranks along the a2a axes unlike the
+# process groups do (by global rank): the stacked collectives permute
+MOE_PLANS = {"moe_e-all": {"e": ("data", "model")}, "moe_e-model": {"e": ("model",)},
+             "moe_e-model-data": {"e": ("model", "data")}}
+
+
+def _moe(G, axes_cfg):
+    """A dispatch/combine pair (the reference's ``_moe_graph``); every
+    non-input node gets ``axes_cfg``, the inputs stay replicated."""
+    g = G("moe")
+    x = g.input("x", "b s a", (B, S, D))
+    route = g.input("route", "b s e", (B, S, E_MOE))
+    disp = g.opaque(
+        "moe_dispatch", [x, route], "e c a", (E_MOE, CAP, D),
+        in_labels=[("b", "s", "a"), ("b", "s", "e")],
+        shardable={"e", "c", "b", "s"},
+        comm=[{"kind": "a2a", "label": "e", "input": 0, "rule": "a2a"}])
+    comb = g.opaque(
+        "moe_combine", [disp, route], "b s a", (B, S, D),
+        in_labels=[("e", "c", "a"), ("b", "s", "e")],
+        shardable={"e", "c", "b", "s"},
+        comm=[{"kind": "a2a", "label": "e", "input": -1, "rule": "a2a"}])
+    return g, [comb], lambda P, p: _hand_plan(
+        P, g, p, lambda n: {} if n.kind == "input" else dict(axes_cfg))
+
+
 def _zoo(pkg, arch):
     if pkg == "port":
         cfg = reduced(get_config(arch))
@@ -175,7 +208,8 @@ def _zoo(pkg, arch):
 
 CASES = (["mlp", "softmax", "aggs", "swap", "ring_w0", "ring_w8"]
          + [f"rand{i}" for i in range(6)]
-         + ["llama-7b", "xlstm-125m", "hymba-1.5b"])
+         + ["llama-7b", "mixtral-8x7b", "xlstm-125m", "hymba-1.5b"]
+         + list(MOE_PLANS))
 
 
 def build_case(name, pkg):
@@ -188,6 +222,8 @@ def build_case(name, pkg):
         return _random(G, int(name[4:]))
     if name.startswith("ring_w"):
         return _ring(G, int(name[6:]))
+    if name in MOE_PLANS:
+        return _moe(G, MOE_PLANS[name])
     return {"mlp": _mlp, "softmax": _softmax, "aggs": _aggs,
             "swap": _swap}[name](G)
 
@@ -203,15 +239,12 @@ def case_feeds(g, name):
             feeds[n.nid] = rng.integers(0, 256, size=n.shape).astype(np.int32)
         elif name == "aggs":
             feeds[n.nid] = (1 + 0.1 * rng.normal(size=n.shape)).astype(np.float32)
+        elif name in MOE_PLANS:  # the reference test's scales
+            scale = 2.0 if n.name == "route" else 0.3
+            feeds[n.nid] = (rng.normal(size=n.shape) * scale).astype(np.float32)
         else:
             feeds[n.nid] = (rng.normal(size=n.shape) * 0.1).astype(np.float32)
     return feeds
-
-
-def _torch_cumnorm(h, **_):
-    """The scans' stand-in: the reference stub's running mean."""
-    t = torch.arange(1, h.shape[1] + 1, dtype=h.dtype)[None, :, None]
-    return torch.cumsum(h, dim=1) / t
 
 
 # ---------------------------------------------------------------------------
@@ -300,17 +333,16 @@ def _events(trace):
 def rank_battery(rank, world, sizes):
     """Every case on this rank: {name: {"runs": {(fuse, lookahead): [out
     arrays]}, "dense": [...], "issued": {...}, "trace": {...},
-    "kinds": [...]}}; ring cases add "serial", the run without the
-    double buffer."""
+    "kinds": [...], "rules": {nid: rule}, "bytes_by_rule": {...}}}; ring
+    cases add "serial", the run without the double buffer."""
     from repro_torch.core.opaque_rules import RingAttentionRule
 
-    for op in SCAN_OPS:
-        engine.OPAQUE_FNS[op] = _torch_cumnorm
     mesh = Mesh(sizes, device="cpu")
     p = math.prod(sizes.values())
     results = {}
     for name in CASES:
         g, outs, hand = build_case(name, "port")
+        make_stub_opaques(capacity_of(g))
         plan = eindecomp(g, p, mesh_axes=sizes) if hand is None else hand(Plan, p)
         feeds = case_feeds(g, name)
         args = [feeds[i] for i in g.input_ids()]
@@ -327,6 +359,10 @@ def rank_battery(rank, world, sizes):
                              for steps in prog.arg_steps + [prog.post_steps]
                              for st in steps}
             res["kinds"] |= {e.kind for e in run.schedule.trace.events}
+        res["rules"] = dict(run.schedule.trace.rule_by_node)
+        res["bytes_by_rule"] = {
+            rule: {k: v["bytes"] for k, v in kinds.items()}
+            for rule, kinds in run.schedule.trace.by_rule().items()}
         if name.startswith("ring"):
             RingAttentionRule.double_buffer = False
             try:
@@ -355,9 +391,8 @@ def gloo(tmp_path_factory):
 
 def _ref_dense(name, monkeypatch):
     rg, routs, _ = build_case(name, "ref")
-    if name in ZOO:
-        for kind, fn in make_stub_opaques(capacity_of(rg), register=False).items():
-            monkeypatch.setitem(ref_engine.OPAQUE_FNS, kind, fn)
+    for kind, fn in ref_stub_opaques(ref_capacity_of(rg), register=False).items():
+        monkeypatch.setitem(ref_engine.OPAQUE_FNS, kind, fn)
     vals = ref_engine.run(rg, case_feeds(rg, name))
     return [np.asarray(vals[o]) for o in routs]
 
@@ -412,3 +447,27 @@ def test_gloo_battery_covers_every_step_kind(gloo):
             kinds |= res["kinds"]
     assert {"all_gather", "all_to_all", "ppermute", "slice", "psum", "pmax",
             "pmin", "psum_scatter", "gather_reduce"} <= kinds, kinds
+
+
+@pytest.mark.parametrize("name", list(MOE_PLANS))
+@pytest.mark.parametrize("mesh_id", list(RUN_MESHES))
+def test_gloo_a2a_moe_with_drops_matches_dense(mesh_id, name, gloo, monkeypatch):
+    """Real capacity drops (64 tokens, 32 slots), the expert label on both
+    axes (in either order) and on ``model`` alone: dispatch and combine run
+    through the a2a
+    rule and equal both packages' dense stubs at the reference's rtol 1e-5
+    / atol 1e-6 (routing decisions identical); the payload all_to_all
+    moves more bytes than the count all-gather."""
+    ranks = gloo(mesh_id)
+    want = _ref_dense(name, monkeypatch)
+    for rank in ranks:
+        res = rank[name]
+        assert set(res["rules"].values()) == {"a2a"}
+        for got, dense, ref in zip(res["runs"][(True, 1)], res["dense"], want):
+            np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+        issued = res["issued"][(True, 1)]
+        assert issued == res["trace"][(True, 1)]
+        assert [e[1] for e in issued].count("all_to_all") == 4  # 2 per node
+        a2a = res["bytes_by_rule"]["a2a"]
+        assert a2a["all_gather"] < a2a["all_to_all"]
