@@ -6,38 +6,48 @@
 2. build: the CUDA kernels (flash attention with its ring step; matmul
    with its grouped twin ``gmm``) from the sources in this checkout, one
    nvcc per source, all started together, with nvcc's ``-Xptxas -v``
-   report (registers, shared memory, spills);
-3. kernel parity: each kernel against its plain torch version on the card,
-   at the reference kernel tests' shapes and tolerances (float32 2e-5,
-   bfloat16 2e-2), ragged lengths, GQA and the serving path's shape;
+   report (registers, shared memory, spills) and a summary of the wgmma
+   kernels' registers, spills and dynamic shared memory;
+3. kernel parity: the forward kernel against its plain torch version on
+   the card, at the reference kernel tests' shapes and tolerances (float32
+   2e-5, bfloat16 2e-2), ragged lengths, GQA and the serving path's shape,
+   each case with the design that served it (the wgmma design for bf16 at
+   head dim 64 and 128, the template for float32 and d = 256), and rows
+   that see no key against the TPU kernel's tile convention
+   (``ref.attention_tiled``) in both designs;
 4. kernel timing at the serving path's shape (CUDA events): the kernel,
+   the template design at the same inputs (its C entry called directly),
    its plain version, one library call for the same function, the bound;
 5. serve llama-7b at full width and depth (bf16, batch 4, prompt 512, 16
    new tokens) through ``repro_torch.launch.serve.serve``, planned through
    a plan-cache file (the serve call's plan is a cache hit), with launch
-   counters set to 0 just before and read just after; then one prefill and
-   one decode step under torch.profiler (device busy time, idle share,
-   device time by kernel kind);
+   counters set to 0 just before and read just after, every launch of the
+   wgmma design; then one prefill and one decode step under torch.profiler
+   (device busy time, idle share, device time by kernel kind);
 6. slice parity: full width, 2 layers, float32, the same weights on the
    card (kernel path) and on the CPU (plain path);
 7. matmul parity: the kernel against its plain version at the reference
-   tests' shapes, ragged shapes, strided views and every product shape of
-   llama-7b's prefill graph (b=4, s=512), float32 (1e-4) and bf16 (3e-2,
-   atol x8);
+   tests' shapes, ragged shapes, strided views (both majors of each
+   operand) and every product shape of llama-7b's prefill graph (b=4,
+   s=512), float32 (1e-4) and bf16 (3e-2, atol x8), each case with its
+   design;
 8. ring-step parity: the step kernel chained over r = 2 and 4 kv blocks
    from every ring position, causal, windowed and GQA (float32 2e-5,
    bf16 2e-2), each carry against the plain step and the finalised chain
    against the forward kernel, at the serving shape cut 4 ways too;
-9. timing (CUDA events): matmul at the q_proj shape in float32 and bf16,
-   the ring step at the serving shape cut 4 ways, each beside its plain
-   version, its library call (none for the step) and its bound;
+9. timing (CUDA events): matmul at the q_proj shape in float32 and at
+   every distinct bf16 product shape of llama-7b's prefill graph (the
+   template design beside the wgmma one), the ring step at the serving
+   shape cut 4 ways, each beside its plain version, its library call (none
+   for the step) and its bound;
 10. executor path: llama-7b's prefill graph at full width (embed, one
    block period, lm_head) planned through a plan-cache file on a 1x1 mesh
    (cold, then a hit), run with ``executor="shard_map"`` in float32 and in
    bf16 with the launch counters set to 0 just before each call and read
    just after (every clean contraction through the matmul kernel, one
-   flash-attention launch), its logits held against the dense
-   ``executor="gspmd"`` run on the card, then profiled;
+   flash-attention launch; in bf16 every launch of the wgmma design), its
+   logits held against the dense ``executor="gspmd"`` run on the card,
+   then profiled;
 11. ring path: the same graph on 4 gloo ranks that share the card (blocks
    staged through the host), sequence-parallel (every ``s`` label on the
    ``seq`` axis), float32: attention rides the ring through the step
@@ -45,15 +55,15 @@
 12. gmm parity: the grouped-matmul kernel against ``ref.gmm`` at the
    reference tests' shapes, ragged shapes, expert-strided views, and
    qwen2-moe's prefill and decode and mixtral's expert shapes, float32
-   (1e-4, atol x8) and bf16 (3e-2, atol x8);
+   (1e-4, atol x8) and bf16 (3e-2, atol x8), each case with its design;
 13. gmm timing (CUDA events, bf16) at qwen2-moe's w1 and w2 prefill
-   shapes, its decode shape and mixtral's: kernel, plain version,
-   ``torch.bmm`` and the bound;
+   shapes, its decode shape and mixtral's: kernel, template design,
+   plain version, ``torch.bmm`` and the bound;
 14. serve qwen2-moe-a2.7b at full width and depth (bf16, batch 4, prompt
    512, 16 new tokens, 60 experts padded to 64, top-4, shared expert),
    planned through a plan-cache file, counters set to 0 just before the
    serve call and read just after (24 flash launches, 72 gmm launches per
-   prefill and per decode step), then profiled;
+   prefill and per decode step, all of the wgmma design), then profiled;
 15. MoE slice parity: qwen2-moe width, 2 layers, float32, the same
    weights on the card (gmm kernel) and on the CPU (plain path);
 16. a2a path: qwen2-moe's prefill graph (one block period) with the MoE
@@ -62,7 +72,11 @@
    program; the collectives each rank issued against the static trace,
    the logits against the one-card dense run.
 
-Any failure raises and exits non-zero before the last line.  The last
+Where a kernel has two designs (``"wgmma"`` and ``"template"``), the shape
+rule in its wrapper picks one before launch and the wrapper counts
+launches per design (``ops.design_counts()``); the template is timed
+beside the wgmma design by calling its C entry directly, which moves no
+counter.  Any failure raises and exits non-zero before the last line.  The last
 three lines are the ``nvidia-smi`` name and power limit, a JSON line of
 kernel numbers and ``{"ok": true, "device": {...}}``.  All numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -71,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -106,6 +121,103 @@ EXTRA_CASES = [
 ]
 SLICE = (4, 32, 32, 512, 512, 128, True, 0, torch.bfloat16)  # llama-7b prefill
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# rows 0..99 see no key (keys start at position 100); the pair of their q
+# block with key block 0 is visited, so they get the mean of v there
+MASKED_CASES = [
+    (1, 4, 2, 256, 256, 128, True, 0, torch.bfloat16),    # wgmma design
+    (1, 4, 2, 256, 256, 64, True, 0, torch.float32),      # template design
+    (1, 4, 2, 256, 256, 256, True, 0, torch.bfloat16),    # template (d = 256)
+]
+MASKED_OFFSETS = {"q_offset": 0, "kv_offset": 100}
+
+
+def _expected_flash_design(case) -> str:
+    """The shape rule at the contiguous inputs of ``_inputs``."""
+    d, dt = case[5], case[-1]
+    return "wgmma" if dt == torch.bfloat16 and d in (64, 128) else "template"
+
+
+def _served_by(ops, kernel: str, fn):
+    """Run ``fn`` once; its result and the design whose count moved."""
+    before = ops.design_counts()[kernel]
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.design_counts()[kernel]
+    moved = [d for d in after if after[d] != before[d]]
+    assert len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1, (before, after)
+    return out, moved[0]
+
+
+def _path_design(counts: dict) -> str:
+    """The design of every launch counted in ``counts`` (one kernel's
+    ``design_counts()`` entry), or ``"mixed"``."""
+    used = [d for d, n in counts.items() if n]
+    return used[0] if len(used) == 1 else "mixed" if used else "none"
+
+
+def _ptxas_kernels(log: str) -> list[dict]:
+    """Per compiled kernel in an ``nvcc -Xptxas -v`` log: registers, spill
+    stores and loads, static shared memory; the kernel named by its
+    template arguments (mangled ``Li128E`` / ``Lb1E`` read as 128 / 1)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = re.search(r"\d([a-z][a-z_]*_kernel)I(.*?)EEv", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", name.group(2)) if name else []
+            cur = {"kernel": f"{name.group(1)}<{','.join(args)}>" if name else m.group(1),
+                   "registers": None, "spill_stores": None, "spill_loads": None, "smem": 0}
+            out.append(cur)
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+            if m := re.search(r"Used (\d+) registers", ln):
+                cur["registers"] = int(m[1])
+            if m := re.search(r"(\d+) bytes smem", ln):
+                cur["smem"] = int(m[1])
+    return out
+
+
+def _flash_template(fa, q, k, v, causal: bool, window: int = 0, q_offset: int = 0,
+                    kv_offset: int = 0):
+    """(launch, output): one launch of the template design's C entry at
+    these inputs, for timing it beside the wgmma design in the same run.
+    The wrapper picks a design by its shape rule alone; this calls the
+    other entry directly and moves no counter."""
+    lib, (b, hq, sq, d), (hkv, sk) = fa._lib(), q.shape, k.shape[1:3]
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), fa._DTYPES[q.dtype],
+            b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], d ** -0.5, int(causal), window, q_offset, kv_offset,
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = lib.flash_attention_fwd(*args)
+        if err:
+            raise RuntimeError(f"template flash_attention_fwd: cudaError {err}")
+    return launch, o
+
+
+def _mm_template(mm, x, w):
+    """(launch, output) of the template design's ``matmul_fwd`` or
+    ``gmm_fwd`` entry, as ``_flash_template``."""
+    lib = mm._lib()
+    out = torch.empty((*x.shape[:-1], w.shape[-1]), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr(), mm._DTYPES[x.dtype])
+    strides = (*x.stride(), *w.stride(), *out.stride())
+    if x.dim() == 3:
+        (e, c, k), n = x.shape, w.shape[2]
+        fn, args = lib.gmm_fwd, (*ptrs, e, c, n, k, *strides, stream)
+    else:
+        (m, k), n = x.shape, w.shape[1]
+        fn, args = lib.matmul_fwd, (*ptrs, m, n, k, *strides, stream)
+
+    def launch():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"template {fn.__name__}: cudaError {err}")
+    return launch, out
 
 
 def log(phase: str, msg: str) -> None:
@@ -195,40 +307,71 @@ def main() -> int:
         results["build"][f"{name}_ptxas"] = ptxas
     log("build", f"both sources built side by side in {t_build:.1f} s "
                  "(matmul.cu holds matmul_fwd and gmm_fwd)")
+    def dynamic_smem(kernel: str) -> int:  # set at launch; ptxas reports static only
+        if kernel.startswith("flash_wgmma_kernel<"):
+            return fa._lib().flash_attention_wgmma_smem_bytes(int(kernel[19:-1]))
+        return mm._lib().matmul_wgmma_smem_bytes()
+    wg_kernels = [dict(k, dynamic_smem=dynamic_smem(k["kernel"]))
+                  for built in builds.values() for k in _ptxas_kernels(built.log)
+                  if "wgmma_kernel" in k["kernel"]]
+    for k in wg_kernels:
+        log("build", f"{k['kernel']}: {k['registers']} registers, spill stores "
+                     f"{k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
+                     f"{k['smem']} B, dynamic smem {k['dynamic_smem']} B")
+    assert len(wg_kernels) == 2 + 8, [k["kernel"] for k in wg_kernels]
+    results["build"]["wgmma_kernels"] = wg_kernels
 
     # 3. kernel parity ----------------------------------------------------------
     parity = []
-    for case in ATT_CASES + EXTRA_CASES + [SLICE]:
+    masked = [(case, offsets) for case in MASKED_CASES for offsets in [MASKED_OFFSETS]]
+    for case, offsets in [(c, None) for c in ATT_CASES + EXTRA_CASES + [SLICE]] + masked:
         q, k, v, kw = _inputs(case)
-        got = ops.flash_attention(q, k, v, impl="kernel", **kw)
-        torch.cuda.synchronize()
-        want = ref.attention(q, k, v, **kw)
+        plain = ref.attention
+        if offsets is not None:  # rows that see no key: the TPU kernel's tiles decide
+            kw.update(offsets)
+            plain = ref.attention_tiled
+        want_design = fa.design(q, k, v)
+        got, design = _served_by(ops, "flash_attention",
+                                 lambda: ops.flash_attention(q, k, v, impl="kernel", **kw))
+        assert design == want_design == _expected_flash_design(case), (case, design)
+        want = plain(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = TOL[case[-1]]
         err = (got.float() - want.float()).abs()
         ok = bool((err <= tol + tol * want.float().abs()).all())
-        parity.append({"case": str(case), "max_abs_err": float(err.max()), "ok": ok})
-        log("parity", f"{case}: max|kernel - plain| = {float(err.max()):.3e} "
+        parity.append({"case": str(case), "offsets": offsets, "design": design,
+                       "max_abs_err": float(err.max()), "ok": ok})
+        log("parity", f"{case}{' ' + str(offsets) if offsets else ''} [{design}]: "
+                      f"max|kernel - {plain.__name__}| = {float(err.max()):.3e} "
                       f"(tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"flash_attention kernel disagrees at {case}")
+            raise AssertionError(f"flash_attention kernel disagrees at {case} {offsets}")
+    assert {p["design"] for p in parity} == {"wgmma", "template"}
     results["parity"] = parity
-    slice_err = parity[-1]["max_abs_err"]
+    slice_err = parity[len(ATT_CASES + EXTRA_CASES)]["max_abs_err"]
 
     # 4. kernel timing at the serving path's shape ----------------------------------
     q, k, v, kw = _inputs(SLICE, seed=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_kernel = _time_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), 20)
+    assert fa.design(q, k, v) == "wgmma"
+    template, o_template = _flash_template(fa, q, k, v, causal=True)
+    template()
+    _max_err(o_template, ref.attention(q, k, v, **kw), TOL[torch.bfloat16],
+             "template flash at the serving shape")
+    t_kernel = _time_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), 50)
+    t_template = _time_ms(template, 10)
     t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 5)
-    t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+    t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 50)
     bound_ms, bound_by, nbytes, nops = _attention_bound_ms(SLICE, ref)
-    log("timing", f"flash_attention {SLICE[:6]} bf16 causal: kernel {t_kernel:.4f} ms, "
-                  f"plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, bound {bound_ms:.4f} ms "
+    log("timing", f"flash_attention {SLICE[:6]} bf16 causal: kernel (wgmma) {t_kernel:.4f} "
+                  f"ms, template {t_template:.4f} ms ({t_template / t_kernel:.1f}x), plain "
+                  f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes} B, {nops} ops)")
-    results["timing"] = {"kernel_ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+    results["timing"] = {"kernel_ms": t_kernel, "template_ms": t_template,
+                         "plain_ms": t_plain, "library_ms": t_lib,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bytes": nbytes, "ops": nops}
-    del q, k, v
+    del q, k, v, o_template
 
     # 5. serve llama-7b, full width and depth --------------------------------------
     cfg = get_config("llama-7b")
@@ -245,7 +388,7 @@ def main() -> int:
     step_err = results["step_parity"]["serving_bf16_max_abs_err"]
 
     # 9. timing of the matmul and ring-step kernels ---------------------------------
-    results["matmul_timing"] = _matmul_timing(ops, ref)
+    results["matmul_timing"] = _matmul_timing(cfg, ops, ref)
     results["step_timing"] = _step_timing(ops, ref)
 
     # 10. the executor path on one card -------------------------------------------
@@ -270,33 +413,39 @@ def main() -> int:
 
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     gt = results["gmm_timing"]["w1_prefill"]
+    serve_designs = results["serve"]["designs"]
     kernels = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:134",
+         "design": _path_design(serve_designs["flash_attention"]),
          "launches": launches["flash_attention"], "max_abs_err": slice_err,
-         "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound_ms,
+         "ms": t_kernel, "template_ms": results["timing"]["template_ms"],
+         "plain_ms": t_plain, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": t_lib},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:274",
+         "replaces": "src/repro/kernels/flash_attention.py:274", "design": "template",
          "launches": results["ring"]["launches_total"]["flash_attention_step"],
          "max_abs_err": step_err, "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
          "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:57",
+         "design": _path_design(results["executor"]["bfloat16"]["designs"]["matmul"]),
          "launches": results["executor"]["bfloat16"]["launches"]["matmul"],
-         "max_abs_err": mm_err, "ms": mt["kernel_ms"], "plain_ms": mt["plain_ms"],
-         "bound_ms": mt["bound_ms"], "bound_by": mt["bound_by"],
+         "max_abs_err": mm_err, "ms": mt["kernel_ms"], "template_ms": mt["template_ms"],
+         "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"], "bound_by": mt["bound_by"],
          "library_ms": mt["library_ms"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
+         "design": _path_design(results["serve_moe"]["designs"]["gmm"]),
          "launches": results["serve_moe"]["launches"]["gmm"],
          "max_abs_err": results["gmm_parity"]["qwen2_prefill_bf16_max_abs_err"],
-         "ms": gt["kernel_ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
-         "bound_by": gt["bound_by"], "library_ms": gt["library_ms"]},
+         "ms": gt["kernel_ms"], "template_ms": gt["template_ms"], "plain_ms": gt["plain_ms"],
+         "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"],
+         "library_ms": gt["library_ms"]},
     ]}
     results.update(kernels)
     out = ROOT / "chiprun_out"
@@ -351,6 +500,7 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
         gen, stats = serve_mod.serve(cfg, prompts, max_new=max_new, params=params,
                                      plan_cache=warm, device="cuda")
         launches = ops.launch_counts()
+        designs = ops.design_counts()
         peak = torch.cuda.max_memory_allocated()
     assert warm.stats["hits"] == 1 and warm.stats["misses"] == 0, warm.stats
     # gmm: w1 (w3) and w2 per MoE layer, in prefill and in every decode step
@@ -360,6 +510,10 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
     per_decode = dict(per_prefill, flash_attention=0)
     want = dict(per_prefill, gmm=per_layer * cfg.n_layers * (1 + stats["decode_steps"]))
     assert launches == want, (launches, want)
+    # bf16 at head dim 128 with tensors TMA can address: every flash and
+    # gmm launch of the serve call took the wgmma design
+    for kernel in ("flash_attention", "matmul", "gmm"):
+        assert designs[kernel] == {"wgmma": launches[kernel], "template": 0}, designs
     assert gen.shape == (b, max_new), gen.shape
     assert ((gen >= 0) & (gen < cfg.vocab_padded)).all()
     # where the time goes: one prefill and one decode step, counted, then profiled
@@ -391,12 +545,13 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
                  f"t_plan_s={stats['t_plan_s']:.4f} (cache hit) "
                  f"t_prefill_s={stats['t_prefill_s']:.4f} "
                  f"t_decode_s={stats['t_decode_s']:.4f} tok_per_s={stats['tok_per_s']:.2f} "
-                 f"max_memory_allocated={peak} launches={launches}; per prefill "
-                 f"{got_prefill}, per decode step {got_decode}")
+                 f"max_memory_allocated={peak} launches={launches} by design {designs}; "
+                 f"per prefill {got_prefill}, per decode step {got_decode}")
     log("serve", f"generations[0] = {gen[0].tolist()}")
     res = {k: v for k, v in stats.items() if k != "policy"}
     res.update({"t_plan_cold_s": t_cold, "max_memory_allocated": peak,
-                "launches": launches, "launches_per_prefill": got_prefill,
+                "launches": launches, "designs": designs,
+                "launches_per_prefill": got_prefill,
                 "launches_per_decode_step": got_decode, "n_params": n_params,
                 "batch": b, "prompt_len": prompt_len, "max_new": max_new,
                 "profile": breakdown})
@@ -447,9 +602,9 @@ def _profile(fn) -> dict:
     """``fn`` warmed up, timed once on the host clock (ending in a
     synchronize), then run once more under torch.profiler: the device time
     of its kernels, by kind (this port's flash-attention, ring-step, matmul
-    and gmm kernels, cuBLAS matrix products, everything else), and the idle
-    share of the unprofiled wall time (tracing itself slows the host
-    down)."""
+    and gmm kernels of either design, cuBLAS matrix products, everything
+    else), and the idle share of the unprofiled wall time (tracing itself
+    slows the host down)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -473,10 +628,12 @@ def _profile(fn) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
         step = "true>" in name or "lb1e" in name  # flash_fwd_kernel<T, NCOL, STEP>
-        ours = "mm_f32_kernel" in name or "mm_bf16_kernel" in name  # <GROUPED>
+        flash = "flash_fwd_kernel" in name or "flash_wgmma_kernel" in name
+        ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel"))
+        grouped = "kernel<true" in name or "kernelilb1e" in name  # <GROUPED, ...>
         kind = ("flash_step" if "flash_fwd_kernel" in name and step else
-                "flash_attention" if "flash_fwd_kernel" in name else
-                "gmm" if ours and "true>" in name else
+                "flash_attention" if flash else
+                "gmm" if ours and grouped else
                 "matmul" if ours else
                 "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
                 else "other")
@@ -533,25 +690,41 @@ def _matmul_parity(cfg, ops, ref) -> dict:
              ((200, 300, 77), f32), ((200, 300, 77), bf16),      # ragged
              ((1, 5, 3), f32), ((130, 17, 129), bf16)]
     cases += [(shape, dt) for shape in _mm_shapes(cfg).values() for dt in (f32, bf16)]
+    from repro_torch.kernels import matmul as mm
+
     out, qproj_err = [], None
     for (m, k, n), dt in cases:
         x, w = _mm_inputs(m, k, n, dt)
-        got = ops.matmul(x, w, impl="kernel")
-        torch.cuda.synchronize()
+        want_design = mm.design(x, w)
+        got, design = _served_by(ops, "matmul", lambda: ops.matmul(x, w, impl="kernel"))
+        assert design == want_design, (m, k, n, dt, design)
         err = _max_err(got, ref.matmul(x, w), MM_TOL[dt], f"matmul {(m, k, n)} {dt}")
-        out.append({"shape": [m, k, n], "dtype": str(dt), "max_abs_err": err})
-        log("mm-parity", f"{(m, k, n)} {dt}: max|kernel - plain| = {err:.3e} ok")
+        out.append({"shape": [m, k, n], "dtype": str(dt), "design": design,
+                    "max_abs_err": err})
+        log("mm-parity", f"{(m, k, n)} {dt} [{design}]: max|kernel - plain| = {err:.3e} ok")
+        if (m, k, n) in _mm_shapes(cfg).values():  # the path's: f32 template, bf16 wgmma
+            assert design == ("wgmma" if dt == bf16 else "template"), design
         if (m, k, n) == _mm_shapes(cfg)["qkvo_proj"] and dt == bf16:
             qproj_err = err
-    for dt in (f32, bf16):  # strided views: a column-major x, w at column stride 2
-        x, w = _mm_inputs(150, 96, 70, dt, seed=1)
-        xt = x.t().contiguous().t()
-        ws = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]
-        err = _max_err(ops.matmul(xt, ws, impl="kernel"), ref.matmul(x, w), MM_TOL[dt],
-                       f"matmul strided {dt}")
-        out.append({"shape": [150, 96, 70], "dtype": str(dt), "strided": True,
-                    "max_abs_err": err})
-        log("mm-parity", f"strided (150, 96, 70) {dt}: max|kernel - plain| = {err:.3e} ok")
+    # strided views: each major of x and w, and a w at column stride 2
+    x32, w32 = _mm_inputs(328, 200, 264, f32, seed=1)
+    views = {"x_col_major": lambda x, w: (x.t().contiguous().t(), w),
+             "w_col_major": lambda x, w: (x, w.t().contiguous().t()),
+             "both_col_major": lambda x, w: (x.t().contiguous().t(), w.t().contiguous().t()),
+             "w_col_stride_2": lambda x, w: (x, torch.stack([w, -w], dim=2).flatten(1)[:, ::2])}
+    for dt in (f32, bf16):
+        x, w = x32.to(dt), w32.to(dt)
+        for name, view in views.items():
+            xv, wv = view(x, w)
+            got, design = _served_by(ops, "matmul", lambda: ops.matmul(xv, wv, impl="kernel"))
+            want_design = "wgmma" if dt == bf16 and name != "w_col_stride_2" else "template"
+            assert design == want_design, (name, dt, design)
+            err = _max_err(got, ref.matmul(x, w), MM_TOL[dt], f"matmul {name} {dt}")
+            out.append({"shape": [328, 200, 264], "dtype": str(dt), "view": name,
+                        "design": design, "max_abs_err": err})
+            log("mm-parity", f"{name} (328, 200, 264) {dt} [{design}]: max|kernel - plain| "
+                             f"= {err:.3e} ok")
+    assert {c["design"] for c in out} == {"wgmma", "template"}
     return {"cases": out, "qproj_bf16_max_abs_err": qproj_err}
 
 
@@ -603,27 +776,49 @@ def _step_parity(ops, ref) -> dict:
     return {"cases": out, "serving_bf16_max_abs_err": serving_err}
 
 
-def _matmul_timing(ops, ref) -> dict:
+def _matmul_timing(cfg, ops, ref) -> dict:
     """The kernel, its plain version and ``torch.matmul`` (TF32 off) at the
-    q_proj shape of llama-7b's prefill (2048 x 4096 x 4096)."""
-    res = {}
-    m, k, n = 2048, 4096, 4096
-    for dt, iters in ((torch.float32, 10), (torch.bfloat16, 50)):
+    q_proj shape of llama-7b's prefill (2048 x 4096 x 4096) in float32 (the
+    template design), and at every distinct product shape of that graph in
+    bf16 (the wgmma design), with the template design's time at the same
+    inputs beside it.  ``res["bfloat16"]`` is the q_proj shape."""
+    from repro_torch.kernels import matmul as mm
+
+    res = {"bfloat16_shapes": {}}
+    qproj = _mm_shapes(cfg)["qkvo_proj"]
+    cases = [("qkvo_proj", qproj, torch.float32)]
+    cases += [(name, shape, torch.bfloat16) for name, shape in _mm_shapes(cfg).items()]
+    for name, (m, k, n), dt in cases:
         x, w = _mm_inputs(m, k, n, dt, seed=3)
         item = x.element_size()
         nbytes, nops = (m * k + k * n + m * n) * item, 2 * m * k * n
         bound_ms, bound_by = _bound(nbytes, nops, dt)
+        scale = max(1, round(nops / 68.7e9))  # fewer iterations for the larger products
+        iters = (10 if dt == torch.float32 else 50) // scale or 1
+        design = mm.design(x, w)
+        assert design == ("wgmma" if dt == torch.bfloat16 else "template"), design
         t_kernel = _time_ms(lambda: ops.matmul(x, w, impl="kernel"), iters)
-        t_plain = _time_ms(lambda: ref.matmul(x, w), iters)
+        t_plain = _time_ms(lambda: ref.matmul(x, w), max(1, 10 // scale))
         t_lib = _time_ms(lambda: torch.matmul(x, w), iters)
-        res[str(dt).split(".")[1]] = {
-            "shape": [m, k, n], "kernel_ms": t_kernel, "plain_ms": t_plain,
-            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "ops": nops,
-            "kernel_tflops": nops / t_kernel / 1e9, "library_tflops": nops / t_lib / 1e9}
-        log("timing", f"matmul {(m, k, n)} {dt}: kernel {t_kernel:.4f} ms "
-                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s), plain {t_plain:.4f} ms, "
+        row = {"shape": [m, k, n], "design": design, "kernel_ms": t_kernel,
+               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "ops": nops,
+               "kernel_tflops": nops / t_kernel / 1e9, "library_tflops": nops / t_lib / 1e9}
+        extra = ""
+        if design == "wgmma":
+            template, _ = _mm_template(mm, x, w)
+            row["template_ms"] = t_template = _time_ms(template, max(1, 5 // scale))
+            extra = f", template {t_template:.4f} ms ({t_template / t_kernel:.1f}x)"
+        log("timing", f"matmul {name} {(m, k, n)} {dt}: kernel ({design}) {t_kernel:.4f} ms "
+                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s){extra}, plain {t_plain:.4f} ms, "
                       f"torch.matmul {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if dt == torch.bfloat16:
+            res["bfloat16_shapes"][name] = row
+        else:
+            res["float32"] = row
+        del x, w
+    res["bfloat16"] = res["bfloat16_shapes"]["qkvo_proj"]
+    torch.cuda.empty_cache()
     return res
 
 
@@ -717,6 +912,7 @@ def _executor_path(cfg, ops) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = ops.launch_counts()
+            designs = ops.design_counts()
             want = dense(feeds)["logits"]
             torch.cuda.synchronize()
             # the yardstick's products are torch.einsum (cuBLAS), not the kernel
@@ -724,6 +920,10 @@ def _executor_path(cfg, ops) -> dict:
             prof = _profile(lambda: run(feeds))
         assert launches == {"flash_attention": 1, "flash_attention_step": 0,
                             "matmul": n_mm, "gmm": 0}, launches
+        # bf16: every launch of the wgmma design; float32: of the template
+        served = "wgmma" if dt == torch.bfloat16 else "template"
+        for kernel in ("flash_attention", "matmul"):
+            assert designs[kernel][served] == launches[kernel], designs
         assert got.shape == (4, 512, cfg.vocab_padded) and got.dtype == dt
         assert bool(torch.isfinite(got).all()), "non-finite logits"
         scale = float(want.float().abs().max())
@@ -732,13 +932,14 @@ def _executor_path(cfg, ops) -> dict:
             raise AssertionError(f"executor {dt}: max|shard_map - dense| = {diff:.3e} "
                                  f"> {tol[dt]} x max|logit| {scale:.3f}")
         name = str(dt).split(".")[1]
-        log("executor", f"{name}: launches {launches}; max|shard_map - gspmd| = {diff:.3e} "
+        log("executor", f"{name}: launches {launches} by design {designs}; "
+                        f"max|shard_map - gspmd| = {diff:.3e} "
                         f"(max|logit| {scale:.3f}, tol {tol[dt]} x that); wall "
                         f"{1e3 * wall:.3f} ms; profiled wall {prof['wall_ms']:.3f} ms, "
                         f"device busy {prof['device_ms']:.3f} ms (idle share "
                         f"{prof['idle_share']:.3f}); device ms by kind {prof['by_kind_ms']}; "
                         f"top {prof['top_kernels_ms'][:4]}")
-        res[name] = {"launches": launches, "max_abs_logit_diff": diff,
+        res[name] = {"launches": launches, "designs": designs, "max_abs_logit_diff": diff,
                      "max_abs_logit": scale, "tol_rel": tol[dt], "wall_ms": 1e3 * wall,
                      "profile": prof}
         del feeds, got, want
@@ -854,38 +1055,52 @@ def _gmm_parity(qcfg, mcfg, ops, ref) -> dict:
               (3, 200, 77, 130), (2, 1, 5, 3)]                          # ragged
     path = _gmm_shapes(qcfg, mcfg)
     shapes += list(path.values())
+    from repro_torch.kernels import matmul as mm
+
     out, q_err = [], None
     for shape in shapes:
         for dt in (f32, bf16):
             x, w = _gmm_inputs(*shape, dt)
-            got = ops.gmm(x, w, impl="kernel")
-            torch.cuda.synchronize()
+            want_design = mm.design(x, w)
+            got, design = _served_by(ops, "gmm", lambda: ops.gmm(x, w, impl="kernel"))
+            assert design == want_design, (shape, dt, design)
+            if shape in path.values():  # the path's: f32 template, bf16 wgmma
+                assert design == ("wgmma" if dt == bf16 else "template"), design
             err = _max_err(got, ref.gmm(x, w), MM_TOL[dt], f"gmm {shape} {dt}",
                            atol=8 * MM_TOL[dt])
-            out.append({"shape": list(shape), "dtype": str(dt), "max_abs_err": err})
-            log("gmm-parity", f"{shape} {dt}: max|kernel - plain| = {err:.3e} ok")
+            out.append({"shape": list(shape), "dtype": str(dt), "design": design,
+                        "max_abs_err": err})
+            log("gmm-parity", f"{shape} {dt} [{design}]: max|kernel - plain| = {err:.3e} ok")
             if shape == path["w1_prefill"] and dt == bf16:
                 q_err = err
-    for dt in (f32, bf16):
-        # a weight view out of a stacked (e, units, k, n) tensor (expert
-        # stride 2*k*n) and a transposed x (strides (k*c, 1, c))
-        e, c, k, n = 5, 150, 96, 70
+    # a weight view out of a stacked (e, units, k, n) tensor (expert stride
+    # 2*k*n) and a transposed x (strides (k*c, 1, c)): at c = 150 the bf16
+    # x rows are 300 bytes, which TMA cannot step (the template serves it);
+    # at c = 152, 304 bytes (the wgmma design reads x M-major)
+    for (e, c, k, n), dt in [((5, 150, 96, 70), f32), ((5, 150, 96, 70), bf16),
+                             ((5, 152, 96, 72), bf16)]:
         x, w = _gmm_inputs(e, c, k, n, dt, seed=1)
         xt = x.transpose(1, 2).contiguous().transpose(1, 2)
         stacked = torch.stack([-w, w], dim=1)
-        err = _max_err(ops.gmm(xt, stacked[:, 1], impl="kernel"), ref.gmm(x, w),
-                       MM_TOL[dt], f"gmm strided {dt}", atol=8 * MM_TOL[dt])
+        got, design = _served_by(ops, "gmm", lambda: ops.gmm(xt, stacked[:, 1], impl="kernel"))
+        assert design == ("wgmma" if c == 152 else "template"), design
+        err = _max_err(got, ref.gmm(x, w), MM_TOL[dt], f"gmm strided {dt}",
+                       atol=8 * MM_TOL[dt])
         out.append({"shape": [e, c, k, n], "dtype": str(dt), "strided": True,
-                    "max_abs_err": err})
-        log("gmm-parity", f"strided {(e, c, k, n)} {dt}: max|kernel - plain| = "
+                    "design": design, "max_abs_err": err})
+        log("gmm-parity", f"strided {(e, c, k, n)} {dt} [{design}]: max|kernel - plain| = "
                           f"{err:.3e} ok")
+    assert {c["design"] for c in out} == {"wgmma", "template"}
     return {"cases": out, "qwen2_prefill_bf16_max_abs_err": q_err}
 
 
 def _gmm_timing(qcfg, mcfg, ops, ref) -> dict:
-    """bf16 at the path's shapes: the kernel, its plain version, one
+    """bf16 at the path's shapes: the kernel (the wgmma design), the
+    template design at the same inputs, its plain version, one
     ``torch.bmm`` and the bound (each input read once, the output written
     once, against 2*e*c*k*n operations)."""
+    from repro_torch.kernels import matmul as mm
+
     res = {}
     for name, (e, c, k, n) in _gmm_shapes(qcfg, mcfg).items():
         if name == "w2_decode":
@@ -893,16 +1108,21 @@ def _gmm_timing(qcfg, mcfg, ops, ref) -> dict:
         x, w = _gmm_inputs(e, c, k, n, torch.bfloat16, seed=5)
         nbytes, nops = (e * c * k + e * k * n + e * c * n) * 2, 2 * e * c * k * n
         bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
-        iters = 10 if name == "mixtral_w1" else 20
+        iters = 10 if name == "mixtral_w1" else 50
+        assert mm.design(x, w) == "wgmma"
+        template, _ = _mm_template(mm, x, w)
         t_kernel = _time_ms(lambda: ops.gmm(x, w, impl="kernel"), iters)
+        t_template = _time_ms(template, 3 if name == "mixtral_w1" else 10)
         t_plain = _time_ms(lambda: ref.gmm(x, w), 5)
         t_lib = _time_ms(lambda: torch.bmm(x, w), iters)
-        res[name] = {"shape": [e, c, k, n], "kernel_ms": t_kernel, "plain_ms": t_plain,
+        res[name] = {"shape": [e, c, k, n], "design": "wgmma", "kernel_ms": t_kernel,
+                     "template_ms": t_template, "plain_ms": t_plain,
                      "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": nops,
                      "kernel_tflops": nops / t_kernel / 1e9}
-        log("timing", f"gmm {name} {(e, c, k, n)} bf16: kernel {t_kernel:.4f} ms "
-                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s), plain {t_plain:.4f} ms, "
+        log("timing", f"gmm {name} {(e, c, k, n)} bf16: kernel (wgmma) {t_kernel:.4f} ms "
+                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s), template {t_template:.4f} ms "
+                      f"({t_template / t_kernel:.1f}x), plain {t_plain:.4f} ms, "
                       f"torch.bmm {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                       f"{nbytes} B, {nops} ops)")
         del x, w

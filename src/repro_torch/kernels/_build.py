@@ -2,9 +2,10 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
 ``nvcc`` into its own shared library (no PyTorch headers, so a build takes
-seconds).  Libraries go to ``build/repro_torch_kernels/`` at the repository
-root, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads what is there.  Importing this module
+seconds); the sources share the headers ``csrc/*.cuh``.  Libraries go to
+``build/repro_torch_kernels/`` at the repository root, named by a hash of
+the source, every shared header and the flags, so an edited source or
+header rebuilds and an unchanged one loads what is there.  Importing this module
 builds nothing; the CPU tests import every module on a machine without
 ``nvcc``.
 """
@@ -56,9 +57,14 @@ def nvcc_path() -> str:
         "CUDA kernels are built from source on the machine with the card")
 
 
-def _digest(source: Path) -> str:
+def digest(source: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of ``source``, every ``*.cuh`` beside it (name and bytes) and
+    the compile and link flags: what the built library depends on."""
     h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -71,7 +77,7 @@ def build(name: str) -> BuiltKernel:
         if name in _LOADED:
             return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"{name}-{_digest(src)}.so"
+    out = BUILD_DIR / f"{name}-{digest(src)}.so"
     log_path = out.with_suffix(".log")
     build_s = 0.0
     if not out.exists():

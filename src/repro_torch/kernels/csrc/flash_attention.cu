@@ -1,16 +1,21 @@
-// Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: the
-// forward kernel and the ring-attention step kernel.
+// Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: two
+// forward designs and the ring-attention step kernel.
 //
-// Forward (flash_attention_fwd).  Replaces:
-// src/repro/kernels/flash_attention.py::flash_attention, the Pallas TPU
-// kernel whose body is _flash_kernel.  Same function: q is upcast
-// to f32 and scaled; scores, the running max m, the running sum l and the
-// accumulator are f32; causal and sliding-window masks use the absolute
-// positions q_offset + i and kv_offset + j; masked scores inside a relevant
-// tile are -1e30; KV tiles that are fully masked are skipped; the output is
-// acc / (l == 0 ? 1 : l) in q's dtype; GQA maps query head h to KV head
-// h / (hq / hkv).  Unlike the TPU kernel, sq and sk need not divide the
-// tiles: keys past sk get weight exactly 0 and rows past sq are not written.
+// Forward.  Replaces: src/repro/kernels/flash_attention.py::flash_attention,
+// the Pallas TPU kernel whose body is _flash_kernel.  Same function: scores,
+// the running max m, the running sum l and the accumulator are f32; causal
+// and sliding-window masks use the absolute positions q_offset + i and
+// kv_offset + j; masked scores inside a tile that is not skipped are -1e30;
+// the output is acc / (l == 0 ? 1 : l) in q's dtype; GQA maps query head h
+// to KV head h / (hq / hkv).  Tiles are skipped on the TPU kernel's own
+// grid (block_relevant below): q rows in blocks of min(128, sq), keys in
+// blocks of min(128, sk), a pair of blocks skipped when every (q, k) pair in
+// it is masked.  So a query row that sees no key gets what the TPU kernel
+// gives it: 0 where all its blocks are skipped, else the mean of v over the
+// keys of the blocks that are not (each masked score weighs exp(0) = 1 until
+// a visible key wipes them).  Unlike the TPU kernel, sq and sk need not
+// divide the blocks: keys past sk get weight exactly 0 and rows past sq are
+// not written.
 //
 // Bound at the serving path's shape (b=4, h=32, s=512, d=128, bf16, causal):
 // q, k, v and o are 16.8 MB each, 67.1 MB in all, about 20 us at 3.35 TB/s;
@@ -18,18 +23,34 @@
 // the 989 TFLOP/s bf16 tensor-core peak.  So the work is bounded by bytes,
 // at about 20 us a launch (at s=2048 it would be bounded by operations).
 //
-// Design: one block of 256 threads per (64-row q tile, head, batch); the
-// loop over 32-key KV tiles inside the block replaces the TPU's sequential
-// grid axis and carries (m, l, acc) in registers.  Each input byte is read
-// from device memory once per q tile (K/V once per q tile and query head),
-// and nothing but the output is written, which is what the byte bound asks
-// for.  The Q tile and the current K/V tile sit in shared memory in f32
-// (the f32 path must be true f32, so no TF32), and both products run as
-// f32 FMAs on the CUDA cores; at this shape that makes the kernel bounded
-// by f32 FMA issue and shared-memory reads, well above the byte bound
-// (chip_smoke.py measured 0.83 ms a launch, 41x the bound, on an NVIDIA H100
-// 80GB HBM3 at a 700 W power limit).  Tensor cores (wgmma), TMA loads and
-// warp specialisation are later work.
+// Design "wgmma" (flash_attention_wgmma_fwd: bf16, d in {64, 128}, operands
+// that TMA can address).  One block of 384 threads per (128-row q tile,
+// head, batch): two consumer warpgroups each own 64 q rows; a producer
+// warpgroup hands its registers to them (setmaxnreg: 240 a consumer thread,
+// so the d = 128 accumulators, scores and P fragments fit without spills)
+// and one of its threads issues the TMA loads (4-d tensor maps over (d, s,
+// h, b) with the tensors' own strides, so transposed (b, s, h, d) views load
+// without a copy).
+// The Q tile is loaded once; K and V tiles of 128 keys sit in a 2-stage
+// ring guarded by mbarriers (160 KB of shared memory at d = 128).  S = Q K^T
+// is wgmma m64n128k16 with both operands K-major in shared memory; the
+// softmax runs on the accumulator registers in f32, in base 2 (exp2f of
+// s * scale * log2 e: q is not pre-scaled in bf16), row maxima reduced over
+// the 4 lanes of a quad; P is rounded to bf16 in registers and is the
+// register A operand of O += P V, with V an MN-major B (the transpose bit).
+// Only tiles on the diagonal, the window's edge or past sk are masked, the
+// key loop visits only tiles that are not skipped, and q tiles are
+// scheduled heaviest first.  Each input byte is read once per q tile, the
+// output written once, in bf16.  With SWIZZLE_128B a box row holds at most
+// 128 bytes, so a 128-wide head row is two boxes and the descriptors step
+// over them.
+//
+// Design "template" (flash_attention_fwd: float32, other head dims, and
+// operands TMA cannot address): one block of 256 threads per (64-row q
+// tile, head, batch), looping over 32-key tiles; Q, K and V are widened to
+// f32 in shared memory and both products are f32 FMAs on the CUDA cores
+// (the f32 path must be true f32, so no TF32).  A 64 x 32 tile is skipped
+// only when its enclosing block of the TPU grid is.
 //
 // Step (flash_attention_step).  Replaces:
 // src/repro/kernels/flash_attention.py::flash_attention_step, the Pallas
@@ -48,13 +69,15 @@
 // ways (q and k/v (4, 32, 128, 128) bf16, the f32 carry read and written):
 // 4.2 MB each of q, k, v read, 8.4 MB of acc and 0.13 MB of (m, l) read and
 // as much written, about 29.6 MB, about 8.8 us at 3.35 TB/s, against 1.07
-// GFLOP (1.1 us at the bf16 peak), so bounded by bytes; the design is the forward
-// kernel's (same tiles, f32 FMAs on CUDA cores), so it is far above that
-// bound, as the forward kernel is.
+// GFLOP (1.1 us at the bf16 peak), so bounded by bytes; it is the template
+// design's STEP instantiation (same tiles, f32 FMAs on CUDA cores), so it is
+// far above that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,6 +85,22 @@ constexpr int BLK_Q = 64;     // q rows per block
 constexpr int BLK_K = 32;     // keys per KV tile
 constexpr int THREADS = 256;  // 16 x 16: tx picks columns, ty picks rows
 constexpr float NEG_INF = -1e30f;
+
+// The TPU kernel's tile skipping: q rows in blocks of min(128, sq), keys in
+// blocks of min(128, sk), block qb starting at q_offset + qb * that size (kb
+// likewise at kv_offset); a pair of blocks is relevant unless every (q, k)
+// pair in its nominal extent is masked.
+__host__ __device__ __forceinline__ bool block_relevant(int qb, int kb, int sq, int sk,
+                                                        int q_offset, int kv_offset,
+                                                        int causal, int window) {
+  const int bq = sq < 128 ? sq : 128;
+  const int bk = sk < 128 ? sk : 128;
+  const int q_lo = q_offset + qb * bq, q_hi = q_lo + bq - 1;
+  const int k_lo = kv_offset + kb * bk, k_hi = k_lo + bk - 1;
+  if (causal && k_lo > q_hi) return false;
+  if (window && k_hi <= q_lo - window) return false;
+  return true;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -157,17 +196,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   }
 
   const int q_first = p.q_offset + q0;
-  const int q_last = q_first + nq - 1;
   const int n_kt = (p.sk + BLK_K - 1) / BLK_K;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BLK_K;
     const int nk = min(BLK_K, p.sk - k0);
     const int k_first = p.kv_offset + k0;
-    const int k_last = k_first + nk - 1;
     if constexpr (!STEP) {
-      // tile relevance, uniform over the block: skip fully masked tiles
-      if (p.causal && k_first > q_last) continue;
-      if (p.window && k_last <= q_first - p.window) continue;
+      // skip the tile when its enclosing block of the TPU grid is skipped
+      if (!block_relevant(q0 / min(128, p.sq), k0 / min(128, p.sk), p.sq, p.sk, p.q_offset,
+                          p.kv_offset, p.causal, p.window))
+        continue;
     }
 
     __syncthreads();  // Q is stored; the previous tile's readers are done
@@ -329,6 +367,266 @@ bool bad_shape(int b, int hq, int hkv, int sq, int sk, int d) {
          sk < 1;
 }
 
+// ---------------------------------------------------------------------------
+// design "wgmma": bf16, d in {64, 128}; wgmma, TMA and an mbarrier pipeline
+// ---------------------------------------------------------------------------
+
+constexpr int W_BLK = 128;      // q rows per block and keys per KV tile
+constexpr int W_STAGES = 2;     // K/V ring
+constexpr int W_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int W_CONSUMER_WARPS = 8;
+
+struct WParams {
+  void* o;
+  long long o_sb, o_sh, o_ss;
+  int hq, hkv, sq, sk;
+  float scale_log2;  // softmax scale * log2(e)
+  int causal, window, q_offset, kv_offset;
+};
+
+// Shared-memory layout (bytes from a 1024-byte aligned base): the Q tile,
+// then W_STAGES K tiles, then W_STAGES V tiles, then the barriers.  A tile
+// is D / 64 boxes of 128 rows x 128 bytes.
+template <int D>
+struct WLayout {
+  static constexpr int BOX = W_BLK * 128;
+  static constexpr int TILE = (D / 64) * BOX;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = K + W_STAGES * TILE;
+  static constexpr int BAR = V + W_STAGES * TILE;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * W_STAGES) + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const WParams p) {
+  using L = WLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int n_qt = (p.sq + W_BLK - 1) / W_BLK;
+  const int qt = n_qt - 1 - blockIdx.z;  // the last q tiles see the most keys: first
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int hk = h / (p.hq / p.hkv);
+  const int n_kt = (p.sk + W_BLK - 1) / W_BLK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W_CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Producer warpgroup: it hands its registers to the consumers (24 + 2 x
+  // 240 = 504 a thread across the three warpgroups, of the 512 that the
+  // SM's 65,536 allow), and one of its threads issues every load.  The two
+  // roles never reconverge, which setmaxnreg requires.
+  if (warp >= W_CONSUMER_WARPS) {
+    hopper::setmaxnreg_dec<24>();
+    if (warp == W_CONSUMER_WARPS && lane == 0) {
+      hopper::mbar_expect_tx(q_full, L::TILE);
+      for (int j = 0; j < D / 64; ++j)
+        hopper::tma_load_4d(smem + L::Q + j * L::BOX, &tq, q_full, 64 * j, qt * W_BLK, h, bi);
+      int t = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        if (!block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
+          continue;
+        const int s = t % W_STAGES;
+        if (t >= W_STAGES) hopper::mbar_wait(&empty[s], ((t / W_STAGES) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
+        for (int j = 0; j < D / 64; ++j) {
+          hopper::tma_load_4d(smem + L::K + s * L::TILE + j * L::BOX, &tk, &full[s], 64 * j,
+                              kt * W_BLK, hk, bi);
+          hopper::tma_load_4d(smem + L::V + s * L::TILE + j * L::BOX, &tv, &full[s], 64 * j,
+                              kt * W_BLK, hk, bi);
+        }
+        ++t;
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  // consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63 of the tile; this
+  // thread holds rows r and r + 8 (r below) and, in each 8-column chunk c of
+  // an accumulator, columns 8 c + 2 (lane % 4) + {0, 1}
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int row0 = qt * W_BLK + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int qpos0 = p.q_offset + row0;
+  const int q_lo = p.q_offset + qt * W_BLK;
+  const uint32_t q_base = hopper::smem_u32(smem + L::Q) + wg * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(q_full, 0);
+  int t = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (!block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
+      continue;
+    const int s = t % W_STAGES;
+    hopper::mbar_wait(&full[s], (t / W_STAGES) & 1);
+    const uint32_t k_base = hopper::smem_u32(smem + L::K + s * L::TILE);
+    const uint32_t v_base = hopper::smem_u32(smem + L::V + s * L::TILE);
+
+    // S = Q K^T (m64 x n128 per warpgroup), both operands K-major
+    float sc[64];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::BOX + (kk % 4) * 32;
+      hopper::wgmma_m64n128_ss<0, 0>(sc, hopper::make_desc(q_base + off, 16, 1024),
+                                     hopper::make_desc(k_base + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // scale into base 2; mask only tiles on the diagonal, the window's edge
+    // or past sk (keys past sk weigh 0, masked keys -1e30 as in the TPU kernel)
+    const int k0 = kt * W_BLK;
+    const int kpos0 = p.kv_offset + k0;
+    const bool edge = k0 + W_BLK > p.sk;
+    const bool diag = p.causal && kpos0 + W_BLK - 1 > q_lo;
+    const bool wedge = p.window && kpos0 <= q_lo + W_BLK - 1 - p.window;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] *= p.scale_log2;
+    if (edge || diag || wedge) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int key = 8 * c + 2 * quad + j;
+            const int kpos = kpos0 + key;
+            const int qpos = qpos0 + 8 * i;
+            float& x = sc[4 * c + 2 * i + j];
+            if (k0 + key >= p.sk)
+              x = -INFINITY;
+            else if ((p.causal && kpos > qpos) || (p.window && kpos <= qpos - p.window))
+              x = NEG_INF;
+          }
+    }
+
+    // online softmax on the accumulator: row max over the quad, then
+    // p = exp2(s - m); l keeps this thread's partial row sum
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * i], sc[4 * c + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // finite: every tile holds a key below sk, which scores at least -1e30
+      alpha[i] = exp2f(m[i] - mx);
+      m[i] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& x = sc[4 * c + 2 * i + j];
+          x = exp2f(x - mx);
+          rs += x;
+        }
+      l[i] = l[i] * alpha[i] + rs;
+    }
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * c + 2 * i] *= alpha[i];
+        o[4 * c + 2 * i + 1] *= alpha[i];
+      }
+
+    // O += P V: P in bf16 registers (the A fragment of key slice kk is
+    // accumulator chunks 2 kk and 2 kk + 1), V an MN-major B
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = hopper::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = hopper::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = hopper::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = hopper::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = hopper::make_desc(v_base + kk * 2048, L::BOX, 1024);
+      if constexpr (D == 128)
+        hopper::wgmma_m64n128_rs<1>(o, pa[kk], dv, 1);
+      else
+        hopper::wgmma_m64n64_rs<1>(o, pa[kk], dv, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[kk][r])::"memory");
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done with stage s
+    ++t;
+  }
+
+  // O / l (l == 0: no tile visited, the row is 0), bf16, rows past sq dropped
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= p.sq) continue;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + blockIdx.y * p.o_sb +
+                          h * p.o_sh + row * p.o_ss;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * quad) =
+          __floats2bfloat162_rn(o[4 * c + 2 * i] * inv, o[4 * c + 2 * i + 1] * inv);
+  }
+}
+
+// Tensor map of q, k or v: dims (d, s, h, b) with the tensor's own element
+// strides; boxes of 64 head columns x 128 positions.
+cudaError_t qkv_map(CUtensorMap* map, const void* base, int d, int s, int h, int b,
+                    long long ss, long long sh, long long sb) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)s, (uint64_t)h, (uint64_t)b};
+  const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, W_BLK, 1, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         const WParams& p, int b, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WLayout<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.hq, b, (p.sq + W_BLK - 1) / W_BLK);
+  flash_wgmma_kernel<D><<<grid, W_THREADS, WLayout<D>::BYTES, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,6 +648,41 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   return dispatch_dtype<false>(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
+// Design "wgmma": bfloat16 only, d = 64 or 128; every tensor 16-byte aligned
+// with its last dim contiguous and every other stride (of a dim longer than
+// 1) a positive multiple of 16 bytes, which is what TMA addresses.  Same
+// arguments as flash_attention_fwd otherwise (no dtype); o is (b, hq, sq, d)
+// with a contiguous last dim.  Returns cudaErrorInvalidValue for what it
+// does not take, else cudaGetLastError() after the launch.
+int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o, int b,
+                              int hq, int hkv, int sq, int sk, int d, long long q_sb,
+                              long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                              long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                              long long o_sb, long long o_sh, long long o_ss, float scale,
+                              int causal, int window, int q_offset, int kv_offset,
+                              void* stream) {
+  using hopper::tma_stride_ok;
+  const bool aligned =
+      tma_stride_ok(q_ss, sq) && tma_stride_ok(q_sh, hq) && tma_stride_ok(q_sb, b) &&
+      tma_stride_ok(k_ss, sk) && tma_stride_ok(k_sh, hkv) && tma_stride_ok(k_sb, b) &&
+      tma_stride_ok(v_ss, sk) && tma_stride_ok(v_sh, hkv) && tma_stride_ok(v_sb, b) &&
+      reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (bad_shape(b, hq, hkv, sq, sk, d) || (d != 64 && d != 128) || !aligned || b > 65535 ||
+      (sq + W_BLK - 1) / W_BLK > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = qkv_map(&tq, q, d, sq, hq, b, q_ss, q_sh, q_sb);
+  if (err == cudaSuccess) err = qkv_map(&tk, k, d, sk, hkv, b, k_ss, k_sh, k_sb);
+  if (err == cudaSuccess) err = qkv_map(&tv, v, d, sk, hkv, b, v_ss, v_sh, v_sb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WParams p{o, o_sb, o_sh, o_ss, hq, hkv, sq, sk, scale * 1.4426950408889634f,
+                  causal, window, q_offset, kv_offset};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 128 ? launch_wgmma<128>(tq, tk, tv, p, b, s)
+                                   : launch_wgmma<64>(tq, tk, tv, p, b, s));
+}
+
 // One ring-attention step: fold k/v into the carry (m, l, acc), contiguous
 // f32 of shapes (b, hq, sq), (b, hq, sq), (b, hq, sq, d), updated in place.
 // Strides of q, k, v as for flash_attention_fwd.  Returns cudaGetLastError().
@@ -366,6 +699,11 @@ int flash_attention_step(const void* q, const void* k, const void* v, void* m_io
                  static_cast<float*>(m_io), static_cast<float*>(l_io),
                  static_cast<float*>(acc_io), init};
   return dispatch_dtype<true>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one block of the wgmma design at head dim d.
+int flash_attention_wgmma_smem_bytes(int d) {
+  return d == 128 ? WLayout<128>::BYTES : d == 64 ? WLayout<64>::BYTES : 0;
 }
 
 const char* flash_attention_error_string(int err) {

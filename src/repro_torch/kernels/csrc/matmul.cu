@@ -1,5 +1,6 @@
-// Tiled matrix product for Hopper (sm_90a), CUDA C++ with two plain C
-// entries: matmul_fwd and gmm_fwd, the grouped (expert) product.
+// Tiled matrix product for Hopper (sm_90a), CUDA C++ with plain C entries:
+// matmul_fwd and gmm_fwd, the grouped (expert) product, and their wgmma
+// designs matmul_wgmma_fwd and gmm_wgmma_fwd.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul, the Pallas TPU kernel whose
 // body is _mm_kernel: (m, k) @ (k, n), every tile widened to f32, the sum
@@ -13,11 +14,11 @@
 // prefill (b=4, s=512: e=64, c=256, k/n = 2048/1408) a call does 94.5 GFLOP
 // on 482 MB in bf16: bounded by bytes, 144 us at 3.35 TB/s (the expert
 // weights dominate); mixtral's (8, 640, 4096) @ (8, 4096, 14336) is bounded
-// by operations, 608 us at 989 TFLOP/s.  The design is the matmul's with
+// by operations, 608 us at 989 TFLOP/s.  Each design is the matmul's with
 // one more grid axis: blockIdx.z selects the expert and the operands'
-// expert strides offset the three pointers, so each block still owns one
-// 128 x 128 output tile of one expert.  Capacity rows past an expert's
-// count hold zeros and are computed anyway, as on the TPU.
+// expert strides offset the three operands, so each block still owns one
+// output tile of one expert.  Capacity rows past an expert's count hold
+// zeros and are computed anyway, as on the TPU.
 //
 // What bounds it on this card.  At the shapes of llama-7b's prefill graph
 // on one card (m = b*s = 2048; k, n = 4096 / 11008 / 32000) a product does
@@ -27,25 +28,50 @@
 // cores, 69 us at the 989 TFLOP/s of bf16 tensor cores.
 //
 // Design.  The TPU kernel's grid carries the f32 accumulator in VMEM across
-// a sequential k axis; here one block owns one 128 x 128 output tile and
-// walks k itself, keeping the accumulator in registers, so nothing but the
-// output is written.  The f32 path must be true f32 (the reference's 1e-4
-// tolerance rules out TF32): 256 threads each own an 8 x 8 sub-tile and do
-// f32 FMAs on the CUDA cores from 8-deep k tiles staged in shared memory,
-// read back as float4 (4 shared loads per 64 FMAs).  The bf16 path uses the
-// tensor cores through nvcuda::wmma (16 x 16 x 16 bf16 fragments, f32
-// accumulators): 8 warps each own a 64 x 32 sub-tile over 32-deep k tiles;
-// the f32 tile is staged through shared memory and rounded to bf16 once.
-// The reference asserts that the tiles divide the shape; a rank's local
-// block need not, so every load and store is masked (zeros past the edge).
-// Operands are read through their element strides, so transposed or
-// sliced 2-d views are taken as they are, without a copy.  Neither path
-// pipelines its loads (no cp.async / TMA double buffering) and the bf16
-// path does not use wgmma: both are later work.
+// a sequential k axis; here one block owns one output tile and walks k
+// itself, keeping the accumulator in registers, so nothing but the output
+// is written.  There are three kernels:
+//
+// "wgmma" (matmul_wgmma_fwd / gmm_wgmma_fwd: bf16 operands that TMA can
+// address).  One block per 128 x 256 output tile, 288 threads: one producer
+// warp keeps a 4-stage ring of 128 x 64 A and 64 x 256 B tiles (48 KB a
+// stage, 192 KB in all) filled by TMA, each stage guarded by a full and an
+// empty mbarrier; two consumer warpgroups each run wgmma m64n256k16 with
+// f32 accumulators in registers (128 a thread) over their 64 rows, keeping
+// one k-tile of wgmmas in flight while the next stage's wait resolves.
+// Blocks take the output tiles in groups of 16 row tiles, row tile fastest,
+// so the blocks in flight share their B panels and an A of 2048 rows stays
+// in L2: with the column tile fastest, each 128-row block re-read B from
+// device memory (16 times over at m = 2048).  A may be K-major or M-major
+// and B N-major or K-major: the tensor map's innermost dim is the
+// contiguous one and wgmma's transpose bits read the tile either way, so
+// transposed views load without a copy.
+// The grouped product uses 3-d tensor maps whose outer dim is the expert
+// (blockIdx.z).  The epilogue rounds each f32 sum to bf16 once and stores it
+// from the registers, masked at the ragged edge (TMA fills loads past the
+// edge with zeros).  No split-K and no atomics: a launch gives the same bits
+// every time.
+//
+// "template", float32 (matmul_fwd / gmm_fwd with dtype 0): must be true f32
+// (the reference's 1e-4 tolerance rules out TF32): 256 threads each own an
+// 8 x 8 sub-tile and do f32 FMAs on the CUDA cores from 8-deep k tiles
+// staged in shared memory, read back as float4 (4 shared loads per 64
+// FMAs).
+//
+// "template", bf16 (dtype 1: the operands TMA cannot address, such as a
+// rank-local (77, 130) block whose rows are not 16-byte multiples): tensor
+// cores through nvcuda::wmma (16 x 16 x 16 bf16 fragments, f32
+// accumulators), 8 warps each owning a 64 x 32 sub-tile over 32-deep k
+// tiles; the f32 tile is staged through shared memory and rounded to bf16
+// once.  Both template kernels read their operands element by element
+// through their strides and mask every load and store, so any shape and
+// any strides are taken as they are.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -250,6 +276,203 @@ cudaError_t launch(const Params& p, int dtype, int e, void* stream) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// design "wgmma": bf16 through TMA, mbarriers and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int G_BM = 128, G_BN = 256, G_BK = 64, G_STAGES = 4;
+constexpr int G_GROUP_M = 16;   // row tiles per raster group
+constexpr int G_THREADS = 288;  // consumer warpgroups 0 and 1, producer warp 8
+constexpr int G_CONSUMER_WARPS = 8;
+constexpr int G_TILE_A = G_BM * G_BK * 2;  // 16 KB
+
+constexpr int G_TILE_B = G_BK * G_BN * 2;  // 32 KB
+constexpr int G_STAGE = G_TILE_A + G_TILE_B;
+constexpr int G_SMEM = G_STAGES * G_STAGE + 16 * G_STAGES + 1024;  // + barriers, alignment
+
+struct GParams {
+  void* c;
+  int m, n, k;
+  long long c_se, c_sm, c_sn;
+};
+
+// A_MN: A is M-major (its m stride is 1), else K-major; B_MN: B is N-major
+// (row-major weights), else K-major.  Shared tiles per stage: A as one
+// 128-row box of 64 k (K-major) or two 64-column boxes of m (M-major); B as
+// four 64-column boxes of n (N-major) or one 256-row box of 64 k
+// (K-major).  Blocks walk the output tiles in groups of G_GROUP_M row tiles,
+// the row tile fastest: the blocks in flight share their B panels, and a
+// 2048-row A stays in L2, so each operand is read from device memory about
+// once.
+template <bool GROUPED, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    mm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb, const GParams p) {
+  extern __shared__ uint8_t g_smem_raw[];
+  uint8_t* smem = g_smem_raw + ((1024 - (hopper::smem_u32(g_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE);
+  uint64_t* empty = full + G_STAGES;
+
+  const int e = GROUPED ? blockIdx.z : 0;
+  const int n_mt = (p.m + G_BM - 1) / G_BM;
+  const int n_nt = (p.n + G_BN - 1) / G_BN;
+  const int group = blockIdx.x / (G_GROUP_M * n_nt);
+  const int first_mt = group * G_GROUP_M;
+  const int group_mt = min(n_mt - first_mt, G_GROUP_M);
+  const int in_group = blockIdx.x % (G_GROUP_M * n_nt);
+  const int m0 = (first_mt + in_group % group_mt) * G_BM;
+  const int n0 = (in_group / group_mt) * G_BN;
+  const int n_kt = (p.k + G_BK - 1) / G_BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], G_CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == G_CONSUMER_WARPS) {  // producer: one thread issues every load
+    if (lane == 0) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % G_STAGES;
+        if (kt >= G_STAGES) hopper::mbar_wait(&empty[s], ((kt / G_STAGES) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], G_STAGE);
+        uint8_t* a = smem + s * G_STAGE;
+        uint8_t* b = a + G_TILE_A;
+        const int k0 = kt * G_BK;
+        if (A_MN) {
+          hopper::tma_load_3d(a, &ta, &full[s], m0, k0, e);
+          hopper::tma_load_3d(a + G_TILE_A / 2, &ta, &full[s], m0 + 64, k0, e);
+        } else {
+          hopper::tma_load_3d(a, &ta, &full[s], k0, m0, e);
+        }
+        if (B_MN) {
+          for (int j = 0; j < G_BN / 64; ++j)
+            hopper::tma_load_3d(b + j * (G_BK * 128), &tb, &full[s], n0 + 64 * j, k0, e);
+        } else {
+          hopper::tma_load_3d(b, &tb, &full[s], k0, n0, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile (in
+  // either A layout they start 8 KB into the stage's A tile)
+  const int wg = warp / 4;
+  float acc[G_BN / 2];
+#pragma unroll
+  for (int i = 0; i < G_BN / 2; ++i) acc[i] = 0.f;
+  hopper::fence_regs(acc);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % G_STAGES;
+    hopper::mbar_wait(&full[s], (kt / G_STAGES) & 1);
+    const uint32_t a = hopper::smem_u32(smem + s * G_STAGE) + wg * (G_TILE_A / 2);
+    const uint32_t b = hopper::smem_u32(smem + s * G_STAGE + G_TILE_A);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      // K-major: 16 k are 32 bytes along a 128-byte row; MN-major: 16 rows
+      const uint64_t da = A_MN ? hopper::make_desc(a + kk * 2048, G_TILE_A / 2, 1024)
+                               : hopper::make_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = B_MN ? hopper::make_desc(b + kk * 2048, G_BK * 128, 1024)
+                               : hopper::make_desc(b + kk * 32, 16, 1024);
+      hopper::wgmma_m64n256_ss<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the previous k-tile's products are done
+    hopper::fence_regs(acc);
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % G_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // epilogue: thread holds rows r, r + 8 and columns 8 c + 2 (lane % 4) + {0, 1}
+  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(p.c) + e * p.c_se;
+  const bool pairs = p.c_sn == 1 && p.c_sm % 2 == 0 && p.c_se % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(p.c) % 4 == 0;
+  const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.m) continue;
+    __nv_bfloat16* crow = C + row * p.c_sm;
+#pragma unroll
+    for (int c = 0; c < G_BN / 8; ++c) {
+      const int col = n0 + 8 * c + 2 * (lane % 4);
+      const float v0 = acc[4 * c + 2 * i], v1 = acc[4 * c + 2 * i + 1];
+      if (pairs && col + 1 < p.n) {
+        *reinterpret_cast<__nv_bfloat162*>(crow + col) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < p.n) crow[col * p.c_sn] = __float2bfloat16(v0);
+        if (col + 1 < p.n) crow[(col + 1) * p.c_sn] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// Tensor map of one operand: dims (inner, outer, expert) in elements, the
+// inner dim contiguous, boxes of (64, box_outer, 1).
+cudaError_t operand_map(CUtensorMap* map, const void* base, int inner, int outer, int e,
+                        long long s_outer, long long s_e, uint32_t box_outer) {
+  const uint64_t dims[3] = {(uint64_t)inner, (uint64_t)outer, (uint64_t)e};
+  const uint64_t strides[2] = {(uint64_t)s_outer * 2, (uint64_t)s_e * 2};
+  const uint32_t box[3] = {64, box_outer, 1};
+  return hopper::make_map(map, base, 3, dims, strides, box);
+}
+
+template <bool GROUPED, bool A_MN, bool B_MN>
+cudaError_t launch_wgmma_layout(const CUtensorMap& ta, const CUtensorMap& tb, const GParams& p,
+                                int e, cudaStream_t stream) {
+  auto kernel = mm_wgmma_kernel<GROUPED, A_MN, B_MN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((p.m + G_BM - 1) / G_BM) * ((p.n + G_BN - 1) / G_BN);
+  const dim3 grid(static_cast<unsigned>(tiles), 1, e);
+  kernel<<<grid, G_THREADS, G_SMEM, stream>>>(ta, tb, p);
+  return cudaGetLastError();
+}
+
+// a (e, m, k), b (e, k, n), c (e, m, n) bf16 with element strides; a_mn /
+// b_mn pick the layouts (see mm_wgmma_kernel).
+template <bool GROUPED>
+int launch_wgmma(const void* a, const void* b, void* c, int e, int m, int n, int k,
+                 long long a_se, long long a_sm, long long a_sk, long long b_se,
+                 long long b_sk, long long b_sn, long long c_se, long long c_sm,
+                 long long c_sn, int a_mn, int b_mn, void* stream) {
+  using hopper::tma_stride_ok;
+  const bool a_ok = a_mn ? (m == 1 || a_sm == 1) && tma_stride_ok(a_sk, k)
+                         : (k == 1 || a_sk == 1) && tma_stride_ok(a_sm, m);
+  const bool b_ok = b_mn ? (n == 1 || b_sn == 1) && tma_stride_ok(b_sk, k)
+                         : (k == 1 || b_sk == 1) && tma_stride_ok(b_sn, n);
+  const long long tiles = (long long)((m + G_BM - 1) / G_BM) * ((n + G_BN - 1) / G_BN);
+  if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 1 || tiles >= (1ll << 31) || !a_ok ||
+      !b_ok || !tma_stride_ok(a_se, e) || !tma_stride_ok(b_se, e) ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  cudaError_t err = a_mn ? operand_map(&ta, a, m, k, e, a_sk, a_se, G_BK)
+                         : operand_map(&ta, a, k, m, e, a_sm, a_se, G_BM);
+  if (err == cudaSuccess)
+    err = b_mn ? operand_map(&tb, b, n, k, e, b_sk, b_se, G_BK)
+               : operand_map(&tb, b, k, n, e, b_sn, b_se, G_BN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GParams p{c, m, n, k, c_se, c_sm, c_sn};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_mn)
+    err = b_mn ? launch_wgmma_layout<GROUPED, true, true>(ta, tb, p, e, s)
+               : launch_wgmma_layout<GROUPED, true, false>(ta, tb, p, e, s);
+  else
+    err = b_mn ? launch_wgmma_layout<GROUPED, false, true>(ta, tb, p, e, s)
+               : launch_wgmma_layout<GROUPED, false, false>(ta, tb, p, e, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -276,6 +499,32 @@ int gmm_fwd(const void* a, const void* b, void* c, int dtype, int e, int m, int 
   const Params p{a, b, c, m, n, k, a_sm, a_sk, b_sk, b_sn, c_sm, c_sn, a_se, b_se, c_se};
   return static_cast<int>(launch<true>(p, dtype, e, stream));
 }
+
+// Design "wgmma" of matmul_fwd: bfloat16 only.  a_mn = 1 when a's m stride
+// is 1 (else its k stride must be), b_mn = 1 when b's n stride is 1 (else
+// its k stride must be); the other stride of each, in bytes, a positive
+// multiple of 16, and both bases 16-byte aligned.  Returns
+// cudaErrorInvalidValue for what it does not take, else cudaGetLastError()
+// after the launch.
+int matmul_wgmma_fwd(const void* a, const void* b, void* c, int m, int n, int k,
+                     long long a_sm, long long a_sk, long long b_sk, long long b_sn,
+                     long long c_sm, long long c_sn, int a_mn, int b_mn, void* stream) {
+  return launch_wgmma<false>(a, b, c, 1, m, n, k, 0, a_sm, a_sk, 0, b_sk, b_sn, 0, c_sm, c_sn,
+                             a_mn, b_mn, stream);
+}
+
+// Design "wgmma" of gmm_fwd: as matmul_wgmma_fwd per expert; the expert
+// strides too must be positive multiples of 16 bytes (where e > 1).
+int gmm_wgmma_fwd(const void* a, const void* b, void* c, int e, int m, int n, int k,
+                  long long a_se, long long a_sm, long long a_sk, long long b_se,
+                  long long b_sk, long long b_sn, long long c_se, long long c_sm,
+                  long long c_sn, int a_mn, int b_mn, void* stream) {
+  return launch_wgmma<true>(a, b, c, e, m, n, k, a_se, a_sm, a_sk, b_se, b_sk, b_sn, c_se,
+                            c_sm, c_sn, a_mn, b_mn, stream);
+}
+
+// Dynamic shared memory of one block of the wgmma design.
+int matmul_wgmma_smem_bytes() { return G_SMEM; }
 
 const char* matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

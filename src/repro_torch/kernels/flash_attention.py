@@ -3,14 +3,20 @@
 kernel ``repro/kernels/flash_attention.py::flash_attention``) and the
 ring-attention step kernel (the port of ``flash_attention_step``).
 
-The kernel computes exactly what ``kernels/ref.attention`` computes — f32
-online-softmax state, absolute-position causal / sliding-window masks,
-fully masked KV tiles skipped, GQA — for float32 and bfloat16 inputs with
-head_dim <= 256 and any sequence lengths.  The wrapper checks what the
-kernel takes, allocates the output, launches on PyTorch's current stream
-and raises if the launch was refused.  It never falls back: a CPU tensor is
-an error here (the dispatcher in ``kernels/ops.py`` routes CPU tensors to
-the plain version before they reach this module).
+The forward kernel computes what ``kernels/ref.attention_tiled`` computes —
+f32 online-softmax state, absolute-position causal / sliding-window masks,
+the TPU kernel's 128 x 128 tile skipping, GQA — which equals
+``ref.attention`` on every row that sees a key.  It takes float32 and
+bfloat16 inputs with head_dim <= 256 and any sequence lengths.  It has two
+designs, picked before launch by :func:`design` and by nothing else:
+``"wgmma"`` (bf16, head_dim 64 or 128, tensors TMA can address: wgmma, TMA
+and an mbarrier pipeline) and ``"template"`` (everything else: f32 FMAs on
+the CUDA cores).  The wrapper checks what the kernel takes, allocates the
+output, launches on PyTorch's current stream and raises if the launch was
+refused.  It never falls back: a CPU tensor is an error here (the
+dispatcher in ``kernels/ops.py`` routes CPU tensors to the plain version
+before they reach this module), and a refused launch of either design
+raises without trying the other.
 
 The step kernel folds one KV block into a carried f32 state ``(m, l,
 acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
@@ -18,7 +24,8 @@ and no tile skipping; it updates the carry it is given in place.
 
 ``flash_attention.launches`` and ``flash_attention_step.launches`` count
 successful launches, so a run can show that its main path went through
-the kernels.
+the kernels; ``flash_attention.designs`` splits the forward launches by
+design.
 """
 from __future__ import annotations
 
@@ -26,10 +33,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tma
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _lib():
@@ -48,6 +56,11 @@ def _lib():
                          + [ctypes.c_longlong] * 9 + [ctypes.c_float]
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         step.restype = ctypes.c_int
+        wg = built.lib.flash_attention_wgmma_fwd
+        wg.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        wg.restype = ctypes.c_int
     return built.lib
 
 
@@ -97,6 +110,18 @@ def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(3) == 1 else t.contiguous()
 
 
+def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward design that serves (q, k, v): ``"wgmma"`` for bfloat16
+    with head_dim 64 or 128 where TMA can address all three (16-byte
+    aligned bases, a contiguous head dim, every other stride a positive
+    multiple of 16 bytes), else ``"template"``.  Reads dtypes, shapes,
+    strides and base addresses only."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS and all(
+            _tma.tensor_addressable(t, inner=3) for t in (q, k, v)):
+        return "wgmma"
+    return "template"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int = 0,
@@ -112,25 +137,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     q, k, v = (_last_dim_contiguous(t) for t in (q, k, v))
     scale = (d ** -0.5) if scale is None else float(scale)
+    which = design(q, k, v)
     lib = _lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    shape = (b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *o.stride()[:3], scale, int(bool(causal)),
+             int(window), int(q_offset), int(kv_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            scale, int(bool(causal)), int(window), int(q_offset),
-            int(kv_offset), stream)
+        if which == "wgmma":
+            err = lib.flash_attention_wgmma_fwd(*args, *shape, stream)
+        else:
+            err = lib.flash_attention_fwd(*args, _DTYPES[q.dtype], *shape, stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
-                           f"(cudaError {err}) at q {tuple(q.shape)}, "
+        raise RuntimeError(f"flash_attention kernel ({which}) launch failed: "
+                           f"{msg} (cudaError {err}) at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype}")
     flash_attention.launches += 1
+    flash_attention.designs[which] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.designs = dict.fromkeys(_tma.DESIGNS, 0)
 
 
 def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,15 +2,22 @@
 (the port of the Pallas kernel ``repro/kernels/matmul.py::matmul``).
 
 ``(m, k) @ (k, n)`` with f32 accumulation, the result in the operands'
-dtype: true f32 FMAs for float32, tensor cores (wmma, f32 accumulators) for
-bfloat16.  Any shape (ragged edges are masked) and any element strides:
-transposed or sliced 2-d views are read as they are, without a copy.  The
-wrapper checks what the kernel takes, allocates the output, launches on
-PyTorch's current stream and raises if the launch was refused.  It never
-falls back: a CPU tensor is an error here (``kernels/ops.py`` routes CPU
-tensors to the plain version before they reach this module).
+dtype.  Two designs, picked before launch by :func:`design` and by nothing
+else: ``"wgmma"`` for bfloat16 operands that TMA can address (tensor cores
+through wgmma, TMA tile loads, an mbarrier pipeline) and ``"template"`` for
+the rest (true f32 FMAs for float32; wmma tensor cores for bfloat16
+operands whose strides or base TMA cannot take).  Any shape (ragged edges
+are masked) and, in the template, any element strides; the wgmma design
+reads K-major or M-major x and N-major or K-major w, so transposed 2-d
+views are read as they are, without a copy.  The wrapper checks what the
+kernel takes, allocates the output, launches on PyTorch's current stream
+and raises if the launch was refused.  It never falls back: a CPU tensor is
+an error here (``kernels/ops.py`` routes CPU tensors to the plain version
+before they reach this module), and a refused launch raises without trying
+the other design.
 
-``matmul.launches`` counts successful launches.
+``matmul.launches`` counts successful launches and ``matmul.designs``
+splits them by design.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tma
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,6 +40,11 @@ def _lib():
         err = built.lib.matmul_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        wg = built.lib.matmul_wgmma_fwd
+        wg.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        wg.restype = ctypes.c_int
     return built.lib
 
 
@@ -56,6 +68,31 @@ def check_args(x, w) -> None:
                          f"{tuple(w.shape)} do not chain")
 
 
+def layouts(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int] | None:
+    """``(x_mn, w_mn)`` for the wgmma design — x_mn = 1 where x is read
+    M-major (its row dim contiguous) rather than K-major, w_mn = 1 where w
+    is read N-major rather than K-major — or None where TMA cannot address
+    x or w either way or the dtype is not bfloat16.  The last two dims are
+    the product's; any dims before them (experts) ride along."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return None
+    r = x.dim() - 1  # x (..., m, k), w (..., k, n)
+    x_mn = (0 if _tma.tensor_addressable(x, inner=r) else
+            1 if _tma.tensor_addressable(x, inner=r - 1) else None)
+    w_mn = (1 if _tma.tensor_addressable(w, inner=r) else
+            0 if _tma.tensor_addressable(w, inner=r - 1) else None)
+    if x_mn is None or w_mn is None:
+        return None
+    return x_mn, w_mn
+
+
+def design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The design that serves ``x @ w``: ``"wgmma"`` where :func:`layouts`
+    finds one, else ``"template"``.  Reads dtypes, shapes, strides and base
+    addresses only."""
+    return "template" if layouts(x, w) is None else "wgmma"
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (m, k) @ w (k, n) for CUDA tensors -> (m, n) in x's dtype."""
     for name, t in (("x", x), ("w", w)):
@@ -71,19 +108,26 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
+    lay = layouts(x, w)
+    which = "template" if lay is None else "wgmma"
     lib = _lib()
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
+    strides = (*x.stride(), *w.stride(), *out.stride())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.matmul_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             _DTYPES[x.dtype], m, n, k, *x.stride(),
-                             *w.stride(), *out.stride(), stream)
+        if lay is None:
+            err = lib.matmul_fwd(*ptrs, _DTYPES[x.dtype], m, n, k, *strides, stream)
+        else:
+            err = lib.matmul_wgmma_fwd(*ptrs, m, n, k, *strides, *lay, stream)
     if err != 0:
         msg = lib.matmul_error_string(err).decode()
-        raise RuntimeError(f"matmul kernel launch failed: {msg} (cudaError "
-                           f"{err}) at {tuple(x.shape)} @ {tuple(w.shape)}, "
-                           f"{x.dtype}")
+        raise RuntimeError(f"matmul kernel ({which}) launch failed: {msg} "
+                           f"(cudaError {err}) at {tuple(x.shape)} @ "
+                           f"{tuple(w.shape)}, {x.dtype}")
     matmul.launches += 1
+    matmul.designs[which] += 1
     return out
 
 
 matmul.launches = 0
+matmul.designs = dict.fromkeys(_tma.DESIGNS, 0)

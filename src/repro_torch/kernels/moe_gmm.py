@@ -4,9 +4,10 @@
 
 ``(e, c, k) @ (e, k, n) -> (e, c, n)`` on capacity-padded MoE dispatch
 buffers: each expert's product with f32 accumulation, rounded once to the
-operands' dtype (true f32 FMAs for float32, tensor cores with f32
-accumulators for bfloat16).  It shares the matmul kernel's tiles with one
-more grid axis over experts.  Any shape (ragged edges are masked, so an
+operands' dtype.  It shares the matmul kernels and their two designs
+(``matmul.design``: ``"wgmma"`` for bfloat16 operands that TMA can address,
+the expert strides included; ``"template"`` for the rest) with one more
+grid axis over experts.  Any shape (ragged edges are masked, so an
 expert-sharded local block need not divide the tiles) and any element
 strides: the weights arrive as per-unit views of the stacked layer
 parameters and are read in place.  The wrapper checks what the kernel
@@ -14,7 +15,8 @@ takes, allocates the output, launches on PyTorch's current stream and
 raises if the launch was refused.  It never falls back: a CPU tensor is an
 error here (``kernels/ops.py`` routes CPU tensors to the plain version).
 
-``gmm.launches`` counts successful launches.
+``gmm.launches`` counts successful launches and ``gmm.designs`` splits
+them by design.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tma
+from repro_torch.kernels.matmul import layouts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,6 +40,11 @@ def _lib():
         err = built.lib.matmul_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        wg = built.lib.gmm_wgmma_fwd
+        wg.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        wg.restype = ctypes.c_int
     return built.lib
 
 
@@ -79,19 +87,26 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
+    lay = layouts(x, w)
+    which = "template" if lay is None else "wgmma"
     lib = _lib()
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
+    strides = (*x.stride(), *w.stride(), *out.stride())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          _DTYPES[x.dtype], e, c, n, k, *x.stride(),
-                          *w.stride(), *out.stride(), stream)
+        if lay is None:
+            err = lib.gmm_fwd(*ptrs, _DTYPES[x.dtype], e, c, n, k, *strides, stream)
+        else:
+            err = lib.gmm_wgmma_fwd(*ptrs, e, c, n, k, *strides, *lay, stream)
     if err != 0:
         msg = lib.matmul_error_string(err).decode()
-        raise RuntimeError(f"gmm kernel launch failed: {msg} (cudaError "
-                           f"{err}) at {tuple(x.shape)} @ {tuple(w.shape)}, "
-                           f"{x.dtype}")
+        raise RuntimeError(f"gmm kernel ({which}) launch failed: {msg} "
+                           f"(cudaError {err}) at {tuple(x.shape)} @ "
+                           f"{tuple(w.shape)}, {x.dtype}")
     gmm.launches += 1
+    gmm.designs[which] += 1
     return out
 
 
 gmm.launches = 0
+gmm.designs = dict.fromkeys(_tma.DESIGNS, 0)

@@ -42,6 +42,64 @@ def attention(
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def attention_tiled(
+    q: torch.Tensor,  # (b, hq, sq, d)
+    k: torch.Tensor,  # (b, hkv, sk, d)
+    v: torch.Tensor,  # (b, hkv, sk, d)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> torch.Tensor:
+    """``attention`` with the tile skipping of the TPU kernel, which is what
+    the forward kernels compute.  q rows fall in blocks of ``min(128, sq)``
+    and keys in blocks of ``min(128, sk)``, block ``i`` starting at offset +
+    ``i`` * block size; a pair of blocks in which every (q, k) pair is
+    masked is skipped.  Keys of a skipped pair weigh 0; masked keys of a
+    pair that is not skipped score the finite -1e30.  Equal to ``attention``
+    on every row that sees at least one key.  A row that sees none gets 0
+    where all its pairs are skipped, else the mean of v over the keys of
+    the pairs that are not.  Where sq or sk does not divide its block the
+    last block is partial, and its nominal extent decides whether it is
+    skipped."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+
+    qs = q.reshape(b, hkv, g, sq, d).to(torch.float32) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(torch.float32))
+    keep = _mask(sq, sk, q_offset, kv_offset, causal, window, q.device)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    visited = _blocks_relevant(sq, sk, q_offset, kv_offset, causal, window, q.device)
+    s = torch.where(visited, s, torch.full_like(s, -torch.inf))
+
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # rows no pair visits
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p / l, v.to(torch.float32))
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _blocks_relevant(sq, sk, q_offset, kv_offset, causal, window, device=None):
+    """(sq, sk): whether the TPU kernel's grid visits the pair of blocks
+    that holds (q row i, key j) (see ``attention_tiled``)."""
+    bq, bk = min(128, sq), min(128, sk)
+    q_lo = (torch.arange(sq, device=device) // bq) * bq + q_offset
+    k_lo = (torch.arange(sk, device=device) // bk) * bk + kv_offset
+    q_hi, k_hi = q_lo + bq - 1, k_lo + bk - 1
+    rel = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        rel &= k_lo[None, :] <= q_hi[:, None]
+    if window:
+        rel &= k_hi[None, :] > q_lo[:, None] - window
+    return rel
+
+
 def _mask(sq, sk, q_offset, kv_offset, causal, window, device=None):
     """(sq, sk) keep-mask for a (q block, kv block) pair at absolute
     positions ``q_offset`` / ``kv_offset``."""

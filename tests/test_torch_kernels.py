@@ -5,8 +5,10 @@ tests/test_torch_kernels_gpu.py, on a card).
 
 Inputs come from a seeded numpy generator and go to both packages.  The
 tolerances are the reference kernel tests' own: 2e-5 in float32, 2e-2 in
-bfloat16.  No case has a fully masked query row (for those the TPU
-kernel's output depends on its tiling).
+bfloat16.  Rows that see no key are held against the Pallas kernel at its
+own 128 x 128 blocks (``ref.attention_tiled``, the forward kernels'
+convention); elsewhere no case has such a row.  The shape rule that picks
+each kernel's design, and the build's source hash, are checked here too.
 """
 import numpy as np
 import pytest
@@ -298,3 +300,272 @@ def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match)
         mm.matmul(x, w)
     with pytest.raises(ValueError, match=match):
         mm.check_args(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Fully masked query rows: the TPU kernel's 128 x 128 tile skipping
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, sq, sk, d, causal, window, q_offset, kv_offset, dtype): every
+# case has query rows that see no key; sq, sk in {128, 256}, the blocks the
+# Pallas kernel takes by default (min(128, s))
+MASKED_CASES = [
+    (1, 4, 2, 128, 128, 32, True, 0, 0, 64, "float32"),     # q_offset < kv_offset
+    (1, 4, 4, 256, 256, 32, True, 0, 0, 100, "float32"),    # one block pair skipped
+    (2, 8, 2, 256, 256, 16, True, 8, 0, 120, "float32"),    # window, GQA 4:1
+    (1, 4, 2, 128, 256, 32, False, 64, 250, 0, "float32"),  # window without causal
+    (1, 2, 1, 128, 256, 32, True, 16, 300, 0, "float32"),   # every block skipped
+    (1, 4, 1, 256, 128, 64, True, 0, 0, 130, "bfloat16"),   # GQA 4:1, bf16
+]
+
+
+def _masked_id(c):
+    return "h{}k{}q{}s{}{}w{}qo{}ko{}{}".format(c[1], c[2], c[3], c[4], "c" if c[6] else "",
+                                               c[7], c[8], c[9], c[10][:2])
+
+
+def _masked_inputs(case, seed=17):
+    b, hq, hkv, sq, sk, d, causal, window, qo, ko, dt = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    return q, k, v, dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+
+
+@pytest.mark.parametrize("case", MASKED_CASES, ids=_masked_id)
+def test_tiled_attention_matches_pallas_on_fully_masked_rows(case):
+    """The port's convention for rows that see no key is the Pallas
+    kernel's at its default 128 x 128 blocks: 0 where every block pair of
+    the row is skipped, else the mean of v over the keys of the pairs that
+    are not.  Rows that see a key equal plain attention."""
+    q, k, v, kw = _masked_inputs(case)
+    dt = case[-1]
+    got = ref.attention_tiled(_torch(q, dt), _torch(k, dt), _torch(v, dt), **kw)
+    want = pallas_flash(_jax(q, dt), _jax(k, dt), _jax(v, dt), interpret=True, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dt], atol=TOL[dt])
+    sq, sk = case[3], case[4]
+    sees = ref._mask(sq, sk, kw["q_offset"], kw["kv_offset"], kw["causal"],
+                     kw["window"]).any(dim=1).numpy()
+    assert not sees.all(), "the case must hold fully masked rows"
+    plain = ref.attention(_torch(q, dt), _torch(k, dt), _torch(v, dt), **kw)
+    np.testing.assert_allclose(_f32(got)[:, :, sees], _f32(plain)[:, :, sees],
+                               rtol=TOL[dt], atol=TOL[dt])
+
+
+def test_tiled_attention_differs_from_plain_only_on_rows_that_see_no_key():
+    """Where a fully masked row's block pair is visited, the tile
+    convention (mean of v) and plain attention (the mean over every key,
+    since all its scores are -1e30) part ways; elsewhere they agree."""
+    q, k, v, kw = _masked_inputs(MASKED_CASES[1])
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    tiled, plain = ref.attention_tiled(*args, **kw), ref.attention(*args, **kw)
+    vis = ref._mask(256, 256, 0, 100, True, 0).any(dim=1)
+    torch.testing.assert_close(tiled[:, :, vis], plain[:, :, vis], rtol=2e-5, atol=2e-5)
+    # rows 0..99 see no key: their pair with key block 0 (keys 100..227) is
+    # visited, the pair with block 1 (keys 228..355) skipped
+    want = args[2][:, :, :128].mean(dim=2, keepdim=True)
+    torch.testing.assert_close(tiled[:, :, :100], want.expand(-1, -1, 100, -1),
+                               rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(tiled[:, :, :100], plain[:, :, :100], atol=1e-3)
+
+
+@pytest.mark.parametrize("sq,sk,qo,ko", [(200, 333, 0, 150), (77, 300, 40, 0),
+                                         (300, 90, 0, 60)])
+def test_tiled_attention_ragged_blocks_follow_their_nominal_extent(sq, sk, qo, ko):
+    """Lengths that divide no block (the port takes them; the Pallas kernel
+    asserts they divide): the last block is partial and its nominal extent
+    [start, start + block - 1] decides whether a pair is skipped.  Checked
+    against a direct loop over block pairs with the online softmax."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((1, 2, sq, 16), (1, 2, sk, 16), (1, 2, sk, 16)))
+    kw = dict(causal=True, window=0, q_offset=qo, kv_offset=ko)
+    got = ref.attention_tiled(q, k, v, **kw)
+    bq, bk = min(128, sq), min(128, sk)
+    want = torch.zeros_like(q)
+    for q0 in range(0, sq, bq):
+        qs = q[:, :, q0:q0 + bq] * 16 ** -0.5
+        m = torch.full(qs.shape[:3], -torch.inf)
+        l = torch.zeros(qs.shape[:3])
+        acc = torch.zeros_like(qs)
+        for k0 in range(0, sk, bk):
+            if ko + k0 > qo + q0 + bq - 1:  # causal: the pair is skipped
+                continue
+            s = qs @ k[:, :, k0:k0 + bk].transpose(-1, -2)
+            keep = ref._mask(qs.shape[2], s.shape[-1], qo + q0, ko + k0, True, 0)
+            s = torch.where(keep, s, torch.full_like(s, ref.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ v[:, :, k0:k0 + bk]
+            m = m_new
+        l = torch.where(l == 0, torch.ones_like(l), l)
+        want[:, :, q0:q0 + bq] = acc / l[..., None]
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The shape rule: which design serves a call (pure: reads dtypes, shapes,
+# strides and base addresses; CPU tensors stand in for CUDA ones)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,strides,itemsize,ptr,inner,ok", [
+    ((4, 32, 512, 128), (2097152, 65536, 128, 1), 2, 0, 3, True),
+    ((4, 32, 512, 128), (2097152, 128, 4096, 1), 2, 0, 3, True),   # (b, s, h, d).T
+    ((4, 32, 512, 128), (2097152, 65536, 128, 1), 2, 8, 3, False),  # base % 16
+    ((3, 77, 130), (10010, 130, 1), 2, 0, 2, False),                # 260-byte rows
+    ((3, 77, 136), (10472, 136, 1), 2, 0, 2, True),
+    ((2, 64), (1, 2), 2, 0, 1, False),                              # inner not unit
+    ((2, 64), (1, 2), 2, 0, 0, False),                              # 4-byte stride
+    ((1, 64), (7, 1), 2, 0, 1, True),                               # size-1 dim
+    ((4, 8, 16, 64), (0, 0, 64, 1), 2, 0, 3, False),                # expanded
+    ((8, 64), (-64, 1), 2, 0, 1, False),                            # negative
+])
+def test_tma_addressable_rule(shape, strides, itemsize, ptr, inner, ok):
+    from repro_torch.kernels import _tma
+    assert _tma.addressable(shape, strides, itemsize, ptr, inner) is ok
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose base is 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("bf16_d128", "wgmma"), ("bf16_d64", "wgmma"), ("bf16_bshd_views", "wgmma"),
+    ("bf16_gqa", "wgmma"), ("bf16_ragged", "wgmma"),
+    ("f32_d128", "template"), ("bf16_d256", "template"), ("bf16_d192", "template"),
+    ("bf16_d32", "template"), ("bf16_misaligned_base", "template"),
+    ("bf16_rows_not_16_bytes", "template"), ("bf16_expanded_kv", "template"),
+])
+def test_flash_design_rule(name, want):
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def t(shape, dt=bf):
+        return torch.zeros(shape, dtype=dt)
+    qkv = {
+        "bf16_d128": [t((4, 32, 512, 128))] * 3,
+        "bf16_d64": [t((1, 8, 256, 64))] * 3,
+        "bf16_bshd_views": [t((4, 512, 32, 128)).transpose(1, 2)] * 3,
+        "bf16_gqa": [t((2, 16, 300, 128)), t((2, 4, 300, 128)), t((2, 4, 300, 128))],
+        "bf16_ragged": [t((1, 4, 77, 64)), t((1, 4, 333, 64)), t((1, 4, 333, 64))],
+        "f32_d128": [t((4, 32, 512, 128), f32)] * 3,
+        "bf16_d256": [t((1, 8, 77, 256))] * 3,
+        "bf16_d192": [t((1, 8, 77, 192))] * 3,
+        "bf16_d32": [t((1, 8, 77, 32))] * 3,
+        "bf16_misaligned_base": [_misaligned((1, 2, 128, 128), bf)] * 3,
+        "bf16_rows_not_16_bytes": [t((1, 2, 128, 100))[..., :64]] * 3,
+        "bf16_expanded_kv": [t((1, 8, 128, 64)), t((1, 1, 128, 64)).expand(1, 8, 128, 64),
+                             t((1, 8, 128, 64))],
+    }[name]
+    assert fa.design(*qkv) == want
+
+
+@pytest.mark.parametrize("name,want", [
+    ("contiguous", (0, 1)), ("x_transposed", (1, 1)), ("w_transposed", (0, 0)),
+    ("both_transposed", (1, 0)), ("ragged_k_in_aligned_rows", (0, 1)),
+    ("f32", None), ("misaligned_rows", None), ("misaligned_base", None),
+    ("w_column_stride_2", None),
+])
+def test_matmul_layout_rule(name, want):
+    bf = torch.bfloat16
+    x, w = torch.zeros(256, 192, dtype=bf), torch.zeros(192, 384, dtype=bf)
+    xw = {
+        "contiguous": (x, w),
+        "x_transposed": (x.t().contiguous().t(), w),
+        "w_transposed": (x, w.t().contiguous().t()),
+        "both_transposed": (x.t().contiguous().t(), w.t().contiguous().t()),
+        "ragged_k_in_aligned_rows": (x[:, :77], w[:77]),
+        "f32": (x.float(), w.float()),
+        "misaligned_rows": (torch.zeros(77, 130, dtype=bf), torch.zeros(130, 77, dtype=bf)),
+        "misaligned_base": (_misaligned((256, 192), bf), w),
+        "w_column_stride_2": (x, torch.zeros(192, 768, dtype=bf)[:, ::2]),
+    }[name]
+    assert mm.layouts(*xw) == want
+    assert mm.design(*xw) == ("template" if want is None else "wgmma")
+
+
+@pytest.mark.parametrize("name,want", [
+    ("contiguous", "wgmma"), ("stacked_unit_view", "wgmma"), ("x_transposed", "wgmma"),
+    ("ragged_rank_local", "template"), ("f32", "template"),
+    ("odd_expert_stride", "template"),
+])
+def test_gmm_design_rule(name, want):
+    """gmm shares matmul's rule over the last two dims; the expert stride
+    must be a multiple of 16 bytes too."""
+    bf = torch.bfloat16
+    x, w = torch.zeros(4, 128, 256, dtype=bf), torch.zeros(4, 256, 64, dtype=bf)
+    xw = {
+        "contiguous": (x, w),
+        "stacked_unit_view": (x, torch.zeros(4, 3, 256, 64, dtype=bf)[:, 1]),
+        "x_transposed": (x.transpose(1, 2).contiguous().transpose(1, 2), w),
+        "ragged_rank_local": (torch.zeros(3, 200, 77, dtype=bf),
+                              torch.zeros(3, 77, 130, dtype=bf)),
+        "f32": (x.float(), w.float()),
+        "odd_expert_stride": (torch.zeros(4 * 128 * 256 + 4 * 8, dtype=bf).as_strided(
+            (4, 128, 256), (128 * 256 + 4, 256, 1)), w),
+    }[name]
+    assert mm.design(*xw) == want
+
+
+@pytest.mark.parametrize("shapes,dt,match", [
+    (((2, 3), (3, 4)), torch.bfloat16, "3-d"),
+    (((2, 3, 4), (3, 4, 5)), torch.bfloat16, "do not chain"),
+    (((2, 3, 4), (2, 5, 6)), torch.bfloat16, "do not chain"),
+    (((2, 3, 4), (2, 4, 5)), torch.float16, "dtype"),
+    (((65536, 1, 4), (65536, 4, 1)), torch.bfloat16, "65535"),
+])
+def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match):
+    """Checked before any build or design choice; meta tensors stand in for
+    CUDA ones."""
+    from repro_torch.kernels import moe_gmm
+    x, w = (torch.empty(s, dtype=dt, device="meta") for s in shapes)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        moe_gmm.gmm(x, w)
+    with pytest.raises(ValueError, match=match):
+        moe_gmm.check_args(x, w)
+
+
+def test_design_counts_start_at_zero_and_reset():
+    """Every kernel's launches split by design; a CPU call launches
+    nothing, and a reset clears the split with the counts."""
+    ops.reset_launch_counts()
+    zero = dict.fromkeys(("wgmma", "template"), 0)
+    assert ops.design_counts() == {"flash_attention": zero, "matmul": zero, "gmm": zero}
+    x = torch.zeros(4, 8, 8, dtype=torch.bfloat16)
+    ops.gmm(x, x)
+    ops.matmul(x[0], x[0])
+    assert ops.design_counts()["gmm"] == zero and ops.design_counts()["matmul"] == zero
+    fa.flash_attention.designs["wgmma"] = 3  # as a launch would
+    ops.reset_launch_counts()
+    assert ops.design_counts()["flash_attention"] == zero
+
+
+# ---------------------------------------------------------------------------
+# Build: the library's name hashes everything it is built from
+# ---------------------------------------------------------------------------
+
+
+def test_build_digest_covers_shared_headers_and_flags(tmp_path):
+    """An edited shared header or other flags give another library name (a
+    rebuild); a file that is neither does not."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    src = csrc / "matmul.cu"
+    base = _build.digest(src)
+    assert base == _build.digest(src) and len(base) == 16
+    assert base == _build.digest(_build.CSRC / "matmul.cu")
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build.digest(src) == base
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.digest(src)
+    assert edited != base
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.digest(src) not in (base, edited)
+    assert _build.digest(src, flags=(*_build.NVCC_FLAGS, "-lcuda")) != _build.digest(src)
+    assert _build.digest(csrc / "flash_attention.cu") != _build.digest(src)

@@ -1,5 +1,7 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
-matmul, gmm) against their plain torch versions, the reduced serving path on
+matmul, gmm) against their plain torch versions, in both designs where a
+kernel has two (the wgmma design and the template, which the shape rule
+picks before launch), the reduced serving path on
 the card against the CPU, a reduced llama program through the
 explicit-collective executor on the one-card mesh, and the ring on two
 gloo ranks that share the card.
@@ -21,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -344,3 +347,226 @@ def test_gloo_ranks_sharing_the_card_run_the_ring(cuda, tmp_path):
         assert launches == {"flash_attention": 0, "flash_attention_step": 2,
                             "matmul": 0, "gmm": 0}
         assert err <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# The wgmma designs (bf16, TMA-addressable operands) and the shape rule that
+# picks them: each call's design is read from the per-design launch counts
+# ---------------------------------------------------------------------------
+
+def _served_by(kernel: str, fn):
+    """Run ``fn`` once; return its result and the design that served it."""
+    before = ops.design_counts()[kernel]
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.design_counts()[kernel]
+    (which,) = [d for d in after if after[d] == before[d] + 1]
+    assert sum(after.values()) == sum(before.values()) + 1
+    return out, which
+
+
+def _att_inputs(shape_q, shape_kv, cuda, dt="bfloat16", seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device=cuda, dtype=getattr(torch, dt)) for s in (shape_q, shape_kv, shape_kv))
+
+
+WG_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window)
+    (1, 4, 4, 128, 128, 64, True, 0),        # tests/test_kernels.py's bf16 case
+    (1, 4, 2, 128, 128, 64, True, 0),        # its other cases at d = 64 and 128
+    (2, 2, 1, 256, 256, 64, True, 64),
+    (1, 2, 2, 128, 256, 64, False, 0),
+    (1, 8, 1, 128, 128, 128, True, 0),
+    (2, 4, 2, 64, 64, 64, True, 32),
+    (4, 32, 32, 512, 512, 128, True, 0),     # llama-7b prefill
+    (4, 16, 16, 512, 512, 128, True, 0),     # qwen2-moe prefill
+    (2, 16, 4, 300, 300, 128, True, 0),      # GQA 4:1, ragged
+    (1, 8, 2, 200, 333, 64, True, 40),       # window, ragged, sq < sk
+    (1, 4, 4, 77, 77, 128, True, 0),         # shorter than a tile
+    (1, 4, 4, 1, 130, 128, True, 0),         # one query row
+    (1, 4, 1, 100, 260, 128, False, 0),      # MQA, no mask, ragged
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WG_ATT_CASES, ids=lambda c: "b{}h{}k{}q{}s{}d{}{}w{}".format(
+    c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "", c[7]))
+def test_cuda_flash_wgmma_matches_plain_version(case, cuda):
+    b, hq, hkv, sq, sk, d, causal, window = case
+    q, k, v = _att_inputs((b, hq, sq, d), (b, hkv, sk, d), cuda)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq if causal else 0)
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v, **kw))
+    assert which == "wgmma"
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v, **kw).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2)])
+def test_cuda_flash_wgmma_takes_bshd_views(d, hkv, cuda):
+    """(b, s, h, d) projections reach the kernel as transposed views; the
+    tensor maps carry their strides, so they load without a copy."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn(2, 333, 8, d, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn(2, 333, hkv, d, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
+    assert which == "wgmma"
+    want = ref.attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+MASKED_GPU_CASES = [  # (b, hq, hkv, sq, sk, causal, window, q_offset, kv_offset)
+    (1, 4, 2, 128, 128, True, 0, 0, 64),
+    (1, 4, 4, 256, 256, True, 0, 0, 100),
+    (2, 8, 2, 256, 256, True, 8, 0, 120),
+    (1, 4, 2, 128, 256, False, 64, 250, 0),
+    (1, 2, 1, 128, 256, True, 16, 300, 0),
+    (1, 4, 1, 300, 200, True, 0, 0, 150),    # ragged: partial blocks
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,d,design", [("bfloat16", 64, "wgmma"),
+                                         ("bfloat16", 128, "wgmma"),
+                                         ("float32", 64, "template"),
+                                         ("bfloat16", 256, "template")])
+@pytest.mark.parametrize("case", MASKED_GPU_CASES, ids=lambda c: "q{}s{}{}w{}qo{}ko{}".format(
+    c[3], c[4], "c" if c[5] else "", c[6], c[7], c[8]))
+def test_cuda_flash_fully_masked_rows_follow_the_tile_convention(case, dt, d, design, cuda):
+    """Rows that see no key: both forward designs give what the TPU kernel
+    gives at its 128 x 128 blocks (``ref.attention_tiled``)."""
+    b, hq, hkv, sq, sk, causal, window, qo, ko = case
+    q, k, v = _att_inputs((b, hq, sq, d), (b, hkv, sk, d), cuda, dt)
+    kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v, **kw))
+    assert which == design
+    tol = TOL[dt]
+    torch.testing.assert_close(got.float(), ref.attention_tiled(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["misaligned_base", "rows_not_16_bytes", "expanded_kv",
+                                  "head_dim_256", "head_dim_32", "float32"])
+def test_cuda_flash_shapes_outside_the_rule_take_the_template(name, cuda):
+    q, k, v = _att_inputs((1, 4, 150, 128), (1, 4, 150, 128), cuda)
+    if name == "misaligned_base":
+        q = torch.cat([q.flatten(), q.flatten()[:1]])[1:].view(q.shape)
+    elif name == "rows_not_16_bytes":
+        q, k, v = (torch.nn.functional.pad(t, (0, 4))[..., :64] for t in (q, k, v))
+    elif name == "expanded_kv":
+        k, v = k[:, :1].expand_as(k), v[:, :1].expand_as(v)
+    elif name == "head_dim_256":
+        q, k, v = (torch.cat([t, -t], dim=-1) for t in (q, k, v))
+    elif name == "head_dim_32":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    else:
+        q, k, v = (t.float() for t in (q, k, v))
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
+    assert which == "template"
+    tol = TOL[str(q.dtype).split(".")[1]]
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_wgmma_designs_give_the_same_bits_twice(cuda):
+    """No atomics and no split-K: two launches on the same inputs give the
+    same bits, for each wgmma kernel at its path shape."""
+    q, k, v = _att_inputs((4, 32, 512, 128), (4, 32, 512, 128), cuda)
+    a = ops.flash_attention(q, k, v)
+    assert torch.equal(a, ops.flash_attention(q, k, v))
+    x, w = _mm_inputs(2048, 4096, 4096, "bfloat16", cuda)
+    assert torch.equal(ops.matmul(x, w), ops.matmul(x, w))
+    xe, we = _gmm_inputs(64, 256, 2048, 1408, "bfloat16", cuda)
+    assert torch.equal(ops.gmm(xe, we), ops.gmm(xe, we))
+    assert mm.design(x, w) == mm.design(xe, we) == "wgmma"
+
+
+def _llama_mm_shapes():
+    cfg = get_config("llama-7b")
+    d, m = cfg.d_model, 4 * 512
+    return [(m, d, cfg.n_heads * cfg.head_dim), (m, d, cfg.d_ff), (m, cfg.d_ff, d),
+            (m, d, cfg.vocab_padded)]
+
+
+WG_MM_CASES = ([(128, 256, 512), (200, 296, 72), (130, 24, 136), (1, 64, 8), (77, 8, 296)]
+               + _llama_mm_shapes())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", WG_MM_CASES)
+def test_cuda_matmul_wgmma_matches_plain_version(m, k, n, cuda):
+    x, w = _mm_inputs(m, k, n, "bfloat16", cuda)
+    w = w * k ** -0.5
+    got, which = _served_by("matmul", lambda: ops.matmul(x, w))
+    assert which == "wgmma" and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), ref.matmul(x, w).float(), rtol=3e-2, atol=0.24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_t,w_t", [(False, False), (True, False), (False, True),
+                                     (True, True)])
+def test_cuda_matmul_wgmma_reads_both_majors(x_t, w_t, cuda):
+    """K-major or M-major x, N-major or K-major w: each through its own
+    tensor map and wgmma's transpose bits, without a copy."""
+    x, w = _mm_inputs(328, 200, 264, "bfloat16", cuda, seed=4)
+    xv = x.t().contiguous().t() if x_t else x
+    wv = w.t().contiguous().t() if w_t else w
+    assert mm.layouts(xv, wv) == (int(x_t), int(not w_t))
+    got, which = _served_by("matmul", lambda: ops.matmul(xv, wv))
+    assert which == "wgmma"
+    torch.testing.assert_close(got.float(), ref.matmul(x, w).float(), rtol=3e-2, atol=0.24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rows_not_16_bytes", "misaligned_base", "column_stride_2"])
+def test_cuda_matmul_shapes_outside_the_rule_take_the_template(name, cuda):
+    x, w = _mm_inputs(130, 17, 129, "bfloat16", cuda)
+    if name == "misaligned_base":
+        x, w = _mm_inputs(64, 64, 64, "bfloat16", cuda)
+        x = torch.cat([x.flatten(), x.flatten()[:1]])[1:].view(x.shape)
+    elif name == "column_stride_2":
+        x, w = _mm_inputs(64, 64, 64, "bfloat16", cuda)
+        w = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]
+    got, which = _served_by("matmul", lambda: ops.matmul(x, w))
+    assert which == "template"
+    torch.testing.assert_close(got.float(), ref.matmul(x, w).float(), rtol=3e-2, atol=0.24)
+
+
+def _moe_gmm_shapes():
+    from repro_torch.models.moe import _capacity
+
+    q, mx = get_config("qwen2-moe-a2.7b"), get_config("mixtral-8x7b")
+    cp, cd = _capacity(2048, q), _capacity(4, q)
+    return [(q.n_e, cp, q.d_model, q.d_ff), (q.n_e, cp, q.d_ff, q.d_model),
+            (q.n_e, cd, q.d_model, q.d_ff), (mx.n_e, _capacity(2048, mx), mx.d_model, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,k,n", [(4, 128, 256, 128), (8, 128, 128, 384), (2, 256, 128, 128),
+                                     (5, 33, 136, 24)] + _moe_gmm_shapes())
+def test_cuda_gmm_wgmma_matches_plain_version(e, c, k, n, cuda):
+    x, w = _gmm_inputs(e, c, k, n, "bfloat16", cuda)
+    w = w * k ** -0.5
+    got, which = _served_by("gmm", lambda: ops.gmm(x, w))
+    assert which == "wgmma" and got.shape == (e, c, n)
+    torch.testing.assert_close(got.float(), ref.gmm(x, w).float(), rtol=3e-2, atol=0.24)
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_wgmma_takes_expert_strided_views(cuda):
+    """A weight view out of a stacked (e, units, k, n) tensor (the expert
+    stride steps over the other units) and an M-major x."""
+    x, w = _gmm_inputs(5, 152, 96, 72, "bfloat16", cuda, seed=1)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    stacked = torch.stack([-w, w, -w], dim=1)
+    assert mm.layouts(xt, stacked[:, 1]) == (1, 1)
+    got, which = _served_by("gmm", lambda: ops.gmm(xt, stacked[:, 1]))
+    assert which == "wgmma"
+    torch.testing.assert_close(got.float(), ref.gmm(x, w).float(), rtol=3e-2, atol=0.24)
+    xs = x[:, :, :77].contiguous()  # 77-element rows: not 16-byte multiples
+    got, which = _served_by("gmm", lambda: ops.gmm(xs, w[:, :77]))
+    assert which == "template"
+    torch.testing.assert_close(got.float(), ref.gmm(xs, w[:, :77]).float(),
+                               rtol=3e-2, atol=0.24)
