@@ -7,7 +7,7 @@
    with its grouped twin ``gmm``) from the sources in this checkout, one
    nvcc per source, all started together, with nvcc's ``-Xptxas -v``
    report (registers, shared memory, spills) and a summary of the wgmma
-   kernels' registers, spills and dynamic shared memory;
+   and ffma kernels' registers, spills and dynamic shared memory;
 3. kernel parity: the forward kernel against its plain torch version on
    the card, at the reference kernel tests' shapes and tolerances (float32
    2e-5, bfloat16 2e-2), ragged lengths, GQA and the serving path's shape,
@@ -15,9 +15,10 @@
    head dim 64 and 128, the template for float32 and d = 256), and rows
    that see no key against the TPU kernel's tile convention
    (``ref.attention_tiled``) in both designs;
-4. kernel timing at the serving path's shape (CUDA events): the kernel,
-   the template design at the same inputs (its C entry called directly),
-   its plain version, one library call for the same function, the bound;
+4. kernel timing at the serving path's shape (CUDA events, and the
+   kernel's device time from torch.profiler): the kernel, the template
+   design at the same inputs (its C entry called directly), its plain
+   version, one library call for the same function, the bound;
 5. serve llama-7b at full width and depth (bf16, batch 4, prompt 512, 16
    new tokens) through ``repro_torch.launch.serve.serve``, planned through
    a plan-cache file (the serve call's plan is a cache hit), with launch
@@ -30,53 +31,62 @@
    tests' shapes, ragged shapes, strided views (both majors of each
    operand) and every product shape of llama-7b's prefill graph (b=4,
    s=512), float32 (1e-4) and bf16 (3e-2, atol x8), each case with its
-   design;
+   design (float32 takes the ffma design where the rule allows, else the
+   template; both are held to the plain version);
 8. ring-step parity: the step kernel chained over r = 2 and 4 kv blocks
    from every ring position, causal, windowed and GQA (float32 2e-5,
    bf16 2e-2), each carry against the plain step and the finalised chain
-   against the forward kernel, at the serving shape cut 4 ways too;
-9. timing (CUDA events): matmul at the q_proj shape in float32 and at
-   every distinct bf16 product shape of llama-7b's prefill graph (the
-   template design beside the wgmma one), the ring step at the serving
-   shape cut 4 ways, each beside its plain version, its library call (none
-   for the step) and its bound;
+   against the forward kernel, at the serving shape cut 4 ways too, each
+   case with its design (bf16: wgmma; float32: the template);
+9. timing (CUDA events; device time from torch.profiler where the host
+   would bound a short kernel): matmul at every distinct product shape of
+   llama-7b's prefill graph in float32 (the ffma design, the template
+   beside it) and in bf16 (the wgmma design, the template beside it), the
+   ring step at the serving shape cut 4 ways (the wgmma design, the
+   template beside it), each beside its plain version, its library call
+   (none for the step) and its bound;
 10. executor path: llama-7b's prefill graph at full width (embed, one
    block period, lm_head) planned through a plan-cache file on a 1x1 mesh
    (cold, then a hit), run with ``executor="shard_map"`` in float32 and in
    bf16 with the launch counters set to 0 just before each call and read
    just after (every clean contraction through the matmul kernel, one
-   flash-attention launch; in bf16 every launch of the wgmma design), its
-   logits held against the dense ``executor="gspmd"`` run on the card,
-   then profiled;
+   flash-attention launch; in bf16 every launch of the wgmma design, in
+   float32 every matmul launch of the ffma design), its logits held
+   against the dense ``executor="gspmd"`` run on the card, then profiled;
 11. ring path: the same graph on 4 gloo ranks that share the card (blocks
    staged through the host), sequence-parallel (every ``s`` label on the
-   ``seq`` axis), float32: attention rides the ring through the step
-   kernel; counters per rank, logits against the one-card dense run;
+   ``seq`` axis), in float32 and then in bf16: attention rides the ring
+   through the step kernel (float32: the template, every matmul ffma;
+   bf16: every step launch of the wgmma design); counters per rank,
+   logits against the one-card dense run of the same dtype;
 12. gmm parity: the grouped-matmul kernel against ``ref.gmm`` at the
    reference tests' shapes, ragged shapes, expert-strided views, and
    qwen2-moe's prefill and decode and mixtral's expert shapes, float32
    (1e-4, atol x8) and bf16 (3e-2, atol x8), each case with its design;
-13. gmm timing (CUDA events, bf16) at qwen2-moe's w1 and w2 prefill
-   shapes, its decode shape and mixtral's: kernel, template design,
-   plain version, ``torch.bmm`` and the bound;
+13. gmm timing (CUDA events) in bf16 at qwen2-moe's w1 and w2 prefill
+   shapes, its decode shape and mixtral's, and in float32 at qwen2-moe's
+   w1: kernel, template design, plain version, ``torch.bmm`` and the
+   bound;
 14. serve qwen2-moe-a2.7b at full width and depth (bf16, batch 4, prompt
    512, 16 new tokens, 60 experts padded to 64, top-4, shared expert),
    planned through a plan-cache file, counters set to 0 just before the
    serve call and read just after (24 flash launches, 72 gmm launches per
    prefill and per decode step, all of the wgmma design), then profiled;
 15. MoE slice parity: qwen2-moe width, 2 layers, float32, the same
-   weights on the card (gmm kernel) and on the CPU (plain path);
+   weights on the card (gmm kernel, its launches by design) and on the
+   CPU (plain path);
 16. a2a path: qwen2-moe's prefill graph (one block period) with the MoE
    stubs on 4 gloo ranks sharing the card, the expert label on a 4-way
    axis, so dispatch and combine run the ``a2a`` rule's all_to_all
    program; the collectives each rank issued against the static trace,
    the logits against the one-card dense run.
 
-Where a kernel has two designs (``"wgmma"`` and ``"template"``), the shape
-rule in its wrapper picks one before launch and the wrapper counts
-launches per design (``ops.design_counts()``); the template is timed
-beside the wgmma design by calling its C entry directly, which moves no
-counter.  Any failure raises and exits non-zero before the last line.  The last
+Every kernel has a design picked by the shape rule in its wrapper before
+launch (``"wgmma"`` for bf16 and ``"ffma"`` for float32 operands the rule
+takes, ``"template"`` for the rest), and the wrapper counts launches per
+design (``ops.design_counts()``); the template is timed beside the other
+design by calling its C entry directly, which moves no counter.  Any
+failure raises and exits non-zero before the last line.  The last
 three lines are the ``nvidia-smi`` name and power limit, a JSON line of
 kernel numbers and ``{"ok": true, "device": {...}}``.  All numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -146,6 +156,11 @@ def _served_by(ops, kernel: str, fn):
     moved = [d for d in after if after[d] != before[d]]
     assert len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1, (before, after)
     return out, moved[0]
+
+
+def _sum_counts(per_rank: list[dict], kernel: str) -> dict:
+    """One kernel's ``design_counts()`` entry summed over ranks."""
+    return {d: sum(r[kernel][d] for r in per_rank) for d in per_rank[0][kernel]}
 
 
 def _path_design(counts: dict) -> str:
@@ -308,17 +323,21 @@ def main() -> int:
     log("build", f"both sources built side by side in {t_build:.1f} s "
                  "(matmul.cu holds matmul_fwd and gmm_fwd)")
     def dynamic_smem(kernel: str) -> int:  # set at launch; ptxas reports static only
-        if kernel.startswith("flash_wgmma_kernel<"):
-            return fa._lib().flash_attention_wgmma_smem_bytes(int(kernel[19:-1]))
+        if kernel.startswith("flash_wgmma_kernel<"):  # <D, STEP>
+            d = int(kernel[len("flash_wgmma_kernel<"):].split(",")[0])
+            return fa._lib().flash_attention_wgmma_smem_bytes(d)
+        if kernel.startswith("mm_ffma_kernel<"):
+            return mm._lib().matmul_ffma_smem_bytes()
         return mm._lib().matmul_wgmma_smem_bytes()
     wg_kernels = [dict(k, dynamic_smem=dynamic_smem(k["kernel"]))
                   for built in builds.values() for k in _ptxas_kernels(built.log)
-                  if "wgmma_kernel" in k["kernel"]]
+                  if "wgmma_kernel" in k["kernel"] or "ffma_kernel" in k["kernel"]]
     for k in wg_kernels:
         log("build", f"{k['kernel']}: {k['registers']} registers, spill stores "
                      f"{k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
                      f"{k['smem']} B, dynamic smem {k['dynamic_smem']} B")
-    assert len(wg_kernels) == 2 + 8, [k["kernel"] for k in wg_kernels]
+    # flash <64|128, forward|step>, matmul/gmm wgmma and ffma <grouped, a_mn, b_mn>
+    assert len(wg_kernels) == 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
     results["build"]["wgmma_kernels"] = wg_kernels
 
     # 3. kernel parity ----------------------------------------------------------
@@ -359,15 +378,19 @@ def main() -> int:
     _max_err(o_template, ref.attention(q, k, v, **kw), TOL[torch.bfloat16],
              "template flash at the serving shape")
     t_kernel = _time_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), 50)
+    t_device = _device_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), 20,
+                          "flash_wgmma_kernel")
     t_template = _time_ms(template, 10)
     t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 5)
     t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 50)
     bound_ms, bound_by, nbytes, nops = _attention_bound_ms(SLICE, ref)
     log("timing", f"flash_attention {SLICE[:6]} bf16 causal: kernel (wgmma) {t_kernel:.4f} "
-                  f"ms, template {t_template:.4f} ms ({t_template / t_kernel:.1f}x), plain "
+                  f"ms ({t_device:.4f} ms device time), template {t_template:.4f} ms "
+                  f"({t_template / t_kernel:.1f}x), plain "
                   f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes} B, {nops} ops)")
-    results["timing"] = {"kernel_ms": t_kernel, "template_ms": t_template,
+    results["timing"] = {"kernel_ms": t_kernel, "device_ms": t_device,
+                         "template_ms": t_template,
                          "plain_ms": t_plain, "library_ms": t_lib,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bytes": nbytes, "ops": nops}
@@ -412,8 +435,11 @@ def main() -> int:
     results["a2a"] = _a2a_path()
 
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
-    gt = results["gmm_timing"]["w1_prefill"]
+    m32 = results["matmul_timing"]["float32"]
+    gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
     serve_designs = results["serve"]["designs"]
+    ring16 = results["ring"]["bfloat16"]
+    ex32 = results["executor"]["float32"]
     kernels = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -425,9 +451,12 @@ def main() -> int:
          "bound_by": bound_by, "library_ms": t_lib},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:274", "design": "template",
-         "launches": results["ring"]["launches_total"]["flash_attention_step"],
-         "max_abs_err": step_err, "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+         "replaces": "src/repro/kernels/flash_attention.py:274",
+         "design": _path_design(_sum_counts(ring16["designs_per_rank"],
+                                            "flash_attention_step")),
+         "launches": ring16["launches_total"]["flash_attention_step"],
+         "max_abs_err": step_err, "ms": st["kernel_ms"], "template_ms": st["template_ms"],
+         "wrapper_ms": st["wrapper_ms"], "plain_ms": st["plain_ms"],
          "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -436,7 +465,13 @@ def main() -> int:
          "launches": results["executor"]["bfloat16"]["launches"]["matmul"],
          "max_abs_err": mm_err, "ms": mt["kernel_ms"], "template_ms": mt["template_ms"],
          "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"], "bound_by": mt["bound_by"],
-         "library_ms": mt["library_ms"]},
+         "library_ms": mt["library_ms"],
+         "f32_design": _path_design(ex32["designs"]["matmul"]),
+         "f32_launches": ex32["launches"]["matmul"],
+         "f32_max_abs_err": results["matmul_parity"]["qproj_f32_max_abs_err"],
+         "f32_ms": m32["kernel_ms"], "f32_template_ms": m32["template_ms"],
+         "f32_plain_ms": m32["plain_ms"], "f32_library_ms": m32["library_ms"],
+         "f32_bound_ms": m32["bound_ms"], "f32_bound_by": m32["bound_by"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -445,7 +480,12 @@ def main() -> int:
          "max_abs_err": results["gmm_parity"]["qwen2_prefill_bf16_max_abs_err"],
          "ms": gt["kernel_ms"], "template_ms": gt["template_ms"], "plain_ms": gt["plain_ms"],
          "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"],
-         "library_ms": gt["library_ms"]},
+         "library_ms": gt["library_ms"],
+         "f32_design": _path_design(results["moe_slice_parity"]["designs"]["gmm"]),
+         "f32_launches": results["moe_slice_parity"]["launches"]["gmm"],
+         "f32_ms": g32["kernel_ms"], "f32_template_ms": g32["template_ms"],
+         "f32_plain_ms": g32["plain_ms"], "f32_library_ms": g32["library_ms"],
+         "f32_bound_ms": g32["bound_ms"], "f32_bound_by": g32["bound_by"]},
     ]}
     results.update(kernels)
     out = ROOT / "chiprun_out"
@@ -513,7 +553,8 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
     # bf16 at head dim 128 with tensors TMA can address: every flash and
     # gmm launch of the serve call took the wgmma design
     for kernel in ("flash_attention", "matmul", "gmm"):
-        assert designs[kernel] == {"wgmma": launches[kernel], "template": 0}, designs
+        assert designs[kernel]["wgmma"] == launches[kernel] == sum(designs[kernel].values()), \
+            designs
     assert gen.shape == (b, max_new), gen.shape
     assert ((gen >= 0) & (gen < cfg.vocab_padded)).all()
     # where the time goes: one prefill and one decode step, counted, then profiled
@@ -577,6 +618,7 @@ def _slice_parity(cfg, ops) -> dict:
     with torch.inference_mode():
         lg_gpu, _ = prefill(gpu_params, {"tokens": torch.as_tensor(p2, device="cuda")})
         launches = ops.launch_counts()
+        designs = ops.design_counts()
         lg_cpu, _ = prefill(cpu_params, {"tokens": torch.as_tensor(p2)})
     per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
     assert launches["flash_attention"] == 2 and launches["gmm"] == 2 * per_layer, launches
@@ -590,19 +632,19 @@ def _slice_parity(cfg, ops) -> dict:
     g_cpu, _ = serve_mod.serve(cfg2, p2, max_new=4, params=cpu_params, device="cpu")
     assert np.array_equal(g_gpu, g_cpu), (g_gpu, g_cpu)
     log("slice-parity", f"{cfg.name} width, 2 layers, f32: max|logit diff| = {diff:.3e} "
-                        f"(max|logit| {scale:.3f}); launches {launches}; greedy tokens "
-                        f"equal: {g_gpu.tolist()}")
+                        f"(max|logit| {scale:.3f}); launches {launches}; gmm launches by "
+                        f"design {designs['gmm']}; greedy tokens equal: {g_gpu.tolist()}")
     del cpu_params, gpu_params
     torch.cuda.empty_cache()
     return {"max_abs_logit_diff": diff, "max_abs_logit": scale, "launches": launches,
-            "tokens": g_gpu.tolist()}
+            "designs": designs, "tokens": g_gpu.tolist()}
 
 
 def _profile(fn) -> dict:
     """``fn`` warmed up, timed once on the host clock (ending in a
     synchronize), then run once more under torch.profiler: the device time
     of its kernels, by kind (this port's flash-attention, ring-step, matmul
-    and gmm kernels of either design, cuBLAS matrix products, everything
+    and gmm kernels of every design, cuBLAS matrix products, everything
     else), and the idle share of the unprofiled wall time (tracing itself
     slows the host down)."""
     from torch.autograd import DeviceType
@@ -627,11 +669,12 @@ def _profile(fn) -> dict:
         n += 1
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
-        step = "true>" in name or "lb1e" in name  # flash_fwd_kernel<T, NCOL, STEP>
+        step = "true>" in name or "lb1e" in name  # flash_*_kernel<..., STEP>
         flash = "flash_fwd_kernel" in name or "flash_wgmma_kernel" in name
-        ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel"))
+        ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel",
+                                       "mm_ffma_kernel"))
         grouped = "kernel<true" in name or "kernelilb1e" in name  # <GROUPED, ...>
-        kind = ("flash_step" if "flash_fwd_kernel" in name and step else
+        kind = ("flash_step" if flash and step else
                 "flash_attention" if flash else
                 "gmm" if ours and grouped else
                 "matmul" if ours else
@@ -688,7 +731,8 @@ def _matmul_parity(cfg, ops, ref) -> dict:
     cases = [((128, 128, 128), f32), ((256, 384, 128), f32), ((128, 256, 512), bf16),
              ((64, 64, 64), f32),                                # tests/test_kernels.py
              ((200, 300, 77), f32), ((200, 300, 77), bf16),      # ragged
-             ((1, 5, 3), f32), ((130, 17, 129), bf16)]
+             ((1, 5, 3), f32), ((130, 17, 129), bf16),           # (f32: the template)
+             ((200, 300, 76), f32), ((130, 20, 132), f32)]       # ragged, f32 ffma
     cases += [(shape, dt) for shape in _mm_shapes(cfg).values() for dt in (f32, bf16)]
     from repro_torch.kernels import matmul as mm
 
@@ -702,8 +746,8 @@ def _matmul_parity(cfg, ops, ref) -> dict:
         out.append({"shape": [m, k, n], "dtype": str(dt), "design": design,
                     "max_abs_err": err})
         log("mm-parity", f"{(m, k, n)} {dt} [{design}]: max|kernel - plain| = {err:.3e} ok")
-        if (m, k, n) in _mm_shapes(cfg).values():  # the path's: f32 template, bf16 wgmma
-            assert design == ("wgmma" if dt == bf16 else "template"), design
+        if (m, k, n) in _mm_shapes(cfg).values():  # the path's: f32 ffma, bf16 wgmma
+            assert design == ("wgmma" if dt == bf16 else "ffma"), design
         if (m, k, n) == _mm_shapes(cfg)["qkvo_proj"] and dt == bf16:
             qproj_err = err
     # strided views: each major of x and w, and a w at column stride 2
@@ -717,15 +761,20 @@ def _matmul_parity(cfg, ops, ref) -> dict:
         for name, view in views.items():
             xv, wv = view(x, w)
             got, design = _served_by(ops, "matmul", lambda: ops.matmul(xv, wv, impl="kernel"))
-            want_design = "wgmma" if dt == bf16 and name != "w_col_stride_2" else "template"
+            ruled = "wgmma" if dt == bf16 else "ffma"
+            want_design = ruled if name != "w_col_stride_2" else "template"
             assert design == want_design, (name, dt, design)
             err = _max_err(got, ref.matmul(x, w), MM_TOL[dt], f"matmul {name} {dt}")
             out.append({"shape": [328, 200, 264], "dtype": str(dt), "view": name,
                         "design": design, "max_abs_err": err})
             log("mm-parity", f"{name} (328, 200, 264) {dt} [{design}]: max|kernel - plain| "
                              f"= {err:.3e} ok")
-    assert {c["design"] for c in out} == {"wgmma", "template"}
-    return {"cases": out, "qproj_bf16_max_abs_err": qproj_err}
+    assert {c["design"] for c in out} == {"wgmma", "ffma", "template"}
+    f32_designs = {c["design"] for c in out if c["dtype"] == str(f32)}
+    assert f32_designs == {"ffma", "template"}, f32_designs
+    return {"cases": out, "qproj_bf16_max_abs_err": qproj_err,
+            "qproj_f32_max_abs_err": next(c["max_abs_err"] for c in out if c["dtype"] == str(f32)
+                                          and c["shape"] == list(_mm_shapes(cfg)["qkvo_proj"]))}
 
 
 STEP_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
@@ -759,17 +808,20 @@ def _step_parity(ops, ref) -> dict:
                 j = (i - t) % r
                 kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
                 off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
-                carry = ops.flash_attention_step(qi, kj, vj, carry, impl="kernel", **off)
+                carry, design = _served_by(ops, "flash_attention_step",
+                                           lambda: ops.flash_attention_step(
+                                               qi, kj, vj, carry, impl="kernel", **off))
+                # bf16 at head dim 64 / 128 (blocks that TMA addresses): wgmma
+                assert design == ("wgmma" if dt == torch.bfloat16 else "template"), design
                 plain = ref.attention_step(qi, kj, vj, plain, **off)
-                torch.cuda.synchronize()
                 for part, got, want in zip("mla", carry, plain):
                     worst = max(worst, _max_err(got, want, tol,
                                                 f"step {case} r={r} i={i} t={t} {part}"))
             fin = ops.attention_finalize(carry, dt)
             fwd = ops.flash_attention(qi, k, v, q_offset=i * blk, impl="kernel", **kw)
             worst = max(worst, _max_err(fin, fwd, tol, f"step chain {case} r={r} i={i}"))
-        out.append({"case": str(case), "r": r, "max_abs_err": worst})
-        log("step-parity", f"{case} r={r}: max|kernel - plain| = {worst:.3e} "
+        out.append({"case": str(case), "r": r, "design": design, "max_abs_err": worst})
+        log("step-parity", f"{case} r={r} [{design}]: max|kernel - plain| = {worst:.3e} "
                            f"(tol {tol}) ok")
         if case == STEP_SERVING:
             serving_err = worst
@@ -777,73 +829,115 @@ def _step_parity(ops, ref) -> dict:
 
 
 def _matmul_timing(cfg, ops, ref) -> dict:
-    """The kernel, its plain version and ``torch.matmul`` (TF32 off) at the
-    q_proj shape of llama-7b's prefill (2048 x 4096 x 4096) in float32 (the
-    template design), and at every distinct product shape of that graph in
-    bf16 (the wgmma design), with the template design's time at the same
-    inputs beside it.  ``res["bfloat16"]`` is the q_proj shape."""
+    """The kernel, the template design at the same inputs (its C entry),
+    its plain version and ``torch.matmul`` (TF32 off) at every distinct
+    product shape of llama-7b's prefill graph (m = 2048), in float32 (the
+    ffma design) and in bf16 (the wgmma design); fewer iterations for the
+    larger products.  ``res["float32"]`` and ``res["bfloat16"]`` are the
+    q_proj shape (2048 x 4096 x 4096)."""
     from repro_torch.kernels import matmul as mm
 
-    res = {"bfloat16_shapes": {}}
-    qproj = _mm_shapes(cfg)["qkvo_proj"]
-    cases = [("qkvo_proj", qproj, torch.float32)]
-    cases += [(name, shape, torch.bfloat16) for name, shape in _mm_shapes(cfg).items()]
-    for name, (m, k, n), dt in cases:
-        x, w = _mm_inputs(m, k, n, dt, seed=3)
-        item = x.element_size()
-        nbytes, nops = (m * k + k * n + m * n) * item, 2 * m * k * n
-        bound_ms, bound_by = _bound(nbytes, nops, dt)
-        scale = max(1, round(nops / 68.7e9))  # fewer iterations for the larger products
-        iters = (10 if dt == torch.float32 else 50) // scale or 1
-        design = mm.design(x, w)
-        assert design == ("wgmma" if dt == torch.bfloat16 else "template"), design
-        t_kernel = _time_ms(lambda: ops.matmul(x, w, impl="kernel"), iters)
-        t_plain = _time_ms(lambda: ref.matmul(x, w), max(1, 10 // scale))
-        t_lib = _time_ms(lambda: torch.matmul(x, w), iters)
-        row = {"shape": [m, k, n], "design": design, "kernel_ms": t_kernel,
-               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "ops": nops,
-               "kernel_tflops": nops / t_kernel / 1e9, "library_tflops": nops / t_lib / 1e9}
-        extra = ""
-        if design == "wgmma":
+    res = {"float32_shapes": {}, "bfloat16_shapes": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (m, k, n) in _mm_shapes(cfg).items():
+            x, w = _mm_inputs(m, k, n, dt, seed=3)
+            item = x.element_size()
+            nbytes, nops = (m * k + k * n + m * n) * item, 2 * m * k * n
+            bound_ms, bound_by = _bound(nbytes, nops, dt)
+            scale = max(1, round(nops / 68.7e9))  # fewer iterations for the larger products
+            iters = (10 if dt == torch.float32 else 50) // scale or 1
+            design = mm.design(x, w)
+            assert design == ("wgmma" if dt == torch.bfloat16 else "ffma"), design
             template, _ = _mm_template(mm, x, w)
-            row["template_ms"] = t_template = _time_ms(template, max(1, 5 // scale))
-            extra = f", template {t_template:.4f} ms ({t_template / t_kernel:.1f}x)"
-        log("timing", f"matmul {name} {(m, k, n)} {dt}: kernel ({design}) {t_kernel:.4f} ms "
-                      f"({nops / t_kernel / 1e9:.1f} TFLOP/s){extra}, plain {t_plain:.4f} ms, "
-                      f"torch.matmul {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if dt == torch.bfloat16:
-            res["bfloat16_shapes"][name] = row
-        else:
-            res["float32"] = row
-        del x, w
+            t_kernel = _time_ms(lambda: ops.matmul(x, w, impl="kernel"), iters)
+            t_template = _time_ms(template, max(1, 5 // scale), warmup=1)
+            t_plain = _time_ms(lambda: ref.matmul(x, w), max(1, 10 // scale))
+            t_lib = _time_ms(lambda: torch.matmul(x, w), iters)
+            row = {"shape": [m, k, n], "design": design, "kernel_ms": t_kernel,
+                   "template_ms": t_template, "plain_ms": t_plain, "library_ms": t_lib,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": nops,
+                   "kernel_tflops": nops / t_kernel / 1e9,
+                   "library_tflops": nops / t_lib / 1e9}
+            log("timing", f"matmul {name} {(m, k, n)} {dt}: kernel ({design}) {t_kernel:.4f} ms "
+                          f"({nops / t_kernel / 1e9:.1f} TFLOP/s), template {t_template:.4f} ms "
+                          f"({t_template / t_kernel:.2f}x), plain {t_plain:.4f} ms, "
+                          f"torch.matmul {t_lib:.4f} ms ({t_kernel / t_lib:.2f}x of it), "
+                          f"bound {bound_ms:.4f} ms ({bound_by})")
+            res[f"{str(dt).split('.')[1]}_shapes"][name] = row
+            del x, w
+    res["float32"] = res["float32_shapes"]["qkvo_proj"]
     res["bfloat16"] = res["bfloat16_shapes"]["qkvo_proj"]
     torch.cuda.empty_cache()
     return res
 
 
+def _device_ms(fn, iters: int, match: str) -> float:
+    """Device time of one launch: ``fn`` (one kernel launch whose name
+    holds ``match``) run ``iters`` times under torch.profiler, the matching
+    kernels' device time averaged.  For kernels short enough that the
+    host's launch path, not the card, would set an events time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name]
+    # the trace may drop an event at its edge; never more than one a call
+    assert 0 < len(times) <= iters, (match, len(times), iters)
+    return sum(times) / len(times) / 1e3
+
+
 def _step_timing(ops, ref) -> dict:
     """One ring step at the serving shape cut 4 ways: q, k, v (4, 32, 128,
-    128) bf16 and the f32 carry, which the kernel updates in place.  No
-    tile is skipped, so every (q, k) pair is computed; no single PyTorch
-    call computes one step, so there is no library time."""
+    128) bf16 and the f32 carry, which the kernel updates in place.  The
+    kernel (the wgmma design) and the template design at the same inputs
+    (its C entry, on a copy of the carry) by their device time
+    (torch.profiler): a launch through the Python wrapper costs more host
+    time than the wgmma design's device time, so CUDA events around
+    wrapper calls time the host; that time is reported too.  No tile is
+    skipped, so every (q, k) pair is computed; no single PyTorch call
+    computes one step, so there is no library time."""
+    from repro_torch.kernels import flash_attention as fa
+
     b, h, blk, d = 4, 32, 128, 128
     g = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = (torch.randn(b, h, blk, d, generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     off = dict(q_offset=3 * blk, kv_offset=blk)
     carry = ops.flash_attention_step(q, k, v, None, impl="kernel", **off)
+    assert fa.design(q, k, v) == "wgmma"
     plain_carry = tuple(t.clone() for t in carry)
-    t_kernel = _time_ms(lambda: ops.flash_attention_step(q, k, v, carry, impl="kernel",
-                                                         **off), 100)
+    t_carry = tuple(t.clone() for t in carry)
+    lib = fa._lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in t_carry), 0,
+            fa._DTYPES[q.dtype], b, h, h, blk, blk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], d ** -0.5, 1, 0, off["q_offset"], off["kv_offset"],
+            torch.cuda.current_stream().cuda_stream)
+
+    def template():
+        err = lib.flash_attention_step(*args)
+        if err:
+            raise RuntimeError(f"template flash_attention_step: cudaError {err}")
+    step = lambda: ops.flash_attention_step(q, k, v, carry, impl="kernel", **off)  # noqa: E731
+    t_kernel = _device_ms(step, 50, "flash_wgmma_kernel")
+    t_template = _device_ms(template, 20, "flash_fwd_kernel")
+    t_wrapper = _time_ms(step, 100)
     t_plain = _time_ms(lambda: ref.attention_step(q, k, v, plain_carry, **off), 20)
     nbytes = 3 * q.numel() * 2 + 2 * (2 * b * h * blk + b * h * blk * d) * 4
     nops = 4 * b * h * blk * blk * d
     bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
-    log("timing", f"flash_attention_step {(b, h, blk, d)} bf16: kernel {t_kernel:.4f} ms, "
-                  f"plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+    log("timing", f"flash_attention_step {(b, h, blk, d)} bf16: kernel (wgmma) {t_kernel:.4f} "
+                  f"ms device time, template {t_template:.4f} ms "
+                  f"({t_template / t_kernel:.1f}x), one wrapper call {t_wrapper:.4f} ms "
+                  f"(host-bound), plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{nbytes} B, {nops} ops); library: none")
-    return {"shape": [b, h, blk, d], "kernel_ms": t_kernel, "plain_ms": t_plain,
+    return {"shape": [b, h, blk, d], "design": "wgmma", "kernel_ms": t_kernel,
+            "template_ms": t_template, "wrapper_ms": t_wrapper, "plain_ms": t_plain,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "ops": nops}
 
@@ -920,10 +1014,12 @@ def _executor_path(cfg, ops) -> dict:
             prof = _profile(lambda: run(feeds))
         assert launches == {"flash_attention": 1, "flash_attention_step": 0,
                             "matmul": n_mm, "gmm": 0}, launches
-        # bf16: every launch of the wgmma design; float32: of the template
-        served = "wgmma" if dt == torch.bfloat16 else "template"
-        for kernel in ("flash_attention", "matmul"):
-            assert designs[kernel][served] == launches[kernel], designs
+        # bf16: every launch of the wgmma design; float32: every matmul
+        # launch of the ffma design, the flash launch of the template
+        served = ({"flash_attention": "wgmma", "matmul": "wgmma"} if dt == torch.bfloat16
+                  else {"flash_attention": "template", "matmul": "ffma"})
+        for kernel, design in served.items():
+            assert designs[kernel][design] == launches[kernel], designs
         assert got.shape == (4, 512, cfg.vocab_padded) and got.dtype == dt
         assert bool(torch.isfinite(got).all()), "non-finite logits"
         scale = float(want.float().abs().max())
@@ -963,8 +1059,15 @@ def _sequence_parallel_plan(g, axis: str, r: int):
     return plan
 
 
+RING_DTYPES = ("float32", "bfloat16")
+# the ring's logits against the dense run, relative to max|logit|: float32
+# differs only in the order of its sums; bf16 as the executor path's bf16
+RING_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
 def ring_rank(rank: int, world: int) -> dict:
-    """One gloo rank of the ring path (run by ``launch.mesh.spawn``)."""
+    """One gloo rank of the ring path (run by ``launch.mesh.spawn``): the
+    plan compiled once, then run in each of ``RING_DTYPES``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
@@ -977,24 +1080,29 @@ def ring_rank(rank: int, world: int) -> dict:
     mesh = Mesh({"seq": world}, device="cuda:0")
     run = prog.compile(mesh=mesh, executor="shard_map",
                        plan=_sequence_parallel_plan(prog.graph, "seq", world))
-    feeds = _graph_feeds(prog.graph, cfg, torch.float32, seed=7)
-    with torch.inference_mode():
-        run(feeds)  # warm-up
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = run(feeds)["logits"]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ops.launch_counts()
-        out = {"launches": launches, "wall_s": wall,
-               "issued": sorted({e[1] for e in run._fn.issued}),
-               "schedule": run.collectives.summary()}
-        if rank == 0:  # against the dense run of the same feeds on the card
-            want = prog.compile(device="cuda:0")(feeds)["logits"]
-            out["max_abs_logit"] = float(want.abs().max())
-            out["max_abs_logit_diff"] = float((got - want).abs().max())
-    return out
+    res = {}
+    for name in RING_DTYPES:
+        feeds = _graph_feeds(prog.graph, cfg, getattr(torch, name), seed=7)
+        with torch.inference_mode():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run(feeds)["logits"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = {"launches": ops.launch_counts(), "designs": ops.design_counts(),
+                   "wall_s": wall, "issued": sorted({e[1] for e in run._fn.issued}),
+                   "schedule": run.collectives.summary()}
+            if rank == 0:  # against the dense run of the same feeds on the card
+                want = prog.compile(device="cuda:0")(feeds)["logits"].float()
+                out["max_abs_logit"] = float(want.abs().max())
+                out["max_abs_logit_diff"] = float((got.float() - want).abs().max())
+                out["finite"] = bool(torch.isfinite(got).all())
+        res[name] = out
+        del feeds, got
+        torch.cuda.empty_cache()
+    return res
 
 
 def _ring_path() -> dict:
@@ -1005,25 +1113,39 @@ def _ring_path() -> dict:
         t0 = time.perf_counter()
         ranks = spawn(RING_RANKS, ring_rank, tmpdir=tmp, backend="gloo", timeout=600)
         t_spawn = time.perf_counter() - t0
-    r0 = ranks[0]
-    total = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
-    for r in ranks:
-        assert r["launches"] == {"flash_attention": 0, "flash_attention_step": RING_RANKS,
-                                 "matmul": 8, "gmm": 0}, r["launches"]
-    scale, diff = r0["max_abs_logit"], r0["max_abs_logit_diff"]
-    if not diff <= 1e-4 * scale:  # float32: the sums run in other orders
-        raise AssertionError(f"ring path: max|ring - dense| = {diff:.3e} > 1e-4 x "
-                             f"max|logit| {scale:.3f}")
-    log("ring", f"{RING_RANKS} gloo ranks on one card, sequence-parallel llama-7b "
-                f"prefill f32: launches per rank {r0['launches']}; collectives issued "
-                f"{r0['issued']}; max|ring - dense| = {diff:.3e} (max|logit| "
-                f"{scale:.3f}); rank walls {[round(r['wall_s'], 3) for r in ranks]} s "
-                f"(host-staged gloo, not a speed path); all ranks in {t_spawn:.1f} s")
-    log("ring", f"schedule: {r0['schedule']}")
-    return {"ranks": RING_RANKS, "launches_per_rank": [r["launches"] for r in ranks],
-            "launches_total": total, "max_abs_logit_diff": diff, "max_abs_logit": scale,
-            "wall_s": [r["wall_s"] for r in ranks], "spawn_s": t_spawn,
-            "issued": r0["issued"]}
+    res = {"ranks": RING_RANKS, "spawn_s": t_spawn}
+    for name in RING_DTYPES:
+        per_rank = [r[name] for r in ranks]
+        r0 = per_rank[0]
+        total = {k: sum(r["launches"][k] for r in per_rank) for k in r0["launches"]}
+        for r in per_rank:
+            assert r["launches"] == {"flash_attention": 0, "flash_attention_step": RING_RANKS,
+                                     "matmul": 8, "gmm": 0}, r["launches"]
+            dz = r["designs"]
+            if name == "float32":  # every product ffma, every step the template
+                assert dz["matmul"]["ffma"] == 8, dz
+                assert dz["flash_attention_step"]["template"] == RING_RANKS, dz
+            else:  # every step of the wgmma design
+                assert dz["flash_attention_step"]["wgmma"] == RING_RANKS, dz
+        scale, diff = r0["max_abs_logit"], r0["max_abs_logit_diff"]
+        assert r0["finite"], f"non-finite logits on the {name} ring path"
+        if not diff <= RING_TOL[name] * scale:
+            raise AssertionError(f"ring path {name}: max|ring - dense| = {diff:.3e} > "
+                                 f"{RING_TOL[name]} x max|logit| {scale:.3f}")
+        log("ring", f"{RING_RANKS} gloo ranks on one card, sequence-parallel llama-7b "
+                    f"prefill {name}: launches per rank {r0['launches']} by design "
+                    f"{r0['designs']}; collectives issued {r0['issued']}; max|ring - dense| = "
+                    f"{diff:.3e} (max|logit| {scale:.3f}, tol {RING_TOL[name]} x that); rank "
+                    f"walls {[round(r['wall_s'], 3) for r in per_rank]} s (host-staged gloo, "
+                    f"not a speed path)")
+        res[name] = {"launches_per_rank": [r["launches"] for r in per_rank],
+                     "designs_per_rank": [r["designs"] for r in per_rank],
+                     "launches_total": total, "max_abs_logit_diff": diff,
+                     "max_abs_logit": scale, "tol_rel": RING_TOL[name],
+                     "wall_s": [r["wall_s"] for r in per_rank], "issued": r0["issued"]}
+    log("ring", f"both dtypes, all ranks in {t_spawn:.1f} s; schedule: "
+                f"{ranks[0]['float32']['schedule']}")
+    return res
 
 
 def _gmm_shapes(qcfg, mcfg) -> dict[str, tuple[int, int, int, int]]:
@@ -1064,8 +1186,8 @@ def _gmm_parity(qcfg, mcfg, ops, ref) -> dict:
             want_design = mm.design(x, w)
             got, design = _served_by(ops, "gmm", lambda: ops.gmm(x, w, impl="kernel"))
             assert design == want_design, (shape, dt, design)
-            if shape in path.values():  # the path's: f32 template, bf16 wgmma
-                assert design == ("wgmma" if dt == bf16 else "template"), design
+            if shape in path.values():  # the path's: f32 ffma, bf16 wgmma
+                assert design == ("wgmma" if dt == bf16 else "ffma"), design
             err = _max_err(got, ref.gmm(x, w), MM_TOL[dt], f"gmm {shape} {dt}",
                            atol=8 * MM_TOL[dt])
             out.append({"shape": list(shape), "dtype": str(dt), "design": design,
@@ -1074,53 +1196,60 @@ def _gmm_parity(qcfg, mcfg, ops, ref) -> dict:
             if shape == path["w1_prefill"] and dt == bf16:
                 q_err = err
     # a weight view out of a stacked (e, units, k, n) tensor (expert stride
-    # 2*k*n) and a transposed x (strides (k*c, 1, c)): at c = 150 the bf16
-    # x rows are 300 bytes, which TMA cannot step (the template serves it);
-    # at c = 152, 304 bytes (the wgmma design reads x M-major)
+    # 2*k*n) and a transposed x (strides (k*c, 1, c)): at c = 150 the x
+    # rows are 300 (bf16) or 600 (f32) bytes, which the rule cannot step
+    # (the template serves it); at c = 152, 304 or 608 bytes (the wgmma or
+    # ffma design reads x M-major)
     for (e, c, k, n), dt in [((5, 150, 96, 70), f32), ((5, 150, 96, 70), bf16),
-                             ((5, 152, 96, 72), bf16)]:
+                             ((5, 152, 96, 72), bf16), ((5, 152, 96, 72), f32)]:
         x, w = _gmm_inputs(e, c, k, n, dt, seed=1)
         xt = x.transpose(1, 2).contiguous().transpose(1, 2)
         stacked = torch.stack([-w, w], dim=1)
         got, design = _served_by(ops, "gmm", lambda: ops.gmm(xt, stacked[:, 1], impl="kernel"))
-        assert design == ("wgmma" if c == 152 else "template"), design
+        ruled = "wgmma" if dt == bf16 else "ffma"
+        assert design == (ruled if c == 152 else "template"), design
         err = _max_err(got, ref.gmm(x, w), MM_TOL[dt], f"gmm strided {dt}",
                        atol=8 * MM_TOL[dt])
         out.append({"shape": [e, c, k, n], "dtype": str(dt), "strided": True,
                     "design": design, "max_abs_err": err})
         log("gmm-parity", f"strided {(e, c, k, n)} {dt} [{design}]: max|kernel - plain| = "
                           f"{err:.3e} ok")
-    assert {c["design"] for c in out} == {"wgmma", "template"}
+    assert {c["design"] for c in out} == {"wgmma", "ffma", "template"}
     return {"cases": out, "qwen2_prefill_bf16_max_abs_err": q_err}
 
 
 def _gmm_timing(qcfg, mcfg, ops, ref) -> dict:
-    """bf16 at the path's shapes: the kernel (the wgmma design), the
-    template design at the same inputs, its plain version, one
-    ``torch.bmm`` and the bound (each input read once, the output written
-    once, against 2*e*c*k*n operations)."""
+    """bf16 at the path's shapes (the wgmma design) and float32 at
+    qwen2-moe's w1 (the ffma design, the f32 slice parity's product): the
+    kernel, the template design at the same inputs, its plain version, one
+    ``torch.bmm`` (TF32 off) and the bound (each input read once, the
+    output written once, against 2*e*c*k*n operations)."""
     from repro_torch.kernels import matmul as mm
 
     res = {}
-    for name, (e, c, k, n) in _gmm_shapes(qcfg, mcfg).items():
-        if name == "w2_decode":
-            continue  # the same bytes as w1_decode
-        x, w = _gmm_inputs(e, c, k, n, torch.bfloat16, seed=5)
-        nbytes, nops = (e * c * k + e * k * n + e * c * n) * 2, 2 * e * c * k * n
-        bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
-        iters = 10 if name == "mixtral_w1" else 50
-        assert mm.design(x, w) == "wgmma"
+    shapes = [(name, shape, torch.bfloat16) for name, shape in _gmm_shapes(qcfg, mcfg).items()
+              if name != "w2_decode"]  # the same bytes as w1_decode
+    shapes.append(("w1_prefill_f32", _gmm_shapes(qcfg, mcfg)["w1_prefill"], torch.float32))
+    for name, (e, c, k, n), dt in shapes:
+        x, w = _gmm_inputs(e, c, k, n, dt, seed=5)
+        item = x.element_size()
+        nbytes, nops = (e * c * k + e * k * n + e * c * n) * item, 2 * e * c * k * n
+        bound_ms, bound_by = _bound(nbytes, nops, dt)
+        slow = name == "mixtral_w1" or dt == torch.float32
+        iters = 10 if slow else 50
+        design = mm.design(x, w)
+        assert design == ("wgmma" if dt == torch.bfloat16 else "ffma"), design
         template, _ = _mm_template(mm, x, w)
         t_kernel = _time_ms(lambda: ops.gmm(x, w, impl="kernel"), iters)
-        t_template = _time_ms(template, 3 if name == "mixtral_w1" else 10)
+        t_template = _time_ms(template, 3 if slow else 10)
         t_plain = _time_ms(lambda: ref.gmm(x, w), 5)
         t_lib = _time_ms(lambda: torch.bmm(x, w), iters)
-        res[name] = {"shape": [e, c, k, n], "design": "wgmma", "kernel_ms": t_kernel,
-                     "template_ms": t_template, "plain_ms": t_plain,
+        res[name] = {"shape": [e, c, k, n], "dtype": str(dt), "design": design,
+                     "kernel_ms": t_kernel, "template_ms": t_template, "plain_ms": t_plain,
                      "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": nops,
                      "kernel_tflops": nops / t_kernel / 1e9}
-        log("timing", f"gmm {name} {(e, c, k, n)} bf16: kernel (wgmma) {t_kernel:.4f} ms "
+        log("timing", f"gmm {name} {(e, c, k, n)} {dt}: kernel ({design}) {t_kernel:.4f} ms "
                       f"({nops / t_kernel / 1e9:.1f} TFLOP/s), template {t_template:.4f} ms "
                       f"({t_template / t_kernel:.1f}x), plain {t_plain:.4f} ms, "
                       f"torch.bmm {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
@@ -1177,10 +1306,11 @@ def a2a_rank(rank: int, world: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        designs = ops.design_counts()
         trace = run._fn.schedule.trace
         issued = sorted(run._fn.issued)
         static = sorted((e.nid, e.kind, e.axes, e.elems) for e in trace.events)
-        out = {"launches": launches, "wall_s": wall, "issued": issued,
+        out = {"launches": launches, "designs": designs, "wall_s": wall, "issued": issued,
                "n_matmul_nodes": sum(1 for n in g.nodes if n.kind == "einsum"
                                      and spmd._as_matmul(n.spec)),
                "issued_equals_static": issued == static,
@@ -1220,13 +1350,15 @@ def _a2a_path() -> dict:
     kinds = sorted({e[1] for e in r0["issued"]})
     log("a2a", f"{A2A_RANKS} gloo ranks on one card, qwen2-moe prefill graph, experts "
                f"on a {A2A_RANKS}-way axis, f32: rules {r0['rules']}; launches per rank "
-               f"{r0['launches']}; each rank issued {len(r0['issued'])} collectives "
+               f"{r0['launches']} (matmul by design {r0['designs']['matmul']}); each rank "
+               f"issued {len(r0['issued'])} collectives "
                f"({kinds}), equal to the static trace; a2a rule bytes {r0['a2a_bytes']}; "
                f"max|a2a - dense| = {diff:.3e} (max|logit| {scale:.3f}); rank walls "
                f"{[round(r['wall_s'], 3) for r in ranks]} s (host-staged gloo, not a "
                f"speed path); all ranks in {t_spawn:.1f} s")
     log("a2a", f"schedule: {r0['schedule']}")
     return {"ranks": A2A_RANKS, "launches_per_rank": [r["launches"] for r in ranks],
+            "designs_per_rank": [r["designs"] for r in ranks],
             "issued_per_rank": [len(r["issued"]) for r in ranks],
             "issued_kinds": kinds, "a2a_bytes": r0["a2a_bytes"],
             "max_abs_logit_diff": diff, "max_abs_logit": scale,

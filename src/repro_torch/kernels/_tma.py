@@ -5,13 +5,19 @@ A TMA tensor map describes a tensor by its base address, its dims and the
 byte strides of every dim but the innermost, which must be contiguous.  The
 base must be 16-byte aligned and each stride a positive multiple of 16
 bytes below 2**40.  A dim of size 1 is never stepped over, so its stride
-does not matter (the C side hands TMA a valid one in its place).
+does not matter (the C side hands TMA a valid one in its place).  The
+float32 ``"ffma"`` design's 16-byte ``cp.async`` copies take the same rule.
+
+``DESIGNS`` names every design: ``"wgmma"`` (bf16 through TMA and wgmma:
+the forward attention, the ring step, matmul and gmm), ``"ffma"`` (float32
+matmul and gmm through cp.async and f32 FMAs) and ``"template"`` (the
+first designs, which take any strides).
 """
 from __future__ import annotations
 
 import torch
 
-DESIGNS = ("wgmma", "template")
+DESIGNS = ("wgmma", "ffma", "template")
 
 
 def addressable(shape, strides, itemsize: int, ptr: int, inner: int) -> bool:

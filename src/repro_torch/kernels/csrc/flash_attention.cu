@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: two
-// forward designs and the ring-attention step kernel.
+// Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: the
+// forward kernel and the ring-attention step kernel, each in two designs.
 //
 // Forward.  Replaces: src/repro/kernels/flash_attention.py::flash_attention,
 // the Pallas TPU kernel whose body is _flash_kernel.  Same function: scores,
@@ -61,7 +61,8 @@
 // the carry the same way).  With init set the state starts at
 // (-1e30, 0, 0) without being read.  Unlike the forward kernel it skips no
 // tile: every tile runs with masked scores at the finite -1e30, so the
-// transition equals kernels/ref.py attention_step exactly.  A row that is
+// transition is kernels/ref.py attention_step's (up to the order of sums
+// and the rounding of P, about 2^-16 in the wgmma design).  A row that is
 // fully masked so far has m = -1e30, so its masked scores get weight
 // exp(0) = 1 until a real key arrives, whose alpha = 0 wipes them; keys past
 // sk (the ragged edge of a tile) still get weight exactly 0.  Offsets are
@@ -69,9 +70,25 @@
 // ways (q and k/v (4, 32, 128, 128) bf16, the f32 carry read and written):
 // 4.2 MB each of q, k, v read, 8.4 MB of acc and 0.13 MB of (m, l) read and
 // as much written, about 29.6 MB, about 8.8 us at 3.35 TB/s, against 1.07
-// GFLOP (1.1 us at the bf16 peak), so bounded by bytes; it is the template
-// design's STEP instantiation (same tiles, f32 FMAs on CUDA cores), so it is
-// far above that bound.
+// GFLOP (1.1 us at the bf16 peak), so bounded by bytes.
+//
+// The step's design "wgmma" (flash_attention_step_wgmma: the forward's rule,
+// bf16, d in {64, 128}, q/k/v that TMA can address) is the wgmma forward
+// kernel's STEP instantiation: the same producer warpgroup, TMA loads, wgmma
+// products and bf16 P in registers, plus a second P V product with P's
+// bf16 residual, because the carried acc is compared unnormalised (see the
+// P V comment in the kernel).  At the ring shape each block sees one
+// KV tile, so nothing overlaps inside a block and the bound is reached only
+// with every load in flight at once: the consumers read their rows of the
+// carry straight into the accumulator layout (8-byte loads, a quad covering
+// 32 contiguous bytes of a row) before waiting for the TMA loads of Q, K
+// and V, and write it back the same way.  Its softmax is in the natural
+// units of ref.attention_step (m of s * scale; exp2f((x - m) * log2 e)), so
+// the carry needs no conversion and a row fully masked so far weighs its
+// -1e30 scores exp2f(0) = 1 exactly.  The step's design "template"
+// (flash_attention_step: float32, other head dims, operands TMA cannot
+// address) is the template forward kernel's STEP instantiation: the same
+// 64 x 32 tiles and f32 FMAs on the CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -380,9 +397,16 @@ struct WParams {
   void* o;
   long long o_sb, o_sh, o_ss;
   int hq, hkv, sq, sk;
-  float scale_log2;  // softmax scale * log2(e)
+  float scale;  // forward: softmax scale * log2(e) (base 2); step: the scale itself
   int causal, window, q_offset, kv_offset;
+  // step only: the carried state, contiguous f32, updated in place
+  float* m_io;
+  float* l_io;
+  float* acc_io;
+  int init;  // 1: start from (-1e30, 0, 0) without reading the carry
 };
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory layout (bytes from a 1024-byte aligned base): the Q tile,
 // then W_STAGES K tiles, then W_STAGES V tiles, then the barriers.  A tile
@@ -398,7 +422,9 @@ struct WLayout {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * W_STAGES) + 1024;  // + alignment slack
 };
 
-template <int D>
+// STEP: the ring-attention step (carry in and out, no tile skipping, the
+// softmax in natural units as ref.attention_step: see the step's entry).
+template <int D, bool STEP>
 __global__ void __launch_bounds__(W_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -441,7 +467,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         hopper::tma_load_4d(smem + L::Q + j * L::BOX, &tq, q_full, 64 * j, qt * W_BLK, h, bi);
       int t = 0;
       for (int kt = 0; kt < n_kt; ++kt) {
-        if (!block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
+        if (!STEP &&
+            !block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
           continue;
         const int s = t % W_STAGES;
         if (t >= W_STAGES) hopper::mbar_wait(&empty[s], ((t / W_STAGES) - 1) & 1);
@@ -474,11 +501,41 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
+  // step: this thread's part of the carry, read into the accumulator layout
+  // before the first wait, so these loads are in flight with the TMA loads
+  // of Q, K and V.  Each quad reads 32 contiguous bytes of a row a chunk.
+  // The row sum l is carried whole by the quad's lane 0 (the others start
+  // at 0 and the quad's partial sums are added at the end).
+  const long long carry0 = ((long long)blockIdx.y * p.hq + h) * p.sq;
+  if constexpr (STEP) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      m[i] = NEG_INF;
+      if (p.init || row >= p.sq) continue;
+      m[i] = p.m_io[carry0 + row];
+      l[i] = quad == 0 ? p.l_io[carry0 + row] : 0.f;
+      const float2* acc_row = reinterpret_cast<const float2*>(p.acc_io + (carry0 + row) * D);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const float2 a = acc_row[4 * c + quad];
+        o[4 * c + 2 * i] = a.x;
+        o[4 * c + 2 * i + 1] = a.y;
+      }
+    }
+  }
+  // The forward runs the softmax in base 2 on s * scale * log2(e), so m is
+  // in those units and exp2f(x - m) needs no multiply.  The step keeps m in
+  // the natural units of s * scale, those of the carry and ref.attention_step,
+  // and takes exp2f((x - m) * log2(e)): the difference comes first, so a
+  // masked score equal to m = -1e30 gives exp2f(0) = 1 as expf(0) does.
+  constexpr float unit = STEP ? LOG2E : 1.f;
 
   hopper::mbar_wait(q_full, 0);
   int t = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (!block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
+    if (!STEP &&
+        !block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
       continue;
     const int s = t % W_STAGES;
     hopper::mbar_wait(&full[s], (t / W_STAGES) & 1);
@@ -498,7 +555,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
-    // scale into base 2; mask only tiles on the diagonal, the window's edge
+    // scale (into base 2 in the forward); mask only tiles on the diagonal, the window's edge
     // or past sk (keys past sk weigh 0, masked keys -1e30 as in the TPU kernel)
     const int k0 = kt * W_BLK;
     const int kpos0 = p.kv_offset + k0;
@@ -506,7 +563,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const bool diag = p.causal && kpos0 + W_BLK - 1 > q_lo;
     const bool wedge = p.window && kpos0 <= q_lo + W_BLK - 1 - p.window;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] *= p.scale_log2;
+    for (int i = 0; i < 64; ++i) sc[i] *= p.scale;
     if (edge || diag || wedge) {
 #pragma unroll
       for (int c = 0; c < 16; ++c)
@@ -537,7 +594,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // finite: every tile holds a key below sk, which scores at least -1e30
-      alpha[i] = exp2f(m[i] - mx);
+      alpha[i] = exp2f((m[i] - mx) * unit);
       m[i] = mx;
       float rs = 0.f;
 #pragma unroll
@@ -545,7 +602,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           float& x = sc[4 * c + 2 * i + j];
-          x = exp2f(x - mx);
+          x = exp2f((x - mx) * unit);
           rs += x;
         }
       l[i] = l[i] * alpha[i] + rs;
@@ -559,15 +616,24 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       }
 
     // O += P V: P in bf16 registers (the A fragment of key slice kk is
-    // accumulator chunks 2 kk and 2 kk + 1), V an MN-major B
+    // accumulator chunks 2 kk and 2 kk + 1), V an MN-major B.  The step
+    // carries the unnormalised acc, whose error P's rounding to bf16 would
+    // set (up to 2^-8 of each p, summed over the keys, with nothing to
+    // divide it by): it adds P's bf16 residual (P - bf16(P), itself rounded
+    // to bf16) as a second product, so each p enters P V to about 2^-16.
     uint32_t pa[8][4];
+    uint32_t pr[STEP ? 8 : 1][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = hopper::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = hopper::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = hopper::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = hopper::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+        pa[kk][r] = hopper::pack_bf16(x0, x1);
+        if constexpr (STEP) {
+          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
+          pr[kk][r] = hopper::pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+        }
+      }
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -576,6 +642,12 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         hopper::wgmma_m64n128_rs<1>(o, pa[kk], dv, 1);
       else
         hopper::wgmma_m64n64_rs<1>(o, pa[kk], dv, 1);
+      if constexpr (STEP) {
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128_rs<1>(o, pr[kk], dv, 1);
+        else
+          hopper::wgmma_m64n64_rs<1>(o, pr[kk], dv, 1);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -583,18 +655,33 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[kk][r])::"memory");
+      for (int r = 0; r < 4; ++r) {
+        asm volatile("" : "+r"(pa[kk][r])::"memory");
+        if constexpr (STEP) asm volatile("" : "+r"(pr[kk][r])::"memory");
+      }
     if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done with stage s
     ++t;
   }
 
-  // O / l (l == 0: no tile visited, the row is 0), bf16, rows past sq dropped
+  // step: (m, l, acc) back in place, unnormalised; forward: O / l (l == 0:
+  // no tile visited, the row is 0), bf16; rows past sq dropped
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row0 + 8 * i;
     if (row >= p.sq) continue;
+    if constexpr (STEP) {
+      if (quad == 0) {
+        p.m_io[carry0 + row] = m[i];
+        p.l_io[carry0 + row] = l[i];
+      }
+      float2* acc_row = reinterpret_cast<float2*>(p.acc_io + (carry0 + row) * D);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        acc_row[4 * c + quad] = make_float2(o[4 * c + 2 * i], o[4 * c + 2 * i + 1]);
+      continue;
+    }
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
     __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + blockIdx.y * p.o_sb +
                           h * p.o_sh + row * p.o_ss;
@@ -615,16 +702,39 @@ cudaError_t qkv_map(CUtensorMap* map, const void* base, int d, int s, int h, int
   return hopper::make_map(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, bool STEP>
 cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                          const WParams& p, int b, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, STEP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          WLayout<D>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.hq, b, (p.sq + W_BLK - 1) / W_BLK);
-  flash_wgmma_kernel<D><<<grid, W_THREADS, WLayout<D>::BYTES, stream>>>(tq, tk, tv, p);
+  flash_wgmma_kernel<D, STEP><<<grid, W_THREADS, WLayout<D>::BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
+}
+
+// The wgmma design's rule on q, k, v (see flash_attention_wgmma_fwd) and
+// their tensor maps; cudaErrorInvalidValue for what it does not take.
+cudaError_t wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const void* q,
+                       const void* k, const void* v, int b, int hq, int hkv, int sq, int sk,
+                       int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                       long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                       long long v_ss) {
+  using hopper::tma_stride_ok;
+  const bool aligned =
+      tma_stride_ok(q_ss, sq) && tma_stride_ok(q_sh, hq) && tma_stride_ok(q_sb, b) &&
+      tma_stride_ok(k_ss, sk) && tma_stride_ok(k_sh, hkv) && tma_stride_ok(k_sb, b) &&
+      tma_stride_ok(v_ss, sk) && tma_stride_ok(v_sh, hkv) && tma_stride_ok(v_sb, b) &&
+      reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (bad_shape(b, hq, hkv, sq, sk, d) || (d != 64 && d != 128) || !aligned || b > 65535 ||
+      (sq + W_BLK - 1) / W_BLK > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = qkv_map(tq, q, d, sq, hq, b, q_ss, q_sh, q_sb);
+  if (err == cudaSuccess) err = qkv_map(tk, k, d, sk, hkv, b, k_ss, k_sh, k_sb);
+  if (err == cudaSuccess) err = qkv_map(tv, v, d, sk, hkv, b, v_ss, v_sh, v_sb);
+  return err;
 }
 
 }  // namespace
@@ -661,26 +771,16 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void*
                               long long o_sb, long long o_sh, long long o_ss, float scale,
                               int causal, int window, int q_offset, int kv_offset,
                               void* stream) {
-  using hopper::tma_stride_ok;
-  const bool aligned =
-      tma_stride_ok(q_ss, sq) && tma_stride_ok(q_sh, hq) && tma_stride_ok(q_sb, b) &&
-      tma_stride_ok(k_ss, sk) && tma_stride_ok(k_sh, hkv) && tma_stride_ok(k_sb, b) &&
-      tma_stride_ok(v_ss, sk) && tma_stride_ok(v_sh, hkv) && tma_stride_ok(v_sb, b) &&
-      reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  if (bad_shape(b, hq, hkv, sq, sk, d) || (d != 64 && d != 128) || !aligned || b > 65535 ||
-      (sq + W_BLK - 1) / W_BLK > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  cudaError_t err = qkv_map(&tq, q, d, sq, hq, b, q_ss, q_sh, q_sb);
-  if (err == cudaSuccess) err = qkv_map(&tk, k, d, sk, hkv, b, k_ss, k_sh, k_sb);
-  if (err == cudaSuccess) err = qkv_map(&tv, v, d, sk, hkv, b, v_ss, v_sh, v_sb);
+  const cudaError_t err = wgmma_maps(&tq, &tk, &tv, q, k, v, b, hq, hkv, sq, sk, d, q_sb,
+                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const WParams p{o, o_sb, o_sh, o_ss, hq, hkv, sq, sk, scale * 1.4426950408889634f,
-                  causal, window, q_offset, kv_offset};
+  const WParams p{o,        o_sb,   o_sh,     o_ss,      hq,      hkv,     sq, sk,
+                  scale * LOG2E, causal, window, q_offset, kv_offset, nullptr, nullptr,
+                  nullptr, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 128 ? launch_wgmma<128>(tq, tk, tv, p, b, s)
-                                   : launch_wgmma<64>(tq, tk, tv, p, b, s));
+  return static_cast<int>(d == 128 ? launch_wgmma<128, false>(tq, tk, tv, p, b, s)
+                                   : launch_wgmma<64, false>(tq, tk, tv, p, b, s));
 }
 
 // One ring-attention step: fold k/v into the carry (m, l, acc), contiguous
@@ -699,6 +799,33 @@ int flash_attention_step(const void* q, const void* k, const void* v, void* m_io
                  static_cast<float*>(m_io), static_cast<float*>(l_io),
                  static_cast<float*>(acc_io), init};
   return dispatch_dtype<true>(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Design "wgmma" of flash_attention_step: the forward wgmma kernel's STEP
+// instantiation, with the same rule on q, k, v (bf16, d = 64 or 128, what
+// TMA addresses); m_io, l_io, acc_io as for flash_attention_step, acc_io
+// 16-byte aligned.  Returns cudaErrorInvalidValue for what it does not
+// take, else cudaGetLastError() after the launch.
+int flash_attention_step_wgmma(const void* q, const void* k, const void* v, void* m_io,
+                               void* l_io, void* acc_io, int init, int b, int hq, int hkv,
+                               int sq, int sk, int d, long long q_sb, long long q_sh,
+                               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                               long long v_sb, long long v_sh, long long v_ss, float scale,
+                               int causal, int window, int q_offset, int kv_offset,
+                               void* stream) {
+  if (reinterpret_cast<uintptr_t>(acc_io) % 16 != 0 || m_io == nullptr || l_io == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  const cudaError_t err = wgmma_maps(&tq, &tk, &tv, q, k, v, b, hq, hkv, sq, sk, d, q_sb,
+                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WParams p{nullptr, 0,      0,        0,         hq,
+                  hkv,     sq,     sk,       scale,     causal,
+                  window,  q_offset, kv_offset, static_cast<float*>(m_io),
+                  static_cast<float*>(l_io), static_cast<float*>(acc_io), init};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 128 ? launch_wgmma<128, true>(tq, tk, tv, p, b, s)
+                                   : launch_wgmma<64, true>(tq, tk, tv, p, b, s));
 }
 
 // Dynamic shared memory of one block of the wgmma design at head dim d.

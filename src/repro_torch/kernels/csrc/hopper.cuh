@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention.cu's forward, matmul.cu's bf16 product): tensor maps
-// encoded on the host, mbarriers, TMA tile loads and warpgroup matrix
-// multiplies, all as inline PTX.  No CUTLASS; nothing here allocates or
-// synchronises with the host.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu's wgmma forward and step, matmul.cu's bf16 wgmma and
+// f32 ffma products): tensor maps encoded on the host, mbarriers, TMA tile
+// loads, cp.async copies and warpgroup matrix multiplies, all as inline
+// PTX.  No CUTLASS; nothing here allocates or synchronises with the host.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 128 bytes (64 bf16), the 16-byte chunks of row r XORed
@@ -49,11 +49,13 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// Whether TMA can step over a dim of `size` bf16 elements at element stride
-// `stride`: a positive multiple of 16 bytes below 2^40, unless the dim has
-// size 1 and is never stepped over.
-inline bool tma_stride_ok(long long stride, int size) {
-  return size == 1 || (stride > 0 && (stride * 2) % 16 == 0 && stride * 2 < (1ll << 40));
+// Whether TMA (or a 16-byte cp.async) can step over a dim of `size`
+// elements of `itemsize` bytes at element stride `stride`: a positive
+// multiple of 16 bytes below 2^40, unless the dim has size 1 and is never
+// stepped over.
+inline bool tma_stride_ok(long long stride, int size, int itemsize = 2) {
+  return size == 1 ||
+         (stride > 0 && (stride * itemsize) % 16 == 0 && stride * itemsize < (1ll << 40));
 }
 
 // A bf16 tensor map of `rank` dims, innermost first: dims[i] elements,
@@ -150,6 +152,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Asynchronous copies global -> shared that bypass the registers
+// (cp.async, sm_80+): `bytes` of the copy's 4 or 16 are read from `src`,
+// the rest of the destination is filled with zeros (0 reads nothing: the
+// ragged edge of a tile).  A thread's copies complete in commit groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // Tiled matrix product for Hopper (sm_90a), CUDA C++ with plain C entries:
-// matmul_fwd and gmm_fwd, the grouped (expert) product, and their wgmma
-// designs matmul_wgmma_fwd and gmm_wgmma_fwd.
+// matmul_fwd and gmm_fwd, the grouped (expert) product, their bf16 wgmma
+// designs matmul_wgmma_fwd and gmm_wgmma_fwd, and their float32 ffma
+// designs matmul_ffma_fwd and gmm_ffma_fwd.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul, the Pallas TPU kernel whose
 // body is _mm_kernel: (m, k) @ (k, n), every tile widened to f32, the sum
@@ -30,7 +31,8 @@
 // Design.  The TPU kernel's grid carries the f32 accumulator in VMEM across
 // a sequential k axis; here one block owns one output tile and walks k
 // itself, keeping the accumulator in registers, so nothing but the output
-// is written.  There are three kernels:
+// is written.  There are four kernels, picked before launch by the
+// wrapper's shape rule (kernels/matmul.py design):
 //
 // "wgmma" (matmul_wgmma_fwd / gmm_wgmma_fwd: bf16 operands that TMA can
 // address).  One block per 128 x 256 output tile, 288 threads: one producer
@@ -52,11 +54,25 @@
 // edge with zeros).  No split-K and no atomics: a launch gives the same bits
 // every time.
 //
-// "template", float32 (matmul_fwd / gmm_fwd with dtype 0): must be true f32
-// (the reference's 1e-4 tolerance rules out TF32): 256 threads each own an
-// 8 x 8 sub-tile and do f32 FMAs on the CUDA cores from 8-deep k tiles
-// staged in shared memory, read back as float4 (4 shared loads per 64
-// FMAs).
+// "ffma" (matmul_ffma_fwd / gmm_ffma_fwd: float32 operands whose inner dim
+// is contiguous and whose other strides and base are 16-byte multiples, in
+// either major).  It must be true f32: the reference's 1e-4 tolerance and
+// its f32 semantics rule out TF32 and 3xTF32, so it is bounded by the 67
+// TFLOP/s of the CUDA cores' FMAs.  One block per 128 x 128 output tile,
+// 256 threads each owning an 8 x 8 sub-tile in registers; a 3-stage ring
+// of 16-deep k-tiles in shared memory filled by cp.async (16-byte copies of
+// an MN-major operand, 4-byte copies that transpose a K-major one), so the
+// copies of the next two k-tiles run under the current one's FMAs; the
+// next k-slice's fragments load during the current slice's FMAs (4 float4
+// shared loads per 64 FMAs); at most 128 registers, so two blocks share an
+// SM; output tiles in groups of 16 row tiles, row tile fastest, as the
+// wgmma design.  No split-K and no atomics.
+//
+// "template", float32 (matmul_fwd / gmm_fwd with dtype 0: the f32 operands
+// the ffma rule refuses, such as rows that are not 16-byte multiples): 256
+// threads each own an 8 x 8 sub-tile and do f32 FMAs on the CUDA cores from
+// 8-deep k tiles staged in shared memory by plain loads, one stage, read
+// back as float4 (4 shared loads per 64 FMAs).
 //
 // "template", bf16 (dtype 1: the operands TMA cannot address, such as a
 // rank-local (77, 130) block whose rows are not 16-byte multiples): tensor
@@ -473,6 +489,206 @@ int launch_wgmma(const void* a, const void* b, void* c, int e, int m, int n, int
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// design "ffma": float32 through a cp.async ring and f32 FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int S_BM = 128, S_BN = 128, S_BK = 16, S_STAGES = 3, S_THREADS = 256;
+constexpr int S_GROUP_M = 16;                // row tiles per raster group
+constexpr int S_LD = S_BM + 4;               // floats per shared row of a tile
+constexpr int S_TILE = S_BK * S_LD;          // floats per operand tile
+constexpr int S_SMEM = S_STAGES * 2 * S_TILE * 4;  // 50,688 bytes: two blocks an SM
+
+// One operand's k-tile into shared memory as [S_BK][S_LD], the M (or N)
+// dim contiguous, whatever its layout in device memory: `mn` is the M/N
+// index, `s_mn` / `s_k` the element strides.  MN_MAJOR (s_mn == 1): 16-byte
+// copies of 4 consecutive M/N elements, 2 a thread.  K-major (s_k == 1):
+// 4-byte copies that transpose on the way, 8 a thread; a warp takes 8 k of
+// 4 rows (32-byte pieces of global rows) and writes them to 32 distinct
+// banks.  Elements past the edges are zero-filled.
+template <bool MN_MAJOR>
+__device__ __forceinline__ void ffma_load_tile(float* dst, const float* src, int mn0, int k0,
+                                               int mn_ext, int k_ext, long long s_mn,
+                                               long long s_k) {
+  const int tid = threadIdx.x;
+  if constexpr (MN_MAJOR) {
+    // copy i: k row tid / 32 + 8 i, columns 4 (tid % 32) .. 4 (tid % 32) + 3
+    const int kr = tid / (S_BM / 4), col = (tid % (S_BM / 4)) * 4;
+    const int cols = max(0, min(4, mn_ext - mn0 - col));  // in range at this column
+    const float* from = src + (long long)(k0 + kr) * s_k + mn0 + col;
+    float* to = dst + kr * S_LD + col;
+#pragma unroll
+    for (int i = 0; i < S_BK * S_BM / 4 / S_THREADS; ++i) {
+      const int valid = k0 + kr + 8 * i < k_ext ? cols : 0;
+      hopper::cp_async16(to + 8 * i * S_LD, valid ? from + 8 * i * s_k : src, 4 * valid);
+    }
+  } else {
+    // copy i: k column lane % 8 + 8 (i % KG) of row lane / 8 + 4 warp + 32 (i / KG)
+    constexpr int KG = S_BK / 8;
+    const int lane = tid % 32, warp = tid / 32;
+    const int kc = lane % 8, row = lane / 8 + 4 * warp;
+    const int rows = mn_ext - mn0 - row;  // rows in range from this one on
+    const float* from = src + (long long)(mn0 + row) * s_mn + k0 + kc;
+    float* to = dst + kc * S_LD + row;
+#pragma unroll
+    for (int i = 0; i < S_BK * S_BM / S_THREADS; ++i) {
+      const int dr = 32 * (i / KG), dk = 8 * (i % KG);
+      const bool valid = dr < rows && k0 + kc + dk < k_ext;
+      hopper::cp_async4(to + dk * S_LD + dr, valid ? from + dr * s_mn + dk : src,
+                        valid ? 4 : 0);
+    }
+  }
+}
+
+// A thread's 8 values of one shared row: t*4 .. t*4+3 and 64+t*4 .. 64+t*4+3.
+__device__ __forceinline__ void ffma_frag(float (&f)[8], const float* row, int t) {
+  *reinterpret_cast<float4*>(f) = *reinterpret_cast<const float4*>(row + t * 4);
+  *reinterpret_cast<float4*>(f + 4) = *reinterpret_cast<const float4*>(row + 64 + t * 4);
+}
+
+// One block per 128 x 128 output tile, 256 threads, each owning an 8 x 8
+// sub-tile (rows ty*4 + i and 64 + ty*4 + i, columns likewise from tx) in
+// registers.  A 3-stage ring of 16-deep k-tiles in shared memory is kept
+// filled by cp.async: while the FMAs of k-tile kt run, the copies of
+// kt + 1 and kt + 2 are in flight, and one __syncthreads a k-tile both
+// publishes the arrived tile and frees the slot the next copies overwrite.
+// Inside a k-tile the next k-slice's fragments (2 + 2 float4 shared loads)
+// load while the current slice's 64 FMAs run.  Capped at 128 registers so
+// two blocks (16 warps) share an SM.  Output tiles in groups of S_GROUP_M
+// row tiles, the row tile fastest, as the wgmma design.
+template <bool GROUPED, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(S_THREADS, 2) mm_ffma_kernel(const Params p) {
+  extern __shared__ __align__(16) float s_smem[];
+  const long long e = GROUPED ? blockIdx.z : 0;
+  const float* A = static_cast<const float*>(p.a) + e * p.a_se;
+  const float* B = static_cast<const float*>(p.b) + e * p.b_se;
+
+  const int n_mt = (p.m + S_BM - 1) / S_BM;
+  const int n_nt = (p.n + S_BN - 1) / S_BN;
+  const int group = blockIdx.x / (S_GROUP_M * n_nt);
+  const int first_mt = group * S_GROUP_M;
+  const int group_mt = min(n_mt - first_mt, S_GROUP_M);
+  const int in_group = blockIdx.x % (S_GROUP_M * n_nt);
+  const int m0 = (first_mt + in_group % group_mt) * S_BM;
+  const int n0 = (in_group / group_mt) * S_BN;
+  const int n_kt = (p.k + S_BK - 1) / S_BK;
+
+  auto load_stage = [&](int slot, int kt) {
+    float* as = s_smem + slot * 2 * S_TILE;
+    ffma_load_tile<A_MN>(as, A, m0, kt * S_BK, p.m, p.k, p.a_sm, p.a_sk);
+    ffma_load_tile<B_MN>(as + S_TILE, B, n0, kt * S_BK, p.n, p.k, p.b_sn, p.b_sk);
+  };
+#pragma unroll
+  for (int s = 0; s < S_STAGES - 1; ++s) {
+    if (s < n_kt) load_stage(s, s);
+    hopper::cp_async_commit();
+  }
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    hopper::cp_async_wait<S_STAGES - 2>();  // this thread's copies of k-tile kt landed
+    __syncthreads();  // everyone's have; everyone is done with k-tile kt - 1's slot
+    const int next = kt + S_STAGES - 1;
+    if (next < n_kt) load_stage(next % S_STAGES, next);
+    hopper::cp_async_commit();
+
+    const float* as = s_smem + (kt % S_STAGES) * 2 * S_TILE;
+    const float* bs = as + S_TILE;
+    float a[2][8], b[2][8];
+    ffma_frag(a[0], as, ty);
+    ffma_frag(b[0], bs, tx);
+#pragma unroll
+    for (int kk = 0; kk < S_BK; ++kk) {
+      if (kk + 1 < S_BK) {
+        ffma_frag(a[(kk + 1) % 2], as + (kk + 1) * S_LD, ty);
+        ffma_frag(b[(kk + 1) % 2], bs + (kk + 1) * S_LD, tx);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[kk % 2][i], b[kk % 2][j], acc[i][j]);
+    }
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block (the tail groups are empty)
+
+  float* C = static_cast<float*>(p.c) + e * p.c_se;
+  const bool vec = p.c_sn == 1 && p.c_sm % 4 == 0 && p.c_se % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.c) % 16 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (row >= p.m) continue;
+    float* crow = C + row * p.c_sm;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 64 * h + tx * 4;
+      if (vec && col + 3 < p.n) {
+        *reinterpret_cast<float4*>(crow + col) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < p.n) crow[(col + j) * p.c_sn] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+template <bool GROUPED, bool A_MN, bool B_MN>
+cudaError_t launch_ffma_layout(const Params& p, int e, cudaStream_t stream) {
+  auto kernel = mm_ffma_kernel<GROUPED, A_MN, B_MN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+  if (err == cudaSuccess)  // room for two blocks' shared memory on an SM
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((p.m + S_BM - 1) / S_BM) * ((p.n + S_BN - 1) / S_BN);
+  kernel<<<dim3(static_cast<unsigned>(tiles), 1, e), S_THREADS, S_SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// a (e, m, k), b (e, k, n), c (e, m, n) float32 with element strides; a_mn /
+// b_mn pick the layouts as for the wgmma design, and the rule is the same:
+// the operand's inner dim contiguous, its other strides and its base
+// 16-byte multiples (what a 16-byte cp.async addresses).
+template <bool GROUPED>
+int launch_ffma(const void* a, const void* b, void* c, int e, int m, int n, int k,
+                long long a_se, long long a_sm, long long a_sk, long long b_se, long long b_sk,
+                long long b_sn, long long c_se, long long c_sm, long long c_sn, int a_mn,
+                int b_mn, void* stream) {
+  auto ok = [](long long stride, int size) { return hopper::tma_stride_ok(stride, size, 4); };
+  const bool a_ok = a_mn ? (m == 1 || a_sm == 1) && ok(a_sk, k)
+                         : (k == 1 || a_sk == 1) && ok(a_sm, m);
+  const bool b_ok = b_mn ? (n == 1 || b_sn == 1) && ok(b_sk, k)
+                         : (k == 1 || b_sk == 1) && ok(b_sn, n);
+  const long long tiles = (long long)((m + S_BM - 1) / S_BM) * ((n + S_BN - 1) / S_BN);
+  if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 1 || tiles >= (1ll << 31) || !a_ok ||
+      !b_ok || !ok(a_se, e) || !ok(b_se, e) || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a unit stride of a dim of size 1 is whatever the caller passed: the
+  // kernel only ever steps the contiguous dim by 1
+  const Params p{a, b, c, m, n, k, a_mn ? 1 : a_sm, a_mn ? a_sk : 1, b_mn ? b_sk : 1,
+                 b_mn ? 1 : b_sn, c_sm, c_sn, a_se, b_se, c_se};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a_mn)
+    err = b_mn ? launch_ffma_layout<GROUPED, true, true>(p, e, s)
+               : launch_ffma_layout<GROUPED, true, false>(p, e, s);
+  else
+    err = b_mn ? launch_ffma_layout<GROUPED, false, true>(p, e, s)
+               : launch_ffma_layout<GROUPED, false, false>(p, e, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -523,8 +739,32 @@ int gmm_wgmma_fwd(const void* a, const void* b, void* c, int e, int m, int n, in
                             c_sm, c_sn, a_mn, b_mn, stream);
 }
 
+// Design "ffma" of matmul_fwd: float32 only, the same layout flags and
+// operand rule as matmul_wgmma_fwd (strides in 4-byte elements).  Returns
+// cudaErrorInvalidValue for what it does not take, else cudaGetLastError()
+// after the launch.
+int matmul_ffma_fwd(const void* a, const void* b, void* c, int m, int n, int k,
+                    long long a_sm, long long a_sk, long long b_sk, long long b_sn,
+                    long long c_sm, long long c_sn, int a_mn, int b_mn, void* stream) {
+  return launch_ffma<false>(a, b, c, 1, m, n, k, 0, a_sm, a_sk, 0, b_sk, b_sn, 0, c_sm, c_sn,
+                            a_mn, b_mn, stream);
+}
+
+// Design "ffma" of gmm_fwd: as matmul_ffma_fwd per expert; the expert
+// strides too must be positive multiples of 16 bytes (where e > 1).
+int gmm_ffma_fwd(const void* a, const void* b, void* c, int e, int m, int n, int k,
+                 long long a_se, long long a_sm, long long a_sk, long long b_se, long long b_sk,
+                 long long b_sn, long long c_se, long long c_sm, long long c_sn, int a_mn,
+                 int b_mn, void* stream) {
+  return launch_ffma<true>(a, b, c, e, m, n, k, a_se, a_sm, a_sk, b_se, b_sk, b_sn, c_se,
+                           c_sm, c_sn, a_mn, b_mn, stream);
+}
+
 // Dynamic shared memory of one block of the wgmma design.
 int matmul_wgmma_smem_bytes() { return G_SMEM; }
+
+// Dynamic shared memory of one block of the ffma design.
+int matmul_ffma_smem_bytes() { return S_SMEM; }
 
 const char* matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -20,12 +20,15 @@ raises without trying the other.
 
 The step kernel folds one KV block into a carried f32 state ``(m, l,
 acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
-and no tile skipping; it updates the carry it is given in place.
+and no tile skipping; it updates the carry it is given in place.  It has
+the same two designs under the same rule (:func:`design`): ``"wgmma"`` is
+the wgmma forward kernel with the carry read into its accumulators and
+written back, ``"template"`` the template forward kernel's.
 
 ``flash_attention.launches`` and ``flash_attention_step.launches`` count
 successful launches, so a run can show that its main path went through
-the kernels; ``flash_attention.designs`` splits the forward launches by
-design.
+the kernels; ``flash_attention.designs`` and
+``flash_attention_step.designs`` split them by design.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.kernels import _build, _tma
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
+DESIGNS = ("wgmma", "template")
 
 
 def _lib():
@@ -61,6 +65,11 @@ def _lib():
                        + [ctypes.c_longlong] * 12 + [ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         wg.restype = ctypes.c_int
+        ws = built.lib.flash_attention_step_wgmma
+        ws.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ws.restype = ctypes.c_int
     return built.lib
 
 
@@ -111,7 +120,7 @@ def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The forward design that serves (q, k, v): ``"wgmma"`` for bfloat16
+    """The design that serves (q, k, v), forward or step: ``"wgmma"`` for bfloat16
     with head_dim 64 or 128 where TMA can address all three (16-byte
     aligned bases, a contiguous head dim, every other stride a positive
     multiple of 16 bytes), else ``"template"``.  Reads dtypes, shapes,
@@ -160,7 +169,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.designs = dict.fromkeys(_tma.DESIGNS, 0)
+flash_attention.designs = dict.fromkeys(DESIGNS, 0)
 
 
 def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,9 +179,10 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fold the KV block k/v (b, hkv, blk, d) into the carry ``(m, l, acc)``
     of q (b, hq, sq, d) — f32 (b, hq, sq), (b, hq, sq), (b, hq, sq, d) — and
     return it.  A given carry is updated in place (non-contiguous or
-    non-f32 parts are copied first and the copies updated); ``None``
-    starts from ``(-1e30, 0, 0)``.  ``q_offset`` / ``kv_offset`` are the
-    absolute positions of q[0] and k[0]."""
+    non-f32 parts, and an acc whose base is not 16-byte aligned, are copied
+    first and the copies updated); ``None`` starts from ``(-1e30, 0, 0)``.
+    ``q_offset`` / ``kv_offset`` are the absolute positions of q[0] and
+    k[0].  The design is :func:`design`'s, read from q, k and v."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -183,6 +193,8 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.empty((b, hq, sq, d), **f32)
     else:
         m, l, acc = (t.to(torch.float32).contiguous() for t in carry)
+        if acc.data_ptr() % 16:
+            acc = acc.clone()
         want = ((b, hq, sq), (b, hq, sq), (b, hq, sq, d))
         if tuple(tuple(t.shape) for t in (m, l, acc)) != want or any(
                 t.device != q.device for t in (m, l, acc)):
@@ -195,23 +207,29 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return m, l, acc
     q, k, v = (_last_dim_contiguous(t) for t in (q, k, v))
     scale = (d ** -0.5) if scale is None else float(scale)
+    which = design(q, k, v)
     lib = _lib()
+    carry_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), acc.data_ptr(), int(carry is None))
+    shape = (b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], scale, int(bool(causal)), int(window),
+             int(q_offset), int(kv_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_step(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), int(carry is None),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            scale, int(bool(causal)), int(window), int(q_offset),
-            int(kv_offset), stream)
+        if which == "wgmma":
+            err = lib.flash_attention_step_wgmma(*carry_ptrs, *shape, stream)
+        else:
+            err = lib.flash_attention_step(*carry_ptrs, _DTYPES[q.dtype], *shape,
+                                           stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_step kernel launch failed: {msg} "
-                           f"(cudaError {err}) at q {tuple(q.shape)}, "
+        raise RuntimeError(f"flash_attention_step kernel ({which}) launch failed: "
+                           f"{msg} (cudaError {err}) at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype}")
     flash_attention_step.launches += 1
+    flash_attention_step.designs[which] += 1
     return m, l, acc
 
 
 flash_attention_step.launches = 0
+flash_attention_step.designs = dict.fromkeys(DESIGNS, 0)

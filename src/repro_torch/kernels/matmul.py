@@ -2,14 +2,16 @@
 (the port of the Pallas kernel ``repro/kernels/matmul.py::matmul``).
 
 ``(m, k) @ (k, n)`` with f32 accumulation, the result in the operands'
-dtype.  Two designs, picked before launch by :func:`design` and by nothing
-else: ``"wgmma"`` for bfloat16 operands that TMA can address (tensor cores
-through wgmma, TMA tile loads, an mbarrier pipeline) and ``"template"`` for
-the rest (true f32 FMAs for float32; wmma tensor cores for bfloat16
-operands whose strides or base TMA cannot take).  Any shape (ragged edges
-are masked) and, in the template, any element strides; the wgmma design
-reads K-major or M-major x and N-major or K-major w, so transposed 2-d
-views are read as they are, without a copy.  The wrapper checks what the
+dtype.  Three designs, picked before launch by :func:`design` and by
+nothing else: ``"wgmma"`` for bfloat16 operands that TMA can address
+(tensor cores through wgmma, TMA tile loads, an mbarrier pipeline),
+``"ffma"`` for float32 operands under the same rule (true f32 FMAs on the
+CUDA cores fed by a cp.async ring) and ``"template"`` for the rest (true
+f32 FMAs for float32, wmma tensor cores for bfloat16, operands whose
+strides or base the rule refuses).  Any shape (ragged edges are masked)
+and, in the template, any element strides; the wgmma and ffma designs read
+K-major or M-major x and N-major or K-major w, so transposed 2-d views are
+read as they are, without a copy.  The wrapper checks what the
 kernel takes, allocates the output, launches on PyTorch's current stream
 and raises if the launch was refused.  It never falls back: a CPU tensor is
 an error here (``kernels/ops.py`` routes CPU tensors to the plain version
@@ -45,6 +47,9 @@ def _lib():
                        + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         wg.restype = ctypes.c_int
+        ff = built.lib.matmul_ffma_fwd
+        ff.argtypes = wg.argtypes
+        ff.restype = ctypes.c_int
     return built.lib
 
 
@@ -68,13 +73,18 @@ def check_args(x, w) -> None:
                          f"{tuple(w.shape)} do not chain")
 
 
+_RULED = {torch.bfloat16: "wgmma", torch.float32: "ffma"}
+
+
 def layouts(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int] | None:
-    """``(x_mn, w_mn)`` for the wgmma design — x_mn = 1 where x is read
-    M-major (its row dim contiguous) rather than K-major, w_mn = 1 where w
-    is read N-major rather than K-major — or None where TMA cannot address
-    x or w either way or the dtype is not bfloat16.  The last two dims are
-    the product's; any dims before them (experts) ride along."""
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    """``(x_mn, w_mn)`` for the wgmma (bfloat16) or ffma (float32) design —
+    x_mn = 1 where x is read M-major (its row dim contiguous) rather than
+    K-major, w_mn = 1 where w is read N-major rather than K-major — or None
+    where x or w cannot be addressed either way (a contiguous inner dim,
+    every other stride and the base 16-byte multiples: ``_tma``) or the
+    dtypes are neither.  The last two dims are the product's; any dims
+    before them (experts) ride along."""
+    if x.dtype != w.dtype or x.dtype not in _RULED:
         return None
     r = x.dim() - 1  # x (..., m, k), w (..., k, n)
     x_mn = (0 if _tma.tensor_addressable(x, inner=r) else
@@ -87,10 +97,11 @@ def layouts(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int] | None:
 
 
 def design(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The design that serves ``x @ w``: ``"wgmma"`` where :func:`layouts`
-    finds one, else ``"template"``.  Reads dtypes, shapes, strides and base
-    addresses only."""
-    return "template" if layouts(x, w) is None else "wgmma"
+    """The design that serves ``x @ w``: where :func:`layouts` finds one,
+    ``"wgmma"`` for bfloat16 and ``"ffma"`` for float32, else
+    ``"template"``.  Reads dtypes, shapes, strides and base addresses
+    only."""
+    return "template" if layouts(x, w) is None else _RULED[x.dtype]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -109,7 +120,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if k == 0:
         return out.zero_()
     lay = layouts(x, w)
-    which = "template" if lay is None else "wgmma"
+    which = "template" if lay is None else _RULED[x.dtype]
     lib = _lib()
     ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
     strides = (*x.stride(), *w.stride(), *out.stride())
@@ -118,7 +129,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if lay is None:
             err = lib.matmul_fwd(*ptrs, _DTYPES[x.dtype], m, n, k, *strides, stream)
         else:
-            err = lib.matmul_wgmma_fwd(*ptrs, m, n, k, *strides, *lay, stream)
+            entry = lib.matmul_wgmma_fwd if which == "wgmma" else lib.matmul_ffma_fwd
+            err = entry(*ptrs, m, n, k, *strides, *lay, stream)
     if err != 0:
         msg = lib.matmul_error_string(err).decode()
         raise RuntimeError(f"matmul kernel ({which}) launch failed: {msg} "

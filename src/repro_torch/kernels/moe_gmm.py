@@ -4,11 +4,12 @@
 
 ``(e, c, k) @ (e, k, n) -> (e, c, n)`` on capacity-padded MoE dispatch
 buffers: each expert's product with f32 accumulation, rounded once to the
-operands' dtype.  It shares the matmul kernels and their two designs
-(``matmul.design``: ``"wgmma"`` for bfloat16 operands that TMA can address,
-the expert strides included; ``"template"`` for the rest) with one more
-grid axis over experts.  Any shape (ragged edges are masked, so an
-expert-sharded local block need not divide the tiles) and any element
+operands' dtype.  It shares the matmul kernels and their three designs
+(``matmul.design``: ``"wgmma"`` for bfloat16 and ``"ffma"`` for float32
+operands that the rule of ``_tma`` takes, the expert strides included;
+``"template"`` for the rest) with one more grid axis over experts.  Any
+shape (ragged edges are masked, so an expert-sharded local block need not
+divide the tiles) and any element
 strides: the weights arrive as per-unit views of the stacked layer
 parameters and are read in place.  The wrapper checks what the kernel
 takes, allocates the output, launches on PyTorch's current stream and
@@ -25,7 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _tma
-from repro_torch.kernels.matmul import layouts
+from repro_torch.kernels.matmul import _RULED, layouts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +46,9 @@ def _lib():
                        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         wg.restype = ctypes.c_int
+        ff = built.lib.gmm_ffma_fwd
+        ff.argtypes = wg.argtypes
+        ff.restype = ctypes.c_int
     return built.lib
 
 
@@ -88,7 +92,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if k == 0:
         return out.zero_()
     lay = layouts(x, w)
-    which = "template" if lay is None else "wgmma"
+    which = "template" if lay is None else _RULED[x.dtype]
     lib = _lib()
     ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
     strides = (*x.stride(), *w.stride(), *out.stride())
@@ -97,7 +101,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if lay is None:
             err = lib.gmm_fwd(*ptrs, _DTYPES[x.dtype], e, c, n, k, *strides, stream)
         else:
-            err = lib.gmm_wgmma_fwd(*ptrs, e, c, n, k, *strides, *lay, stream)
+            entry = lib.gmm_wgmma_fwd if which == "wgmma" else lib.gmm_ffma_fwd
+            err = entry(*ptrs, e, c, n, k, *strides, *lay, stream)
     if err != 0:
         msg = lib.matmul_error_string(err).decode()
         raise RuntimeError(f"gmm kernel ({which}) launch failed: {msg} "

@@ -9,10 +9,11 @@
   * "ref"    — the plain torch version, on whatever device the tensor is.
 
 ``launch_counts()`` reads each kernel's launch counter,
-``design_counts()`` splits the forward attention, matmul and gmm launches
-by the design that served them (``"wgmma"`` or ``"template"``, picked by
-each wrapper's shape rule), and ``reset_launch_counts()`` sets them all
-to 0.
+``design_counts()`` splits every kernel's launches by the design that
+served them (``"wgmma"`` or ``"template"`` for the forward attention and
+the ring step; ``"wgmma"``, ``"ffma"`` or ``"template"`` for matmul and
+gmm; picked by each wrapper's shape rule), and ``reset_launch_counts()``
+sets them all to 0.
 """
 from __future__ import annotations
 
@@ -112,6 +113,7 @@ def launch_counts() -> dict[str, int]:
 def design_counts() -> dict[str, dict[str, int]]:
     """Launches since the last reset by kernel and design."""
     return {"flash_attention": dict(_fa.flash_attention.designs),
+            "flash_attention_step": dict(_fa.flash_attention_step.designs),
             "matmul": dict(_mm.matmul.designs), "gmm": dict(_gmm.gmm.designs)}
 
 
@@ -119,5 +121,4 @@ def reset_launch_counts() -> None:
     for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul,
                _gmm.gmm):
         fn.launches = 0
-    for fn in (_fa.flash_attention, _mm.matmul, _gmm.gmm):
         fn.designs = dict.fromkeys(fn.designs, 0)

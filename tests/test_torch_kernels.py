@@ -466,48 +466,117 @@ def test_flash_design_rule(name, want):
 @pytest.mark.parametrize("name,want", [
     ("contiguous", (0, 1)), ("x_transposed", (1, 1)), ("w_transposed", (0, 0)),
     ("both_transposed", (1, 0)), ("ragged_k_in_aligned_rows", (0, 1)),
-    ("f32", None), ("misaligned_rows", None), ("misaligned_base", None),
+    ("f32", (0, 1)), ("misaligned_rows", None), ("misaligned_base", None),
     ("w_column_stride_2", None),
+    ("f32_x_transposed", (1, 1)), ("f32_w_transposed", (0, 0)),
+    ("f32_both_transposed", (1, 0)), ("f32_ragged_k_in_aligned_rows", (0, 1)),
+    ("f32_ragged_m_n_k", (0, 1)), ("f32_base_16_bytes_in", (0, 1)),
+    ("f32_rows_of_6_floats", None), ("f32_rows_of_130_floats", None),
+    ("f32_misaligned_base", None), ("f32_w_column_stride_2", None),
+    ("f32_x_transposed_rows_of_130", None), ("f32_with_bf16", None),
 ])
 def test_matmul_layout_rule(name, want):
-    bf = torch.bfloat16
+    """Operands with a contiguous inner dim (K-major or M-major x, N-major
+    or K-major w) whose other strides and base are 16-byte multiples take
+    the wgmma design in bf16 and the ffma design in float32 (4 floats to
+    16 bytes); everything else the template.  Pure: reads dtypes, shapes,
+    strides and base addresses."""
+    bf, f32 = torch.bfloat16, torch.float32
     x, w = torch.zeros(256, 192, dtype=bf), torch.zeros(192, 384, dtype=bf)
+    xf, wf = x.float(), w.float()
     xw = {
         "contiguous": (x, w),
         "x_transposed": (x.t().contiguous().t(), w),
         "w_transposed": (x, w.t().contiguous().t()),
         "both_transposed": (x.t().contiguous().t(), w.t().contiguous().t()),
         "ragged_k_in_aligned_rows": (x[:, :77], w[:77]),
-        "f32": (x.float(), w.float()),
+        "f32": (xf, wf),
         "misaligned_rows": (torch.zeros(77, 130, dtype=bf), torch.zeros(130, 77, dtype=bf)),
         "misaligned_base": (_misaligned((256, 192), bf), w),
         "w_column_stride_2": (x, torch.zeros(192, 768, dtype=bf)[:, ::2]),
+        "f32_x_transposed": (xf.t().contiguous().t(), wf),
+        "f32_w_transposed": (xf, wf.t().contiguous().t()),
+        "f32_both_transposed": (xf.t().contiguous().t(), wf.t().contiguous().t()),
+        "f32_ragged_k_in_aligned_rows": (xf[:, :77], wf[:77]),
+        "f32_ragged_m_n_k": (torch.zeros(200, 300), torch.zeros(300, 76)),
+        "f32_base_16_bytes_in": (torch.zeros(256 * 192 + 4)[4:].view(256, 192), wf),
+        "f32_rows_of_6_floats": (torch.zeros(10, 6), torch.zeros(6, 8)),
+        "f32_rows_of_130_floats": (torch.zeros(77, 130), torch.zeros(130, 64)),
+        "f32_misaligned_base": (_misaligned((256, 192), f32), wf),
+        "f32_w_column_stride_2": (xf, torch.zeros(192, 768)[:, ::2]),
+        "f32_x_transposed_rows_of_130": (torch.zeros(192, 130).t(), wf),
+        "f32_with_bf16": (xf, w),
     }[name]
     assert mm.layouts(*xw) == want
-    assert mm.design(*xw) == ("template" if want is None else "wgmma")
+    ruled = "ffma" if xw[0].dtype == f32 else "wgmma"
+    assert mm.design(*xw) == ("template" if want is None else ruled)
 
 
 @pytest.mark.parametrize("name,want", [
     ("contiguous", "wgmma"), ("stacked_unit_view", "wgmma"), ("x_transposed", "wgmma"),
-    ("ragged_rank_local", "template"), ("f32", "template"),
+    ("ragged_rank_local", "template"), ("f32", "ffma"),
     ("odd_expert_stride", "template"),
+    ("f32_stacked_unit_view", "ffma"), ("f32_x_transposed", "ffma"),
+    ("f32_ragged_rank_local", "template"), ("f32_odd_expert_stride", "template"),
+    ("f32_expert_stride_2_floats", "template"), ("f32_one_expert_any_stride", "ffma"),
 ])
 def test_gmm_design_rule(name, want):
     """gmm shares matmul's rule over the last two dims; the expert stride
-    must be a multiple of 16 bytes too."""
+    must be a 16-byte multiple too (any stride of a single expert)."""
     bf = torch.bfloat16
     x, w = torch.zeros(4, 128, 256, dtype=bf), torch.zeros(4, 256, 64, dtype=bf)
+    xf, wf = x.float(), w.float()
     xw = {
         "contiguous": (x, w),
         "stacked_unit_view": (x, torch.zeros(4, 3, 256, 64, dtype=bf)[:, 1]),
         "x_transposed": (x.transpose(1, 2).contiguous().transpose(1, 2), w),
         "ragged_rank_local": (torch.zeros(3, 200, 77, dtype=bf),
                               torch.zeros(3, 77, 130, dtype=bf)),
-        "f32": (x.float(), w.float()),
+        "f32": (xf, wf),
         "odd_expert_stride": (torch.zeros(4 * 128 * 256 + 4 * 8, dtype=bf).as_strided(
             (4, 128, 256), (128 * 256 + 4, 256, 1)), w),
+        "f32_stacked_unit_view": (xf, torch.zeros(4, 3, 256, 64)[:, 1]),
+        "f32_x_transposed": (xf.transpose(1, 2).contiguous().transpose(1, 2), wf),
+        "f32_ragged_rank_local": (torch.zeros(3, 200, 77), torch.zeros(3, 77, 130)),
+        "f32_odd_expert_stride": (torch.zeros(4 * 128 * 256 + 4 * 8).as_strided(
+            (4, 128, 256), (128 * 256 + 1, 256, 1)), wf),
+        "f32_expert_stride_2_floats": (xf, torch.zeros(4 * 256 * 64 + 8).as_strided(
+            (4, 256, 64), (256 * 64 + 2, 64, 1))),
+        "f32_one_expert_any_stride": (torch.zeros(1, 128, 256), torch.zeros(
+            256 * 64 + 4).as_strided((1, 256, 64), (3, 64, 1))),
     }[name]
     assert mm.design(*xw) == want
+
+
+@pytest.mark.parametrize("name,want", [
+    ("bf16_d128_ring_blocks", "wgmma"), ("bf16_d64_ring_blocks", "wgmma"),
+    ("bf16_bshd_views", "wgmma"), ("bf16_gqa_ragged_blocks", "wgmma"),
+    ("f32_ring_blocks", "template"), ("bf16_d32", "template"),
+    ("bf16_d256", "template"), ("bf16_misaligned_base", "template"),
+])
+def test_step_design_rule(name, want):
+    """The ring step takes the forward's rule, read from q and the kv
+    block: a block sliced out of the full kv along s keeps its strides and
+    a 16-byte aligned base, so every ring position takes one design."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def blocks(b, hq, hkv, s, d, r, dt=bf):
+        q, kv = torch.zeros(b, hq, s // r, d, dtype=dt), torch.zeros(b, hkv, s, d, dtype=dt)
+        blk = s // r
+        return [(q, kv[:, :, j * blk:(j + 1) * blk], kv[:, :, j * blk:(j + 1) * blk])
+                for j in range(r)]
+    cases = {
+        "bf16_d128_ring_blocks": blocks(4, 32, 32, 512, 128, 4),
+        "bf16_d64_ring_blocks": blocks(2, 4, 2, 128, 64, 2),
+        "bf16_bshd_views": [tuple(torch.zeros(2, 64, 4, 128, dtype=bf).transpose(1, 2)
+                                  for _ in range(3))],
+        "bf16_gqa_ragged_blocks": blocks(1, 8, 2, 200, 128, 2),
+        "f32_ring_blocks": blocks(2, 4, 4, 64, 32, 2, f32),
+        "bf16_d32": blocks(2, 4, 4, 64, 32, 2),
+        "bf16_d256": blocks(1, 2, 2, 64, 256, 2),
+        "bf16_misaligned_base": [(_misaligned((1, 2, 64, 128), bf),) * 3],
+    }[name]
+    assert {fa.design(*qkv) for qkv in cases} == {want}
 
 
 @pytest.mark.parametrize("shapes,dt,match", [
@@ -529,18 +598,28 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match):
 
 
 def test_design_counts_start_at_zero_and_reset():
-    """Every kernel's launches split by design; a CPU call launches
-    nothing, and a reset clears the split with the counts."""
+    """Every kernel's launches split by design (the ring step's too); a CPU
+    call launches nothing, and a reset clears the split with the counts."""
     ops.reset_launch_counts()
-    zero = dict.fromkeys(("wgmma", "template"), 0)
-    assert ops.design_counts() == {"flash_attention": zero, "matmul": zero, "gmm": zero}
-    x = torch.zeros(4, 8, 8, dtype=torch.bfloat16)
-    ops.gmm(x, x)
-    ops.matmul(x[0], x[0])
-    assert ops.design_counts()["gmm"] == zero and ops.design_counts()["matmul"] == zero
+    att = dict.fromkeys(("wgmma", "template"), 0)
+    mms = dict.fromkeys(("wgmma", "ffma", "template"), 0)
+    assert ops.design_counts() == {"flash_attention": att, "flash_attention_step": att,
+                                   "matmul": mms, "gmm": mms}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.zeros(4, 8, 8, dtype=dt)
+        ops.gmm(x, x)
+        ops.matmul(x[0], x[0])
+        q = torch.zeros(1, 2, 8, 64, dtype=dt)
+        ops.flash_attention_step(q, q, q)
+    assert ops.design_counts()["gmm"] == mms and ops.design_counts()["matmul"] == mms
+    assert ops.design_counts()["flash_attention_step"] == att
     fa.flash_attention.designs["wgmma"] = 3  # as a launch would
+    fa.flash_attention_step.designs["wgmma"] = 2
+    mm.matmul.designs["ffma"] = 1
     ops.reset_launch_counts()
-    assert ops.design_counts()["flash_attention"] == zero
+    assert ops.design_counts()["flash_attention"] == att
+    assert ops.design_counts()["flash_attention_step"] == att
+    assert ops.design_counts()["matmul"] == mms
 
 
 # ---------------------------------------------------------------------------

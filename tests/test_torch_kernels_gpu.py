@@ -1,7 +1,8 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
-matmul, gmm) against their plain torch versions, in both designs where a
-kernel has two (the wgmma design and the template, which the shape rule
-picks before launch), the reduced serving path on
+matmul, gmm) against their plain torch versions, in every design of each
+(the wgmma design for bf16, the ffma design for float32 matmul and gmm,
+and the template, which the shape rule picks before launch), the reduced
+serving path on
 the card against the CPU, a reduced llama program through the
 explicit-collective executor on the one-card mesh, and the ring on two
 gloo ranks that share the card.
@@ -570,3 +571,179 @@ def test_cuda_gmm_wgmma_takes_expert_strided_views(cuda):
     assert which == "template"
     torch.testing.assert_close(got.float(), ref.gmm(xs, w[:, :77]).float(),
                                rtol=3e-2, atol=0.24)
+
+
+# ---------------------------------------------------------------------------
+# The ffma design (float32 matmul and gmm under the same rule) and the ring
+# step's wgmma design
+# ---------------------------------------------------------------------------
+
+FFMA_MM_CASES = [(128, 128, 128), (256, 384, 128), (64, 64, 64),  # test_kernels.py
+                 (200, 300, 76), (1, 4, 4), (130, 20, 132), (77, 8, 296),
+                 (300, 1000, 4)] + _llama_mm_shapes()[:1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", FFMA_MM_CASES)
+def test_cuda_matmul_ffma_matches_plain_version(m, k, n, cuda):
+    x, w = _mm_inputs(m, k, n, "float32", cuda)
+    got, which = _served_by("matmul", lambda: ops.matmul(x, w))
+    assert which == "ffma" and got.shape == (m, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.matmul(x, w), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_t,w_t", [(False, False), (True, False), (False, True),
+                                     (True, True)])
+@pytest.mark.parametrize("m,k,n", [(328, 200, 264), (132, 36, 260)])
+def test_cuda_matmul_ffma_reads_both_majors(x_t, w_t, m, k, n, cuda):
+    """K-major or M-major x, N-major or K-major w, ragged edges: 16-byte
+    copies of an MN-major operand, transposing 4-byte copies of a K-major
+    one, without a copy of the operand."""
+    x, w = _mm_inputs(m, k, n, "float32", cuda, seed=4)
+    xv = x.t().contiguous().t() if x_t else x
+    wv = w.t().contiguous().t() if w_t else w
+    assert mm.layouts(xv, wv) == (int(x_t), int(not w_t))
+    got, which = _served_by("matmul", lambda: ops.matmul(xv, wv))
+    assert which == "ffma"
+    torch.testing.assert_close(got, ref.matmul(x, w), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rows_of_130_floats", "misaligned_base", "column_stride_2"])
+def test_cuda_matmul_f32_shapes_outside_the_rule_take_the_template(name, cuda):
+    x, w = _mm_inputs(77, 130, 64, "float32", cuda)
+    if name == "misaligned_base":
+        x, w = _mm_inputs(64, 64, 64, "float32", cuda)
+        x = torch.cat([x.flatten(), x.flatten()[:1]])[1:].view(x.shape)
+    elif name == "column_stride_2":
+        x, w = _mm_inputs(64, 64, 64, "float32", cuda)
+        w = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]
+    got, which = _served_by("matmul", lambda: ops.matmul(x, w))
+    assert which == "template"
+    torch.testing.assert_close(got, ref.matmul(x, w), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,k,n", [(4, 128, 256, 128), (8, 128, 128, 384), (2, 256, 128, 128),
+                                     (5, 33, 136, 24), (3, 200, 76, 132)]
+                         + _moe_gmm_shapes()[:1])
+def test_cuda_gmm_ffma_matches_plain_version(e, c, k, n, cuda):
+    x, w = _gmm_inputs(e, c, k, n, "float32", cuda)
+    got, which = _served_by("gmm", lambda: ops.gmm(x, w))
+    assert which == "ffma" and got.shape == (e, c, n)
+    torch.testing.assert_close(got, ref.gmm(x, w), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_ffma_takes_expert_strided_views(cuda):
+    """A weight view out of a stacked (e, units, k, n) tensor, a K-major
+    weight and an M-major x, each read through its strides; an x whose rows
+    are not 16-byte multiples takes the template."""
+    x, w = _gmm_inputs(5, 152, 96, 72, "float32", cuda, seed=1)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    stacked = torch.stack([-w, w, -w], dim=1)
+    assert mm.layouts(xt, stacked[:, 1]) == (1, 1)
+    got, which = _served_by("gmm", lambda: ops.gmm(xt, stacked[:, 1]))
+    assert which == "ffma"
+    torch.testing.assert_close(got, ref.gmm(x, w), rtol=1e-4, atol=8e-4)
+    wk = w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert mm.layouts(x, wk) == (0, 0)
+    got, which = _served_by("gmm", lambda: ops.gmm(x, wk))
+    assert which == "ffma"
+    torch.testing.assert_close(got, ref.gmm(x, w), rtol=1e-4, atol=8e-4)
+    xs = x[:, :, :77].contiguous()  # 77-float rows: not 16-byte multiples
+    got, which = _served_by("gmm", lambda: ops.gmm(xs, w[:, :77]))
+    assert which == "template"
+    torch.testing.assert_close(got, ref.gmm(xs, w[:, :77]), rtol=1e-4, atol=8e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_ffma_and_step_designs_give_the_same_bits_twice(cuda):
+    """No atomics and no split-K: two launches on the same inputs give the
+    same bits, for the ffma design at its path shapes and the step's wgmma
+    design at the ring shape."""
+    x, w = _mm_inputs(2048, 4096, 4096, "float32", cuda)
+    assert torch.equal(ops.matmul(x, w), ops.matmul(x, w))
+    xe, we = _gmm_inputs(64, 256, 2048, 1408, "float32", cuda)
+    assert torch.equal(ops.gmm(xe, we), ops.gmm(xe, we))
+    assert mm.design(x, w) == mm.design(xe, we) == "ffma"
+    q, k, v = _att_inputs((4, 32, 128, 128), (4, 32, 128, 128), cuda)
+    kw = dict(q_offset=384, kv_offset=128)
+    a = ops.flash_attention_step(q, k, v, None, **kw)
+    b = ops.flash_attention_step(q, k, v, None, **kw)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+WG_STEP_CASES = [  # (b, hq, hkv, s, d, causal, window)
+    (2, 4, 2, 128, 64, True, 0),       # the bf16 case of STEP_CASES
+    (2, 4, 4, 256, 128, True, 0),
+    (1, 8, 2, 200, 128, True, 40),     # GQA 4:1, window, blocks that divide no tile
+    (1, 4, 1, 96, 64, True, 24),       # MQA, window
+    (1, 4, 2, 512, 64, False, 0),      # no mask, two kv tiles a block at r = 2
+    (4, 32, 32, 512, 128, True, 0),    # llama-7b prefill cut r ways
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("case", WG_STEP_CASES, ids=lambda c: "b{}h{}k{}s{}d{}{}w{}".format(
+    c[0], c[1], c[2], c[3], c[4], "c" if c[5] else "", c[6]))
+def test_cuda_step_wgmma_chain_matches_plain_every_offset(case, r, cuda):
+    """The ring as each rank runs it: q block i at i*blk, the kv blocks in
+    ring order, fully masked blocks included.  Every carry against the plain
+    step (in natural units, so m and the -1e30 of masked rows compare
+    directly), the finalised chain against the forward kernel."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v = _att_inputs((b, hq, s, d), (b, hkv, s, d), cuda, seed=2)
+    blk = s // r
+    kw = dict(causal=causal, window=window)
+    for i in range(r):
+        qi = q[:, :, i * blk:(i + 1) * blk]
+        carry = plain = None
+        for t in range(r):
+            j = (i - t) % r
+            kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
+            off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
+            carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+                qi, kj, vj, carry, **off))
+            assert which == "wgmma"
+            plain = ref.attention_step(qi, kj, vj, plain, **off)
+            for got, want in zip(carry, plain):
+                torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        fin = ops.attention_finalize(carry, q.dtype)
+        fwd = ops.flash_attention(qi, k, v, q_offset=i * blk, **kw)
+        torch.testing.assert_close(fin.float(), fwd.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_step_wgmma_updates_carry_in_place_and_init(cuda):
+    """``None`` starts from (-1e30, 0, 0) without reading the buffers; a
+    given carry is read and written in place; a row with no key yet keeps
+    m = -1e30 exactly and weighs its masked scores 1."""
+    q, k, v = _att_inputs((1, 4, 150, 128), (1, 2, 130, 128), cuda, seed=3)
+    carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+        q, k, v, None, q_offset=0, kv_offset=100))
+    assert which == "wgmma"
+    want = ref.attention_step(q, k, v, None, q_offset=0, kv_offset=100)
+    for got, w in zip(carry, want):
+        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
+    assert bool((carry[0][:, :, :100] == -1e30).all())
+    assert bool((carry[1][:, :, :100] == 130).all())
+    ptrs = [t.data_ptr() for t in carry]
+    again, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+        q, k, v, carry, q_offset=0, kv_offset=0))
+    assert which == "wgmma" and [t.data_ptr() for t in again] == ptrs
+    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
+    for got, w in zip(again, want):
+        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
+    # a carry whose acc is not 16-byte aligned is copied, and the copy updated
+    m, l, acc = (t.clone() for t in want)
+    flat = torch.empty(acc.numel() + 1, device=cuda)
+    shifted = flat[1:].view(acc.shape)
+    shifted.copy_(acc)
+    out = ops.flash_attention_step(q, k, v, (m, l, shifted), q_offset=0, kv_offset=0)
+    assert out[2].data_ptr() % 16 == 0 and out[0].data_ptr() == m.data_ptr()
+    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
+    for got, w in zip(out, want):
+        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
