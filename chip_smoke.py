@@ -79,7 +79,34 @@
    stubs on 4 gloo ranks sharing the card, the expert label on a 4-way
    axis, so dispatch and combine run the ``a2a`` rule's all_to_all
    program; the collectives each rank issued against the static trace,
-   the logits against the one-card dense run.
+   the logits against the one-card dense run;
+17. train parity: llama-7b at full width, 2 layers, float32, batch 1,
+   seq 128, the same weights and batch on the card (the flash kernel's
+   template design inside its autograd Function, whose backward is the
+   plain version's) and on the CPU (the plain path): the loss and every
+   gradient leaf of ``loss_fn`` (1e-4 relative; 1e-4 x max|g| a leaf),
+   then one ``make_train_step`` on each side (loss and grad norm, 1e-4
+   relative), 2 layers x 2 flash launches each (forward and remat
+   recompute);
+18. train llama-7b at full width (bf16) with 8 of its 32 layers (the
+   parameters, gradients and f32 AdamW moments of all 32 would fill the
+   card), batch 4, seq 512, cosine schedule, 8 steps through
+   ``repro_torch.launch.train.train`` with a plan-cache file and a
+   checkpoint directory under ``chiprun_out/``: per-step loss, grad norm
+   and wall time, peak memory, flash launches per step (all wgmma), a
+   finite and falling loss, the checkpoint restored through
+   ``CheckpointManager.restore_latest`` bit-equal to the state in memory;
+   then one warmed step under torch.profiler (device busy time, idle
+   share, device time by kind, inside the plain attention backward and
+   inside the optimizer);
+19. the paper's Experiment 2 at AmazonCat-14K sizes (597,540 features,
+   8,192 hidden, 14,588 labels, batch 512, float32): the FFNN graph built
+   here with the port's ``EinGraph``, ``Program.grad(wrt=["W1", "W2"])``
+   compiled with ``executor="shard_map"`` on the 1x1 mesh through a
+   plan-cache file (cold, then a hit), 3 SGD steps with every matmul
+   launch of the ffma design, the first step's gradients against
+   ``torch.autograd`` of the plain FFNN on the card (1e-4 x max|g|), the
+   step's wall and device time against its FLOP bound.
 
 Every kernel has a design picked by the shape rule in its wrapper before
 launch (``"wgmma"`` for bf16 and ``"ffma"`` for float32 operands the rule
@@ -94,6 +121,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -383,15 +411,21 @@ def main() -> int:
     t_template = _time_ms(template, 10)
     t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 5)
     t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 50)
+    t_lib_device = _device_ms(lambda: sdpa(q, k, v, is_causal=True), 20, None)
+    t_bwd_plain = _attention_backward_ms(ref, q, k, v, kw)
     bound_ms, bound_by, nbytes, nops = _attention_bound_ms(SLICE, ref)
     log("timing", f"flash_attention {SLICE[:6]} bf16 causal: kernel (wgmma) {t_kernel:.4f} "
                   f"ms ({t_device:.4f} ms device time), template {t_template:.4f} ms "
                   f"({t_template / t_kernel:.1f}x), plain "
-                  f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {nbytes} B, {nops} ops)")
+                  f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms ({t_lib_device:.4f} ms device "
+                  f"time), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); "
+                  f"the backward (the plain version's VJP, from saved q, k, v) "
+                  f"{t_bwd_plain:.4f} ms")
     results["timing"] = {"kernel_ms": t_kernel, "device_ms": t_device,
                          "template_ms": t_template,
                          "plain_ms": t_plain, "library_ms": t_lib,
+                         "library_device_ms": t_lib_device,
+                         "backward_plain_ms": t_bwd_plain,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bytes": nbytes, "ops": nops}
     del q, k, v, o_template
@@ -434,6 +468,15 @@ def main() -> int:
     # 16. the a2a path: 4 gloo ranks on the card, experts sharded 4 ways ---------------------
     results["a2a"] = _a2a_path()
 
+    # 17. train parity: the card (kernel forward, plain backward) against the CPU -----------
+    results["train_parity"] = _train_parity(cfg, ops)
+
+    # 18. train llama-7b at full width, 8 layers, bf16 --------------------------------------
+    results["train"] = _train_phase(cfg, ops, fa)
+
+    # 19. the paper's Experiment 2: the FFNN's gradient program at AmazonCat-14K sizes -------
+    results["ffnn"] = _ffnn_phase(ops)
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -448,7 +491,11 @@ def main() -> int:
          "launches": launches["flash_attention"], "max_abs_err": slice_err,
          "ms": t_kernel, "template_ms": results["timing"]["template_ms"],
          "plain_ms": t_plain, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": t_lib},
+         "bound_by": bound_by, "library_ms": t_lib,
+         "library_device_ms": results["timing"]["library_device_ms"],
+         "device_ms": results["timing"]["device_ms"],
+         "backward_plain_ms": results["timing"]["backward_plain_ms"],
+         "train_launches_per_step": results["train"]["flash_launches_per_step"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -471,7 +518,9 @@ def main() -> int:
          "f32_max_abs_err": results["matmul_parity"]["qproj_f32_max_abs_err"],
          "f32_ms": m32["kernel_ms"], "f32_template_ms": m32["template_ms"],
          "f32_plain_ms": m32["plain_ms"], "f32_library_ms": m32["library_ms"],
-         "f32_bound_ms": m32["bound_ms"], "f32_bound_by": m32["bound_by"]},
+         "f32_bound_ms": m32["bound_ms"], "f32_bound_by": m32["bound_by"],
+         "ffnn_launches_per_step": results["ffnn"]["matmul_launches_per_step"],
+         "ffnn_design": _path_design(results["ffnn"]["designs"]["matmul"])},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -507,6 +556,7 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
     just before it and read just after.  Then one prefill and one decode
     step, each counted and profiled."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
     from repro_torch.core.plancache import PlanCache
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
@@ -527,7 +577,7 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
         params = tf.init_params(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in _leaves(params))
+        n_params = sum(t.numel() for t in tree.leaves(params))
         log("serve", f"{cfg.name}: planned cold in {t_cold:.4f} s; {n_params} params "
                      f"made on the card in {t_init:.1f} s")
         # a short warm-up request, then the counted run
@@ -605,13 +655,14 @@ def _slice_parity(cfg, ops) -> dict:
     """``cfg`` at full width, 2 layers, float32: the same weights on the
     card (the kernels) and on the CPU (the plain path); prefill logits and
     greedy tokens."""
+    from repro_torch.core import tree
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tf
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     cpu_params = tf.init_params(cfg2, seed=1, device="cpu")
-    gpu_params = _map(cpu_params, lambda t: t.to("cuda"))
+    gpu_params = tree.map(lambda t: t.to("cuda"), cpu_params)
     p2 = np.random.default_rng(1).integers(0, cfg2.vocab, size=(2, 64)).astype(np.int32)
     prefill = steps.make_prefill_step(cfg2)
     ops.reset_launch_counts()
@@ -640,13 +691,20 @@ def _slice_parity(cfg, ops) -> dict:
             "designs": designs, "tokens": g_gpu.tolist()}
 
 
-def _profile(fn) -> dict:
+def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     """``fn`` warmed up, timed once on the host clock (ending in a
-    synchronize), then run once more under torch.profiler: the device time
-    of its kernels, by kind (this port's flash-attention, ring-step, matmul
-    and gmm kernels of every design, cuBLAS matrix products, everything
-    else), and the idle share of the unprofiled wall time (tracing itself
-    slows the host down)."""
+    synchronize), then run twice more under torch.profiler, of which the
+    second call is read: the device time of its kernels, by kind (this
+    port's flash-attention, ring-step, matmul and gmm kernels of every
+    design, cuBLAS matrix products, everything else), and the idle share
+    of the unprofiled wall time (tracing itself slows the host down).
+    A trace started late in a process can lose the device events of its
+    first ~100 ms, so the first call only fills that window, and a spin
+    kernel between the calls marks where the read call starts.
+    ``ranges`` names ``record_function`` ranges whose kernels' device time
+    is reported too (``range_ms``, the read call's half of the ranges;
+    those kernels also count in their kinds), for which the host's ops are
+    traced as well."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -656,15 +714,27 @@ def _profile(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 16)  # the marker
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [e for e in device if "spin_kernel" in e.name]
+    assert marks, "the trace lost the marker kernel"
+    start = marks[-1].time_range.end
     by_kind = {"flash_attention": 0.0, "flash_step": 0.0, "matmul": 0.0, "gmm": 0.0,
                "gemm": 0.0, "other": 0.0}
+    count = dict.fromkeys(by_kind, 0)
     by_name: dict[str, float] = {}
     n = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or "Loading" in e.name or "Buffer" in e.name:
+    for e in device:
+        if (e.time_range.start < start or "Loading" in e.name or "Buffer" in e.name
+                or e.name in ranges):  # a range's span on the device timeline, not a kernel
             continue
         n += 1
         ms = e.time_range.elapsed_us() / 1e3
@@ -681,12 +751,19 @@ def _profile(fn) -> dict:
                 "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
                 else "other")
         by_kind[kind] += ms
+        count[kind] += 1
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
     device_ms = sum(by_kind.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": n,
+    range_ms = {}
+    for r in ranges:
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CPU
+                      and e.name == r), key=lambda e: e.time_range.start)
+        range_ms[r] = sum(e.device_time_total for e in evs[len(evs) // 2:]) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": n, "range_ms": range_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "by_kind_ms": {k: round(v, 4) for k, v in by_kind.items()},
+            "by_kind_count": count,
             "top_kernels_ms": [(k, round(v, 4)) for k, v in top]}
 
 
@@ -871,11 +948,13 @@ def _matmul_timing(cfg, ops, ref) -> dict:
     return res
 
 
-def _device_ms(fn, iters: int, match: str) -> float:
+def _device_ms(fn, iters: int, match: str | None) -> float:
     """Device time of one launch: ``fn`` (one kernel launch whose name
     holds ``match``) run ``iters`` times under torch.profiler, the matching
     kernels' device time averaged.  For kernels short enough that the
-    host's launch path, not the card, would set an events time."""
+    host's launch path, not the card, would set an events time.  With
+    ``match=None``, the device time of every kernel ``fn`` launches, per
+    call (a library call or a composite of several kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -886,10 +965,22 @@ def _device_ms(fn, iters: int, match: str) -> float:
             fn()
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name]
+             if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
+    if match is None:
+        assert times, "no kernel in the trace"
+        return sum(times) / iters / 1e3
     # the trace may drop an event at its edge; never more than one a call
     assert 0 < len(times) <= iters, (match, len(times), iters)
     return sum(times) / len(times) / 1e3
+
+
+def _attention_backward_ms(ref, q, k, v, kw) -> float:
+    """Device time of the flash kernel's backward at (q, k, v): the plain
+    version recomputed from the saved inputs and pulled back
+    (``ref.vjp``, what ``FlashAttention.backward`` runs)."""
+    do = torch.randn_like(q)
+    return _device_ms(lambda: ref.vjp(lambda q, k, v: ref.attention(q, k, v, **kw),
+                                      (q, k, v), (True, True, True), do), 5, None)
 
 
 def _step_timing(ops, ref) -> dict:
@@ -1365,23 +1456,362 @@ def _a2a_path() -> dict:
             "wall_s": [r["wall_s"] for r in ranks], "spawn_s": t_spawn}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# 17-19. training: the model stack's train step, and the paper's FFNN
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4  # float32, the card against the CPU: sums in other orders
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+def _train_parity(cfg, ops) -> dict:
+    """``cfg`` at full width, 2 layers, float32, batch 1, seq 128: the same
+    weights and batch on the card (the flash kernel inside its autograd
+    Function) and on the CPU (the plain path).  The loss and every
+    gradient of ``loss_fn``, then one ``make_train_step`` on each side."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_params = tf.init_params(cfg2, seed=2, device="cpu")
+    toks = np.random.default_rng(2).integers(0, cfg2.vocab, size=(1, 128)).astype(np.int32)
+    res: dict = {}
+    side: dict = {}
+    for dev in ("cuda", "cpu"):
+        params = tree.map(lambda t: t.to(dev, copy=True), cpu_params)
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(toks, device=dev)}
+        leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
+        ops.reset_launch_counts()
+        loss, _ = tf.loss_fn(params, batch, cfg2)  # remat on: the reference's default
+        grads = torch.autograd.grad(loss, leaves)
+        grad_launches = ops.launch_counts()["flash_attention"]
+        designs = ops.design_counts()["flash_attention"]
+        for p in leaves:
+            p.requires_grad_(False)
+        step = steps.make_train_step(cfg2)
+        ops.reset_launch_counts()
+        _, _, met = step(params, adamw_init(params), batch)
+        step_launches = ops.launch_counts()["flash_attention"]
+        side[dev] = {"loss": float(loss.detach()), "grads": [g.float().cpu() for g in grads],
+                     "step_loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                     "launches": (grad_launches, step_launches), "designs": designs}
+        del params, grads, leaves, loss
+        torch.cuda.empty_cache()
+    gpu, cpu = side["cuda"], side["cpu"]
+    # 2 layers x (forward + the remat recompute in the backward); none on the CPU
+    assert gpu["launches"] == (4, 4) and cpu["launches"] == (0, 0), (gpu["launches"],
+                                                                      cpu["launches"])
+    assert gpu["designs"]["template"] == 4, gpu["designs"]  # float32: the template
+    errs = {}
+    for what in ("loss", "step_loss", "grad_norm"):
+        err = abs(gpu[what] - cpu[what]) / abs(cpu[what])
+        log("train-parity", f"{what}: card {gpu[what]:.7f}, CPU {cpu[what]:.7f}, "
+                            f"relative error {err:.3e} (limit {TRAIN_TOL})")
+        assert err <= TRAIN_TOL, (what, gpu[what], cpu[what])
+        errs[what] = err
+    leaf_errs = []
+    for i, (g, c) in enumerate(zip(gpu["grads"], cpu["grads"])):
+        scale = float(c.abs().max())
+        err = float((g - c).abs().max())
+        leaf_errs.append({"leaf": i, "shape": list(c.shape), "max_abs_err": err,
+                          "max_abs_grad": scale, "limit": TRAIN_TOL * scale})
+        assert err <= TRAIN_TOL * scale, leaf_errs[-1]
+    worst = max(leaf_errs, key=lambda e: e["max_abs_err"] / max(e["max_abs_grad"], 1e-30))
+    for e in leaf_errs:
+        log("train-parity", f"grad leaf {e['leaf']} {tuple(e['shape'])}: max|card - CPU| "
+                            f"{e['max_abs_err']:.3e} (limit {e['limit']:.3e} = "
+                            f"{TRAIN_TOL} x max|g| {e['max_abs_grad']:.3e})")
+    log("train-parity", f"{cfg.name} width, 2 layers, f32, b=1, s=128: flash launches "
+                        f"(value-and-grad, train step) {gpu['launches']}, by design "
+                        f"{gpu['designs']}; worst leaf {worst['leaf']} at "
+                        f"{worst['max_abs_err'] / worst['max_abs_grad']:.3e} of its max|g|")
+    res.update({"rel_err": errs, "grad_leaves": leaf_errs, "launches": gpu["launches"],
+                "designs": gpu["designs"], "loss": gpu["loss"], "grad_norm": gpu["grad_norm"]})
+    return res
+
+
+TRAIN_LAYERS = 8  # of llama-7b's 32: all 32 with grads and f32 moments would fill the card
+TRAIN_STEPS = 8
+ATT_BWD_RANGE = "flash_attention.backward (plain)"
+OPT_RANGE = "adamw_update"
+
+
+def _train_phase(cfg, ops, fa) -> dict:
+    """Train ``cfg`` at full width with ``TRAIN_LAYERS`` layers, bf16, batch
+    4, seq 512 through ``launch.train.train`` (cosine schedule, a plan-cache
+    file and a checkpoint directory under chiprun_out/); restore the
+    checkpoint; profile one more warmed step."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.optim.schedules import cosine_schedule
+
+    cfg8 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("chip_smoke", "train", 512, 4)
+    out = ROOT / "chiprun_out"
+    ckpt, store = out / "train_ckpt", out / "train_plans.json"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train_mod.train(cfg8, shape, steps_total=TRAIN_STEPS, ckpt_dir=str(ckpt),
+                          plan_cache=str(store), device="cuda", log_every=1)
+    wall = time.perf_counter() - t0
+    launches, designs = ops.launch_counts(), ops.design_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state = run["params"], run["opt_state"]
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    per_step = launches["flash_attention"] / TRAIN_STEPS
+    # every layer: its forward, and its recompute in the backward (remat)
+    assert launches["flash_attention"] == 2 * TRAIN_LAYERS * TRAIN_STEPS, launches
+    assert designs["flash_attention"]["wgmma"] == launches["flash_attention"], designs
+    assert launches["matmul"] == launches["gmm"] == launches["flash_attention_step"] == 0
+    losses = [st["loss"] for st in run["steps"]]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    assert all(np.isfinite([st["grad_norm"] for st in run["steps"]]))
+    assert losses[-1] < losses[0], losses
+    for st in run["steps"]:
+        log("train", f"step {st['step']}: loss {st['loss']:.4f} (ce {st['ce']:.4f}), grad norm "
+                     f"{st['grad_norm']:.4f}, lr {st['lr']:.3e}, wall {st['wall_s']:.4f} s")
+    # train() planned through the store: the same cell now plans as a hit
+    warm = PlanCache.open(str(store))
+    program_for(cfg8, shape).compile(mesh_axes={"data": 1, "model": 1}, cache=warm)
+    assert warm.stats["hits"] == 1 and warm.stats["misses"] == 0, warm.stats
+    # the checkpoint train() wrote at its last step restores bit-equal
+    t0 = time.perf_counter()
+    restored = CheckpointManager(str(ckpt)).restore_latest((params, opt_state))
+    t_restore = time.perf_counter() - t0
+    step, (rp, rs), _ = restored
+    assert step == TRAIN_STEPS, step
+    n_leaves = 0
+    for a, b in zip(tree.leaves((rp, rs)), tree.leaves((params, opt_state))):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        n_leaves += 1
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    del restored, rp, rs
+    shutil.rmtree(ckpt, ignore_errors=True)  # 4 bytes a parameter, three times over
+    torch.cuda.empty_cache()
+    log("train", f"{cfg.name} width, {TRAIN_LAYERS} layers, bf16, b=4, s=512: {n_params} "
+                 f"params; {TRAIN_STEPS} steps in {wall:.1f} s with the final checkpoint; "
+                 f"max_memory_allocated {peak}; flash launches {launches['flash_attention']} "
+                 f"({per_step:g} a step) by design {designs['flash_attention']}; checkpoint "
+                 f"step {step}, {n_leaves} leaves, {ckpt_bytes} bytes on disk, restored "
+                 f"bit-equal in {t_restore:.1f} s")
+    # where the time goes: one more step, warmed, timed, profiled
+    lr_fn = lambda s: cosine_schedule(s, peak_lr=3e-4, warmup=1, total=TRAIN_STEPS)  # noqa: E731
+    step_fn = steps.make_train_step(cfg8, lr_fn=lr_fn)
+    hb = train_mod.SyntheticLM(cfg8.vocab, 512, 4, seed=0).global_batch_at(TRAIN_STEPS)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in hb.items()}
+    backward, update = fa.FlashAttention.backward, steps.adamw_update
+
+    def tagged(ctx, do):  # the plain backward's kernels, as one profiler range
+        with torch.profiler.record_function(ATT_BWD_RANGE):
+            return backward(ctx, do)
+
+    def tagged_update(*args, **kw):  # the optimizer's (clip included), as another
+        with torch.profiler.record_function(OPT_RANGE):
+            return update(*args, **kw)
+
+    fa.FlashAttention.backward = staticmethod(tagged)
+    steps.adamw_update = tagged_update
+    try:
+        prof = _profile(lambda: step_fn(params, opt_state, batch),
+                        ranges=(ATT_BWD_RANGE, OPT_RANGE))
+    finally:
+        fa.FlashAttention.backward = staticmethod(backward)
+        steps.adamw_update = update
+    bwd_ms, opt_ms = prof["range_ms"][ATT_BWD_RANGE], prof["range_ms"][OPT_RANGE]
+    log("profile", f"{cfg.name} {TRAIN_LAYERS}-layer train step: wall {prof['wall_ms']:.3f} ms, "
+                   f"device busy {prof['device_ms']:.3f} ms (idle share "
+                   f"{prof['idle_share']:.3f}), {prof['kernels']} kernels; device ms by kind "
+                   f"{prof['by_kind_ms']}; the plain attention backward {bwd_ms:.3f} ms "
+                   f"({bwd_ms / prof['device_ms']:.3f} of device time); AdamW with its clip "
+                   f"{opt_ms:.3f} ms ({opt_ms / prof['device_ms']:.3f}); top "
+                   f"{prof['top_kernels_ms'][:4]}")
+    res = {"layers": TRAIN_LAYERS, "n_params": n_params, "steps": run["steps"],
+           "wall_s": wall, "max_memory_allocated": peak, "launches": launches,
+           "designs": designs, "flash_launches_per_step": per_step,
+           "checkpoint": {"step": step, "leaves": n_leaves, "bytes": ckpt_bytes,
+                          "restore_s": t_restore, "bit_equal": True},
+           "profile": prof, "attention_backward_ms": bwd_ms,
+           "attention_backward_share": bwd_ms / prof["device_ms"],
+           "optimizer_ms": opt_ms, "optimizer_share": opt_ms / prof["device_ms"]}
+    del params, opt_state, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["memory_allocated_after"] = torch.cuda.memory_allocated()
+    log("train", f"device memory left allocated after the phase: "
+                 f"{res['memory_allocated_after']} bytes")
+    return res
+
+
+FFNN = {"batch": 512, "feats": 597_540, "hidden": 8_192, "labels": 14_588}  # AmazonCat-14K
+FFNN_STEPS = 3
+FFNN_LR = 2e-7
+FFNN_TOL = 1e-4
+
+
+def _ffnn_graph():
+    """benchmarks/bench_ffnn.py's network and loss, built with the port's
+    EinGraph: X@W1 -> relu -> @W2 -> - Y -> square -> sum."""
+    from repro_torch.core.einsum import EinGraph
+    from repro_torch.frontend import Program
+
+    b, f, h, c = (FFNN[k] for k in ("batch", "feats", "hidden", "labels"))
+    g = EinGraph("ffnn")
+    X = g.input("X", "bf", (b, f))
+    W1 = g.input("W1", "fh", (f, h))
+    W2 = g.input("W2", "hc", (h, c))
+    Y = g.input("Y", "bc", (b, c))
+    a1 = g.map("relu", g.einsum("bf,fh->bh", X, W1))
+    diff = g.einsum("bc,bc->bc", g.einsum("bh,hc->bc", a1, W2), Y, combine="sub", agg="")
+    loss = g.einsum("bc->", g.map("square", diff), combine="id", agg="sum")
+    return Program.from_graph(g, {"loss": loss})
+
+
+def _ffnn_feeds(seed: int = 19) -> dict:
+    """Seeded feeds on the card.  X is a binary bag of words (about 600 of
+    597,540 features a row) and W1 holds multiples of 2^-10 in [-1/16,
+    1/16): every sum in X @ W1 is then exact in float32, whatever its
+    order, so the kernel and cuBLAS agree on the sign of every hidden unit.
+    (The relu's derivative jumps at 0: one unit whose sign two summation
+    orders disagree on would move a row of dW1 by far more than the
+    tolerance.)  W2 is Gaussian at 1/sqrt(hidden); Y is multi-hot, about 5
+    labels a row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, f, h, c = (FFNN[k] for k in ("batch", "feats", "hidden", "labels"))
+    X = (torch.rand((b, f), generator=gen, device="cuda") < 1e-3).to(torch.float32)
+    W1 = torch.rand((f, h), generator=gen, device="cuda")
+    W1.mul_(128).floor_().sub_(64).mul_(2.0 ** -10)
+    W2 = torch.randn((h, c), generator=gen, device="cuda").mul_(h ** -0.5)
+    Y = (torch.rand((b, c), generator=gen, device="cuda") < 5 / c).to(torch.float32)
+    return {"X": X, "W1": W1, "W2": W2, "Y": Y}
+
+
+def _ffnn_plain_grads(feeds) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """(loss, dW1, dW2) of the plain FFNN through torch.autograd (cuBLAS,
+    TF32 off)."""
+    W1 = feeds["W1"].detach().requires_grad_()
+    W2 = feeds["W2"].detach().requires_grad_()
+    loss = torch.sum(torch.square(torch.relu(feeds["X"] @ W1) @ W2 - feeds["Y"]))
+    g1, g2 = torch.autograd.grad(loss, [W1, W2])
+    return float(loss.detach()), g1, g2
+
+
+def _ffnn_phase(ops) -> dict:
+    """The paper's Experiment 2 at AmazonCat-14K sizes on one card: the
+    FFNN's gradient program through ``executor="shard_map"`` on the 1x1
+    mesh (planned through a plan-cache file), 3 SGD steps."""
+    from repro_torch.core import spmd
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch.mesh import Mesh
+
+    prog = _ffnn_graph().grad(wrt=["W1", "W2"])
+    g = prog.graph
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(Path(tmp) / "plans.json")
+        cold = PlanCache.open(store)
+        t0 = time.perf_counter()
+        prog.compile(mesh=mesh, executor="shard_map", cache=cold)
+        t_cold = time.perf_counter() - t0
+        warm = PlanCache.open(store)
+        t0 = time.perf_counter()
+        run = prog.compile(mesh=mesh, executor="shard_map", cache=warm)
+        t_warm = time.perf_counter() - t0
+    assert cold.stats["misses"] == 1 and warm.stats["hits"] == 1, (cold.stats, warm.stats)
+    from repro_torch.core.engine import live_nodes
+
+    live = live_nodes(g, [prog._out[k] for k in prog.output_names])
+    n_mm = sum(1 for n in g.nodes
+               if n.nid in live and n.kind == "einsum" and spmd._as_matmul(n.spec))
+    b, f, h, c = (FFNN[k] for k in ("batch", "feats", "hidden", "labels"))
+    flops = 2 * 2 * b * f * h + 3 * 2 * b * h * c  # X@W1 and dW1; p, dW2 and da1
+    nbytes = 4 * (b * f + 2 * f * h + 2 * h * c + b * c)  # X, W1 and dW1, W2 and dW2, Y
+    bound_ms, bound_by = _bound(nbytes, flops, torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    feeds = _ffnn_feeds()
+    log("ffnn", f"device memory: {mem0} bytes allocated before the feeds, "
+                f"{torch.cuda.memory_allocated()} with them")
+    log("ffnn", f"gradient graph: {len(g.nodes)} nodes, {len(live)} live, {n_mm} clean "
+                f"contractions; planned cold {t_cold:.4f} s, hit {t_warm:.4f} s; plan cost "
+                f"{run.plan.cost}; {flops:.4g} FLOP a step, bound {bound_ms:.1f} ms ({bound_by})")
+    losses, walls = [], []
+    want = None
+    for i in range(FFNN_STEPS):
+        if i == 0:  # the yardstick first, while nothing else holds a dW1
+            want = _ffnn_plain_grads(feeds)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(feeds)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches, designs = ops.launch_counts(), ops.design_counts()
+        assert launches == {"flash_attention": 0, "flash_attention_step": 0,
+                            "matmul": n_mm, "gmm": 0}, launches
+        assert designs["matmul"]["ffma"] == n_mm, designs
+        losses.append(float(out["loss"]))
+        if i == 0:
+            loss_plain, g1, g2 = want
+            log("ffnn", f"device memory with the plain and the executor's gradients: "
+                        f"{torch.cuda.memory_allocated()} bytes allocated")
+            errs = {}
+            for name, got, ref_g in (("W1", out["grad_W1"], g1), ("W2", out["grad_W2"], g2)):
+                scale = float(ref_g.abs().max())
+                err = max(float((a - b).abs().max())  # in row blocks: no full-size temporary
+                          for a, b in zip(got.split(1 << 14), ref_g.split(1 << 14)))
+                errs[name] = {"max_abs_err": err, "max_abs_grad": scale,
+                              "limit": FFNN_TOL * scale}
+                log("ffnn", f"step 0 grad_{name}: max|executor - autograd| {err:.3e} (limit "
+                            f"{FFNN_TOL * scale:.3e} = {FFNN_TOL} x max|g| {scale:.3e})")
+                assert err <= FFNN_TOL * scale, (name, errs[name])
+            loss_err = abs(losses[0] - loss_plain) / loss_plain
+            assert loss_err <= FFNN_TOL, (losses[0], loss_plain)
+            del want, g1, g2
+        with torch.no_grad():  # plain SGD, in place
+            feeds["W1"].add_(out["grad_W1"], alpha=-FFNN_LR)
+            feeds["W2"].add_(out["grad_W2"], alpha=-FFNN_LR)
+        del out
+        log("ffnn", f"step {i}: loss {losses[-1]:.6e}, wall {walls[-1]:.4f} s, matmul "
+                    f"launches {launches['matmul']} by design {designs['matmul']}")
+    assert all(np.isfinite(losses)), losses
+    torch.cuda.empty_cache()
+    prof = _profile(lambda: run(feeds))
+    # every launch is in the trace, or its device time would be short
+    assert prof["by_kind_count"]["matmul"] == n_mm, prof["by_kind_count"]
+    events_ms = _time_ms(lambda: run(feeds), 2, warmup=0)
+    final = float(run(feeds)["loss"])
+    assert final < losses[0], (final, losses)
+    log("profile", f"FFNN gradient step: wall {prof['wall_ms']:.3f} ms, device busy "
+                   f"{prof['device_ms']:.3f} ms (idle share {prof['idle_share']:.3f}, "
+                   f"{flops / prof['device_ms'] / 1e9:.2f} TFLOP/s, "
+                   f"{prof['device_ms'] / bound_ms:.2f}x the bound; CUDA events "
+                   f"{events_ms:.3f} ms), {prof['kernels']} "
+                   f"kernels; device ms by kind {prof['by_kind_ms']}; top "
+                   f"{prof['top_kernels_ms'][:4]}; loss after {FFNN_STEPS} steps {final:.6e}")
+    res = {**FFNN, "nodes": len(g.nodes), "live_nodes": len(live), "t_plan_cold_s": t_cold,
+           "t_plan_hit_s": t_warm, "plan_cost": run.plan.cost, "losses": losses + [final],
+           "loss_rel_err": loss_err, "grad_errs": errs, "wall_s": walls,
+           "matmul_launches_per_step": n_mm, "designs": designs, "flops": flops,
+           "bound_ms": bound_ms, "bound_by": bound_by, "profile": prof, "events_ms": events_ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del feeds
+    torch.cuda.empty_cache()
+    return res
+
 
 
 if __name__ == "__main__":

@@ -114,22 +114,43 @@ def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+def live_nodes(g: EinGraph, keep) -> set[int]:
+    """The nodes ``keep`` depends on, ``keep`` included: what a run that
+    returns only ``keep`` must compute.  A gradient graph holds adjoints
+    nobody reads (the input X's in an FFNN that asked for the weights'
+    only); a compiler drops them as dead code, and so does the eager
+    runner."""
+    live: set[int] = set()
+    stack = list(keep)
+    while stack:
+        nid = stack.pop()
+        if nid not in live:
+            live.add(nid)
+            stack.extend(g.nodes[nid].inputs)
+    return live
+
+
 def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
         keep: set[int] | None = None) -> dict[int, torch.Tensor]:
     """Evaluate the graph densely with torch on ``device`` (default: where
     the feeds are).  ``feeds`` may be keyed by input *name* or node id
     (``resolve_feeds``).  Returns every node's value, or with ``keep``
-    only those in ``keep`` (the others are dropped after their last
-    reader)."""
+    only those in ``keep``: the others are dropped after their last
+    reader, and nodes that ``keep`` does not depend on are not run."""
     feeds = resolve_feeds(g, feeds)
     last: dict[int, int] = {}
+    live = None
     if keep is not None:
+        live = live_nodes(g, keep)
         for n in g.nodes:
-            for a in n.inputs:
-                last[a] = max(last.get(a, -1), n.nid)
+            if n.nid in live:
+                for a in n.inputs:
+                    last[a] = max(last.get(a, -1), n.nid)
     vals: dict[int, torch.Tensor] = {}
     for nid in g.topo_order():
         n = g.nodes[nid]
+        if live is not None and nid not in live:
+            continue
         if n.kind == "input":
             v = _on(feeds[nid], device)
         elif n.kind == "einsum":

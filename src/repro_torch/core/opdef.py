@@ -22,9 +22,8 @@ An :class:`OpDef` bundles, per op kind:
   (c) an optional **accelerator kernel dispatcher** (the ``kernels/ops.py``
       pattern: the CUDA kernel for a CUDA tensor, the plain torch version
       for a CPU tensor) — preferred at execution time when present;
-  (d) a **VJP rule** (``"auto"`` = generic VJP of the impl as derived
-      ``<kind>@vjp<i>`` opaque nodes — executing those belongs to the
-      autodiff slice of the port; or a custom graph builder),
+  (d) a **VJP rule** (``"auto"`` = generic ``torch.func.vjp`` of the impl
+      as derived ``<kind>@vjp<i>`` opaque nodes; or a custom graph builder),
       unifying the map-op ``grad`` links with opaque gradients so
       ``Program.grad`` works through opaque nodes;
   (e) the **comm declaration** the §7 DP prices
@@ -562,18 +561,49 @@ def executable(kind: str) -> Callable:
     return fn
 
 
+_VJP_IMPLS: dict[tuple[str, int], Callable] = {}
+
+
 def _vjp_impl(base_kind: str, i: int) -> Callable:
-    """Executable of the derived ``<kind>@vjp<i>`` op.  The reference pulls
-    the cotangent back through ``jax.vjp`` of the base op's dense impl; the
-    port's counterpart (``torch.func.vjp``) belongs to the autodiff slice,
-    so until then the executable raises."""
+    """Executable of the derived ``<kind>@vjp<i>`` op: pull the cotangent
+    back through ``torch.func.vjp`` of the base op's **dense reference
+    impl**, differentiating only the floating (float/complex) arguments.
+
+    The reference is differentiated deliberately, as in the JAX package:
+    the kernel dispatcher may route to a hand-written kernel, and the two
+    compute the same function — an op whose kernel should own its backward
+    declares a custom ``vjp=`` rule instead of ``"auto"``."""
+    key = (base_kind, i)
+    cached = _VJP_IMPLS.get(key)
+    if cached is not None:
+        return cached
 
     def impl(*args, **params):
-        raise NotImplementedError(
-            f"{base_kind}{VJP_TAG}{i}: executing derived VJP ops belongs to "
-            "the autodiff slice of the port (core/autodiff.py with "
-            "torch.func.vjp), which is not ported yet")
+        import torch
+        import torch.func
 
+        *prim, ct = args
+        prim = [torch.as_tensor(a) for a in prim]
+        diff = [j for j, a in enumerate(prim)
+                if a.is_floating_point() or a.is_complex()]
+        if i not in diff:
+            raise OpDefError(
+                f"{base_kind}{VJP_TAG}{i}: input {i} is not differentiable "
+                f"(dtype {prim[i].dtype})")
+        od = require(base_kind)
+        base = od.fn if od.fn is not None else executable(base_kind)
+
+        def f(*da):
+            full = list(prim)
+            for j, v in zip(diff, da):
+                full[j] = v
+            return base(*full, **params)
+
+        y, pull = torch.func.vjp(f, *[prim[j] for j in diff])
+        ct = torch.as_tensor(ct).to(device=y.device, dtype=y.dtype)
+        return pull(ct)[diff.index(i)]
+
+    _VJP_IMPLS[key] = impl
     return impl
 
 
@@ -582,17 +612,23 @@ def _vjp_impl(base_kind: str, i: int) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _is_inexact(dtype) -> bool:
+    try:
+        return np.dtype(dtype).kind in "fc"
+    except TypeError:
+        return True
+
+
 def build_vjp(gg, node, dz: int) -> list[int | None]:
     """Backward nodes for one opaque node: returns one adjoint node id per
     input (``None`` for non-differentiable inputs).
 
     Dispatches on the OpDef's ``vjp`` field: a callable builds custom
     backward structure (it receives ``(gg, node, dz)`` and returns the same
-    shape of result); ``"auto"`` raises ``NotImplementedError`` until the
-    autodiff slice of the port lands (the reference emits one derived
-    ``<kind>@vjp<i>`` opaque node per inexact input).  An OpDef without a
-    VJP — or an unregistered kind — raises the actionable error naming the
-    op.
+    shape of result); ``"auto"`` emits one derived ``<kind>@vjp<i>`` opaque
+    node per inexact input, executed through ``torch.func.vjp`` of the
+    forward impl.  An OpDef without a VJP — or an unregistered kind —
+    raises the actionable error naming the op.
     """
     od = get(node.op)
     if od is None or od.vjp is None:
@@ -610,10 +646,21 @@ def build_vjp(gg, node, dz: int) -> list[int | None]:
             f"{node.op}: vjp must be None, 'auto', or callable, "
             f"got {od.vjp!r}")
 
-    raise NotImplementedError(
-        f"{node.op}: vjp='auto' derives <kind>{VJP_TAG}<i> nodes executed by "
-        "a generic VJP of the dense impl; that belongs to the autodiff slice "
-        "of the port (core/autodiff.py), which is not ported yet")
+    in_lab = node.in_labels or tuple((node.labels,) * len(node.inputs))
+    outs: list[int | None] = []
+    for i, (a, _ls) in enumerate(zip(node.inputs, in_lab)):
+        an = gg.nodes[a]
+        if not _is_inexact(an.dtype):
+            outs.append(None)
+            continue
+        nid = gg.opaque(
+            f"{node.op}{VJP_TAG}{i}", list(node.inputs) + [dz],
+            an.labels, an.shape,
+            in_labels=tuple(in_lab) + (tuple(node.labels),),
+            shardable=node.shardable, dtype=an.dtype,
+            name=f"{node.name or node.op}{VJP_TAG}{i}", **node.call_params)
+        outs.append(nid)
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -1430,10 +1430,12 @@ def make_spmd_runner(
     return SpmdRunner(g, sched, out_ids, mesh)
 
 
-def _last_uses(g: EinGraph) -> dict[int, list[int]]:
-    """{nid: node ids whose last reader is nid}."""
+def _last_uses(g: EinGraph, live: set[int]) -> dict[int, list[int]]:
+    """{nid: node ids whose last reader among ``live`` is nid}."""
     last: dict[int, int] = {}
     for n in g.nodes:
+        if n.nid not in live:
+            continue
         for a in n.inputs:
             last[a] = max(last.get(a, -1), n.nid)
     out: dict[int, list[int]] = {}
@@ -1451,14 +1453,18 @@ def run_schedule_body(g: EinGraph, sched: Schedule, vals: dict[int, Any],
     them, or with ``keep`` only those in ``keep``: every other value is
     dropped after its last reader, so its memory goes back to the
     allocator (an eager runner's counterpart of the buffer reuse a
-    compiler does).
+    compiler does), and nodes ``keep`` does not depend on are not run
+    (``engine.live_nodes``: the dead code a compiler drops, with its
+    collectives — every rank skips the same nodes).
 
     Hoisted repartition chains (``prog.prefetch``) are started before the
     issuing node's compute block and waited on by their consumer."""
     from repro_torch.core import engine
 
     progs = {p.nid: p for p in sched.programs}
-    frees = _last_uses(g) if keep is not None else {}
+    live = (engine.live_nodes(g, keep) if keep is not None
+            else {n.nid for n in g.nodes})
+    frees = _last_uses(g, live) if keep is not None else {}
     prefetched: dict[tuple[int, int], _Pending] = {}
     for nid in g.topo_order():
         n = g.nodes[nid]
@@ -1466,9 +1472,13 @@ def run_schedule_body(g: EinGraph, sched: Schedule, vals: dict[int, Any],
             continue
         prog = progs[nid]
         for (m, ai) in prog.prefetch:
+            if m not in live:
+                continue
             a = g.nodes[m].inputs[ai]
             prefetched[(m, ai)] = ctx.start(vals[a], progs[m].arg_steps[ai],
                                             nid=m)
+        if nid not in live:
+            continue
         ctx.nid = nid
         args = [prefetched.pop((nid, i)).wait()
                 if (nid, i) in prefetched

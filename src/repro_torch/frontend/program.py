@@ -18,6 +18,9 @@ dicts.  ``.plan`` exposes the decomposition, ``.lower()`` the per-node
 partitionings and mesh-axis assignments, ``.policy()`` the production
 ShardingPolicy projection, ``.collectives`` the shard_map executor's static
 collective schedule and ``.canonical_key`` the compiled handle's identity.
+``Program.grad(wrt=...)`` derives the training program via
+``core/autodiff`` — still a plain Program, so the same DP plans forward and
+backward jointly (the paper's Experiment 2).
 
 Runners run on the card unless the caller asks for another device
 (``device="cpu"``, or a mesh on the CPU); with no card and no device asked
@@ -32,6 +35,8 @@ import math
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
+import numpy as np
+
 from repro_torch.core.einsum import EinGraph
 from repro_torch.frontend.expr import Expr, trace
 
@@ -40,8 +45,9 @@ class Program:
     """A declared computation with named inputs and named outputs.
 
     Construct from expressions — ``Program(z)``, ``Program([z1, z2])`` or
-    ``Program({"logits": z})``.  Tracing happens once, eagerly; ``.graph``
-    is the underlying ``EinGraph``.
+    ``Program({"logits": z})`` — or from an already-traced graph with
+    ``Program.from_graph``.  Tracing happens once, eagerly; ``.graph`` is
+    the underlying ``EinGraph``.
     """
 
     def __init__(self, outputs, *, name: str = "program"):
@@ -49,6 +55,32 @@ class Program:
         self.name = name
         self.graph, ids = trace(list(named.values()), name)
         self._out: dict[str, int] = {k: ids[e] for k, e in named.items()}
+        self._default_ones: frozenset[str] = frozenset()
+
+    @classmethod
+    def from_graph(cls, g: EinGraph, outputs: Mapping[str, int], *,
+                   default_ones: Sequence[str] = (),
+                   name: str | None = None) -> "Program":
+        """Wrap an existing EinGraph (node-id outputs) as a Program.
+
+        ``default_ones`` names inputs that default to ``ones`` when unfed —
+        used for gradient seeds, so a grad program is callable with just the
+        forward feeds.
+        """
+        self = cls.__new__(cls)
+        self.name = name if name is not None else g.name
+        self.graph = g
+        self._out = {str(k): int(v) for k, v in outputs.items()}
+        self._default_ones = frozenset(default_ones)
+        names = [n.name for n in g.nodes if n.kind == "input"]
+        dups = sorted({x for x in names if names.count(x) > 1})
+        if dups:
+            raise ValueError(f"from_graph: duplicate input names {dups} — "
+                             "Program I/O is name-keyed")
+        for k, v in self._out.items():
+            if not 0 <= v < len(g.nodes):
+                raise ValueError(f"from_graph: output {k!r} -> bad node id {v}")
+        return self
 
     # -- introspection --------------------------------------------------------
 
@@ -65,6 +97,40 @@ class Program:
         outs = ", ".join(self._out)
         return (f"Program({self.name!r}, {len(self.graph.nodes)} nodes, "
                 f"inputs=[{ins}], outputs=[{outs}])")
+
+    # -- autodiff -------------------------------------------------------------
+
+    def grad(self, wrt: str | Sequence[str], *,
+             output: str | None = None) -> "Program":
+        """The training program: outputs the differentiated value plus
+        ``grad_<name>`` for every input in ``wrt`` (core/autodiff reverse
+        mode — the backward pass is EinSum nodes in the same graph, so one
+        EinDecomp run plans fwd+bwd jointly).
+
+        The gradient seed is an input named ``dLoss_seed`` that defaults to
+        ones; feed it explicitly to chain an incoming cotangent.
+        """
+        from repro_torch.core.autodiff import grad_graph
+
+        if output is None:
+            if len(self._out) != 1:
+                raise ValueError(
+                    f"grad: program has outputs {list(self._out)}; pass "
+                    "output=<name> to pick the one to differentiate")
+            output = next(iter(self._out))
+        wrt_names = [wrt] if isinstance(wrt, str) else list(wrt)
+        by_name = {n.name: n.nid for n in self.graph.nodes if n.kind == "input"}
+        unknown = [w for w in wrt_names if w not in by_name]
+        if unknown:
+            raise KeyError(f"grad: unknown inputs {unknown}; "
+                           f"inputs are {sorted(by_name)}")
+        gg, grads, seed = grad_graph(self.graph, self._out[output],
+                                     [by_name[w] for w in wrt_names])
+        outs = {output: self._out[output]}
+        outs.update({f"grad_{w}": grads[by_name[w]] for w in wrt_names})
+        return Program.from_graph(
+            gg, outs, default_ones=(gg.nodes[seed].name,),
+            name=f"{self.name}:grad")
 
     # -- compile --------------------------------------------------------------
 
@@ -229,6 +295,11 @@ class CompiledProgram:
     def __call__(self, feeds: Mapping[str, Any] | None = None, /,
                  **kw) -> dict[str, Any]:
         feeds = {**(feeds or {}), **kw}
+        for name in self.program._default_ones:
+            if name not in feeds:
+                node = next(n for n in self.graph.nodes
+                            if n.kind == "input" and n.name == name)
+                feeds[name] = np.ones(node.shape, node.dtype)
         unknown = sorted(set(feeds) - set(self._in_names))
         if unknown:
             raise KeyError(f"unknown inputs {unknown}; "
@@ -238,6 +309,12 @@ class CompiledProgram:
             raise ValueError(f"missing feeds for inputs {missing}")
         outs = self._runner()(*[feeds[n] for n in self._in_names])
         return dict(zip(self._out_names, outs))
+
+    def grad(self, wrt: str | Sequence[str], *,
+             output: str | None = None) -> "Program":
+        """Convenience: the (uncompiled) gradient program — compile it with
+        the planning inputs of your choice."""
+        return self.program.grad(wrt, output=output)
 
     def policy(self, *, fsdp_axes: Sequence[str] = (), remat: bool = True):
         """Collapse the mesh-mode plan to the production ``ShardingPolicy``

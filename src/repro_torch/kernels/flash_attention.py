@@ -29,6 +29,13 @@ written back, ``"template"`` the template forward kernel's.
 successful launches, so a run can show that its main path went through
 the kernels; ``flash_attention.designs`` and
 ``flash_attention_step.designs`` split them by design.
+
+Gradients: :func:`attention` is what ``kernels/ops.py`` calls.  Where grad
+mode is on and an input requires grad it goes through
+:class:`FlashAttention`, whose forward launches the kernel and whose
+backward pulls the cotangent back through the plain version; otherwise it
+launches the kernel and saves nothing.  The step kernel has no backward
+and raises under grad rather than return a carry that drops it.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _tma
+from repro_torch.kernels import _build, _tma, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -172,6 +179,45 @@ flash_attention.launches = 0
 flash_attention.designs = dict.fromkeys(DESIGNS, 0)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with a backward.  ``forward`` launches the kernel
+    (:func:`flash_attention`) and saves q, k and v as they were passed;
+    ``backward`` recomputes the plain version (``ref.attention``) from them
+    and pulls the cotangent back through it.  This mirrors the reference,
+    whose auto VJP differentiates the dense reference on purpose
+    (``repro/core/opdef.py::_vjp_impl``): the JAX package has no backward
+    kernel either.  Rows that see no key are where the two differ
+    (``ref.attention_tiled``); causal and windowed training never has
+    them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, kv_offset):
+        ctx.kw = dict(causal=causal, window=window, scale=scale,
+                      q_offset=q_offset, kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*ref.vjp(lambda q, k, v: ref.attention(q, k, v, **ctx.kw),
+                         ctx.saved_tensors, ctx.needs_input_grad, do),
+                None, None, None, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              scale: float | None = None, q_offset: int = 0,
+              kv_offset: int = 0) -> torch.Tensor:
+    """:func:`flash_attention`, through :class:`FlashAttention` where grad
+    mode is on and q, k or v requires grad (the only case that saves
+    anything)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                    kv_offset)
+    return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                           q_offset=q_offset, kv_offset=kv_offset)
+
+
 def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          carry: tuple | None = None, *, causal: bool = True,
                          window: int = 0, scale: float | None = None,
@@ -182,7 +228,19 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     non-f32 parts, and an acc whose base is not 16-byte aligned, are copied
     first and the copies updated); ``None`` starts from ``(-1e30, 0, 0)``.
     ``q_offset`` / ``kv_offset`` are the absolute positions of q[0] and
-    k[0].  The design is :func:`design`'s, read from q, k and v."""
+    k[0].  The design is :func:`design`'s, read from q, k and v.
+
+    The carry is updated in place and there is no backward, so with grad
+    mode on and an input (q, k, v or the carry) that requires grad this
+    raises instead of returning a carry that silently drops the
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, *(carry or ()))):
+        raise RuntimeError(
+            "flash_attention_step kernel: an input requires grad, but the "
+            "step updates its carry in place and has no backward; run it "
+            "under torch.no_grad(), or differentiate the plain version "
+            "(ops.flash_attention_step(..., impl='ref'))")
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]

@@ -20,6 +20,12 @@ the other design.
 
 ``matmul.launches`` counts successful launches and ``matmul.designs``
 splits them by design.
+
+Gradients: :func:`product` is what ``kernels/ops.py`` calls.  Where grad
+mode is on and an operand requires grad it goes through :class:`MatMul`,
+whose forward launches the kernel and whose backward pulls the cotangent
+back through the plain version; otherwise it launches the kernel and
+saves nothing.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _tma
+from repro_torch.kernels import _build, _tma, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -143,3 +149,30 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 matmul.launches = 0
 matmul.designs = dict.fromkeys(_tma.DESIGNS, 0)
+
+
+class MatMul(torch.autograd.Function):
+    """The matmul kernel with a backward.  ``forward`` launches the kernel
+    (:func:`matmul`) and saves x and w; ``backward`` pulls the cotangent
+    back through the plain version (``ref.matmul``).  This mirrors the
+    reference, whose auto VJP differentiates the dense reference on purpose
+    (``repro/core/opdef.py::_vjp_impl``): the JAX package has no backward
+    kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ref.vjp(ref.matmul, ctx.saved_tensors, ctx.needs_input_grad,
+                       dy)
+
+
+def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul`, through :class:`MatMul` where grad mode is on and x
+    or w requires grad (the only case that saves anything)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MatMul.apply(x, w)
+    return matmul(x, w)

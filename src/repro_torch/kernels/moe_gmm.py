@@ -18,6 +18,12 @@ error here (``kernels/ops.py`` routes CPU tensors to the plain version).
 
 ``gmm.launches`` counts successful launches and ``gmm.designs`` splits
 them by design.
+
+Gradients: :func:`grouped` is what ``kernels/ops.py`` calls.  Where grad
+mode is on and an operand requires grad it goes through :class:`GroupedMatMul`,
+whose forward launches the kernel and whose backward pulls the cotangent
+back through the plain version; otherwise it launches the kernel and
+saves nothing.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _tma
+from repro_torch.kernels import _build, _tma, ref
 from repro_torch.kernels.matmul import _RULED, layouts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -115,3 +121,29 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 gmm.launches = 0
 gmm.designs = dict.fromkeys(_tma.DESIGNS, 0)
+
+
+class GroupedMatMul(torch.autograd.Function):
+    """The gmm kernel with a backward.  ``forward`` launches the kernel
+    (:func:`gmm`) and saves x and w; ``backward`` pulls the cotangent back
+    through the plain version (``ref.gmm``).  This mirrors the reference,
+    whose auto VJP differentiates the dense reference on purpose
+    (``repro/core/opdef.py::_vjp_impl``): the JAX package has no backward
+    kernel either."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ref.vjp(ref.gmm, ctx.saved_tensors, ctx.needs_input_grad, dy)
+
+
+def grouped(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`gmm`, through :class:`GroupedMatMul` where grad mode is on
+    and x or w requires grad (the only case that saves anything)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatMul.apply(x, w)
+    return gmm(x, w)

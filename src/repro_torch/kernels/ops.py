@@ -8,6 +8,12 @@
   * "kernel" — the CUDA kernel; raises on a tensor that is not on a card.
   * "ref"    — the plain torch version, on whatever device the tensor is.
 
+On a card the kernels differentiate: where grad mode is on and an input
+requires grad, the forward, matmul and gmm wrappers launch their kernel
+inside a ``torch.autograd.Function`` whose backward is the plain version's
+(as the reference differentiates its dense reference, not its Pallas
+kernels); the ring step, which updates its carry in place, raises.
+
 ``launch_counts()`` reads each kernel's launch counter,
 ``design_counts()`` splits every kernel's launches by the design that
 served them (``"wgmma"`` or ``"template"`` for the forward attention and
@@ -38,9 +44,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
     if _use_ref(impl, q):
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale,
                              q_offset=q_offset, kv_offset=kv_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset,
-                               kv_offset=kv_offset)
+    return _fa.attention(q, k, v, causal=causal, window=window, scale=scale,
+                         q_offset=q_offset, kv_offset=kv_offset)
 
 
 def flash_attention_step(q, k, v, carry=None, *, causal=True, window=0,
@@ -69,7 +74,7 @@ def matmul(x, w, *, impl: str = "auto"):
     """(m, k) @ (k, n) with f32 accumulation, in x's dtype."""
     if _use_ref(impl, x):
         return ref.matmul(x, w)
-    return _mm.matmul(x, w)
+    return _mm.product(x, w)
 
 
 def gmm(x, w, *, impl: str = "auto"):
@@ -77,7 +82,7 @@ def gmm(x, w, *, impl: str = "auto"):
     accumulation, in x's dtype."""
     if _use_ref(impl, x):
         return ref.gmm(x, w)
-    return _gmm.gmm(x, w)
+    return _gmm.grouped(x, w)
 
 
 def kv_block_gather(pool, tables, kv_len: int):

@@ -178,6 +178,19 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         w.to(torch.float32)).to(x.dtype)
 
 
+def vjp(plain, saved, needs, ct) -> tuple:
+    """The cotangents of ``plain(*saved)`` for the inputs flagged in
+    ``needs`` (None for the others): the plain version recomputed from the
+    saved inputs and differentiated by autograd.  The backward of every
+    kernel wrapper's ``torch.autograd.Function``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        out = plain(*ins)
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wrt, ct))
+    return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)

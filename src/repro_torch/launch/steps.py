@@ -1,13 +1,67 @@
-"""Step functions of the server: ``prefill_step`` and ``serve_step``.
+"""Step functions shared by the trainer and the server: ``train_step``
+(fwd + bwd + AdamW), ``prefill_step`` and ``serve_step``.
 
-The reference jit-compiles these; PyTorch runs them eagerly.  Training's
-``train_step`` comes with the training slice of the port.
+The reference jit-compiles these; PyTorch runs them eagerly.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
+from repro_torch.core import tree
 from repro_torch.models import transformer as tf
+from repro_torch.models.transformer import loss_fn
+from repro_torch.optim import adamw_update
+
+
+def make_train_step(cfg, *, policy=None, mesh=None,
+                    lr_fn: Callable | None = None,
+                    weight_decay: float = 0.1) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients through ``torch.autograd`` (each
+    unit rematerialized as the policy says, ``loss_fn``), then
+    ``adamw_update``, which writes the parameters and moments in place.
+    ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``
+    as 0-d tensors.
+
+    On one rank there is nothing to shard the gradients to (the
+    reference's ``gshard`` is the identity there).  A mesh of more than one
+    rank needs the DTensor placements of ROADMAP Queue 1 item 4, so it
+    raises."""
+    if mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(
+            f"make_train_step: a mesh of {mesh.world_size} ranks needs "
+            "gradient and parameter placements (DTensor) — the DTensor "
+            "slice of the port (ROADMAP Queue 1 item 4), not ported yet")
+    lr_fn = lr_fn or (lambda step: 3e-4)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree.leaves(params)
+        tracked = [p.requires_grad for p in leaves]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, batch, cfg, policy=policy)
+            grads = _like(params, torch.autograd.grad(loss, leaves))
+        finally:
+            for p, was in zip(leaves, tracked):
+                p.requires_grad_(was)
+        lr = lr_fn(opt_state.step)
+        params, opt_state, gnorm = adamw_update(
+            params, grads, opt_state, lr, weight_decay=weight_decay)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update({"loss": loss.detach(), "grad_norm": gnorm,
+                        "lr": torch.as_tensor(lr, dtype=torch.float32)})
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _like(params, flat: list):
+    """``flat`` (in ``tree.leaves`` order) shaped as ``params``."""
+    it = iter(flat)
+    return tree.map(lambda _: next(it), params)
 
 
 def make_prefill_step(cfg) -> Callable:

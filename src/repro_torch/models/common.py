@@ -121,6 +121,22 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, head)
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_real: int | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy, f32 logsumexp, padded ids masked."""
+    lf = logits.to(torch.float32)
+    if vocab_real is not None and vocab_real < lf.shape[-1]:
+        pad = lf.shape[-1] - vocab_real
+        mask = torch.cat([torch.zeros(vocab_real, dtype=torch.float32,
+                                      device=lf.device),
+                          torch.full((pad,), -1e30, dtype=torch.float32,
+                                     device=lf.device)])
+        lf = lf + mask
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
+
+
 def activation(name: str):
     return {
         "silu": F.silu,

@@ -9,7 +9,9 @@ xLSTM blocks raise ``NotImplementedError`` naming the slice that brings
 them.
 
 Decode caches are preallocated once (``init_caches``) and written in place
-by each decode step.
+by each decode step.  Training differentiates ``loss_fn`` with
+``torch.autograd``, each unit rematerialized as the reference's
+``jax.checkpoint`` does (``forward(remat=...)``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamFactory, dtype_of, embed,
-                                       lm_logits, resolve_device, rmsnorm)
+                                       lm_logits, resolve_device, rmsnorm,
+                                       softmax_xent)
 
 _UNPORTED_BLOCKS = {
     "hymba": "the recurrent slice (models/ssm.py)",
@@ -165,26 +168,75 @@ def _block_forward(p: dict, x, cfg):
     return x + m_out, kv, aux
 
 
+#: what ``remat="dots"`` keeps: the outputs of matrix products (the
+#: reference's ``jax.checkpoint_policies.dots_saveable``)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialized(unit, remat):
+    """``unit`` under the remat policy: ``False`` runs it as it is; ``True``
+    saves only its inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint``); ``"dots"`` keeps the matrix products' outputs and
+    recomputes everything else (selective checkpointing).  Outside grad
+    mode there is no backward, and the unit runs as it is."""
+    if not remat or not torch.is_grad_enabled():
+        return unit
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    if remat == "dots":
+        kw = {"context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
+    elif remat is True:
+        kw = {}
+    else:
+        raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
+    return lambda x, u: checkpoint(unit, x, u, use_reentrant=False, **kw)
+
+
 def forward(params, tokens, cfg, *, collect_cache: bool = False,
-            last_logit_only: bool = False):
+            last_logit_only: bool = False, remat=False):
     """Full-sequence forward.  Returns (logits, caches, aux_loss), the
     aux loss summed over the MoE layers (0 without MoE).
 
     ``caches`` (with ``collect_cache``) holds, per pattern position, the
     (k, v) of every unit stacked to (units, b, s, kv_heads, hd).
     ``last_logit_only`` computes the LM head for the final position only
-    (prefill serving never needs the (b, s, v) logits)."""
+    (prefill serving never needs the (b, s, v) logits).  ``remat`` is the
+    reference's: ``True`` recomputes each unit (one pattern period) in the
+    backward from its input, ``"dots"`` keeps the unit's matrix products
+    and recomputes the rest, ``False`` (the default, what serving runs)
+    keeps every activation."""
     _check_supported(cfg)
     x = embed(params["embed"], tokens).to(dtype_of(cfg))
     pattern = cfg.block_pattern
     per_pos: list[list] = [[] for _ in pattern]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(_n_units(cfg)):
+
+    def unit(x, u):
+        kvs, auxs = [], []
         for ppos in range(len(pattern)):
             x, kv, a = _block_forward(_unit(params["layers"][ppos], u), x, cfg)
+            kvs.append(kv)
             if a is not None:
-                aux = aux + a
-            if collect_cache:
+                auxs.append(a)
+        return x, kvs, auxs
+
+    body = _rematerialized(unit, remat)
+    for u in range(_n_units(cfg)):
+        x, kvs, auxs = body(x, u)
+        for a in auxs:
+            aux = aux + a
+        if collect_cache:
+            for ppos, kv in enumerate(kvs):
                 per_pos[ppos].append(kv)
     caches = 0
     if collect_cache:
@@ -194,6 +246,17 @@ def forward(params, tokens, cfg, *, collect_cache: bool = False,
     if last_logit_only:
         x = x[:, -1:]
     return lm_logits(x, _head(params)), caches, aux
+
+
+def loss_fn(params, batch, cfg, *, policy=None, remat=None):
+    """Training loss: mean next-token cross-entropy plus 0.01 x the MoE aux
+    loss.  Returns ``(loss, {"ce", "aux"})``.  ``remat`` defaults as in the
+    reference: the policy's, else True."""
+    if remat is None:
+        remat = policy.remat if policy is not None else True
+    logits, _, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

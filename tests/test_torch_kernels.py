@@ -648,3 +648,140 @@ def test_build_digest_covers_shared_headers_and_flags(tmp_path):
     assert _build.digest(src) not in (base, edited)
     assert _build.digest(src, flags=(*_build.NVCC_FLAGS, "-lcuda")) != _build.digest(src)
     assert _build.digest(csrc / "flash_attention.cu") != _build.digest(src)
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernel wrappers' autograd Functions.  The kernel
+# launch is monkeypatched to the plain version (and counted), so the
+# Functions' plumbing runs here on the CPU; tests/test_torch_kernels_gpu.py
+# holds the real kernels' gradients against the plain versions on a card.
+# Plain version against plain version: the same arithmetic, so 1e-6.
+# ---------------------------------------------------------------------------
+
+GRAD_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window)
+    (1, 4, 2, 16, 16, 8, True, 0),    # GQA 2:1
+    (2, 2, 2, 12, 12, 4, True, 5),    # window
+    (1, 2, 1, 8, 20, 8, False, 0),    # cross, GQA
+]
+
+
+def _launch_as_plain(monkeypatch, module, name, plain):
+    """Replace a kernel launch by its plain version; returns the list that
+    records each "launch"."""
+    calls = []
+
+    def launch(*args, **kw):
+        calls.append(name)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(module, name, launch)
+    return calls
+
+
+def _grads(fn, ins):
+    out = fn(*ins)
+    ct = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(out.shape)).astype(np.float32)).to(out.dtype)
+    return out, torch.autograd.grad(out, [t for t in ins if t.requires_grad], ct)
+
+
+def _leaf(shape, seed, grad=True):
+    t = torch.from_numpy(np.random.default_rng(seed).normal(size=shape).astype(np.float32))
+    return t.requires_grad_(grad)
+
+
+@pytest.mark.parametrize("case", GRAD_ATT_CASES, ids=lambda c: "h{}k{}q{}s{}w{}".format(
+    c[1], c[2], c[3], c[4], c[7]))
+def test_flash_function_backpropagates_the_plain_versions_gradient(case, monkeypatch):
+    b, hq, hkv, sq, sk, d, causal, window = case
+    calls = _launch_as_plain(monkeypatch, fa, "flash_attention", ref.attention)
+    # the projections reach attention as (b, s, h, d) views, transposed
+    q, k, v = (_leaf(s, i).transpose(1, 2)
+               for i, s in enumerate(((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))))
+    kw = dict(causal=causal, window=window, q_offset=sk - sq if causal else 0)
+    out = ops.flash_attention(q, k, v, impl="kernel", **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    # saved as passed: the transposed views, not contiguous copies
+    assert [t.stride() for t in out.grad_fn.saved_tensors] == [t.stride() for t in (q, k, v)]
+    _, got = _grads(lambda *a: out, (q, k, v))
+    assert calls == ["flash_attention"]
+    _, want = _grads(lambda q, k, v: ref.attention(q, k, v, **kw), (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_function_gives_only_the_gradients_asked_for(monkeypatch):
+    _launch_as_plain(monkeypatch, fa, "flash_attention", ref.attention)
+    q, k = _leaf((1, 2, 8, 4), 0), _leaf((1, 2, 8, 4), 1)
+    v = _leaf((1, 2, 8, 4), 2, grad=False)
+    out, (gq, gk) = _grads(lambda q, k, v: ops.flash_attention(q, k, v, impl="kernel"),
+                           (q, k, v))
+    _, (wq, wk) = _grads(lambda q, k, v: ref.attention(q, k, v), (q, k, v))
+    torch.testing.assert_close(gq, wq, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gk, wk, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "matmul", "gmm"])
+def test_functions_save_nothing_without_grad(kernel, monkeypatch):
+    """Under torch.no_grad(), or with no input that requires grad, the
+    wrappers launch the kernel directly: no Function, no graph, nothing
+    saved — serving is unchanged."""
+    from repro_torch.kernels import moe_gmm
+
+    module, plain, shapes, call = {
+        "flash_attention": (fa, ref.attention, [(1, 2, 8, 4)] * 3, ops.flash_attention),
+        "matmul": (mm, ref.matmul, [(6, 5), (5, 7)], ops.matmul),
+        "gmm": (moe_gmm, ref.gmm, [(2, 6, 5), (2, 5, 7)], ops.gmm),
+    }[kernel]
+    calls = _launch_as_plain(monkeypatch, module, kernel, plain)
+    fn = {"flash_attention": fa.FlashAttention, "matmul": mm.MatMul,
+          "gmm": moe_gmm.GroupedMatMul}[kernel]
+    monkeypatch.setattr(fn, "forward", staticmethod(lambda *a: pytest.fail("saved")))
+    with torch.no_grad():
+        out = call(*[_leaf(s, i) for i, s in enumerate(shapes)], impl="kernel")
+    assert out.grad_fn is None and not out.requires_grad
+    out = call(*[_leaf(s, i, grad=False) for i, s in enumerate(shapes)], impl="kernel")
+    assert out.grad_fn is None
+    assert calls == [kernel, kernel]
+
+
+@pytest.mark.parametrize("layout", ["plain", "x_t", "w_t", "w_col_stride_2"])
+def test_matmul_function_backpropagates_the_plain_versions_gradient(layout, monkeypatch):
+    calls = _launch_as_plain(monkeypatch, mm, "matmul", ref.matmul)
+    m, k, n = 9, 13, 6
+    x = _leaf((k, m), 0).t() if layout == "x_t" else _leaf((m, k), 0)
+    w = (_leaf((n, k), 1).t() if layout == "w_t" else
+         _leaf((k, 2 * n), 1)[:, ::2] if layout == "w_col_stride_2" else _leaf((k, n), 1))
+    out, got = _grads(lambda x, w: ops.matmul(x, w, impl="kernel"), (x, w))
+    assert calls == ["matmul"] and type(out.grad_fn).__name__ == "MatMulBackward"
+    _, want = _grads(ref.matmul, (x, w))
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=1e-6, atol=1e-6)
+
+
+def test_gmm_function_backpropagates_the_plain_versions_gradient(monkeypatch):
+    from repro_torch.kernels import moe_gmm
+
+    calls = _launch_as_plain(monkeypatch, moe_gmm, "gmm", ref.gmm)
+    x = _leaf((3, 7, 5), 0)
+    w = _leaf((3, 2, 5, 4), 1)[:, 0]  # one unit of a stacked parameter
+    out, got = _grads(lambda x, w: ops.gmm(x, w, impl="kernel"), (x, w))
+    assert calls == ["gmm"] and type(out.grad_fn).__name__ == "GroupedMatMulBackward"
+    _, want = _grads(ref.gmm, (x, w))
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=1e-6, atol=1e-6)
+
+
+def test_step_kernel_raises_under_grad():
+    """The step updates its carry in place and has no backward: under grad
+    it raises, on any device, before it would launch."""
+    q, k, v = (_leaf((1, 2, 8, 4), i) for i in range(3))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention_step(q, k, v, impl="kernel")
+    carry = ref.attention_step(q.detach(), k.detach(), v.detach())
+    m, l, acc = carry
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention_step(q.detach(), k.detach(), v.detach(),
+                                 (m, l, acc.requires_grad_()), impl="kernel")
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.flash_attention_step(q, k, v, impl="kernel")

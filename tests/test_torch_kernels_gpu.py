@@ -747,3 +747,122 @@ def test_cuda_step_wgmma_updates_carry_in_place_and_init(cuda):
     want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
     for got, w in zip(out, want):
         torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# gradients: backward through ops.flash_attention, ops.matmul and ops.gmm
+# (the kernels' autograd Functions, whose backward is the plain version's)
+# against the plain versions' own gradients, at the kernel tolerances
+# ---------------------------------------------------------------------------
+
+def _grads_through(fn, ins, seed=3):
+    """(output, gradients of <output, ct> for the inputs that require
+    grad): ``ct`` a fixed seeded cotangent, so the two paths differ only in
+    what their backward computes."""
+    out = fn(*ins)
+    ct = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=tuple(out.shape)).astype(np.float32)).to(out.device, out.dtype)
+    wrt = [t for t in ins if t.requires_grad]
+    return out, torch.autograd.grad(out, wrt, ct)
+
+
+GRAD_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window, dtype, design)
+    (2, 8, 2, 256, 256, 128, True, 0, "bfloat16", "wgmma"),      # GQA 4:1
+    (1, 4, 4, 200, 200, 64, True, 64, "bfloat16", "wgmma"),      # window, ragged
+    (1, 4, 2, 128, 128, 64, True, 0, "float32", "template"),
+    (2, 2, 1, 96, 96, 32, True, 24, "float32", "template"),     # window, GQA
+    (1, 2, 2, 64, 160, 64, False, 0, "float32", "template"),    # cross
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAD_ATT_CASES, ids=lambda c: "h{}k{}q{}s{}d{}w{}{}".format(
+    c[1], c[2], c[3], c[4], c[5], c[7], c[8][:2]))
+def test_cuda_flash_backward_matches_plain_gradients(case, cuda):
+    b, hq, hkv, sq, sk, d, causal, window, dt, design = case
+    # the projections reach attention as (b, s, h, d) views, transposed
+    q, k, v = (t.transpose(1, 2).detach().requires_grad_()
+               for t in _att_inputs((b, sq, hq, d), (b, sk, hkv, d), cuda, dt))
+    kw = dict(causal=causal, window=window, q_offset=sk - sq if causal else 0)
+    (out, got), which = _served_by("flash_attention", lambda: _grads_through(
+        lambda q, k, v: ops.flash_attention(q, k, v, **kw), (q, k, v)))
+    assert which == design and out.grad_fn is not None
+    _, want = _grads_through(lambda q, k, v: ref.attention(q, k, v, **kw), (q, k, v))
+    tol = TOL[dt]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,design", [("float32", "ffma"), ("bfloat16", "wgmma")])
+@pytest.mark.parametrize("layout", ["plain", "x_t", "w_t", "w_col_stride_2"])
+def test_cuda_matmul_backward_matches_plain_gradients(layout, dt, design, cuda):
+    x, w = _mm_inputs(192, 96, 144, dt, cuda, seed=2)
+    if layout == "x_t":
+        x = x.t().contiguous().t()
+    elif layout == "w_t":
+        w = w.t().contiguous().t()
+    elif layout == "w_col_stride_2":
+        w = torch.stack([w, -w], dim=2).flatten(1)[:, ::2]
+        design = "template"
+    x, w = x.requires_grad_(), w.requires_grad_()
+    (out, got), which = _served_by("matmul", lambda: _grads_through(ops.matmul, (x, w)))
+    assert which == design and out.grad_fn is not None
+    _, want = _grads_through(ref.matmul, (x, w))
+    tol = MM_TOL[dt]
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g.float(), wnt.float(), rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,design", [("float32", "ffma"), ("bfloat16", "wgmma")])
+def test_cuda_gmm_backward_matches_plain_gradients(dt, design, cuda):
+    x, w = _gmm_inputs(4, 128, 256, 128, dt, cuda, seed=4)
+    w = torch.stack([w, w], dim=1)[:, 0]  # one unit of a stacked parameter
+    x, w = x.requires_grad_(), w.detach().requires_grad_()
+    (out, got), which = _served_by("gmm", lambda: _grads_through(ops.gmm, (x, w)))
+    assert which == design and out.grad_fn is not None
+    _, want = _grads_through(ref.gmm, (x, w))
+    tol = MM_TOL[dt]
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g.float(), wnt.float(), rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.gpu
+def test_cuda_step_raises_under_grad(cuda):
+    q, k, v = _att_inputs((1, 4, 128, 128), (1, 4, 128, 128), cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention_step(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        m, l, acc = ops.flash_attention_step(q, k, v)
+    assert not acc.requires_grad
+
+
+@pytest.mark.gpu
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """Two train steps of reduced llama in float32: the card (the flash
+    kernel forward, its Function's backward) against the CPU (the plain
+    path), the same weights and batches."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(reduced(get_config("llama-7b")), dtype="float32")
+    cpu_params = tf.init_params(cfg, seed=0, device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):  # the CPU run updates cpu_params in place
+        params = _to(cpu_params, dev)
+        state = adamw_init(params)
+        step = steps.make_train_step(cfg)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(2, 64)), device=dev)
+        before = ops.launch_counts()["flash_attention"]
+        losses = []
+        for _ in range(2):
+            params, state, met = step(params, state, {"tokens": toks, "labels": toks})
+            losses.append(float(met["loss"]))
+        launches = ops.launch_counts()["flash_attention"] - before
+        res[dev] = (losses, launches)
+    # remat: one forward launch and one recompute a layer a step
+    assert res["cuda"][1] == 2 * 2 * cfg.n_layers and res["cpu"][1] == 0
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)

@@ -6,6 +6,7 @@ graph built through each package gives the same ``canon.graph_key``, the
 same ``Plan.to_json()``, the same cost and the same policy, and a plan-cache
 store written by one package loads as hits in the other.
 """
+import copy
 import json
 
 import numpy as np
@@ -273,18 +274,23 @@ def test_builtin_map_impl_matches_reference(kind):
 
 
 def test_unported_lowering_and_vjp_raise():
-    """What runs now (the ring and a2a rules lower; a program runs) and
-    what still raises, naming its slice: derived VJPs, pipeline= and
-    donate=."""
+    """What runs now (the ring and a2a rules lower; a program runs; the
+    derived VJPs build and execute, since the autodiff slice) and what
+    still raises, naming its slice: pipeline= and donate=."""
     g = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1)).graph
     attn = next(n for n in g.nodes if n.op == "flash_attention")
     assert opaque_rules.resolve_rule_name(attn) == "ring"
     low = opaque_rules.get_rule("ring").lower(g, attn, {}, {})
     assert low.events == [] and low.out_layout == ((), (), (), ())
-    with pytest.raises(NotImplementedError, match="autodiff"):
-        opdef.executable("flash_attention@vjp0")()
-    with pytest.raises(NotImplementedError, match="autodiff"):
-        opdef.build_vjp(g, attn, 0)
+    q, k, v, ct = (torch.randn(1, 2, 8, 4, dtype=torch.float64) for _ in range(4))
+    want = torch.func.vjp(lambda q: opdef.require("flash_attention").fn(q, k, v),
+                          q)[1](ct)[0]
+    torch.testing.assert_close(opdef.executable("flash_attention@vjp0")(q, k, v, ct),
+                               want, rtol=1e-12, atol=1e-12)
+    gg = copy.deepcopy(g)
+    derived = opdef.build_vjp(gg, gg.nodes[attn.nid], attn.nid)
+    assert [gg.nodes[d].op for d in derived] == [
+        f"flash_attention@vjp{i}" for i in range(3)]
     mg = EinGraph("moe")
     x = mg.input("x", "b s a", (2, 8, 4))
     route = mg.input("route", "b s e", (2, 8, 4))
