@@ -106,7 +106,37 @@
    plan-cache file (cold, then a hit), 3 SGD steps with every matmul
    launch of the ffma design, the first step's gradients against
    ``torch.autograd`` of the plain FFNN on the card (1e-4 x max|g|), the
-   step's wall and device time against its FLOP bound.
+   step's wall and device time against its FLOP bound;
+20. the serving tier: llama-7b at full width and depth (bf16, seed-0
+   weights) through ``repro_torch.serving.ServingEngine``: 4 slots,
+   blocks of 16, max_seq 528, 8 requests with prompt lengths from seed 0
+   in 192..512 (both pow2 buckets, 256 and 512), 16 new tokens each; a
+   first engine over a new plan-cache file, a second over the same file
+   (hits only; its run gives the timings); launch counters set to 0 just
+   before each run and read just after (32 flash launches a prefill, all
+   wgmma); registry compiles = buckets + 1; a third run copies out the
+   logits behind every token, and each request is held against the serve
+   loop's run of it alone, teacher-forced on the engine's tokens: logits
+   within 5e-2 of max|logit| at every position, the engine's token the
+   sequential argmax except where the top-2 gap is under twice the two
+   runs' measured logit difference (near ties under 2e-2 of max|logit|
+   and flips printed), the 5e-2 limit shown to tell another request's
+   context apart; TTFT per request, tok/s, occupancy, peak memory and
+   pool bytes; one engine decode step with every slot live profiled
+   beside phase 5's;
+21. the same for qwen2-moe-a2.7b: 2 slots, exact-length buckets 384, 448
+   and 512, 8 new tokens; 72 gmm launches per prefill and per decode step,
+   all wgmma; each request compared up to the first position where a MoE
+   layer sent its token to other experts than the run alone did (a bf16
+   routing near tie, printed with the layer); profiled beside phase 14's
+   decode step;
+22. engine parity: llama-7b width and qwen2-moe width, 2 layers, float32,
+   3 requests through 2 slots on the card and on the CPU; tokens equal,
+   every decode step's logits within 1e-4 of max|logit|.
+
+Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
+128) causal, in bf16 (wgmma) and in float32 (the template), beside SDPA's
+device time in the same type.
 
 Every kernel has a design picked by the shape rule in its wrapper before
 launch (``"wgmma"`` for bf16 and ``"ffma"`` for float32 operands the rule
@@ -429,6 +459,7 @@ def main() -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bytes": nbytes, "ops": nops}
     del q, k, v, o_template
+    results["timing_engine"] = _engine_flash_timing(fa, ops, ref)
 
     # 5. serve llama-7b, full width and depth --------------------------------------
     cfg = get_config("llama-7b")
@@ -477,9 +508,25 @@ def main() -> int:
     # 19. the paper's Experiment 2: the FFNN's gradient program at AmazonCat-14K sizes -------
     results["ffnn"] = _ffnn_phase(ops)
 
+    # 20. the continuous-batching engine: llama-7b at full width and depth, bf16 -----------
+    lens = np.random.default_rng(0).integers(192, 513, size=8).tolist()
+    results["engine"] = _engine_phase(cfg, ops, results["serve"]["profile"]["decode_step"],
+                                      slots=4, block=16, max_seq=528, lens=lens, max_new=16)
+
+    # 21. the engine on qwen2-moe-a2.7b at full width and depth, bf16 ---------------------
+    results["engine_moe"] = _engine_phase(
+        moe_cfg, ops, results["serve_moe"]["profile"]["decode_step"], slots=2, block=16,
+        max_seq=520, lens=[384, 448, 512], max_new=8)
+
+    # 22. engine parity: the card against the CPU, llama-7b and qwen2-moe width, 2 layers, f32
+    results["engine_parity"] = _engine_parity(cfg, ops)
+    results["engine_parity_moe"] = _engine_parity(moe_cfg, ops)
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
+    gdec = results["gmm_timing"]["w1_decode"]
+    e16, e32 = results["timing_engine"]["bfloat16"], results["timing_engine"]["float32"]
     serve_designs = results["serve"]["designs"]
     ring16 = results["ring"]["bfloat16"]
     ex32 = results["executor"]["float32"]
@@ -495,7 +542,17 @@ def main() -> int:
          "library_device_ms": results["timing"]["library_device_ms"],
          "device_ms": results["timing"]["device_ms"],
          "backward_plain_ms": results["timing"]["backward_plain_ms"],
-         "train_launches_per_step": results["train"]["flash_launches_per_step"]},
+         "train_launches_per_step": results["train"]["flash_launches_per_step"],
+         "engine_launches": results["engine"]["launches"]["flash_attention"],
+         "engine_design": _path_design(results["engine"]["designs"]["flash_attention"]),
+         "engine_moe_launches": results["engine_moe"]["launches"]["flash_attention"],
+         "engine_shape_device_ms": e16["device_ms"], "engine_shape_bound_ms": e16["bound_ms"],
+         "engine_shape_library_device_ms": e16["library_device_ms"],
+         "f32_design": e32["design"], "f32_ms": e32["kernel_ms"],
+         "f32_device_ms": e32["device_ms"], "f32_plain_ms": e32["plain_ms"],
+         "f32_bound_ms": e32["bound_ms"], "f32_bound_by": e32["bound_by"],
+         "f32_library_ms": e32["library_ms"],
+         "f32_library_device_ms": e32["library_device_ms"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -534,7 +591,12 @@ def main() -> int:
          "f32_launches": results["moe_slice_parity"]["launches"]["gmm"],
          "f32_ms": g32["kernel_ms"], "f32_template_ms": g32["template_ms"],
          "f32_plain_ms": g32["plain_ms"], "f32_library_ms": g32["library_ms"],
-         "f32_bound_ms": g32["bound_ms"], "f32_bound_by": g32["bound_by"]},
+         "f32_bound_ms": g32["bound_ms"], "f32_bound_by": g32["bound_by"],
+         "decode_ms": gdec["kernel_ms"], "decode_plain_ms": gdec["plain_ms"],
+         "decode_bound_ms": gdec["bound_ms"], "decode_bound_by": gdec["bound_by"],
+         "decode_library_ms": gdec["library_ms"],
+         "engine_launches": results["engine_moe"]["launches"]["gmm"],
+         "engine_design": _path_design(results["engine_moe"]["designs"]["gmm"])},
     ]}
     results.update(kernels)
     out = ROOT / "chiprun_out"
@@ -546,6 +608,48 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
+
+
+ENGINE_PREFILL = (1, 32, 32, 512, 512, 128, True, 0)  # one llama-7b request, 512 bucket
+
+
+def _engine_flash_timing(fa, ops, ref) -> dict:
+    """The forward kernel at one bucketed prefill of the engine (batch 1,
+    the 512 bucket, causal) in bf16 (the wgmma design) and in float32 (the
+    template, which the float32 paths take): held against its plain
+    version, then its time by CUDA events and its device time
+    (torch.profiler), the plain version, SDPA on the same inputs (events
+    and device time) and the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        case = ENGINE_PREFILL + (dt,)
+        q, k, v, kw = _inputs(case, seed=3)
+        design = fa.design(q, k, v)
+        assert design == _expected_flash_design(case), design
+        kernel = lambda: ops.flash_attention(q, k, v, impl="kernel", **kw)  # noqa: E731
+        err = _max_err(kernel(), ref.attention(q, k, v, **kw), TOL[dt],
+                       f"flash at the engine's prefill shape, {dt}")
+        t_kernel = _time_ms(kernel, 20)
+        t_device = _device_ms(kernel, 10, "flash_wgmma_kernel" if design == "wgmma"
+                              else "flash_fwd_kernel")
+        t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 3)
+        t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
+        t_lib_device = _device_ms(lambda: sdpa(q, k, v, is_causal=True), 10, None)
+        bound_ms, bound_by, nbytes, nops = _attention_bound_ms(case, ref)
+        res[str(dt).split(".")[1]] = {
+            "case": str(case), "design": design, "max_abs_err": err, "kernel_ms": t_kernel,
+            "device_ms": t_device, "plain_ms": t_plain, "library_ms": t_lib,
+            "library_device_ms": t_lib_device, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": nops}
+        log("timing", f"flash_attention {case[:6]} {dt} causal (an engine prefill): kernel "
+                      f"({design}) {t_kernel:.4f} ms ({t_device:.4f} ms device time), plain "
+                      f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms ({t_lib_device:.4f} ms device "
+                      f"time), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); "
+                      f"max|kernel - plain| {err:.3e}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return res
 
 
 def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16) -> dict:
@@ -1812,6 +1916,391 @@ def _ffnn_phase(ops) -> dict:
     torch.cuda.empty_cache()
     return res
 
+
+
+
+# ---------------------------------------------------------------------------
+# 20-22. the serving tier: the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+# a top-2 logit gap under this share of max|logit| is a near tie (printed)
+NEAR_TIE = 2e-2
+# the engine's bf16 logits against serve()'s on the same prefix, as a share
+# of max|logit|: the two runs round differently (other batch sizes, padded
+# and exact prefills) and, with MoE, a near tie in top-k routing can send a
+# token to another expert; a request served from another request's context
+# differs at the scale of the logits themselves (measured in the same run)
+LOGIT_TOL = 5e-2
+
+
+class _RouteLog:
+    """While ``calls`` is a list, every MoE routing of the model stack
+    (``models.moe._route``) appends the experts it picked, (tokens, top_k)
+    on the CPU.  ``close`` puts the routing function back."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.calls: list | None = None
+        self._moe, self._route = moe, moe._route
+
+        def route(p, xt, cfg):
+            topw, tope, aux = self._route(p, xt, cfg)
+            if self.calls is not None:
+                self.calls.append(tope.detach().cpu())
+            return topw, tope, aux
+
+        moe._route = route
+
+    def run(self, fn):
+        """``fn()`` and the routings it made, one (tokens, top_k) per layer."""
+        self.calls = []
+        try:
+            return fn(), self.calls
+        finally:
+            self.calls = None
+
+    def close(self):
+        self._moe._route = self._route
+
+
+def _sequential(cfg, params, prompt: np.ndarray, max_new: int, kv_len: int, device="cuda",
+                force: np.ndarray | None = None, routes: _RouteLog | None = None):
+    """One request alone through ``launch.serve``'s steps (the exact-length
+    prefill, ``prepare_decode_caches``, decode steps, as ``serve`` runs
+    them): the argmax at each position and the logits behind it (float32,
+    on the CPU).  Greedy without ``force``; with ``force`` every step is fed
+    ``force[i]`` instead (teacher forcing), so position i's logits condition
+    on that prefix.  With ``routes``, also the experts each decode step
+    picked for the token, (layers, top_k) per position (None at position 0,
+    the prefill's)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    toks, logs, experts = [], [], [None]
+    with torch.inference_mode():
+        logits, caches = prefill(params, {"tokens": torch.as_tensor(prompt[None], device=device)})
+        caches = serve_mod.prepare_decode_caches(cfg, caches, len(prompt), kv_len)
+        for i in range(max_new):
+            logs.append(logits[0, -1].float().cpu())
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            toks.append(int(tok[0, 0]))
+            if force is not None:
+                tok = torch.full_like(tok, int(force[i]))
+            if i + 1 < max_new:
+                step = lambda: decode(params, tok, caches, len(prompt) + i)  # noqa: E731
+                if routes is None:
+                    logits, caches = step()
+                else:
+                    (logits, caches), calls = routes.run(step)
+                    experts.append(torch.stack([c[0] for c in calls]))
+    return np.asarray(toks, np.int32), logs, experts
+
+
+def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
+    """Make ``eng`` copy out, per request, the logits behind each of its
+    tokens (float32, on the CPU): its bucketed prefill's at the last real
+    token, then its row of every decode step; with ``routes``, also the
+    experts each decode step picked for its token, as ``_sequential``.  The
+    steps are the engine's own (the registry's prefill entry,
+    ``make_paged_serve_step`` and the greedy argmax on the device)."""
+    from repro_torch.launch import steps
+
+    rec: dict[int, list] = {}
+    rec_experts: dict[int, list] = {}
+    reg, decode_base = eng.registry, steps.make_paged_serve_step(eng.cfg)
+    order = iter(range(1 << 30))  # admissions come in request order (a FIFO queue)
+    get_prefill = reg.prefill
+
+    def prefill(prompt_len, batch=1):
+        ent = get_prefill(prompt_len, batch)
+        base = getattr(ent, "unrecorded_step", ent.step)
+        ent.unrecorded_step = base
+
+        def step(params, batch, last_index):
+            logits, caches = base(params, batch, last_index)
+            rid = next(order)
+            rec[rid], rec_experts[rid] = [logits[0, -1].float().cpu()], [None]
+            return logits, caches
+
+        ent.step = step
+        return ent
+
+    def decode(params, tokens, caches, tables, pos):
+        step = lambda: decode_base(params, tokens, caches, tables, pos)  # noqa: E731
+        if routes is None:
+            (logits, caches), calls = step(), None
+        else:
+            (logits, caches), calls = routes.run(step)
+        for i, req in enumerate(eng.slots):
+            if req is not None:
+                rec[req.rid].append(logits[i, -1].float().cpu())
+                if calls is not None:
+                    rec_experts[req.rid].append(torch.stack([c[i] for c in calls]))
+        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32), caches
+
+    reg.prefill, eng._decode = prefill, decode
+    return rec, rec_experts
+
+
+def _hold_against_sequential(what: str, got: np.ndarray, got_logits: list,
+                             seq_logits: list, other_logits: list, got_experts=None,
+                             seq_experts=None) -> dict:
+    """The engine's tokens and logits against the sequential run's logits
+    on the same prefix (teacher-forced on the engine's tokens), and against
+    another request's (``other_logits``: what serving the wrong context
+    would look like).  Returns the measured differences and the failures:
+    a position where the two runs' logits differ by more than LOGIT_TOL x
+    max|logit|, or where the engine's token is not the sequential argmax
+    and the top-2 gap is not under twice the measured difference (a flip
+    the rounding of the two runs does not explain).  With the experts each
+    run's MoE layers picked, the comparison stops at the first position
+    where the token went to other experts in some layer (a routing near
+    tie: from there on the two runs compute different functions).  Near
+    ties, flips and the routing stop are printed."""
+    rel, other, flips, failures = [], [], [], []
+    stop = len(got)
+    for i in range(1, len(got)) if got_experts is not None else ():
+        same = (got_experts[i].sort(-1).values == seq_experts[i].sort(-1).values).all(-1)
+        if not bool(same.all()):
+            layer = int((~same).nonzero()[0, 0])
+            log("engine", f"{what}: position {i}: routing differs at layer {layer} (experts "
+                          f"{got_experts[i][layer].tolist()} in the engine, "
+                          f"{seq_experts[i][layer].tolist()} alone); compared {i} positions")
+            stop = i
+            break
+    for i, (e, q, o) in enumerate(zip(got_logits[:stop], seq_logits, other_logits)):
+        scale = float(q.abs().max())
+        delta = float((e - q).abs().max())
+        top2 = torch.topk(q, 2).values
+        gap = float(top2[0] - top2[1])
+        rel.append(delta / scale)
+        other.append(float((e - o).abs().max()) / scale)
+        want = int(torch.argmax(q))
+        if gap < NEAR_TIE * scale or int(got[i]) != want:
+            log("engine", f"{what}: position {i}: top-2 gap {gap:.4e} ({gap / scale:.2e} of "
+                          f"max|logit|), the runs' logits differ by {delta:.4e} "
+                          f"({delta / scale:.2e}); token {int(got[i])} "
+                          f"{'=' if int(got[i]) == want else '!='} {want}")
+        if delta > LOGIT_TOL * scale:
+            failures.append(f"{what}: position {i}: logits differ by {delta:.4e}, beyond "
+                            f"{LOGIT_TOL} x max|logit| {scale:.3f}")
+        if int(got[i]) != want:
+            flips.append(i)
+            if gap >= 2 * delta:
+                failures.append(f"{what}: token {i} is {int(got[i])}, the sequential run "
+                                f"gives {want} at a top-2 gap {gap:.4e} that the runs' "
+                                f"logit difference {delta:.4e} does not explain")
+    return {"max_rel_logit_diff": max(rel), "min_rel_diff_to_other_request": min(other),
+            "flips": flips, "routing_stop": stop, "held": flips[0] if flips else stop,
+            "failures": failures}
+
+
+def _engine_run(cfg, params, prompts, max_new, *, batch: int, block: int, max_seq: int,
+                store: str, ops, device="cuda"):
+    """A ``ServingEngine`` on ``device`` over a plan-cache file: every
+    request submitted, the launch counters set to 0 just before ``run``
+    and read just after, the peak memory of the run."""
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, batch=batch, max_seq=max_seq, block=block, params=params,
+                        plan_cache=PlanCache.open(store), device=device)
+    for p, n in zip(prompts, max_new):
+        eng.submit(p, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res, metrics = eng.run()
+    launches, designs = ops.launch_counts(), ops.design_counts()
+    return eng, res, metrics, {"launches": launches, "designs": designs,
+                               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_seq: int,
+                  lens: list[int], max_new: int, seed: int = 0, device="cuda") -> dict:
+    """``cfg`` at full width and depth (bf16, random weights from ``seed``)
+    served by the continuous-batching engine on the card: a first engine
+    over a new plan-cache file, then a second over the same file (plans
+    with hits only, its run read for the timings).  Checks: each request's
+    generation against the sequential serve of that request alone (the
+    near-tie rule), flash launches = layers x prefills, gmm launches =
+    MoE products x layers x (prefills + decode steps), every bf16 launch of
+    the wgmma design, registry compiles = distinct buckets + 1 decode cell.
+    Then one engine decode step with every slot live, profiled beside the
+    dense serve loop's decode step (phase 5 or 14)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    news = [max_new] * len(prompts)
+    kw = dict(batch=slots, block=block, max_seq=max_seq, ops=ops, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(Path(tmp) / "plans.json")
+        eng, first, m1, run1 = _engine_run(cfg, params, prompts, news, store=store, **kw)
+        buckets = sorted({eng.registry.bucket_len(n) for n in lens})
+        stats1 = eng.registry.stats
+        assert stats1.compiles == len(buckets) + 1, (stats1, buckets)
+        assert stats1.plan_cache_hits == 0, stats1
+        del eng
+        eng, res, m, run2 = _engine_run(cfg, params, prompts, news, store=store, **kw)
+        summary, ttft = m.summary(), [m.ttft_s[r] for r in sorted(m.ttft_s)]
+        stats2 = dataclasses.replace(eng.registry.stats)
+        assert stats2.compiles == stats2.plan_cache_hits == len(buckets) + 1, stats2
+        assert eng.registry.plan_cache.misses == 0, eng.registry.plan_cache.stats
+    # the counted runs: what every launch did
+    moe_per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
+    for run, met in ((run1, m1), (run2, m)):
+        want = {"flash_attention": cfg.n_layers * met.prefills, "flash_attention_step": 0,
+                "matmul": 0,
+                "gmm": moe_per_layer * cfg.n_layers * (met.prefills + met.decode_steps)}
+        assert run["launches"] == want, (run["launches"], want)
+        for kernel in ("flash_attention", "gmm"):
+            assert run["designs"][kernel]["wgmma"] == run["launches"][kernel], run["designs"]
+    assert m.prefills == m1.prefills == len(lens), (m.prefills, m1.prefills)
+    assert m.tokens_generated == len(lens) * max_new, m.tokens_generated
+    same = all(np.array_equal(first[r], res[r]) for r in res)
+    pool_bytes = sum(c.k.nbytes + c.v.nbytes for c in eng.caches)
+    # a third run that copies out the logits behind every token, and each
+    # request against the serve loop's run of it alone on the same prefix
+    routes = _RouteLog() if cfg.moe else None
+    try:
+        rec_eng = ServingEngine(cfg, batch=slots, max_seq=max_seq, block=block, params=params,
+                                device=device)
+        rec, rec_experts = _record_logits(rec_eng, routes)
+        for p in prompts:
+            rec_eng.submit(p, max_new)
+        rec_res, _ = rec_eng.run()
+        del rec_eng
+        seq = []
+        for rid, p in enumerate(prompts):
+            assert ((rec_res[rid] >= 0) & (rec_res[rid] < cfg.vocab_padded)).all()
+            assert len(rec[rid]) == max_new, (rid, len(rec[rid]))
+            seq.append(_sequential(cfg, params, p, max_new, eng.seq, device,
+                                   force=rec_res[rid], routes=routes))
+    finally:
+        if routes is not None:
+            routes.close()
+    same_rec = all(np.array_equal(rec_res[r], res[r]) for r in res)
+    gen, _ = serve_mod.serve(cfg, prompts[0][None], max_new=max_new, params=params,
+                             kv_len=eng.seq, device=device)
+    free = _sequential(cfg, params, prompts[0], max_new, eng.seq, device)[0]
+    assert np.array_equal(gen[0], free), (gen[0], free)  # the helper is serve()'s loop
+    held = [_hold_against_sequential(f"{cfg.name} request {rid} (prompt {len(p)})",
+                                     rec_res[rid], rec[rid], seq[rid][1],
+                                     seq[(rid + 1) % len(prompts)][1],
+                                     rec_experts[rid] if routes else None,
+                                     seq[rid][2] if routes else None)
+            for rid, p in enumerate(prompts)]
+    # one engine decode step, every slot live, profiled
+    for p in prompts[:slots]:
+        eng.submit(p, max_new)
+    with torch.inference_mode():
+        eng._admit_phase()
+        assert all(s is not None for s in eng.slots)
+        ops.reset_launch_counts()
+        eng._decode_phase()
+        step_launches = ops.launch_counts()
+        prof = _profile(eng._decode_phase)
+    assert step_launches["gmm"] == moe_per_layer * cfg.n_layers, step_launches
+    assert step_launches["flash_attention"] == 0, step_launches
+    log("engine", f"{cfg.name} bf16, {slots} slots, block {block}, max_seq {max_seq}, "
+                  f"{len(lens)} requests (prompts {lens}, buckets {buckets}), {max_new} new "
+                  f"each; params made in {t_init:.1f} s")
+    log("engine", f"first run (cold plan-cache file): {m1.summary()}; registry {stats1}")
+    log("engine", f"second run (the same file): {summary}; registry {stats2}; generations "
+                  f"equal to the first run's: {same}, to the logit-recording run's: {same_rec}")
+    log("engine", f"TTFT per request (s): {[round(t, 4) for t in ttft]}")
+    log("engine", f"launches {run2['launches']}, by design {run2['designs']}; peak memory "
+                  f"{run2['max_memory_allocated']} B, pool {pool_bytes} B")
+    log("engine", f"against serve() of each request alone, teacher-forced on the engine's "
+                  f"tokens: positions compared before the first routing difference "
+                  f"{[h['routing_stop'] for h in held]}, tokens before the first flip "
+                  f"{[h['held'] for h in held]} of {max_new}; max|logit diff| / max|logit| per request "
+                  f"{[format(h['max_rel_logit_diff'], '.2e') for h in held]} (limit "
+                  f"{LOGIT_TOL}); against the next request's logits (another context) at "
+                  f"least {[format(h['min_rel_diff_to_other_request'], '.2e') for h in held]}")
+    failures = [f for h in held for f in h["failures"]]
+    assert not failures, failures
+    # the limit tells a request served from another context apart
+    assert min(h["min_rel_diff_to_other_request"] for h in held) > LOGIT_TOL, held
+    for name, br in (("engine decode step", prof), ("dense decode step", dense_decode)):
+        log("profile", f"{cfg.name} {name}: wall {br['wall_ms']:.3f} ms, device busy "
+                       f"{br['device_ms']:.3f} ms (idle share {br['idle_share']:.3f}), "
+                       f"{br['kernels']} kernels; device ms by kind {br['by_kind_ms']}")
+    out = {"slots": slots, "block": block, "max_seq": max_seq, "prompt_lens": lens,
+           "max_new": max_new, "buckets": buckets, "t_init_s": t_init,
+           "first_run": m1.summary(), "summary": summary, "ttft_s": ttft,
+           "registry_first": dataclasses.asdict(stats1),
+           "registry_second": dataclasses.asdict(stats2), "same_as_first_run": same,
+           "same_as_recording_run": same_rec,
+           "launches": run2["launches"], "designs": run2["designs"],
+           "max_memory_allocated": run2["max_memory_allocated"], "pool_bytes": pool_bytes,
+           "against_sequential": held, "generations": {r: res[r].tolist() for r in res},
+           "decode_step_launches": step_launches, "profile_decode_step": prof,
+           "dense_decode_step": dense_decode}
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _engine_parity(cfg, ops, device="cuda") -> dict:
+    """``cfg`` at full width, 2 layers, float32: the engine on the card
+    (the flash kernel's template in each bucketed prefill, the gmm kernel's
+    ffma design in each MoE product) and on the CPU (the plain path), the
+    same weights and requests; tokens equal, the logits behind every token
+    (each prefill's and each decode step's) within 1e-4 x max|logit|."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = tf.init_params(cfg2, seed=22, device="cpu")
+    rng = np.random.default_rng(22)
+    lens = rng.integers(32, 129, size=3).tolist()
+    prompts = [rng.integers(0, cfg2.vocab, size=(n,)).astype(np.int32) for n in lens]
+    max_new = 6
+    out = {}
+    for dev in (device, "cpu"):
+        eng = ServingEngine(cfg2, batch=2, max_seq=144, block=16, params=params, device=dev)
+        rec, _ = _record_logits(eng)
+        for p in prompts:
+            eng.submit(p, max_new)
+        ops.reset_launch_counts()
+        res, m = eng.run()
+        out[dev] = (res, rec, m, ops.launch_counts(), ops.design_counts())
+        del eng
+    (got, grec, m, launches, designs), (want, wrec, _, cpu_launches, _) = (
+        out[device], out["cpu"])
+    moe_per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
+    assert launches == {"flash_attention": 2 * m.prefills, "flash_attention_step": 0,
+                        "matmul": 0, "gmm": 2 * moe_per_layer * (m.prefills + m.decode_steps)
+                        }, launches
+    assert m.prefills == 3 and not any(cpu_launches.values()), cpu_launches
+    for rid in want:
+        assert np.array_equal(got[rid], want[rid]), (rid, got[rid], want[rid])
+        assert len(grec[rid]) == len(wrec[rid]) == max_new, rid
+    pairs = [(g, w) for rid in want for g, w in zip(grec[rid], wrec[rid])]
+    scale = max(float(w.abs().max()) for _, w in pairs)
+    diff = max(float((g - w).abs().max()) for g, w in pairs)
+    assert diff <= 1e-4 * scale, (diff, scale)
+    log("engine-parity", f"{cfg.name} width, 2 layers, f32, prompts {lens}, {max_new} new, 2 "
+                         f"slots: tokens equal on the card and the CPU "
+                         f"{[got[r].tolist() for r in sorted(got)]}; max|logit diff| "
+                         f"{diff:.3e} (max|logit| {scale:.3f}, limit 1e-4 of it); launches "
+                         f"{launches}, flash by design {designs['flash_attention']}, gmm "
+                         f"{designs['gmm']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"prompt_lens": lens, "max_new": max_new, "max_abs_logit_diff": diff,
+            "max_abs_logit": scale, "launches": launches, "designs": designs,
+            "tokens": {r: got[r].tolist() for r in got}}
 
 
 if __name__ == "__main__":

@@ -11,10 +11,16 @@ ring-buffer caches.
 With ``--executor shard_map`` the cell's program is also compiled for the
 explicit-collective executor on the one-rank mesh, and its static
 collective schedule is printed (the serving steps themselves still run the
-model stack, as in the reference).  The continuous-batching engine
-(``--continuous``) of the reference is not ported yet.
+model stack, as in the reference).
+
+``--continuous`` switches to the serving tier proper
+(``repro_torch.serving.ServingEngine``): slot-based continuous batching
+over a paged KV-block pool, with prefill programs resolved through the
+shape-bucket registry and the plan cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
+        --reduced --continuous --device cpu
 """
 from __future__ import annotations
 
@@ -163,7 +169,7 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
                  "policy": dict(policy.label_axes)}
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-7b")
     ap.add_argument("--reduced", action="store_true")
@@ -179,12 +185,45 @@ def main() -> None:
                     choices=["gspmd", "shard_map"],
                     help="plan realization; shard_map prints the compiled "
                          "program's static collective schedule")
-    args = ap.parse_args()
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching engine (repro_torch.serving): "
+                         "slot scheduler + paged KV pool + bucket registry; "
+                         "prompts get mixed lengths around --prompt-len")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="[--continuous] number of requests to submit")
+    ap.add_argument("--kv-block", type=int, default=16,
+                    help="[--continuous] KV pool block size (cache rows)")
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="[--continuous] per-request capacity ceiling "
+                         "(prompt+generated); default prompt-len + max-new")
+    ap.add_argument("--bucket", default="auto",
+                    choices=["auto", "pow2", "exact"],
+                    help="[--continuous] prefill bucket policy: pow2 "
+                         "rounding for pad-free archs under 'auto'")
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     rng = np.random.default_rng(0)
+
+    if args.continuous:
+        from repro_torch.serving import ServingEngine
+
+        max_seq = args.max_seq or (args.prompt_len + args.max_new)
+        eng = ServingEngine(cfg, batch=args.batch, max_seq=max_seq,
+                            block=args.kv_block, plan_cache=args.plan_cache,
+                            bucket=args.bucket, device=args.device)
+        for _ in range(args.requests):
+            plen = int(rng.integers(max(1, args.prompt_len // 2),
+                                    args.prompt_len + 1))
+            eng.submit(rng.integers(0, cfg.vocab, size=(plen,)), args.max_new)
+        results, metrics = eng.run()
+        for rid in sorted(results):
+            print(f"request {rid}: {results[rid]}")
+        print(metrics.summary())
+        print(eng.registry.stats)
+        return
     prompts = rng.integers(0, cfg.vocab,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
     gen, stats = serve(cfg, prompts, max_new=args.max_new,

@@ -1,5 +1,6 @@
 """Step functions shared by the trainer and the server: ``train_step``
-(fwd + bwd + AdamW), ``prefill_step`` and ``serve_step``.
+(fwd + bwd + AdamW), ``prefill_step`` and ``serve_step``, and the serving
+tier's ``bucket_prefill_step`` and ``paged_serve_step``.
 
 The reference jit-compiles these; PyTorch runs them eagerly.
 """
@@ -78,3 +79,28 @@ def make_serve_step(cfg) -> Callable:
         return tf.decode_step(params, tokens, caches, pos, cfg)
 
     return serve_step
+
+
+def make_bucket_prefill_step(cfg) -> Callable:
+    """Prefill over a bucket-padded prompt: ``prefill_step`` except that the
+    LM head runs at ``last_index`` (the last *real* token) instead of the
+    final, padded, position.  Structurally the same graph, so the two share
+    a plan-cache entry per shape cell."""
+
+    def bucket_prefill_step(params, batch, last_index: int):
+        logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
+                                       collect_cache=True,
+                                       logit_index=last_index)
+        return logits, caches
+
+    return bucket_prefill_step
+
+
+def make_paged_serve_step(cfg) -> Callable:
+    """Continuous-batching decode step: per-slot positions and block tables
+    into the paged KV pools (``kv_block_gather``)."""
+
+    def paged_serve_step(params, tokens, caches, tables, pos):
+        return tf.decode_step_paged(params, tokens, caches, tables, pos, cfg)
+
+    return paged_serve_step

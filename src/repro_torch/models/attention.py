@@ -7,11 +7,14 @@ Two call modes:
   * decode: one query token against a preallocated KV cache buffer;
     sliding-window archs keep a ring buffer of size ``window``.  Plain torch,
     as in the reference.
+  * paged decode (the serving tier, ``repro_torch.serving``): every batch
+    slot at its own position, its K/V in blocks of a shared pool reached
+    through a per-slot block table (``ops.kv_block_gather``).  Plain torch:
+    the reference has no kernel for it either.
 
 Parameter layout keeps heads (h) and head_dim (d) as separate tensor dims —
 these are exactly the EinSum labels EinDecomp assigns mesh axes to (the
-multi-head-attention EinGraph of paper §3).  The paged-cache functions of
-the reference belong to the serving-tier slice of the port.
+multi-head-attention EinGraph of paper §3).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamFactory, apply_rope
+from repro_torch.models.common import ParamFactory, apply_rope, resolve_device
 
 
 def init_attention(pf: ParamFactory, cfg) -> dict:
@@ -115,16 +118,81 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     return out, cache
 
 
+class PagedKVCache(NamedTuple):
+    """Block-pool KV cache (the serving tier): ``n_blocks`` blocks of
+    ``block`` cache rows each; sequences own disjoint block sets through
+    per-slot block tables.  Block 0 is reserved as scratch (inactive slots
+    write there; nothing valid ever reads it)."""
+
+    k: torch.Tensor  # (n_blocks, block, kv_heads, hd)
+    v: torch.Tensor
+
+
+def init_paged_kv_cache(cfg, n_blocks: int, block: int, dtype,
+                        device=None) -> PagedKVCache:
+    """A zero pool on ``device`` (default: the card)."""
+    device = resolve_device(device)
+    shape = (n_blocks, block, cfg.n_kv_heads, cfg.hd)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_decode_paged(p: dict, x: torch.Tensor, pool: PagedKVCache,
+                           tables: torch.Tensor, pos: torch.Tensor,
+                           cfg) -> tuple[torch.Tensor, PagedKVCache]:
+    """One decode step against a paged block pool.
+
+    x: (b, 1, d_model); tables: (b, W) int block tables; pos: (b,) int
+    per-slot absolute positions — unlike ``attention_decode``, every batch
+    slot sits at its *own* position (continuous batching).  This step's
+    K/V are written **in place** into block ``tables[b, pos // block]`` at
+    row ``pos % block`` (the reference returns a new pool); the
+    time-ordered cache view is gathered through the same block-table lookup
+    the planner prices (``ops.kv_block_gather``) and attended with per-row
+    validity masks (``idx <= pos``, plus the sliding window on absolute
+    positions for windowed archs — the pool is time-ordered, so no ring
+    reconstruction is needed).  The write comes before the gather, so the
+    pad rows a bucketed prefill left at row ``pos`` are overwritten before
+    the mask admits them.  Idle slots (table rows of 0, pos 0) all write
+    row 0 of the scratch block; which of them lands there does not matter.
+    """
+    blk = pool.k.shape[1]
+    W = tables.shape[1]
+    pos = pos.long()
+    tables = tables.long()
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
+    blk_ids = torch.gather(tables, 1, (pos // blk)[:, None])[:, 0]
+    off = pos % blk
+    pool.k[blk_ids, off] = k_new[:, 0]
+    pool.v[blk_ids, off] = v_new[:, 0]
+
+    kh = ops.kv_block_gather(pool.k, tables, W * blk)   # (b, kv, t, d)
+    vh = ops.kv_block_gather(pool.v, tables, W * blk)
+    qh = q.transpose(1, 2)                              # (b, h, 1, hd)
+
+    idx = torch.arange(W * blk, device=x.device)
+    valid = idx[None, :] <= pos[:, None]
+    if cfg.window:
+        valid &= idx[None, :] > (pos[:, None] - cfg.window)
+
+    o = _decode_attend(qh, kh, vh, valid)
+    o = o.transpose(1, 2)
+    out = torch.einsum("bshd,hda->bsa", o, p["wo"])
+    return out, pool
+
+
 def _decode_attend(q, k, v, valid):
-    """Masked attention for a single query against the whole cache buffer;
-    ``valid`` is (S,) shared across the batch."""
+    """Masked attention for a single query against the whole cache buffer.
+    ``valid`` is (S,) shared across the batch, or (b, S) per row (the paged
+    decode path, where every slot sits at its own position)."""
     hq, hkv = q.shape[1], k.shape[1]
     g = hq // hkv
     b, _, S, d = k.shape
     f32 = torch.float32
     qs = q.reshape(b, hkv, g, 1, d).to(f32) * (d ** -0.5)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(f32))
-    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    mask = valid[:, None, None, None, :] if valid.dim() == 2 else valid
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
     m = torch.amax(s, dim=-1, keepdim=True)
     pr = torch.exp(s - m)
     l = torch.sum(pr, dim=-1, keepdim=True)

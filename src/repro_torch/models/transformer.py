@@ -9,7 +9,8 @@ xLSTM blocks raise ``NotImplementedError`` naming the slice that brings
 them.
 
 Decode caches are preallocated once (``init_caches``) and written in place
-by each decode step.  Training differentiates ``loss_fn`` with
+by each decode step; the serving tier's paged pools (``init_paged_caches``)
+likewise, by ``decode_step_paged``.  Training differentiates ``loss_fn`` with
 ``torch.autograd``, each unit rematerialized as the reference's
 ``jax.checkpoint`` does (``forward(remat=...)``).
 """
@@ -133,8 +134,8 @@ def _unit(tree, u: int):
     """Unit ``u``'s parameters (or caches): views into the stacked tree."""
     if isinstance(tree, dict):
         return {k: _unit(v, u) for k, v in tree.items()}
-    if isinstance(tree, attn_mod.KVCache):
-        return attn_mod.KVCache(tree.k[u], tree.v[u])
+    if isinstance(tree, (attn_mod.KVCache, attn_mod.PagedKVCache)):
+        return type(tree)(tree.k[u], tree.v[u])
     return tree[u]
 
 
@@ -203,14 +204,17 @@ def _rematerialized(unit, remat):
 
 
 def forward(params, tokens, cfg, *, collect_cache: bool = False,
-            last_logit_only: bool = False, remat=False):
+            last_logit_only: bool = False, logit_index=None, remat=False):
     """Full-sequence forward.  Returns (logits, caches, aux_loss), the
     aux loss summed over the MoE layers (0 without MoE).
 
     ``caches`` (with ``collect_cache``) holds, per pattern position, the
     (k, v) of every unit stacked to (units, b, s, kv_heads, hd).
     ``last_logit_only`` computes the LM head for the final position only
-    (prefill serving never needs the (b, s, v) logits).  ``remat`` is the
+    (prefill serving never needs the (b, s, v) logits); ``logit_index``
+    (an int) generalizes it to any single position — the serving tier's
+    bucketed prefill pads the prompt to the bucket length and takes the
+    logit at the last real token.  ``remat`` is the
     reference's: ``True`` recomputes each unit (one pattern period) in the
     backward from its input, ``"dots"`` keeps the unit's matrix products
     and recomputes the rest, ``False`` (the default, what serving runs)
@@ -245,6 +249,8 @@ def forward(params, tokens, cfg, *, collect_cache: bool = False,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_logit_only:
         x = x[:, -1:]
+    elif logit_index is not None:
+        x = x.narrow(1, int(logit_index), 1)
     return lm_logits(x, _head(params)), caches, aux
 
 
@@ -296,5 +302,52 @@ def decode_step(params, tokens, caches, pos: int, cfg):
         for ppos in range(len(pattern)):
             x = _block_decode(_unit(params["layers"][ppos], u), x,
                               _unit(caches[ppos], u), pos, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(x, _head(params)), caches
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (the serving tier): block-pool KV caches + per-slot positions
+# ---------------------------------------------------------------------------
+
+
+def init_paged_caches(cfg, batch: int, n_blocks: int, block: int, *,
+                      device=None):
+    """Per-pattern-position stacked (units, n_blocks, block, kv_heads, hd)
+    paged KV pools on ``device`` (default: the card), shared by all batch
+    slots through block tables and written in place by
+    ``decode_step_paged``.  ``batch`` sizes only per-slot recurrent
+    states, which the port's ``attn`` blocks do not have."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dt = dtype_of(cfg)
+    shape = (_n_units(cfg), n_blocks, block, cfg.n_kv_heads, cfg.hd)
+    return [attn_mod.PagedKVCache(torch.zeros(shape, dtype=dt, device=device),
+                                  torch.zeros(shape, dtype=dt, device=device))
+            for _ in cfg.block_pattern]
+
+
+def _block_decode_paged(p: dict, x, cache, tables, pos, cfg):
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    a_out, _ = attn_mod.attention_decode_paged(p["attn"], h, cache, tables,
+                                               pos, cfg)
+    x = x + a_out
+    m_out, _ = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x + m_out
+
+
+def decode_step_paged(params, tokens, caches, tables, pos, cfg):
+    """One continuous-batching decode step.  tokens (b, 1); tables (b, W)
+    int block tables; pos (b,) int per-slot positions.  Writes this step's
+    K/V into the pools of ``caches`` in place and returns (logits (b, 1,
+    v), caches).  Idle slots point their table rows at the scratch block 0
+    with pos 0, so their writes land there."""
+    tables, pos = tables.long(), pos.long()  # once a step, not once a layer
+    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+    pattern = cfg.block_pattern
+    for u in range(_n_units(cfg)):
+        for ppos in range(len(pattern)):
+            x = _block_decode_paged(_unit(params["layers"][ppos], u), x,
+                                    _unit(caches[ppos], u), tables, pos, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(x, _head(params)), caches

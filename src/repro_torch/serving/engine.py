@@ -1,0 +1,305 @@
+"""Continuous-batching serving engine on the plan cache.
+
+``ServingEngine`` holds a fixed pool of decode *slots* (the persistent
+paged-decode program's batch) plus an admission queue.  Each loop
+iteration: (1) admit queued requests into free slots — a bucketed
+batch-1 prefill through the ``BucketRegistry`` resolves the shape cell's
+compiled handle (warm after first touch), then a scatter copies the
+prefill caches into the paged KV pool under the request's block table;
+(2) run ONE batched decode step for all live slots — per-slot positions
+and block tables mean requests join and leave mid-flight without any
+replanning; (3) evict finished requests and return their blocks.
+
+Generated tokens stay on the device (the decode step argmaxes on the
+device and the per-step token tensors are accumulated); the host fetches
+everything once at drain, so the loop never waits on a decode step.  The
+one host sync per request is the prefill's argmax, which defines the time
+to first token.  Length-based eviction is the default; passing ``eos_id``
+enables early exit at the cost of one host sync per step (opt-in).
+
+The block tables and positions live on the host as numpy arrays that the
+loop mutates after every step; each step takes a fresh device copy of
+them (through a new pinned buffer on a card), so an asynchronous copy
+never reads an array the host has already changed.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import resolve_device
+from repro_torch.serving.buckets import BucketRegistry
+from repro_torch.serving.paged_kv import BlockAllocator, make_admit_fn
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new: int
+    submit_t: float = 0.0
+    ttft_s: float | None = None   # submit -> first token (prefill argmax)
+    slot: int = -1
+    blocks: list[int] = field(default_factory=list)
+    step_start: int = -1          # index of its first decode-step column
+    n_dec: int = 0                # decode tokens produced so far
+    first_tok: int = -1
+    done: bool = False
+
+    @property
+    def total(self) -> int:
+        return 1 + self.n_dec     # prefill token + decode tokens
+
+
+@dataclass
+class ServeMetrics:
+    """Serving-tier observability: queue depth and batch occupancy are
+    sampled once per decode step; TTFT once per request."""
+
+    queue_depth: list[int] = field(default_factory=list)
+    occupancy: list[float] = field(default_factory=list)
+    ttft_s: dict[int, float] = field(default_factory=dict)
+    prefills: int = 0
+    decode_steps: int = 0
+    tokens_generated: int = 0
+    t_total_s: float = 0.0
+    t_prefill_s: float = 0.0
+
+    @property
+    def tok_per_s(self) -> float:
+        return self.tokens_generated / max(self.t_total_s, 1e-9)
+
+    @property
+    def mean_occupancy(self) -> float:
+        return float(np.mean(self.occupancy)) if self.occupancy else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "prefills": self.prefills,
+            "decode_steps": self.decode_steps,
+            "tokens_generated": self.tokens_generated,
+            "tok_per_s": self.tok_per_s,
+            "mean_occupancy": self.mean_occupancy,
+            "max_queue_depth": max(self.queue_depth, default=0),
+            "mean_ttft_s": (float(np.mean(list(self.ttft_s.values())))
+                            if self.ttft_s else 0.0),
+            "t_total_s": self.t_total_s,
+            "t_prefill_s": self.t_prefill_s,
+        }
+
+
+def _fresh(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A device copy of ``a`` that shares no memory with it, so the caller
+    may mutate ``a`` at once: on a card an asynchronous copy out of a new
+    pinned buffer (the caching host allocator keeps that buffer until the
+    copy is done), on the CPU a clone."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone().to(device)
+
+
+class ServingEngine:
+    """Continuous batching over a paged KV pool.
+
+    Parameters
+    ----------
+    cfg:
+        Model config (``repro_torch.configs``).
+    batch:
+        Decode slots — the persistent decode program's batch bucket.
+    max_seq:
+        Per-request capacity ceiling (prompt + generated), rounded up to
+        whole blocks; sets the block-table width ``W``.
+    block:
+        KV block size (pool rows per block).
+    n_blocks:
+        Pool capacity.  Default sizes for all slots at full length plus
+        the scratch block.
+    params:
+        The model's parameters (moved to ``device``); default seeded
+        random weights made there (``tf.init_params(seed=seed)``).
+    plan_cache:
+        A ``PlanCache`` or the path of its JSON store, for the registry.
+    bucket:
+        Prefill bucket policy (``buckets.bucket_len``): "auto" (pow2 for
+        pad-free archs, exact otherwise), "pow2", or "exact".
+    eos_id:
+        Optional early-exit token id.  Checking it costs one host sync
+        per decode step, so it is opt-in; default is length-based
+        eviction only.
+    device:
+        Where the engine runs; default the card, raising where there is
+        none.
+    """
+
+    def __init__(self, cfg, *, batch: int = 4, max_seq: int = 128,
+                 block: int = 16, n_blocks: int | None = None, params=None,
+                 seed: int = 0, plan_cache=None, bucket: str = "auto",
+                 eos_id: int | None = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch = batch
+        self.block = block
+        self.W = -(-max_seq // block)
+        self.seq = self.W * block
+        self.eos_id = eos_id
+        if n_blocks is None:
+            n_blocks = 1 + batch * self.W
+        self.alloc = BlockAllocator(n_blocks, block)
+        self._admit = make_admit_fn(cfg)
+        self.registry = BucketRegistry(cfg, plan_cache=plan_cache,
+                                       bucket=bucket, device=self.device)
+
+        dent = self.registry.decode(self.seq, batch, block)
+        self.policy = dent.policy
+        self._decode = dent.step
+        if params is None:
+            params = tf.init_params(cfg, seed=seed, device=self.device)
+        self.params = tree.map(lambda t: t.to(self.device), params)
+
+        self.caches = tf.init_paged_caches(cfg, batch, n_blocks, block,
+                                           device=self.device)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.tables = np.zeros((batch, self.W), np.int32)
+        self.pos = np.zeros((batch,), np.int32)
+        self.slots: list[Request | None] = [None] * batch
+        self._queue: deque[Request] = deque()
+        self._done: list[Request] = []
+        self._next_rid = 0
+        self._step_log: list[torch.Tensor] = []   # per-step (batch, 1) tokens
+        self.metrics = ServeMetrics()
+
+    # -- API ------------------------------------------------------------------
+
+    def submit(self, prompt: np.ndarray, max_new: int) -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        need = self.alloc.blocks_for(len(prompt) + max_new)
+        if need > self.W:
+            raise ValueError(f"request needs {need} blocks > table width "
+                             f"{self.W} (raise max_seq)")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, max_new=max_new,
+                      submit_t=time.perf_counter())
+        self._queue.append(req)
+        return rid
+
+    def run(self) -> tuple[dict[int, np.ndarray], ServeMetrics]:
+        """Drain the queue; returns ({rid: (n_tokens,) int32}, metrics)."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            while self._queue or any(s is not None for s in self.slots):
+                admitted = self._admit_phase()
+                active = [s for s in self.slots if s is not None]
+                if not active:
+                    if self._queue and not admitted:
+                        raise RuntimeError(
+                            "admission deadlock: empty batch but queued "
+                            "request cannot get blocks — pool too small for "
+                            "one request")
+                    continue
+                self.metrics.queue_depth.append(len(self._queue))
+                self.metrics.occupancy.append(len(active) / self.batch)
+                self._decode_phase()
+            results = self._drain()
+        self.metrics.t_total_s += time.perf_counter() - t0
+        return results, self.metrics
+
+    # -- loop phases ----------------------------------------------------------
+
+    def _admit_phase(self) -> int:
+        admitted = 0
+        while self._queue and None in self.slots:
+            req = self._queue[0]
+            blocks = self.alloc.alloc(
+                self.alloc.blocks_for(len(req.prompt) + req.max_new))
+            if blocks is None:
+                break
+            self._queue.popleft()
+            self._prefill_into(req, self.slots.index(None), blocks)
+            admitted += 1
+        return admitted
+
+    def _prefill_into(self, req: Request, slot: int, blocks: list[int]):
+        t0 = time.perf_counter()
+        plen = len(req.prompt)
+        ent = self.registry.prefill(plen)
+        padded = np.zeros((1, ent.key[2]), np.int32)
+        padded[0, :plen] = req.prompt
+        logits, pre_caches = ent.step(
+            self.params, {"tokens": _fresh(padded, self.device)}, plen - 1)
+        tok0 = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)  # (1,)
+        # TTFT is defined at the first token's availability: sync here (one
+        # per request, not per step)
+        req.first_tok = int(tok0[0])
+        req.ttft_s = time.perf_counter() - req.submit_t
+        self.metrics.ttft_s[req.rid] = req.ttft_s
+        self.metrics.prefills += 1
+
+        row = np.zeros((self.W,), np.int32)
+        row[:len(blocks)] = blocks
+        self.tables[slot] = row
+        self.pos[slot] = plen
+        self.caches, self.tokens = self._admit(
+            self.caches, pre_caches, _fresh(row, self.device), slot, tok0,
+            self.tokens)
+        req.slot, req.blocks = slot, blocks
+        req.step_start = len(self._step_log)
+        self.slots[slot] = req
+        self.metrics.t_prefill_s += time.perf_counter() - t0
+        if req.max_new == 1:
+            self._evict(req)
+
+    def _decode_phase(self):
+        tok, self.caches = self._decode(
+            self.params, self.tokens, self.caches,
+            _fresh(self.tables, self.device), _fresh(self.pos, self.device))
+        self.tokens = tok
+        self._step_log.append(tok)
+        self.metrics.decode_steps += 1
+        eos_row = (tok[:, 0].cpu().numpy()
+                   if self.eos_id is not None else None)  # opt-in sync
+        for req in list(self.slots):
+            if req is None:
+                continue
+            req.n_dec += 1
+            self.pos[req.slot] += 1
+            hit_eos = (eos_row is not None
+                       and eos_row[req.slot] == self.eos_id)
+            if req.total >= req.max_new or hit_eos:
+                self._evict(req)
+
+    def _evict(self, req: Request):
+        self.alloc.release(req.blocks)
+        self.tables[req.slot] = 0
+        self.pos[req.slot] = 0
+        self.slots[req.slot] = None
+        req.done = True
+        self._done.append(req)
+
+    def _drain(self) -> dict[int, np.ndarray]:
+        if self._step_log:
+            mat = torch.cat(self._step_log, dim=1).cpu().numpy()
+        else:
+            mat = np.zeros((self.batch, 0), np.int32)
+        out: dict[int, np.ndarray] = {}
+        for req in self._done:
+            cols = range(req.step_start, req.step_start + req.n_dec)
+            gen = np.asarray(
+                [req.first_tok] + [int(mat[req.slot, j]) for j in cols],
+                np.int32)
+            self.metrics.tokens_generated += len(gen)
+            out[req.rid] = gen
+        self._step_log.clear()
+        self._done.clear()
+        return out

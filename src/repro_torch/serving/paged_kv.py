@@ -1,0 +1,118 @@
+"""Paged KV-cache plumbing for the serving tier.
+
+Device side, the pool is ``models.attention.PagedKVCache`` — ``n_blocks``
+blocks of ``block`` cache rows shared by every decode slot — and the
+per-step lookup is the ``kv_block_gather`` OpDef, so the planner prices it
+like any other op.  This module owns the *host* side: a free-list block
+allocator, and the admission scatter that copies a bucketed prefill's
+collected caches into the pool under a slot's block table.
+
+Block 0 is reserved as scratch: idle slots keep all-zero table rows, so
+their (masked, never-read) decode writes land there instead of in live
+blocks.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import PagedKVCache
+
+
+class BlockAllocator:
+    """Free-list allocator over pool blocks 1..n_blocks-1 (0 = scratch).
+
+    ``alloc(n)`` hands out ``n`` block ids or ``None`` if the pool cannot
+    satisfy the request (admission then waits for an eviction — all-or-
+    nothing keeps table rows contiguous-by-request and deadlock analysis
+    trivial).  ``release`` returns a request's blocks at eviction.
+    """
+
+    def __init__(self, n_blocks: int, block: int):
+        if n_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is scratch)")
+        self.n_blocks = int(n_blocks)
+        self.block = int(block)
+        # pop() from the tail -> ids hand out in 1, 2, 3, ... order
+        self._free = list(range(self.n_blocks - 1, 0, -1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> list[int] | None:
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        return out
+
+    def release(self, blocks: list[int]) -> None:
+        live = set(self._free)
+        for b in blocks:
+            if not 0 < b < self.n_blocks or b in live:
+                raise ValueError(f"release: bad/double-freed block {b}")
+        self._free.extend(blocks)
+
+    def blocks_for(self, tokens: int) -> int:
+        """Blocks needed to hold ``tokens`` cache rows."""
+        return -(-int(tokens) // self.block)
+
+
+def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
+    """Copy a prefill KV cache (L, 1, s, kh, hd) into a stacked pool
+    (L, N, blk, kh, hd) under table row ``blocks`` (W,), in place.
+
+    The source is padded with zeros or truncated to the full W*blk rows:
+    rows past the prompt land either in the slot's own not-yet-reached
+    blocks (decode overwrites row ``pos`` before any mask admits it) or —
+    where the table row is 0-padded — in the scratch block.
+    """
+    blk = pool.k.shape[2]
+    rows = blocks.shape[0] * blk
+
+    def prep(x):
+        x = x[:, 0]                         # (L, s, kh, hd)
+        L, s, kh, hd = x.shape
+        if s < rows:
+            x = torch.cat([x, x.new_zeros((L, rows - s, kh, hd))], dim=1)
+        else:
+            x = x[:, :rows]
+        return x.reshape(L, -1, blk, kh, hd)
+
+    blocks = blocks.long()
+    pool.k[:, blocks] = prep(k)
+    pool.v[:, blocks] = prep(v)
+    return pool
+
+
+def make_admit_fn(cfg):
+    """Admission: scatter one request's prefill caches into the paged decode
+    caches and seed its first token.
+
+    Signature: ``admit(caches, pre_caches, blocks, slot, tok0, tokens) ->
+    (caches, tokens)`` with ``blocks`` the (W,) int table row, ``slot`` an
+    int, ``tok0`` the prefill argmax (1,) int32.  The pools are written in
+    place (where the reference donates them).  The token buffer is not: the
+    engine's step log holds the last decode step's token tensor, which is
+    the buffer passed in, so the new token goes into a copy — writing the
+    buffer itself would rewrite the logged token of the request that last
+    held the slot.
+
+    Only ``attn`` blocks are ported; the recurrent blocks (hymba, mlstm,
+    slstm), whose per-slot states the reference copies in here too, come
+    with the rest of the model zoo (ROADMAP Queue 1 item 3) and raise.
+    """
+    for blk_kind in cfg.block_pattern:
+        if blk_kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: admitting {blk_kind!r} blocks into the serving "
+                "tier needs their recurrent states, which come with the rest "
+                "of the model zoo (ROADMAP Queue 1 item 3)")
+
+    def admit(caches, pre_caches, blocks, slot: int, tok0, tokens):
+        for cache, (k, v) in zip(caches, pre_caches):
+            _scatter_kv(cache, k, v, blocks)
+        tokens = tokens.clone()
+        tokens[slot, 0] = tok0[0]
+        return caches, tokens
+
+    return admit

@@ -33,7 +33,9 @@ def test_port_files_exist():
     for want in ("repro_torch/core/decomp.py", "repro_torch/kernels/ops.py",
                  "repro_torch/models/transformer.py", "repro_torch/launch/serve.py",
                  "repro_torch/core/engine.py", "repro_torch/core/spmd.py",
-                 "repro_torch/launch/mesh.py", "repro_torch/kernels/matmul.py"):
+                 "repro_torch/launch/mesh.py", "repro_torch/kernels/matmul.py",
+                 "repro_torch/serving/__init__.py", "repro_torch/serving/paged_kv.py",
+                 "repro_torch/serving/buckets.py", "repro_torch/serving/engine.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

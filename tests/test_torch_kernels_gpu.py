@@ -3,7 +3,8 @@ matmul, gmm) against their plain torch versions, in every design of each
 (the wgmma design for bf16, the ffma design for float32 matmul and gmm,
 and the template, which the shape rule picks before launch), the reduced
 serving path on
-the card against the CPU, a reduced llama program through the
+the card against the CPU (the serve loop and the continuous-batching
+engine), a reduced llama program through the
 explicit-collective executor on the one-card mesh, and the ring on two
 gloo ranks that share the card.
 
@@ -866,3 +867,56 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
     # remat: one forward launch and one recompute a layer a step
     assert res["cuda"][1] == 2 * 2 * cfg.n_layers and res["cpu"][1] == 0
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
+
+
+def _engine_run(cfg, params, prompts, max_new, device):
+    """The serving engine on ``device`` (2 slots, blocks of 8): its
+    generations and, for every decode step, the last-position logits of
+    the slots that held a request.  The step is the registry's (the paged
+    decode step, then a greedy argmax on the device), with the logits
+    copied out on the way."""
+    from repro_torch.launch import steps
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, batch=2, max_seq=40, block=8, params=params, device=device)
+    base = steps.make_paged_serve_step(cfg)
+    logs = []
+
+    def decode(params, tokens, caches, tables, pos):
+        logits, caches = base(params, tokens, caches, tables, pos)
+        live = [i for i, s in enumerate(eng.slots) if s is not None]
+        logs.append(logits[live, -1].float().cpu())
+        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32), caches
+
+    eng._decode = decode
+    for p, n in zip(prompts, max_new):
+        eng.submit(p, n)
+    res, metrics = eng.run()
+    return res, logs, metrics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_kv", [4, 2])
+def test_reduced_engine_on_card_equals_cpu(n_kv, cuda):
+    """The continuous-batching engine, reduced llama in float32 (mha and
+    gqa): three requests through two slots on the card (the flash kernel in
+    every bucketed prefill) and on the CPU, the same weights and prompts.
+    Tokens equal; decode logits within 1e-4 of max|logit| (float32 sums in
+    another order)."""
+    cfg = dataclasses.replace(reduced(get_config("llama-7b")), n_kv_heads=n_kv,
+                              dtype="float32")
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in (21, 9, 30)]
+    max_new = (6, 9, 5)
+    ops.reset_launch_counts()
+    got, got_logs, m = _engine_run(cfg, params, prompts, max_new, cuda)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers * m.prefills == 3 * cfg.n_layers
+    want, want_logs, _ = _engine_run(cfg, params, prompts, max_new, "cpu")
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert len(got_logs) == len(want_logs) == m.decode_steps
+    scale = max(float(w.abs().max()) for w in want_logs)
+    for g, w in zip(got_logs, want_logs):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
