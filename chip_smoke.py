@@ -10,15 +10,19 @@
    and ffma kernels' registers, spills and dynamic shared memory;
 3. kernel parity: the forward kernel against its plain torch version on
    the card, at the reference kernel tests' shapes and tolerances (float32
-   2e-5, bfloat16 2e-2), ragged lengths, GQA and the serving path's shape,
-   each case with the design that served it (the wgmma design for bf16 at
-   head dim 64 and 128, the template for float32 and d = 256), and rows
-   that see no key against the TPU kernel's tile convention
-   (``ref.attention_tiled``) in both designs;
+   2e-5, bfloat16 2e-2), ragged lengths, GQA, windows, cross attention,
+   q offsets and the serving path's shape, each case with the design that
+   served it (at head dim 64 and 128 the wgmma design for bf16 and the
+   ffma design for float32; the template for d = 16, 32 and 256), a
+   float32 (b, s, h, d) view (ffma) and a float32 base 4 bytes off 16
+   (the template), and rows that see no key against the TPU kernel's tile
+   convention (``ref.attention_tiled``) in all three designs;
 4. kernel timing at the serving path's shape (CUDA events, and the
    kernel's device time from torch.profiler): the kernel, the template
    design at the same inputs (its C entry called directly), its plain
-   version, one library call for the same function, the bound;
+   version, one library call for the same function, the bound; then in
+   float32 at the same shape (the executor call's: the ffma design, the
+   template's device time beside it, SDPA in float32 by device time);
 5. serve llama-7b at full width and depth (bf16, batch 4, prompt 512, 16
    new tokens) through ``repro_torch.launch.serve.serve``, planned through
    a plan-cache file (the serve call's plan is a cache hit), with launch
@@ -36,28 +40,30 @@
 8. ring-step parity: the step kernel chained over r = 2 and 4 kv blocks
    from every ring position, causal, windowed and GQA (float32 2e-5,
    bf16 2e-2), each carry against the plain step and the finalised chain
-   against the forward kernel, at the serving shape cut 4 ways too, each
-   case with its design (bf16: wgmma; float32: the template);
+   against the forward kernel, at the serving shape cut 4 ways too in
+   bf16 and in float32, each case with its design (head dim 64 and 128:
+   bf16 wgmma, float32 ffma; d = 16 and 32 the template);
 9. timing (CUDA events; device time from torch.profiler where the host
    would bound a short kernel): matmul at every distinct product shape of
    llama-7b's prefill graph in float32 (the ffma design, the template
    beside it) and in bf16 (the wgmma design, the template beside it), the
-   ring step at the serving shape cut 4 ways (the wgmma design, the
-   template beside it), each beside its plain version, its library call
-   (none for the step) and its bound;
+   ring step at the serving shape cut 4 ways in bf16 (the wgmma design)
+   and in float32 (the ffma design), each with the template beside it,
+   each beside its plain version, its library call (none for the step)
+   and its bound;
 10. executor path: llama-7b's prefill graph at full width (embed, one
    block period, lm_head) planned through a plan-cache file on a 1x1 mesh
    (cold, then a hit), run with ``executor="shard_map"`` in float32 and in
    bf16 with the launch counters set to 0 just before each call and read
    just after (every clean contraction through the matmul kernel, one
    flash-attention launch; in bf16 every launch of the wgmma design, in
-   float32 every matmul launch of the ffma design), its logits held
+   float32 every launch of the ffma design), its logits held
    against the dense ``executor="gspmd"`` run on the card, then profiled;
 11. ring path: the same graph on 4 gloo ranks that share the card (blocks
    staged through the host), sequence-parallel (every ``s`` label on the
    ``seq`` axis), in float32 and then in bf16: attention rides the ring
-   through the step kernel (float32: the template, every matmul ffma;
-   bf16: every step launch of the wgmma design); counters per rank,
+   through the step kernel (float32: every step and every matmul of the
+   ffma design; bf16: every step launch of the wgmma design); counters per rank,
    logits against the one-card dense run of the same dtype;
 12. gmm parity: the grouped-matmul kernel against ``ref.gmm`` at the
    reference tests' shapes, ragged shapes, expert-strided views, and
@@ -82,7 +88,7 @@
    the logits against the one-card dense run;
 17. train parity: llama-7b at full width, 2 layers, float32, batch 1,
    seq 128, the same weights and batch on the card (the flash kernel's
-   template design inside its autograd Function, whose backward is the
+   ffma design inside its autograd Function, whose backward is the
    plain version's) and on the CPU (the plain path): the loss and every
    gradient leaf of ``loss_fn`` (1e-4 relative; 1e-4 x max|g| a leaf),
    then one ``make_train_step`` on each side (loss and grad norm, 1e-4
@@ -131,12 +137,14 @@
    routing near tie, printed with the layer); profiled beside phase 14's
    decode step;
 22. engine parity: llama-7b width and qwen2-moe width, 2 layers, float32,
-   3 requests through 2 slots on the card and on the CPU; tokens equal,
-   every decode step's logits within 1e-4 of max|logit|.
+   3 requests through 2 slots on the card and on the CPU (every flash and
+   gmm launch of the ffma design); tokens equal, every decode step's
+   logits within 1e-4 of max|logit|.
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
-128) causal, in bf16 (wgmma) and in float32 (the template), beside SDPA's
-device time in the same type.
+128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
+template's device time beside it, beside SDPA's device time in the same
+type.
 
 Every kernel has a design picked by the shape rule in its wrapper before
 launch (``"wgmma"`` for bf16 and ``"ffma"`` for float32 operands the rule
@@ -186,6 +194,9 @@ EXTRA_CASES = [
     (2, 16, 4, 300, 300, 128, True, 0, torch.bfloat16),   # GQA 4:1, ragged
     (1, 8, 2, 77, 333, 256, False, 0, torch.float32),     # d = 256, GQA
     (1, 4, 1, 90, 90, 64, True, 40, torch.float32),       # window, GQA
+    (2, 16, 4, 300, 300, 128, True, 64, torch.float32),   # window, GQA 4:1, ragged
+    (1, 4, 4, 77, 333, 64, True, 0, torch.float32),       # ragged, q_offset 256
+    (1, 8, 2, 160, 96, 128, False, 0, torch.float32),     # cross, sk < sq
 ]
 SLICE = (4, 32, 32, 512, 512, 128, True, 0, torch.bfloat16)  # llama-7b prefill
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -193,16 +204,24 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # block with key block 0 is visited, so they get the mean of v there
 MASKED_CASES = [
     (1, 4, 2, 256, 256, 128, True, 0, torch.bfloat16),    # wgmma design
-    (1, 4, 2, 256, 256, 64, True, 0, torch.float32),      # template design
+    (1, 4, 2, 256, 256, 64, True, 0, torch.float32),      # ffma design
+    (1, 4, 2, 256, 256, 128, True, 16, torch.float32),    # ffma, window
+    (1, 4, 2, 256, 256, 32, True, 0, torch.float32),      # template (f32, d = 32)
     (1, 4, 2, 256, 256, 256, True, 0, torch.bfloat16),    # template (d = 256)
 ]
 MASKED_OFFSETS = {"q_offset": 0, "kv_offset": 100}
+# float32 at d = 128 reached through views: a (b, s, h, d) projection
+# transposed (the ffma design reads its strides) and a base 4 bytes past a
+# 16-byte boundary (the template)
+VIEW_CASE = (2, 8, 2, 333, 333, 128, True, 0, torch.float32)
 
 
 def _expected_flash_design(case) -> str:
     """The shape rule at the contiguous inputs of ``_inputs``."""
     d, dt = case[5], case[-1]
-    return "wgmma" if dt == torch.bfloat16 and d in (64, 128) else "template"
+    if d not in (64, 128):
+        return "template"
+    return "wgmma" if dt == torch.bfloat16 else "ffma"
 
 
 def _served_by(ops, kernel: str, fn):
@@ -306,6 +325,34 @@ def _inputs(case, seed=0, device="cuda"):
     return q, k, v, kw
 
 
+def _flash_view_parity(fa, ops, ref) -> list[dict]:
+    """float32 at d = 128 through views: the (b, s, h, d) layout transposed
+    (ffma), and a base 4 bytes off 16 (template), against ``ref.attention``
+    at the float32 tolerance."""
+    b, hq, hkv, s, _, d, causal, window, dt = VIEW_CASE
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to("cuda").transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    flat = torch.zeros(q.numel() + 4, device="cuda")
+    q_off = flat[1:q.numel() + 1].view(b, hq, s, d)
+    q_off.copy_(q)
+    out = []
+    for name, qq, want_design in (("bshd_views", q, "ffma"), ("misaligned_base", q_off,
+                                                              "template")):
+        assert fa.design(qq, k, v) == want_design, name
+        got, design = _served_by(ops, "flash_attention", lambda: ops.flash_attention(
+            qq, k, v, causal=causal, window=window, impl="kernel"))
+        assert design == want_design, (name, design)
+        err = _max_err(got, ref.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          causal=causal, window=window), TOL[dt],
+                       f"flash {name} {VIEW_CASE}")
+        out.append({"case": f"{VIEW_CASE} {name}", "offsets": None, "design": design,
+                    "max_abs_err": err, "ok": True})
+        log("parity", f"{VIEW_CASE} {name} [{design}]: max|kernel - attention| = {err:.3e} "
+                      f"(tol {TOL[dt]}) ok")
+    return out
+
+
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -384,6 +431,9 @@ def main() -> int:
         if kernel.startswith("flash_wgmma_kernel<"):  # <D, STEP>
             d = int(kernel[len("flash_wgmma_kernel<"):].split(",")[0])
             return fa._lib().flash_attention_wgmma_smem_bytes(d)
+        if kernel.startswith("flash_ffma_kernel<"):  # <D, STEP>
+            d = int(kernel[len("flash_ffma_kernel<"):].split(",")[0])
+            return fa._lib().flash_attention_ffma_smem_bytes(d)
         if kernel.startswith("mm_ffma_kernel<"):
             return mm._lib().matmul_ffma_smem_bytes()
         return mm._lib().matmul_wgmma_smem_bytes()
@@ -394,8 +444,9 @@ def main() -> int:
         log("build", f"{k['kernel']}: {k['registers']} registers, spill stores "
                      f"{k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
                      f"{k['smem']} B, dynamic smem {k['dynamic_smem']} B")
-    # flash <64|128, forward|step>, matmul/gmm wgmma and ffma <grouped, a_mn, b_mn>
-    assert len(wg_kernels) == 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
+    # flash wgmma and ffma <64|128, forward|step>, matmul/gmm wgmma and ffma
+    # <grouped, a_mn, b_mn>
+    assert len(wg_kernels) == 4 + 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
     results["build"]["wgmma_kernels"] = wg_kernels
 
     # 3. kernel parity ----------------------------------------------------------
@@ -423,9 +474,11 @@ def main() -> int:
                       f"(tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention kernel disagrees at {case} {offsets}")
-    assert {p["design"] for p in parity} == {"wgmma", "template"}
-    results["parity"] = parity
     slice_err = parity[len(ATT_CASES + EXTRA_CASES)]["max_abs_err"]
+    parity += _flash_view_parity(fa, ops, ref)
+    assert {p["design"] for p in parity} == {"wgmma", "ffma", "template"}
+    assert {p["design"] for p in parity if "float32" in p["case"]} == {"ffma", "template"}
+    results["parity"] = parity
 
     # 4. kernel timing at the serving path's shape ----------------------------------
     q, k, v, kw = _inputs(SLICE, seed=1)
@@ -460,6 +513,10 @@ def main() -> int:
                          "bytes": nbytes, "ops": nops}
     del q, k, v, o_template
     results["timing_engine"] = _engine_flash_timing(fa, ops, ref)
+    # float32 at the executor call's shape (the ffma design)
+    results["timing_f32"] = _flash_timing(fa, ops, ref, SLICE[:-1] + (torch.float32,),
+                                          "the executor's prefill", seed=1, iters=10)
+    torch.cuda.empty_cache()
 
     # 5. serve llama-7b, full width and depth --------------------------------------
     cfg = get_config("llama-7b")
@@ -478,6 +535,7 @@ def main() -> int:
     # 9. timing of the matmul and ring-step kernels ---------------------------------
     results["matmul_timing"] = _matmul_timing(cfg, ops, ref)
     results["step_timing"] = _step_timing(ops, ref)
+    results["step_timing_f32"] = _step_timing(ops, ref, torch.float32)
 
     # 10. the executor path on one card -------------------------------------------
     results["executor"] = _executor_path(cfg, ops)
@@ -527,6 +585,8 @@ def main() -> int:
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
     gdec = results["gmm_timing"]["w1_decode"]
     e16, e32 = results["timing_engine"]["bfloat16"], results["timing_engine"]["float32"]
+    f32b4, st32 = results["timing_f32"], results["step_timing_f32"]
+    ring32 = results["ring"]["float32"]
     serve_designs = results["serve"]["designs"]
     ring16 = results["ring"]["bfloat16"]
     ex32 = results["executor"]["float32"]
@@ -549,10 +609,24 @@ def main() -> int:
          "engine_shape_device_ms": e16["device_ms"], "engine_shape_bound_ms": e16["bound_ms"],
          "engine_shape_library_device_ms": e16["library_device_ms"],
          "f32_design": e32["design"], "f32_ms": e32["kernel_ms"],
-         "f32_device_ms": e32["device_ms"], "f32_plain_ms": e32["plain_ms"],
+         "f32_device_ms": e32["device_ms"], "f32_template_ms": e32["template_device_ms"],
+         "f32_plain_ms": e32["plain_ms"],
          "f32_bound_ms": e32["bound_ms"], "f32_bound_by": e32["bound_by"],
          "f32_library_ms": e32["library_ms"],
-         "f32_library_device_ms": e32["library_device_ms"]},
+         "f32_library_device_ms": e32["library_device_ms"],
+         "f32_b4_design": f32b4["design"], "f32_b4_ms": f32b4["kernel_ms"],
+         "f32_b4_device_ms": f32b4["device_ms"],
+         "f32_b4_template_ms": f32b4["template_device_ms"],
+         "f32_b4_plain_ms": f32b4["plain_ms"], "f32_b4_bound_ms": f32b4["bound_ms"],
+         "f32_b4_bound_by": f32b4["bound_by"], "f32_b4_library_ms": f32b4["library_ms"],
+         "f32_b4_library_device_ms": f32b4["library_device_ms"],
+         "f32_executor_launches": ex32["launches"]["flash_attention"],
+         "f32_executor_design": _path_design(ex32["designs"]["flash_attention"]),
+         "f32_train_parity_launches": sum(results["train_parity"]["launches"]),
+         "f32_train_parity_design": _path_design(results["train_parity"]["designs"]),
+         "f32_engine_parity_launches": results["engine_parity"]["launches"]["flash_attention"],
+         "f32_engine_parity_design": _path_design(
+             results["engine_parity"]["designs"]["flash_attention"])},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -561,7 +635,14 @@ def main() -> int:
          "launches": ring16["launches_total"]["flash_attention_step"],
          "max_abs_err": step_err, "ms": st["kernel_ms"], "template_ms": st["template_ms"],
          "wrapper_ms": st["wrapper_ms"], "plain_ms": st["plain_ms"],
-         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None},
+         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
+         "f32_design": _path_design(_sum_counts(ring32["designs_per_rank"],
+                                                "flash_attention_step")),
+         "f32_launches": ring32["launches_total"]["flash_attention_step"],
+         "f32_max_abs_err": results["step_parity"]["serving_f32_max_abs_err"],
+         "f32_ms": st32["kernel_ms"], "f32_template_ms": st32["template_ms"],
+         "f32_wrapper_ms": st32["wrapper_ms"], "f32_plain_ms": st32["plain_ms"],
+         "f32_bound_ms": st32["bound_ms"], "f32_bound_by": st32["bound_by"]},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:57",
@@ -616,40 +697,57 @@ ENGINE_PREFILL = (1, 32, 32, 512, 512, 128, True, 0)  # one llama-7b request, 51
 def _engine_flash_timing(fa, ops, ref) -> dict:
     """The forward kernel at one bucketed prefill of the engine (batch 1,
     the 512 bucket, causal) in bf16 (the wgmma design) and in float32 (the
-    template, which the float32 paths take): held against its plain
+    ffma design, which the float32 paths take): held against its plain
     version, then its time by CUDA events and its device time
-    (torch.profiler), the plain version, SDPA on the same inputs (events
-    and device time) and the bound."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    (torch.profiler), the template design's device time at the same inputs
+    (its C entry), the plain version, SDPA on the same inputs (events and
+    device time) and the bound."""
     res = {}
     for dt in (torch.bfloat16, torch.float32):
         case = ENGINE_PREFILL + (dt,)
-        q, k, v, kw = _inputs(case, seed=3)
-        design = fa.design(q, k, v)
-        assert design == _expected_flash_design(case), design
-        kernel = lambda: ops.flash_attention(q, k, v, impl="kernel", **kw)  # noqa: E731
-        err = _max_err(kernel(), ref.attention(q, k, v, **kw), TOL[dt],
-                       f"flash at the engine's prefill shape, {dt}")
-        t_kernel = _time_ms(kernel, 20)
-        t_device = _device_ms(kernel, 10, "flash_wgmma_kernel" if design == "wgmma"
-                              else "flash_fwd_kernel")
-        t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 3)
-        t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 20)
-        t_lib_device = _device_ms(lambda: sdpa(q, k, v, is_causal=True), 10, None)
-        bound_ms, bound_by, nbytes, nops = _attention_bound_ms(case, ref)
-        res[str(dt).split(".")[1]] = {
-            "case": str(case), "design": design, "max_abs_err": err, "kernel_ms": t_kernel,
-            "device_ms": t_device, "plain_ms": t_plain, "library_ms": t_lib,
-            "library_device_ms": t_lib_device, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "ops": nops}
-        log("timing", f"flash_attention {case[:6]} {dt} causal (an engine prefill): kernel "
-                      f"({design}) {t_kernel:.4f} ms ({t_device:.4f} ms device time), plain "
-                      f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms ({t_lib_device:.4f} ms device "
-                      f"time), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); "
-                      f"max|kernel - plain| {err:.3e}")
-        del q, k, v
+        res[str(dt).split(".")[1]] = _flash_timing(fa, ops, ref, case, "an engine prefill",
+                                                  seed=3, iters=20)
     torch.cuda.empty_cache()
     return res
+
+
+FLASH_DEVICE_KERNEL = {"wgmma": "flash_wgmma_kernel", "ffma": "flash_ffma_kernel",
+                       "template": "flash_fwd_kernel"}
+
+
+def _flash_timing(fa, ops, ref, case, what: str, seed: int, iters: int) -> dict:
+    """The forward kernel at ``case`` (causal) against its plain version,
+    then by CUDA events and device time, the template design's device time
+    (its C entry, on the same inputs), the plain version, SDPA (events and
+    device time) and the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt = case[-1]
+    q, k, v, kw = _inputs(case, seed=seed)
+    design = fa.design(q, k, v)
+    assert design == _expected_flash_design(case), design
+    kernel = lambda: ops.flash_attention(q, k, v, impl="kernel", **kw)  # noqa: E731
+    err = _max_err(kernel(), ref.attention(q, k, v, **kw), TOL[dt], f"flash at {what}, {dt}")
+    template, o_template = _flash_template(fa, q, k, v, causal=True)
+    template()
+    _max_err(o_template, ref.attention(q, k, v, **kw), TOL[dt], f"template flash at {what}")
+    t_kernel = _time_ms(kernel, iters)
+    t_device = _device_ms(kernel, iters // 2, FLASH_DEVICE_KERNEL[design])
+    t_template = _device_ms(template, 5, "flash_fwd_kernel")
+    t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 3)
+    t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), iters)
+    t_lib_device = _device_ms(lambda: sdpa(q, k, v, is_causal=True), iters // 2, None)
+    bound_ms, bound_by, nbytes, nops = _attention_bound_ms(case, ref)
+    log("timing", f"flash_attention {case[:6]} {dt} causal ({what}): kernel ({design}) "
+                  f"{t_kernel:.4f} ms ({t_device:.4f} ms device time), template "
+                  f"{t_template:.4f} ms device time ({t_template / t_device:.2f}x), plain "
+                  f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms ({t_lib_device:.4f} ms device "
+                  f"time), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); "
+                  f"max|kernel - plain| {err:.3e}")
+    del q, k, v, o_template
+    return {"case": str(case), "design": design, "max_abs_err": err, "kernel_ms": t_kernel,
+            "device_ms": t_device, "template_device_ms": t_template, "plain_ms": t_plain,
+            "library_ms": t_lib, "library_device_ms": t_lib_device, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": nops}
 
 
 def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16) -> dict:
@@ -844,7 +942,8 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
         step = "true>" in name or "lb1e" in name  # flash_*_kernel<..., STEP>
-        flash = "flash_fwd_kernel" in name or "flash_wgmma_kernel" in name
+        flash = any(k in name for k in ("flash_fwd_kernel", "flash_wgmma_kernel",
+                                        "flash_ffma_kernel"))
         ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel",
                                        "mm_ffma_kernel"))
         grouped = "kernel<true" in name or "kernelilb1e" in name  # <GROUPED, ...>
@@ -965,8 +1064,12 @@ STEP_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
     (1, 4, 2, 64, 16, False, 0, torch.float32),
     (2, 4, 2, 128, 64, True, 0, torch.bfloat16),
     (1, 8, 2, 200, 128, True, 40, torch.bfloat16),  # blocks that divide no tile
+    (2, 4, 2, 128, 64, True, 0, torch.float32),
+    (1, 8, 2, 200, 128, True, 40, torch.float32),   # blocks that divide no tile
+    (1, 4, 4, 512, 128, False, 0, torch.float32),   # no mask, several tiles a block
 ]
 STEP_SERVING = (4, 32, 32, 512, 128, True, 0, torch.bfloat16)  # r = 4: blocks of 128
+STEP_SERVING_F32 = STEP_SERVING[:-1] + (torch.float32,)  # the f32 ring's blocks
 
 
 def _step_parity(ops, ref) -> dict:
@@ -974,8 +1077,9 @@ def _step_parity(ops, ref) -> dict:
     ring order (i, i-1, ...), fully masked blocks included.  Every carry
     against the plain step; the finalised chain against the forward
     kernel over the whole kv."""
-    out, serving_err = [], 0.0
-    for case, r in [(c, r) for c in STEP_CASES for r in (2, 4)] + [(STEP_SERVING, 4)]:
+    out, serving_err = [], {}
+    for case, r in ([(c, r) for c in STEP_CASES for r in (2, 4)]
+                    + [(STEP_SERVING, 4), (STEP_SERVING_F32, 4)]):
         b, hq, hkv, s, d, causal, window, dt = case
         g = torch.Generator(device="cuda").manual_seed(2)
         q, k, v = (torch.randn(sh, generator=g, device="cuda").to(dt)
@@ -992,8 +1096,8 @@ def _step_parity(ops, ref) -> dict:
                 carry, design = _served_by(ops, "flash_attention_step",
                                            lambda: ops.flash_attention_step(
                                                qi, kj, vj, carry, impl="kernel", **off))
-                # bf16 at head dim 64 / 128 (blocks that TMA addresses): wgmma
-                assert design == ("wgmma" if dt == torch.bfloat16 else "template"), design
+                # head dim 64 / 128 (blocks the rule addresses): bf16 wgmma, f32 ffma
+                assert design == _expected_flash_design((0,) * 5 + (d, dt)), design
                 plain = ref.attention_step(qi, kj, vj, plain, **off)
                 for part, got, want in zip("mla", carry, plain):
                     worst = max(worst, _max_err(got, want, tol,
@@ -1004,9 +1108,11 @@ def _step_parity(ops, ref) -> dict:
         out.append({"case": str(case), "r": r, "design": design, "max_abs_err": worst})
         log("step-parity", f"{case} r={r} [{design}]: max|kernel - plain| = {worst:.3e} "
                            f"(tol {tol}) ok")
-        if case == STEP_SERVING:
-            serving_err = worst
-    return {"cases": out, "serving_bf16_max_abs_err": serving_err}
+        if case in (STEP_SERVING, STEP_SERVING_F32):
+            serving_err[str(dt).split(".")[1]] = worst
+    assert {c["design"] for c in out} == {"wgmma", "ffma", "template"}
+    return {"cases": out, "serving_bf16_max_abs_err": serving_err["bfloat16"],
+            "serving_f32_max_abs_err": serving_err["float32"]}
 
 
 def _matmul_timing(cfg, ops, ref) -> dict:
@@ -1087,25 +1193,27 @@ def _attention_backward_ms(ref, q, k, v, kw) -> float:
                                       (q, k, v), (True, True, True), do), 5, None)
 
 
-def _step_timing(ops, ref) -> dict:
+def _step_timing(ops, ref, dt=torch.bfloat16) -> dict:
     """One ring step at the serving shape cut 4 ways: q, k, v (4, 32, 128,
-    128) bf16 and the f32 carry, which the kernel updates in place.  The
-    kernel (the wgmma design) and the template design at the same inputs
-    (its C entry, on a copy of the carry) by their device time
-    (torch.profiler): a launch through the Python wrapper costs more host
-    time than the wgmma design's device time, so CUDA events around
-    wrapper calls time the host; that time is reported too.  No tile is
-    skipped, so every (q, k) pair is computed; no single PyTorch call
-    computes one step, so there is no library time."""
+    128) in ``dt`` and the f32 carry, which the kernel updates in place.
+    The kernel (bf16: the wgmma design; float32: the ffma design, the f32
+    ring's) and the template design at the same inputs (its C entry, on a
+    copy of the carry) by their device time (torch.profiler): a launch
+    through the Python wrapper costs more host time than the kernel's
+    device time, so CUDA events around wrapper calls time the host; that
+    time is reported too.  No tile is skipped, so every (q, k) pair is
+    computed; no single PyTorch call computes one step, so there is no
+    library time."""
     from repro_torch.kernels import flash_attention as fa
 
     b, h, blk, d = 4, 32, 128, 128
     g = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v = (torch.randn(b, h, blk, d, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn(b, h, blk, d, generator=g, device="cuda").to(dt)
                for _ in range(3))
     off = dict(q_offset=3 * blk, kv_offset=blk)
     carry = ops.flash_attention_step(q, k, v, None, impl="kernel", **off)
-    assert fa.design(q, k, v) == "wgmma"
+    design = fa.design(q, k, v)
+    assert design == ("wgmma" if dt == torch.bfloat16 else "ffma"), design
     plain_carry = tuple(t.clone() for t in carry)
     t_carry = tuple(t.clone() for t in carry)
     lib = fa._lib()
@@ -1118,20 +1226,24 @@ def _step_timing(ops, ref) -> dict:
         err = lib.flash_attention_step(*args)
         if err:
             raise RuntimeError(f"template flash_attention_step: cudaError {err}")
+    want = ref.attention_step(q, k, v, plain_carry, **off)
+    template()
+    for part, got, w in zip("mla", t_carry, want):
+        _max_err(got, w, TOL[dt], f"template step {dt} {part}")
     step = lambda: ops.flash_attention_step(q, k, v, carry, impl="kernel", **off)  # noqa: E731
-    t_kernel = _device_ms(step, 50, "flash_wgmma_kernel")
+    t_kernel = _device_ms(step, 50, FLASH_DEVICE_KERNEL[design])
     t_template = _device_ms(template, 20, "flash_fwd_kernel")
     t_wrapper = _time_ms(step, 100)
     t_plain = _time_ms(lambda: ref.attention_step(q, k, v, plain_carry, **off), 20)
-    nbytes = 3 * q.numel() * 2 + 2 * (2 * b * h * blk + b * h * blk * d) * 4
+    nbytes = 3 * q.numel() * q.element_size() + 2 * (2 * b * h * blk + b * h * blk * d) * 4
     nops = 4 * b * h * blk * blk * d
-    bound_ms, bound_by = _bound(nbytes, nops, torch.bfloat16)
-    log("timing", f"flash_attention_step {(b, h, blk, d)} bf16: kernel (wgmma) {t_kernel:.4f} "
-                  f"ms device time, template {t_template:.4f} ms "
+    bound_ms, bound_by = _bound(nbytes, nops, dt)
+    log("timing", f"flash_attention_step {(b, h, blk, d)} {dt}: kernel ({design}) "
+                  f"{t_kernel:.4f} ms device time, template {t_template:.4f} ms "
                   f"({t_template / t_kernel:.1f}x), one wrapper call {t_wrapper:.4f} ms "
                   f"(host-bound), plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{nbytes} B, {nops} ops); library: none")
-    return {"shape": [b, h, blk, d], "design": "wgmma", "kernel_ms": t_kernel,
+    return {"shape": [b, h, blk, d], "dtype": str(dt), "design": design, "kernel_ms": t_kernel,
             "template_ms": t_template, "wrapper_ms": t_wrapper, "plain_ms": t_plain,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "ops": nops}
@@ -1209,10 +1321,9 @@ def _executor_path(cfg, ops) -> dict:
             prof = _profile(lambda: run(feeds))
         assert launches == {"flash_attention": 1, "flash_attention_step": 0,
                             "matmul": n_mm, "gmm": 0}, launches
-        # bf16: every launch of the wgmma design; float32: every matmul
-        # launch of the ffma design, the flash launch of the template
-        served = ({"flash_attention": "wgmma", "matmul": "wgmma"} if dt == torch.bfloat16
-                  else {"flash_attention": "template", "matmul": "ffma"})
+        # bf16: every launch of the wgmma design; float32: of the ffma design
+        served = dict.fromkeys(("flash_attention", "matmul"),
+                               "wgmma" if dt == torch.bfloat16 else "ffma")
         for kernel, design in served.items():
             assert designs[kernel][design] == launches[kernel], designs
         assert got.shape == (4, 512, cfg.vocab_padded) and got.dtype == dt
@@ -1317,9 +1428,9 @@ def _ring_path() -> dict:
             assert r["launches"] == {"flash_attention": 0, "flash_attention_step": RING_RANKS,
                                      "matmul": 8, "gmm": 0}, r["launches"]
             dz = r["designs"]
-            if name == "float32":  # every product ffma, every step the template
+            if name == "float32":  # every product and every step ffma
                 assert dz["matmul"]["ffma"] == 8, dz
-                assert dz["flash_attention_step"]["template"] == RING_RANKS, dz
+                assert dz["flash_attention_step"]["ffma"] == RING_RANKS, dz
             else:  # every step of the wgmma design
                 assert dz["flash_attention_step"]["wgmma"] == RING_RANKS, dz
         scale, diff = r0["max_abs_logit"], r0["max_abs_logit_diff"]
@@ -1598,16 +1709,18 @@ def _train_parity(cfg, ops) -> dict:
         ops.reset_launch_counts()
         _, _, met = step(params, adamw_init(params), batch)
         step_launches = ops.launch_counts()["flash_attention"]
+        step_designs = ops.design_counts()["flash_attention"]
         side[dev] = {"loss": float(loss.detach()), "grads": [g.float().cpu() for g in grads],
                      "step_loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
-                     "launches": (grad_launches, step_launches), "designs": designs}
+                     "launches": (grad_launches, step_launches),
+                     "designs": {d: designs[d] + step_designs[d] for d in designs}}
         del params, grads, leaves, loss
         torch.cuda.empty_cache()
     gpu, cpu = side["cuda"], side["cpu"]
     # 2 layers x (forward + the remat recompute in the backward); none on the CPU
     assert gpu["launches"] == (4, 4) and cpu["launches"] == (0, 0), (gpu["launches"],
                                                                       cpu["launches"])
-    assert gpu["designs"]["template"] == 4, gpu["designs"]  # float32: the template
+    assert gpu["designs"]["ffma"] == 8, gpu["designs"]  # float32 at head dim 128: ffma
     errs = {}
     for what in ("loss", "step_loss", "grad_norm"):
         err = abs(gpu[what] - cpu[what]) / abs(cpu[what])
@@ -2253,8 +2366,8 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
 
 def _engine_parity(cfg, ops, device="cuda") -> dict:
     """``cfg`` at full width, 2 layers, float32: the engine on the card
-    (the flash kernel's template in each bucketed prefill, the gmm kernel's
-    ffma design in each MoE product) and on the CPU (the plain path), the
+    (the flash kernel's ffma design in each bucketed prefill, the gmm
+    kernel's ffma design in each MoE product) and on the CPU (the plain path), the
     same weights and requests; tokens equal, the logits behind every token
     (each prefill's and each decode step's) within 1e-4 x max|logit|."""
     from repro_torch.models import transformer as tf
@@ -2283,6 +2396,9 @@ def _engine_parity(cfg, ops, device="cuda") -> dict:
                         "matmul": 0, "gmm": 2 * moe_per_layer * (m.prefills + m.decode_steps)
                         }, launches
     assert m.prefills == 3 and not any(cpu_launches.values()), cpu_launches
+    # float32 at head dim 128: every prefill's flash launch ffma, every MoE product ffma
+    assert designs["flash_attention"]["ffma"] == launches["flash_attention"], designs
+    assert designs["gmm"]["ffma"] == launches["gmm"], designs
     for rid in want:
         assert np.array_equal(got[rid], want[rid]), (rid, got[rid], want[rid])
         assert len(grec[rid]) == len(wrec[rid]) == max_new, rid

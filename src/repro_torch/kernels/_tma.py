@@ -6,11 +6,13 @@ byte strides of every dim but the innermost, which must be contiguous.  The
 base must be 16-byte aligned and each stride a positive multiple of 16
 bytes below 2**40.  A dim of size 1 is never stepped over, so its stride
 does not matter (the C side hands TMA a valid one in its place).  The
-float32 ``"ffma"`` design's 16-byte ``cp.async`` copies take the same rule.
+float32 ``"ffma"`` designs' 16-byte ``cp.async`` copies and float4 loads
+take the same rule.
 
 ``DESIGNS`` names every design: ``"wgmma"`` (bf16 through TMA and wgmma:
 the forward attention, the ring step, matmul and gmm), ``"ffma"`` (float32
-matmul and gmm through cp.async and f32 FMAs) and ``"template"`` (the
+through cp.async and register-tiled f32 FMAs: the forward attention and the
+ring step at head dim 64 and 128, matmul and gmm) and ``"template"`` (the
 first designs, which take any strides).
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a), CUDA C++ with plain C entries: the
-// forward kernel and the ring-attention step kernel, each in two designs.
+// forward kernel and the ring-attention step kernel, each in three designs.
 //
 // Forward.  Replaces: src/repro/kernels/flash_attention.py::flash_attention,
 // the Pallas TPU kernel whose body is _flash_kernel.  Same function: scores,
@@ -45,12 +45,52 @@
 // 128 bytes, so a 128-wide head row is two boxes and the descriptors step
 // over them.
 //
-// Design "template" (flash_attention_fwd: float32, other head dims, and
-// operands TMA cannot address): one block of 256 threads per (64-row q
-// tile, head, batch), looping over 32-key tiles; Q, K and V are widened to
-// f32 in shared memory and both products are f32 FMAs on the CUDA cores
-// (the f32 path must be true f32, so no TF32).  A 64 x 32 tile is skipped
-// only when its enclosing block of the TPU grid is.
+// Design "ffma" (flash_attention_ffma_fwd: float32, d in {64, 128}, operands
+// whose rows 16-byte copies address: the wgmma rule in 4-byte elements).
+// True f32: both products are f32 FMAs on the CUDA cores, no TF32 (the
+// reference holds float32 attention to 2e-5).  Bound, f32 causal: at one
+// engine prefill (1, 32, 512, 128) 2.15 GFLOP over the unmasked pairs, 32.1
+// us at the 67 TFLOP/s f32 peak, against 33.6 MB (10.0 us); at the
+// executor's (4, 32, 512, 128) 8.6 GFLOP, 128.5 us, against 134 MB (40 us):
+// bounded by operations.  The template (below) takes 7-9x that bound:
+// every global load is a synchronous scalar load through registers,
+// two __syncthreads a tile serialise copies and FMAs, and its products issue
+// one scalar shared load per 1.3-4 FMAs, so shared-memory instruction issue
+// bounds it.  This design: 64-row q tiles (at batch 1, 256 blocks for 132
+// SMs; 128-row tiles would give 128 blocks, one wave set by the heaviest
+// causal block), 64-key tiles, 128 threads each owning 8 x 4 of S and 8 x 8
+// of the accumulator (8 x 4 at d = 64), read by float4 shared loads: per
+// depth of S 3 loads for 32 FMAs, per key of P V 4 loads for 64 (256
+// threads of 4 rows each run 9% slower).  Q is loaded once, pre-scaled in
+// f32 and stored d-major; K is copied d-major through 4-byte cp.async
+// copies that transpose on the way, V row-major through 16-byte ones.  K
+// and V each have one buffer, refilled as soon as its product is done, so
+// every copy runs under FMAs; at 112 KB of shared memory a block (d = 128)
+// two blocks share an SM and each one's barriers run under the other's
+// FMAs.  A
+// two-stage ring of whole K and V tiles would take 176 KB: one block of
+// these 4 warps an SM, with nothing to run during its barriers.  ptxas
+// (CUDA 12.8): 191 registers at d = 128 (the step 181), 153 at d = 64 (the
+// step 145), no spills; two blocks of 128 threads fit the SM's 65,536.  At
+// (4, 32, 512, 128) the two products take about 194 of the kernel's 276 us
+// of device time, each at about 74% of the f32 peak; the copies take about
+// 7%, the softmax and the barriers the rest (NVIDIA H100 80GB HBM3, 700 W;
+// tools/flash_ffma_variants.py times variants without each part, 256
+// threads of 4 rows, and either q-tile order).  A tile is skipped
+// where its enclosing block of the TPU grid is, and also where all its own
+// pairs are masked while every row of its q tile sees a key (there it adds
+// exactly nothing): causal (4, 32, 512, 128) visits 36 of 64 tiles a head
+// instead of the grid's 40.  q tiles go heaviest first, or, where the whole
+// grid is resident at once, paired heavy with light (see the kernel).  The
+// step's design "ffma" (flash_attention_step_ffma) is this kernel's STEP
+// instantiation.
+//
+// Design "template" (flash_attention_fwd: float32 outside the ffma rule,
+// other head dims, bf16 operands TMA cannot address): one block of 256
+// threads per (64-row q tile, head, batch), looping over 32-key tiles; Q, K
+// and V are widened to f32 in shared memory and both products are f32 FMAs
+// on the CUDA cores (the f32 path must be true f32, so no TF32).  A 64 x 32
+// tile is skipped only when its enclosing block of the TPU grid is.
 //
 // Step (flash_attention_step).  Replaces:
 // src/repro/kernels/flash_attention.py::flash_attention_step, the Pallas
@@ -85,10 +125,17 @@
 // and V, and write it back the same way.  Its softmax is in the natural
 // units of ref.attention_step (m of s * scale; exp2f((x - m) * log2 e)), so
 // the carry needs no conversion and a row fully masked so far weighs its
-// -1e30 scores exp2f(0) = 1 exactly.  The step's design "template"
-// (flash_attention_step: float32, other head dims, operands TMA cannot
-// address) is the template forward kernel's STEP instantiation: the same
-// 64 x 32 tiles and f32 FMAs on the CUDA cores.
+// -1e30 scores exp2f(0) = 1 exactly.  The step's design "ffma"
+// (flash_attention_step_ffma: the ffma forward's rule) reads its rows of
+// the carry into its accumulators with float4 loads while the first K and V
+// copies fly, and keeps the softmax in the carry's natural units the same
+// way.  Bound at the f32 ring's step, (4, 32, 128, 128) float32: 1.07 GFLOP,
+// 16.0 us at the f32 peak, against 42.2 MB (q, k, v read, the carry read
+// and written), 12.6 us: bounded by operations.  The step's design
+// "template" (flash_attention_step: float32 outside the ffma rule, other
+// head dims, bf16 operands TMA cannot address) is the template forward
+// kernel's STEP instantiation: the same 64 x 32 tiles and f32 FMAs on the
+// CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -737,6 +784,433 @@ cudaError_t wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const 
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// design "ffma": float32, d in {64, 128}; cp.async copies and f32 FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int F_BQ = 64;                    // q rows per block
+constexpr int F_BK = 64;                    // keys per KV tile
+constexpr int F_RT = 8;                     // q rows a thread owns
+constexpr int F_NTY = F_BQ / F_RT;          // row groups (ty)
+constexpr int F_THREADS = 16 * F_NTY;       // x 16 key / column groups (tx)
+constexpr int F_WARPS = F_THREADS / 32;
+
+struct FParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int hq, hkv, sq, sk;
+  long long q_sb, q_sh, q_ss;  // element strides of batch, head, position
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  float scale;  // forward: softmax scale * log2(e) (base 2); step: the scale itself
+  int causal, window, q_offset, kv_offset;
+  // step only: the carried state, contiguous f32, updated in place
+  float* m_io;
+  float* l_io;
+  float* acc_io;
+  int init;  // 1: start from (-1e30, 0, 0) without reading the carry
+  int one_wave;  // every block of the grid is resident at once
+};
+
+// Shared memory, in floats: Q [D][64] d-major; K [D][64] d-major; V [64][D]
+// row-major; P [64 keys][64 rows] key-major.  K and P swizzle their float4
+// slots (slot ^ (depth or key) % 8) instead of padding, so that both
+// blocks' 112 KB fit an SM at d = 128.
+template <int D>
+struct FLayout {
+  static constexpr int Q = 0;
+  static constexpr int K = Q + D * F_BQ;
+  static constexpr int V = K + D * F_BK;
+  static constexpr int P = V + F_BK * D;
+  static constexpr int BYTES = (P + F_BK * F_BQ) * 4;
+};
+
+// One K tile into shared memory d-major, through 4-byte copies that
+// transpose on the way.  Smem column c = 4 * (key % 16) + key / 16 holds key
+// `key`, so thread tx's float4 at column 4 tx holds keys tx + 16 j.  A warp
+// copies 8 depths (lane % 8) of 4 keys kb + 16 r (r = lane / 8): 32-byte
+// pieces of 4 global rows, written to 32 distinct banks by the swizzle.
+// Each thread walks its 4 rows' pointer down the key bases kb; its depths
+// are 8 (F_WARPS c + warp) + lane % 8.  Keys past sk are zero-filled.
+template <int D>
+__device__ __forceinline__ void ffma_load_k(float* ks, const float* kg, long long k_ss, int k0,
+                                            int sk) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int dc = lane % 8, r = lane / 8;
+  const int depth0 = 8 * warp + dc;
+  const float* src = kg + (long long)(k0 + 16 * r) * k_ss + depth0;
+  float* dst = ks + depth0 * F_BK + r;
+#pragma unroll 4
+  for (int kb = 0; kb < 16; ++kb, src += k_ss) {
+    const bool valid = k0 + kb + 16 * r < sk;
+    const int col = (kb ^ dc) << 2;
+#pragma unroll
+    for (int c = 0; c < D / (8 * F_WARPS); ++c)
+      hopper::cp_async4(dst + 8 * F_WARPS * c * F_BK + col, valid ? src + 8 * F_WARPS * c : kg,
+                        valid ? 4 : 0);
+  }
+}
+
+// One V tile into shared memory row-major: 16-byte copies, a warp's 32
+// consecutive float4s of a row at d = 128; keys past sk zero-filled.
+template <int D>
+__device__ __forceinline__ void ffma_load_v(float* vs, const float* vg, long long v_ss, int k0,
+                                            int sk) {
+  constexpr int C4 = D / 4, ROWS = F_THREADS / C4;  // rows a pass of the block copies
+  const int row0 = threadIdx.x / C4, c4 = threadIdx.x % C4;
+  const float* src = vg + (long long)(k0 + row0) * v_ss + 4 * c4;
+  float* dst = vs + row0 * D + 4 * c4;
+#pragma unroll 4
+  for (int it = 0; it < F_BK / ROWS; ++it, src += ROWS * v_ss) {
+    const bool valid = k0 + row0 + ROWS * it < sk;
+    hopper::cp_async16(dst + ROWS * it * D, valid ? src : vg, valid ? 16 : 0);
+  }
+}
+
+// One block of 128 threads per (64-row q tile, head, batch).  Thread (ty,
+// tx) owns rows 4 ty + i and 32 + 4 ty + i (i < 4) of every tile: of S the
+// keys tx + 16 j (j < 4), of the accumulator the columns 4 tx + c and 64 +
+// 4 tx + c (c < 4; the second half at d = 128 only).  The 16 threads of a row group are one half-warp:
+// row maxima reduce by shuffles each tile (the 8 rows interleaved), row sums
+// stay per thread and reduce once at the end.  Per tile:
+// S = Q K^T (each depth: 3 float4 shared loads for 32 FMAs, the next
+// depth's fragments loaded during the current FMAs), the mask and online
+// softmax in registers, P to shared memory key-major, then O += P V (each
+// key: 2 float4 loads of P and d / 64 of V for 8 d / 16 FMAs).  K and V
+// each have one buffer that refills once every warp is past its product,
+// at the two barriers a tile has: the next tile's K copies run under this
+// tile's P V, its V copies under the next S and softmax; the second block
+// on the SM runs during the barriers.
+template <int D, bool STEP>
+__global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams p) {
+  using L = FLayout<D>;
+  constexpr int NC = D / 16;  // accumulator columns a thread: 8 or 4
+  extern __shared__ __align__(16) float fsmem[];
+  float* Qs = fsmem + L::Q;
+  float* Ks = fsmem + L::K;
+  float* Vs = fsmem + L::V;
+  float* Ps = fsmem + L::P;
+
+  // The last q tiles see the most keys: they go first, so that the blocks
+  // the hardware hands out as slots free end with the lightest.  Where the
+  // whole grid is resident at once there is no such hand-out: the second
+  // half of the q tiles then goes lightest first, and since an SM takes its
+  // second block in the order it took its first, heavy tiles share SMs with
+  // light ones (at (1, 32, 512, 128) causal, 81.7 us against 93.2
+  // heaviest first; paired at (4, 32, 512, 128), which takes several waves,
+  // 293.6 against 277.7: tools/flash_ffma_variants.py, on the H100).
+  const int n_qt = (p.sq + F_BQ - 1) / F_BQ;
+  const int z = blockIdx.z, half = (n_qt + 1) / 2;
+  const int q0 = (p.one_wave && z >= half ? z - half : n_qt - 1 - z) * F_BQ;
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int hk = h / (p.hq / p.hkv);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // row i of this thread's rows: float4 group i / 4 of row group ty
+  auto frow = [&](int i) { return (i / 4) * 4 * F_NTY + 4 * ty + i % 4; };
+  const float* qg = p.q + bi * p.q_sb + h * p.q_sh;
+  const float* kg = p.k + bi * p.k_sb + hk * p.k_sh;
+  const float* vg = p.v + bi * p.v_sb + hk * p.v_sh;
+  const int n_kt = (p.sk + F_BK - 1) / F_BK;
+  // The forward visits a tile unless its enclosing block of the TPU grid is
+  // skipped, or every pair of the tile itself is masked and every row of
+  // the q tile sees some key: such a row gives a fully masked tile weight
+  // exp2f(-1e30 - m) = 0 whatever the order, so skipping it changes no bit,
+  // while a row that sees no key keeps the TPU grid's mean of v.
+  const int q_lo = p.q_offset + q0, q_hi = p.q_offset + min(q0 + F_BQ, p.sq) - 1;
+  const bool rows_see_keys = (!p.causal || p.kv_offset <= q_lo) &&
+                             (!p.window || q_hi <= p.kv_offset + p.sk - 2 + p.window);
+  auto next_tile = [&](int kt) -> int {
+    if constexpr (!STEP) {
+      for (; kt < n_kt; ++kt) {
+        const int k_lo = p.kv_offset + kt * F_BK;
+        if (block_relevant(q0 / min(128, p.sq), kt * F_BK / min(128, p.sk), p.sq, p.sk,
+                           p.q_offset, p.kv_offset, p.causal, p.window) &&
+            !(rows_see_keys && ((p.causal && k_lo > q_hi) ||
+                                (p.window && k_lo + F_BK - 1 <= q_lo - p.window))))
+          break;
+      }
+    }
+    return kt;
+  };
+
+  int kt = next_tile(0);
+  if (kt < n_kt) ffma_load_k<D>(Ks, kg, p.k_ss, kt * F_BK, p.sk);
+  hopper::cp_async_commit();
+  if (kt < n_kt) ffma_load_v<D>(Vs, vg, p.v_ss, kt * F_BK, p.sk);
+  hopper::cp_async_commit();
+
+  // this thread's rows, its part of the carry (step) read while the copies fly
+  float m[F_RT], l[F_RT], acc[F_RT][NC];
+  const long long carry0 = ((long long)bi * p.hq + h) * p.sq;
+#pragma unroll
+  for (int i = 0; i < F_RT; ++i) {
+    m[i] = STEP ? NEG_INF : -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    const int row = q0 + frow(i);
+    if (STEP && !p.init && row < p.sq) {
+      m[i] = p.m_io[carry0 + row];
+      l[i] = tx == 0 ? p.l_io[carry0 + row] : 0.f;  // the row sum, carried whole by tx 0
+      const float* arow = p.acc_io + (carry0 + row) * D;
+#pragma unroll
+      for (int c = 0; c < NC / 4; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(arow + 64 * c + 4 * tx);
+        acc[i][4 * c] = a.x, acc[i][4 * c + 1] = a.y, acc[i][4 * c + 2] = a.z,
+        acc[i][4 * c + 3] = a.w;
+      }
+    }
+  }
+
+  // Q once, pre-scaled in f32, stored d-major: a warp writes 32 consecutive
+  // rows of one depth (distinct banks); rows past sq are zeros
+#pragma unroll 4
+  for (int it = 0; it < F_BQ * D / 4 / F_THREADS; ++it) {
+    const int idx = threadIdx.x + it * F_THREADS;
+    const int row = idx % F_BQ, c4 = idx / F_BQ;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + row < p.sq)
+      x = __ldg(reinterpret_cast<const float4*>(qg + (long long)(q0 + row) * p.q_ss + 4 * c4));
+    float* dst = Qs + 4 * c4 * F_BQ + row;
+    dst[0] = x.x * p.scale;
+    dst[F_BQ] = x.y * p.scale;
+    dst[2 * F_BQ] = x.z * p.scale;
+    dst[3 * F_BQ] = x.w * p.scale;
+  }
+
+  // The forward runs the softmax in base 2 on q pre-scaled by scale *
+  // log2(e); the step keeps m in the natural units of the carry and takes
+  // exp2f((x - m) * log2(e)), as the wgmma design does.
+  constexpr float unit = STEP ? LOG2E : 1.f;
+  const int qpos0 = p.q_offset + q0;
+
+  hopper::cp_async_wait<1>();  // this thread's copies of the first K tile landed
+  __syncthreads();             // everyone's have; Q is stored
+  while (kt < n_kt) {
+    const int k0 = kt * F_BK;
+    const int next = next_tile(kt + 1);
+
+    // S = (q * scale) K^T: rows of this thread x keys tx + 16 j
+    float s[F_RT][4];
+#pragma unroll
+    for (int i = 0; i < F_RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    float4 qf[2][F_RT / 4], kf[2];
+    auto load_s = [&](int b, int d, int sw) {  // sw = d % 8, a constant
+#pragma unroll
+      for (int g = 0; g < F_RT / 4; ++g)
+        qf[b][g] = *reinterpret_cast<const float4*>(Qs + d * F_BQ + 4 * (g * F_NTY + ty));
+      kf[b] = *reinterpret_cast<const float4*>(Ks + d * F_BK + ((tx ^ sw) << 2));
+    };
+    load_s(0, 0, 0);
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += 8) {
+#pragma unroll
+      for (int dd = 0; dd < 8; ++dd) {
+        if (dd < 7)
+          load_s((dd + 1) % 2, d0 + dd + 1, dd + 1);
+        else if (d0 + 8 < D)
+          load_s(0, d0 + 8, 0);
+        float qv[F_RT];
+#pragma unroll
+        for (int g = 0; g < F_RT / 4; ++g) {
+          qv[4 * g] = qf[dd % 2][g].x, qv[4 * g + 1] = qf[dd % 2][g].y;
+          qv[4 * g + 2] = qf[dd % 2][g].z, qv[4 * g + 3] = qf[dd % 2][g].w;
+        }
+        const float kv[4] = {kf[dd % 2].x, kf[dd % 2].y, kf[dd % 2].z, kf[dd % 2].w};
+#pragma unroll
+        for (int i = 0; i < F_RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+    // mask only a tile on the diagonal, the window's edge or past sk (masked
+    // keys -1e30 as in the TPU kernel, keys past sk weigh 0), then the
+    // online-softmax update of (m, l, acc), the 8 rows' reductions interleaved
+    const int kpos0 = p.kv_offset + k0;
+    if (k0 + F_BK > p.sk || (p.causal && kpos0 + F_BK - 1 > qpos0) ||
+        (p.window && kpos0 <= qpos0 + F_BQ - 1 - p.window)) {
+      const int dq = qpos0 - kpos0;  // qpos - kpos = frow(i) + dq - key
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = tx + 16 * j;
+        const bool past = k0 + key >= p.sk;
+#pragma unroll
+        for (int i = 0; i < F_RT; ++i) {
+          const int rel = frow(i) + dq - key;
+          if (past)
+            s[i][j] = -INFINITY;
+          else if ((p.causal && rel < 0) || (p.window && rel >= p.window))
+            s[i][j] = NEG_INF;
+        }
+      }
+    }
+    float mx[F_RT];
+#pragma unroll
+    for (int i = 0; i < F_RT; ++i)
+      mx[i] = fmaxf(fmaxf(m[i], fmaxf(s[i][0], s[i][1])), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int off = 8; off > 0; off /= 2)
+#pragma unroll
+      for (int i = 0; i < F_RT; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < F_RT; ++i) {
+      // finite: every visited tile holds a key below sk, which scores at
+      // least -1e30 (a row fully masked so far has m = -1e30: alpha = 1 and
+      // each masked score weighs exp2f(0) = 1 until a real key arrives, as
+      // in ref); l keeps this thread's partial row sum
+      const float alpha = exp2f((m[i] - mx[i]) * unit);
+      m[i] = mx[i];
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = exp2f((s[i][j] - mx[i]) * unit);
+        rs += s[i][j];
+      }
+      l[i] = l[i] * alpha + rs;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    // P key-major, float4 slot (row / 4) ^ (key % 8): the 8 lanes of a
+    // quarter-warp (keys tx + 16 j, tx % 8 distinct) store to distinct banks
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = tx + 16 * j;
+      float* prow = Ps + key * F_BQ;
+#pragma unroll
+      for (int g = 0; g < F_RT / 4; ++g)
+        *reinterpret_cast<float4*>(prow + (((g * F_NTY + ty) ^ (key % 8)) << 2)) =
+            make_float4(s[4 * g][j], s[4 * g + 1][j], s[4 * g + 2][j], s[4 * g + 3][j]);
+    }
+    hopper::cp_async_wait<0>();  // this thread's V copies landed
+    __syncthreads();  // everyone's have; P is stored; every warp is done with K: refill it
+    if (next < n_kt) ffma_load_k<D>(Ks, kg, p.k_ss, next * F_BK, p.sk);
+    hopper::cp_async_commit();
+
+    // acc += P V over the tile's keys
+    float4 pf[2][F_RT / 4], vf[2][NC / 4];
+    auto load_pv = [&](int b, int j, int sw) {  // sw = j % 8, a constant
+      const float* prow = Ps + j * F_BQ;
+#pragma unroll
+      for (int g = 0; g < F_RT / 4; ++g)
+        pf[b][g] = *reinterpret_cast<const float4*>(prow + (((g * F_NTY + ty) ^ sw) << 2));
+#pragma unroll
+      for (int c = 0; c < NC / 4; ++c)
+        vf[b][c] = *reinterpret_cast<const float4*>(Vs + j * D + 64 * c + 4 * tx);
+    };
+    load_pv(0, 0, 0);
+#pragma unroll 1
+    for (int j0 = 0; j0 < F_BK; j0 += 8) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (jj < 7)
+          load_pv((jj + 1) % 2, j0 + jj + 1, jj + 1);
+        else if (j0 + 8 < F_BK)
+          load_pv(0, j0 + 8, 0);
+        float pv[F_RT];
+#pragma unroll
+        for (int g = 0; g < F_RT / 4; ++g) {
+          pv[4 * g] = pf[jj % 2][g].x, pv[4 * g + 1] = pf[jj % 2][g].y;
+          pv[4 * g + 2] = pf[jj % 2][g].z, pv[4 * g + 3] = pf[jj % 2][g].w;
+        }
+        float vv[NC];
+#pragma unroll
+        for (int c = 0; c < NC / 4; ++c) {
+          vv[4 * c] = vf[jj % 2][c].x, vv[4 * c + 1] = vf[jj % 2][c].y;
+          vv[4 * c + 2] = vf[jj % 2][c].z, vv[4 * c + 3] = vf[jj % 2][c].w;
+        }
+#pragma unroll
+        for (int i = 0; i < F_RT; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      }
+    }
+    hopper::cp_async_wait<0>();  // this thread's copies of the next K tile landed
+    __syncthreads();  // everyone's have; every warp is done with V and P: refill V
+    if (next < n_kt) ffma_load_v<D>(Vs, vg, p.v_ss, next * F_BK, p.sk);
+    hopper::cp_async_commit();
+    kt = next;
+  }
+  hopper::cp_async_wait<0>();  // no copy outlives the block (the tail groups are empty)
+
+  // step: (m, l, acc) back in place, unnormalised; forward: acc / l (l == 0:
+  // no tile visited, the row is 0); rows past sq dropped
+#pragma unroll
+  for (int off = 8; off > 0; off /= 2)
+#pragma unroll
+    for (int i = 0; i < F_RT; ++i) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+  for (int i = 0; i < F_RT; ++i) {
+    const int row = q0 + frow(i);
+    if (row >= p.sq) continue;
+    float* out;
+    float inv = 1.f;
+    if constexpr (STEP) {
+      if (tx == 0) {
+        p.m_io[carry0 + row] = m[i];
+        p.l_io[carry0 + row] = l[i];
+      }
+      out = p.acc_io + (carry0 + row) * D;
+    } else {
+      inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+      out = p.o + bi * p.o_sb + h * p.o_sh + row * p.o_ss;
+    }
+#pragma unroll
+    for (int c = 0; c < NC / 4; ++c)
+      *reinterpret_cast<float4*>(out + 64 * c + 4 * tx) =
+          make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
+                      acc[i][4 * c + 3] * inv);
+  }
+}
+
+template <int D, bool STEP>
+cudaError_t launch_ffma(FParams p, int b, cudaStream_t stream) {
+  auto kernel = flash_ffma_kernel<D, STEP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FLayout<D>::BYTES);
+  if (err == cudaSuccess)  // room for two blocks' shared memory on an SM
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F_THREADS,
+                                                        FLayout<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.hq, b, (p.sq + F_BQ - 1) / F_BQ);
+  p.one_wave = (long long)grid.x * grid.y * grid.z <= (long long)sms * per_sm;
+  kernel<<<grid, F_THREADS, FLayout<D>::BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The ffma design's rule on q, k, v (see flash_attention_ffma_fwd): float32
+// rows that 16-byte copies and float4 loads address.
+bool ffma_takes(const void* q, const void* k, const void* v, int b, int hq, int hkv, int sq,
+                int sk, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss) {
+  auto ok = [](long long stride, int size) { return hopper::tma_stride_ok(stride, size, 4); };
+  return !bad_shape(b, hq, hkv, sq, sk, d) && (d == 64 || d == 128) && ok(q_ss, sq) &&
+         ok(q_sh, hq) && ok(q_sb, b) && ok(k_ss, sk) && ok(k_sh, hkv) && ok(k_sb, b) &&
+         ok(v_ss, sk) && ok(v_sh, hkv) && ok(v_sb, b) &&
+         reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0 && b <= 65535 &&
+         (sq + F_BQ - 1) / F_BQ <= 65535;
+}
+
+template <bool STEP>
+int dispatch_ffma(const FParams& p, int b, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 128 ? launch_ffma<128, STEP>(p, b, s)
+                                   : launch_ffma<64, STEP>(p, b, s));
+}
+
 }  // namespace
 
 extern "C" {
@@ -828,9 +1302,63 @@ int flash_attention_step_wgmma(const void* q, const void* k, const void* v, void
                                    : launch_wgmma<64, true>(tq, tk, tv, p, b, s));
 }
 
+// Design "ffma": float32 only, d = 64 or 128; every tensor 16-byte aligned
+// with its last dim contiguous and every other stride (of a dim longer than
+// 1) a positive multiple of 16 bytes, the rule of the wgmma design in 4-byte
+// elements.  Same arguments as flash_attention_wgmma_fwd; o is float32 (b,
+// hq, sq, d), 16-byte aligned, its strides multiples of 4.  Returns
+// cudaErrorInvalidValue for what it does not take, else cudaGetLastError()
+// after the launch.
+int flash_attention_ffma_fwd(const void* q, const void* k, const void* v, void* o, int b,
+                             int hq, int hkv, int sq, int sk, int d, long long q_sb,
+                             long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                             long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                             long long o_sb, long long o_sh, long long o_ss, float scale,
+                             int causal, int window, int q_offset, int kv_offset, void* stream) {
+  auto ok = [](long long stride, int size) { return hopper::tma_stride_ok(stride, size, 4); };
+  if (!ffma_takes(q, k, v, b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                  v_ss) ||
+      reinterpret_cast<uintptr_t>(o) % 16 != 0 || !ok(o_ss, sq) || !ok(o_sh, hq) || !ok(o_sb, b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FParams p{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
+                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                  scale * LOG2E, causal, window, q_offset, kv_offset, nullptr, nullptr, nullptr,
+                  0, 0};
+  return dispatch_ffma<false>(p, b, d, stream);
+}
+
+// Design "ffma" of flash_attention_step: the ffma forward kernel's STEP
+// instantiation, with the same rule on q, k, v (float32, d = 64 or 128);
+// m_io, l_io, acc_io as for flash_attention_step, acc_io 16-byte aligned.
+// Returns cudaErrorInvalidValue for what it does not take, else
+// cudaGetLastError() after the launch.
+int flash_attention_step_ffma(const void* q, const void* k, const void* v, void* m_io,
+                              void* l_io, void* acc_io, int init, int b, int hq, int hkv, int sq,
+                              int sk, int d, long long q_sb, long long q_sh, long long q_ss,
+                              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                              long long v_sh, long long v_ss, float scale, int causal,
+                              int window, int q_offset, int kv_offset, void* stream) {
+  if (!ffma_takes(q, k, v, b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                  v_ss) ||
+      reinterpret_cast<uintptr_t>(acc_io) % 16 != 0 || m_io == nullptr || l_io == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FParams p{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), nullptr, hq, hkv, sq, sk,
+                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0,
+                  scale, causal, window, q_offset, kv_offset, static_cast<float*>(m_io),
+                  static_cast<float*>(l_io), static_cast<float*>(acc_io), init, 0};
+  return dispatch_ffma<true>(p, b, d, stream);
+}
+
 // Dynamic shared memory of one block of the wgmma design at head dim d.
 int flash_attention_wgmma_smem_bytes(int d) {
   return d == 128 ? WLayout<128>::BYTES : d == 64 ? WLayout<64>::BYTES : 0;
+}
+
+// Dynamic shared memory of one block of the ffma design at head dim d.
+int flash_attention_ffma_smem_bytes(int d) {
+  return d == 128 ? FLayout<128>::BYTES : d == 64 ? FLayout<64>::BYTES : 0;
 }
 
 const char* flash_attention_error_string(int err) {

@@ -7,23 +7,25 @@ The forward kernel computes what ``kernels/ref.attention_tiled`` computes —
 f32 online-softmax state, absolute-position causal / sliding-window masks,
 the TPU kernel's 128 x 128 tile skipping, GQA — which equals
 ``ref.attention`` on every row that sees a key.  It takes float32 and
-bfloat16 inputs with head_dim <= 256 and any sequence lengths.  It has two
-designs, picked before launch by :func:`design` and by nothing else:
+bfloat16 inputs with head_dim <= 256 and any sequence lengths.  It has
+three designs, picked before launch by :func:`design` and by nothing else:
 ``"wgmma"`` (bf16, head_dim 64 or 128, tensors TMA can address: wgmma, TMA
-and an mbarrier pipeline) and ``"template"`` (everything else: f32 FMAs on
-the CUDA cores).  The wrapper checks what the kernel takes, allocates the
-output, launches on PyTorch's current stream and raises if the launch was
-refused.  It never falls back: a CPU tensor is an error here (the
-dispatcher in ``kernels/ops.py`` routes CPU tensors to the plain version
-before they reach this module), and a refused launch of either design
-raises without trying the other.
+and an mbarrier pipeline), ``"ffma"`` (float32 under the same rule: cp.async
+copies and register-tiled f32 FMAs on the CUDA cores) and ``"template"``
+(everything else: f32 FMAs on the CUDA cores).  The wrapper checks what the
+kernel takes, allocates the output, launches on PyTorch's current stream
+and raises if the launch was refused.  It never falls back: a CPU tensor is
+an error here (the dispatcher in ``kernels/ops.py`` routes CPU tensors to
+the plain version before they reach this module), and a refused launch of
+any design raises without trying another.
 
 The step kernel folds one KV block into a carried f32 state ``(m, l,
 acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
 and no tile skipping; it updates the carry it is given in place.  It has
-the same two designs under the same rule (:func:`design`): ``"wgmma"`` is
-the wgmma forward kernel with the carry read into its accumulators and
-written back, ``"template"`` the template forward kernel's.
+the same three designs under the same rule (:func:`design`): ``"wgmma"``
+and ``"ffma"`` are those forward kernels with the carry read into their
+accumulators and written back, ``"template"`` the template forward
+kernel's.
 
 ``flash_attention.launches`` and ``flash_attention_step.launches`` count
 successful launches, so a run can show that its main path went through
@@ -48,7 +50,8 @@ from repro_torch.kernels import _build, _tma, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
-DESIGNS = ("wgmma", "template")
+FFMA_HEAD_DIMS = (64, 128)
+DESIGNS = _tma.DESIGNS  # ("wgmma", "ffma", "template")
 
 
 def _lib():
@@ -77,6 +80,10 @@ def _lib():
                        + [ctypes.c_longlong] * 9 + [ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         ws.restype = ctypes.c_int
+        built.lib.flash_attention_ffma_fwd.argtypes = wg.argtypes
+        built.lib.flash_attention_ffma_fwd.restype = ctypes.c_int
+        built.lib.flash_attention_step_ffma.argtypes = ws.argtypes
+        built.lib.flash_attention_step_ffma.restype = ctypes.c_int
     return built.lib
 
 
@@ -127,14 +134,18 @@ def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The design that serves (q, k, v), forward or step: ``"wgmma"`` for bfloat16
-    with head_dim 64 or 128 where TMA can address all three (16-byte
-    aligned bases, a contiguous head dim, every other stride a positive
-    multiple of 16 bytes), else ``"template"``.  Reads dtypes, shapes,
-    strides and base addresses only."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS and all(
+    """The design that serves (q, k, v), forward or step: where all three
+    are addressable (16-byte aligned bases, a contiguous head dim, every
+    other stride a positive multiple of 16 bytes: what TMA and 16-byte
+    cp.async copies take), ``"wgmma"`` for bfloat16 with head_dim 64 or 128
+    and ``"ffma"`` for float32 with head_dim 64 or 128; else
+    ``"template"``.  Reads dtypes, shapes, strides and base addresses
+    only."""
+    ruled = {torch.bfloat16: ("wgmma", WGMMA_HEAD_DIMS),
+             torch.float32: ("ffma", FFMA_HEAD_DIMS)}.get(q.dtype)
+    if ruled and q.shape[-1] in ruled[1] and all(
             _tma.tensor_addressable(t, inner=3) for t in (q, k, v)):
-        return "wgmma"
+        return ruled[0]
     return "template"
 
 
@@ -163,6 +174,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if which == "wgmma":
             err = lib.flash_attention_wgmma_fwd(*args, *shape, stream)
+        elif which == "ffma":
+            err = lib.flash_attention_ffma_fwd(*args, *shape, stream)
         else:
             err = lib.flash_attention_fwd(*args, _DTYPES[q.dtype], *shape, stream)
     if err != 0:
@@ -276,6 +289,8 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if which == "wgmma":
             err = lib.flash_attention_step_wgmma(*carry_ptrs, *shape, stream)
+        elif which == "ffma":
+            err = lib.flash_attention_step_ffma(*carry_ptrs, *shape, stream)
         else:
             err = lib.flash_attention_step(*carry_ptrs, _DTYPES[q.dtype], *shape,
                                            stream)

@@ -16,9 +16,9 @@ kernels); the ring step, which updates its carry in place, raises.
 
 ``launch_counts()`` reads each kernel's launch counter,
 ``design_counts()`` splits every kernel's launches by the design that
-served them (``"wgmma"`` or ``"template"`` for the forward attention and
-the ring step; ``"wgmma"``, ``"ffma"`` or ``"template"`` for matmul and
-gmm; picked by each wrapper's shape rule), and ``reset_launch_counts()``
+served them (``"wgmma"``, ``"ffma"`` or ``"template"`` for every kernel:
+the forward attention, the ring step, matmul and gmm; picked by each
+wrapper's shape rule), and ``reset_launch_counts()``
 sets them all to 0.
 """
 from __future__ import annotations

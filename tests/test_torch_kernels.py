@@ -436,9 +436,13 @@ def _misaligned(shape, dtype):
 @pytest.mark.parametrize("name,want", [
     ("bf16_d128", "wgmma"), ("bf16_d64", "wgmma"), ("bf16_bshd_views", "wgmma"),
     ("bf16_gqa", "wgmma"), ("bf16_ragged", "wgmma"),
-    ("f32_d128", "template"), ("bf16_d256", "template"), ("bf16_d192", "template"),
+    ("f32_d128", "ffma"), ("bf16_d256", "template"), ("bf16_d192", "template"),
     ("bf16_d32", "template"), ("bf16_misaligned_base", "template"),
     ("bf16_rows_not_16_bytes", "template"), ("bf16_expanded_kv", "template"),
+    ("f32_d64", "ffma"), ("f32_bshd_views", "ffma"), ("f32_gqa_ragged", "ffma"),
+    ("f32_d32", "template"), ("f32_misaligned_base", "template"),
+    ("f32_rows_not_16_bytes", "template"), ("f32_d256", "template"),
+    ("f32_base_16_bytes_in", "ffma"), ("f32_expanded_kv", "template"),
 ])
 def test_flash_design_rule(name, want):
     bf, f32 = torch.bfloat16, torch.float32
@@ -459,6 +463,19 @@ def test_flash_design_rule(name, want):
         "bf16_rows_not_16_bytes": [t((1, 2, 128, 100))[..., :64]] * 3,
         "bf16_expanded_kv": [t((1, 8, 128, 64)), t((1, 1, 128, 64)).expand(1, 8, 128, 64),
                              t((1, 8, 128, 64))],
+        "f32_d64": [t((1, 8, 256, 64), f32)] * 3,
+        "f32_bshd_views": [t((4, 512, 32, 128), f32).transpose(1, 2)] * 3,
+        "f32_gqa_ragged": [t((1, 16, 77, 128), f32), t((1, 4, 333, 128), f32),
+                           t((1, 4, 333, 128), f32)],
+        "f32_d32": [t((1, 8, 77, 32), f32)] * 3,
+        "f32_misaligned_base": [_misaligned((1, 2, 128, 128), f32)] * 3,
+        # rows of 66 floats (264 bytes): a stride no 16-byte copy can step
+        "f32_rows_not_16_bytes": [t((1, 2, 128, 66), f32)[..., :64]] * 3,
+        "f32_d256": [t((1, 8, 77, 256), f32)] * 3,
+        "f32_base_16_bytes_in": [torch.zeros(2 * 64 * 64 + 4)[4:].view(1, 2, 64, 64)] * 3,
+        "f32_expanded_kv": [t((1, 8, 128, 64), f32),
+                            t((1, 1, 128, 64), f32).expand(1, 8, 128, 64),
+                            t((1, 8, 128, 64), f32)],
     }[name]
     assert fa.design(*qkv) == want
 
@@ -551,8 +568,11 @@ def test_gmm_design_rule(name, want):
 @pytest.mark.parametrize("name,want", [
     ("bf16_d128_ring_blocks", "wgmma"), ("bf16_d64_ring_blocks", "wgmma"),
     ("bf16_bshd_views", "wgmma"), ("bf16_gqa_ragged_blocks", "wgmma"),
-    ("f32_ring_blocks", "template"), ("bf16_d32", "template"),
+    ("f32_ring_blocks", "ffma"), ("bf16_d32", "template"),
     ("bf16_d256", "template"), ("bf16_misaligned_base", "template"),
+    ("f32_d64_ring_blocks", "ffma"), ("f32_bshd_views", "ffma"),
+    ("f32_gqa_ragged_blocks", "ffma"), ("f32_d32", "template"),
+    ("f32_misaligned_base", "template"),
 ])
 def test_step_design_rule(name, want):
     """The ring step takes the forward's rule, read from q and the kv
@@ -571,8 +591,14 @@ def test_step_design_rule(name, want):
         "bf16_bshd_views": [tuple(torch.zeros(2, 64, 4, 128, dtype=bf).transpose(1, 2)
                                   for _ in range(3))],
         "bf16_gqa_ragged_blocks": blocks(1, 8, 2, 200, 128, 2),
-        "f32_ring_blocks": blocks(2, 4, 4, 64, 32, 2, f32),
+        "f32_ring_blocks": blocks(4, 32, 32, 512, 128, 4, f32),
         "bf16_d32": blocks(2, 4, 4, 64, 32, 2),
+        "f32_d64_ring_blocks": blocks(2, 4, 2, 128, 64, 2, f32),
+        "f32_bshd_views": [tuple(torch.zeros(2, 64, 4, 128).transpose(1, 2)
+                                 for _ in range(3))],
+        "f32_gqa_ragged_blocks": blocks(1, 8, 2, 200, 128, 2, f32),
+        "f32_d32": blocks(2, 4, 4, 64, 32, 2, f32),
+        "f32_misaligned_base": [(_misaligned((1, 2, 64, 128), f32),) * 3],
         "bf16_d256": blocks(1, 2, 2, 64, 256, 2),
         "bf16_misaligned_base": [(_misaligned((1, 2, 64, 128), bf),) * 3],
     }[name]
@@ -601,8 +627,7 @@ def test_design_counts_start_at_zero_and_reset():
     """Every kernel's launches split by design (the ring step's too); a CPU
     call launches nothing, and a reset clears the split with the counts."""
     ops.reset_launch_counts()
-    att = dict.fromkeys(("wgmma", "template"), 0)
-    mms = dict.fromkeys(("wgmma", "ffma", "template"), 0)
+    att = mms = dict.fromkeys(("wgmma", "ffma", "template"), 0)
     assert ops.design_counts() == {"flash_attention": att, "flash_attention_step": att,
                                    "matmul": mms, "gmm": mms}
     for dt in (torch.bfloat16, torch.float32):
@@ -614,7 +639,8 @@ def test_design_counts_start_at_zero_and_reset():
     assert ops.design_counts()["gmm"] == mms and ops.design_counts()["matmul"] == mms
     assert ops.design_counts()["flash_attention_step"] == att
     fa.flash_attention.designs["wgmma"] = 3  # as a launch would
-    fa.flash_attention_step.designs["wgmma"] = 2
+    fa.flash_attention.designs["ffma"] = 4
+    fa.flash_attention_step.designs["ffma"] = 2
     mm.matmul.designs["ffma"] = 1
     ops.reset_launch_counts()
     assert ops.design_counts()["flash_attention"] == att

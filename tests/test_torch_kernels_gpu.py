@@ -1,7 +1,7 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
 matmul, gmm) against their plain torch versions, in every design of each
-(the wgmma design for bf16, the ffma design for float32 matmul and gmm,
-and the template, which the shape rule picks before launch), the reduced
+(the wgmma design for bf16, the ffma design for float32, and the
+template, which the shape rule picks before launch), the reduced
 serving path on
 the card against the CPU (the serve loop and the continuous-batching
 engine), a reduced llama program through the
@@ -373,6 +373,92 @@ def _att_inputs(shape_q, shape_kv, cuda, dt="bfloat16", seed=0):
         device=cuda, dtype=getattr(torch, dt)) for s in (shape_q, shape_kv, shape_kv))
 
 
+def _check_flash(case, dt, design, cuda):
+    """The forward at ``case`` (b, hq, hkv, sq, sk, d, causal, window) in
+    ``dt``, served by ``design``, against ``ref.attention`` at ``dt``'s
+    tolerance."""
+    b, hq, hkv, sq, sk, d, causal, window = case
+    q, k, v = _att_inputs((b, hq, sq, d), (b, hkv, sk, d), cuda, dt)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq if causal else 0)
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v, **kw))
+    assert which == design and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v, **kw).float(),
+                               rtol=TOL[dt], atol=TOL[dt])
+
+
+def _check_flash_bshd_views(d, hkv, dt, design, cuda):
+    """(b, s, h, d) projections reach the kernel as transposed views, which
+    ``design`` reads through their strides, without a copy."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn(2, 333, 8, d, generator=g).to(cuda, getattr(torch, dt)).transpose(1, 2)
+    k, v = (torch.randn(2, 333, hkv, d, generator=g).to(cuda, getattr(torch, dt)).transpose(1, 2)
+            for _ in range(2))
+    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
+    assert which == design
+    want = ref.attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+def _check_step_chain(case, r, dt, design, cuda):
+    """The ring as each rank runs it: q block i at i*blk, the kv blocks in
+    ring order, fully masked blocks included.  Every carry against the plain
+    step (in natural units, so m and the -1e30 of masked rows compare
+    directly), the finalised chain against the forward kernel."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v = _att_inputs((b, hq, s, d), (b, hkv, s, d), cuda, dt, seed=2)
+    blk, tol = s // r, TOL[dt]
+    kw = dict(causal=causal, window=window)
+    for i in range(r):
+        qi = q[:, :, i * blk:(i + 1) * blk]
+        carry = plain = None
+        for t in range(r):
+            j = (i - t) % r
+            kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
+            off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
+            carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+                qi, kj, vj, carry, **off))
+            assert which == design
+            plain = ref.attention_step(qi, kj, vj, plain, **off)
+            for got, want in zip(carry, plain):
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        fin = ops.attention_finalize(carry, q.dtype)
+        fwd = ops.flash_attention(qi, k, v, q_offset=i * blk, **kw)
+        torch.testing.assert_close(fin.float(), fwd.float(), rtol=tol, atol=tol)
+
+
+def _check_step_carry(dt, design, cuda):
+    """``None`` starts from (-1e30, 0, 0) without reading the buffers; a
+    given carry is read and written in place; a row with no key yet keeps
+    m = -1e30 exactly and weighs its masked scores 1; a carry whose acc is
+    not 16-byte aligned is copied, and the copy updated."""
+    tol = TOL[dt]
+    q, k, v = _att_inputs((1, 4, 150, 128), (1, 2, 130, 128), cuda, dt, seed=3)
+    carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+        q, k, v, None, q_offset=0, kv_offset=100))
+    assert which == design
+    want = ref.attention_step(q, k, v, None, q_offset=0, kv_offset=100)
+    for got, w in zip(carry, want):
+        torch.testing.assert_close(got, w, rtol=tol, atol=tol)
+    assert bool((carry[0][:, :, :100] == -1e30).all())
+    assert bool((carry[1][:, :, :100] == 130).all())
+    ptrs = [t.data_ptr() for t in carry]
+    again, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
+        q, k, v, carry, q_offset=0, kv_offset=0))
+    assert which == design and [t.data_ptr() for t in again] == ptrs
+    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
+    for got, w in zip(again, want):
+        torch.testing.assert_close(got, w, rtol=tol, atol=tol)
+    m, l, acc = (t.clone() for t in want)
+    flat = torch.empty(acc.numel() + 1, device=cuda)
+    shifted = flat[1:].view(acc.shape)
+    shifted.copy_(acc)
+    out = ops.flash_attention_step(q, k, v, (m, l, shifted), q_offset=0, kv_offset=0)
+    assert out[2].data_ptr() % 16 == 0 and out[0].data_ptr() == m.data_ptr()
+    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
+    for got, w in zip(out, want):
+        torch.testing.assert_close(got, w, rtol=tol, atol=tol)
+
+
 WG_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window)
     (1, 4, 4, 128, 128, 64, True, 0),        # tests/test_kernels.py's bf16 case
     (1, 4, 2, 128, 128, 64, True, 0),        # its other cases at d = 64 and 128
@@ -394,28 +480,14 @@ WG_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window)
 @pytest.mark.parametrize("case", WG_ATT_CASES, ids=lambda c: "b{}h{}k{}q{}s{}d{}{}w{}".format(
     c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "", c[7]))
 def test_cuda_flash_wgmma_matches_plain_version(case, cuda):
-    b, hq, hkv, sq, sk, d, causal, window = case
-    q, k, v = _att_inputs((b, hq, sq, d), (b, hkv, sk, d), cuda)
-    kw = dict(causal=causal, window=window, q_offset=sk - sq if causal else 0)
-    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v, **kw))
-    assert which == "wgmma"
-    torch.testing.assert_close(got.float(), ref.attention(q, k, v, **kw).float(),
-                               rtol=2e-2, atol=2e-2)
+    _check_flash(case, "bfloat16", "wgmma", cuda)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2)])
 def test_cuda_flash_wgmma_takes_bshd_views(d, hkv, cuda):
-    """(b, s, h, d) projections reach the kernel as transposed views; the
-    tensor maps carry their strides, so they load without a copy."""
-    g = torch.Generator(device="cpu").manual_seed(1)
-    q = torch.randn(2, 333, 8, d, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
-    k, v = (torch.randn(2, 333, hkv, d, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
-            for _ in range(2))
-    got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
-    assert which == "wgmma"
-    want = ref.attention(q.contiguous(), k.contiguous(), v.contiguous())
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    """The tensor maps carry the views' strides."""
+    _check_flash_bshd_views(d, hkv, "bfloat16", "wgmma", cuda)
 
 
 MASKED_GPU_CASES = [  # (b, hq, hkv, sq, sk, causal, window, q_offset, kv_offset)
@@ -428,18 +500,31 @@ MASKED_GPU_CASES = [  # (b, hq, hkv, sq, sk, causal, window, q_offset, kv_offset
 ]
 
 
+def _misaligned(t):
+    """``t``'s values at a base one element past its own (2 or 4 bytes off
+    16): no 16-byte copy addresses it."""
+    flat = torch.cat([t.flatten(), t.flatten()[:1]])
+    return flat[1:].view(t.shape).copy_(t)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt,d,design", [("bfloat16", 64, "wgmma"),
                                          ("bfloat16", 128, "wgmma"),
-                                         ("float32", 64, "template"),
+                                         ("float32", 64, "ffma"),
+                                         ("float32", 128, "ffma"),
+                                         ("float32_misaligned", 64, "template"),
                                          ("bfloat16", 256, "template")])
 @pytest.mark.parametrize("case", MASKED_GPU_CASES, ids=lambda c: "q{}s{}{}w{}qo{}ko{}".format(
     c[3], c[4], "c" if c[5] else "", c[6], c[7], c[8]))
 def test_cuda_flash_fully_masked_rows_follow_the_tile_convention(case, dt, d, design, cuda):
-    """Rows that see no key: both forward designs give what the TPU kernel
+    """Rows that see no key: every forward design gives what the TPU kernel
     gives at its 128 x 128 blocks (``ref.attention_tiled``)."""
     b, hq, hkv, sq, sk, causal, window, qo, ko = case
+    misaligned = dt.endswith("_misaligned")
+    dt = dt.removesuffix("_misaligned")
     q, k, v = _att_inputs((b, hq, sq, d), (b, hkv, sk, d), cuda, dt)
+    if misaligned:
+        q = _misaligned(q)
     kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
     got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v, **kw))
     assert which == design
@@ -452,6 +537,8 @@ def test_cuda_flash_fully_masked_rows_follow_the_tile_convention(case, dt, d, de
 @pytest.mark.parametrize("name", ["misaligned_base", "rows_not_16_bytes", "expanded_kv",
                                   "head_dim_256", "head_dim_32", "float32"])
 def test_cuda_flash_shapes_outside_the_rule_take_the_template(name, cuda):
+    """bf16 operands the rule refuses, and a float32 one (a base 4 bytes
+    off 16), take the template."""
     q, k, v = _att_inputs((1, 4, 150, 128), (1, 4, 150, 128), cuda)
     if name == "misaligned_base":
         q = torch.cat([q.flatten(), q.flatten()[:1]])[1:].view(q.shape)
@@ -463,8 +550,9 @@ def test_cuda_flash_shapes_outside_the_rule_take_the_template(name, cuda):
         q, k, v = (torch.cat([t, -t], dim=-1) for t in (q, k, v))
     elif name == "head_dim_32":
         q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
-    else:
+    else:  # float32, misaligned
         q, k, v = (t.float() for t in (q, k, v))
+        q = _misaligned(q)
     got, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
     assert which == "template"
     tol = TOL[str(q.dtype).split(".")[1]]
@@ -691,63 +779,66 @@ WG_STEP_CASES = [  # (b, hq, hkv, s, d, causal, window)
 @pytest.mark.parametrize("case", WG_STEP_CASES, ids=lambda c: "b{}h{}k{}s{}d{}{}w{}".format(
     c[0], c[1], c[2], c[3], c[4], "c" if c[5] else "", c[6]))
 def test_cuda_step_wgmma_chain_matches_plain_every_offset(case, r, cuda):
-    """The ring as each rank runs it: q block i at i*blk, the kv blocks in
-    ring order, fully masked blocks included.  Every carry against the plain
-    step (in natural units, so m and the -1e30 of masked rows compare
-    directly), the finalised chain against the forward kernel."""
-    b, hq, hkv, s, d, causal, window = case
-    q, k, v = _att_inputs((b, hq, s, d), (b, hkv, s, d), cuda, seed=2)
-    blk = s // r
-    kw = dict(causal=causal, window=window)
-    for i in range(r):
-        qi = q[:, :, i * blk:(i + 1) * blk]
-        carry = plain = None
-        for t in range(r):
-            j = (i - t) % r
-            kj, vj = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
-            off = dict(q_offset=i * blk, kv_offset=j * blk, **kw)
-            carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
-                qi, kj, vj, carry, **off))
-            assert which == "wgmma"
-            plain = ref.attention_step(qi, kj, vj, plain, **off)
-            for got, want in zip(carry, plain):
-                torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
-        fin = ops.attention_finalize(carry, q.dtype)
-        fwd = ops.flash_attention(qi, k, v, q_offset=i * blk, **kw)
-        torch.testing.assert_close(fin.float(), fwd.float(), rtol=2e-2, atol=2e-2)
+    _check_step_chain(case, r, "bfloat16", "wgmma", cuda)
 
 
 @pytest.mark.gpu
 def test_cuda_step_wgmma_updates_carry_in_place_and_init(cuda):
-    """``None`` starts from (-1e30, 0, 0) without reading the buffers; a
-    given carry is read and written in place; a row with no key yet keeps
-    m = -1e30 exactly and weighs its masked scores 1."""
-    q, k, v = _att_inputs((1, 4, 150, 128), (1, 2, 130, 128), cuda, seed=3)
-    carry, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
-        q, k, v, None, q_offset=0, kv_offset=100))
-    assert which == "wgmma"
-    want = ref.attention_step(q, k, v, None, q_offset=0, kv_offset=100)
-    for got, w in zip(carry, want):
-        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
-    assert bool((carry[0][:, :, :100] == -1e30).all())
-    assert bool((carry[1][:, :, :100] == 130).all())
-    ptrs = [t.data_ptr() for t in carry]
-    again, which = _served_by("flash_attention_step", lambda: ops.flash_attention_step(
-        q, k, v, carry, q_offset=0, kv_offset=0))
-    assert which == "wgmma" and [t.data_ptr() for t in again] == ptrs
-    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
-    for got, w in zip(again, want):
-        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
-    # a carry whose acc is not 16-byte aligned is copied, and the copy updated
-    m, l, acc = (t.clone() for t in want)
-    flat = torch.empty(acc.numel() + 1, device=cuda)
-    shifted = flat[1:].view(acc.shape)
-    shifted.copy_(acc)
-    out = ops.flash_attention_step(q, k, v, (m, l, shifted), q_offset=0, kv_offset=0)
-    assert out[2].data_ptr() % 16 == 0 and out[0].data_ptr() == m.data_ptr()
-    want = ref.attention_step(q, k, v, want, q_offset=0, kv_offset=0)
-    for got, w in zip(out, want):
-        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2)
+    _check_step_carry("bfloat16", "wgmma", cuda)
+
+
+# ---------------------------------------------------------------------------
+# The flash forward's and the ring step's ffma design (float32, head dim 64
+# and 128, operands the rule addresses), at the float32 tolerance 2e-5
+# ---------------------------------------------------------------------------
+
+FFMA_ATT_CASES = WG_ATT_CASES + [  # (b, hq, hkv, sq, sk, d, causal, window)
+    (1, 32, 32, 512, 512, 128, True, 0),     # an engine prefill
+    (1, 4, 2, 160, 96, 64, False, 0),        # cross, sk < sq
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FFMA_ATT_CASES, ids=lambda c: "b{}h{}k{}q{}s{}d{}{}w{}".format(
+    c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "", c[7]))
+def test_cuda_flash_ffma_matches_plain_version(case, cuda):
+    _check_flash(case, "float32", "ffma", cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2)])
+def test_cuda_flash_ffma_takes_bshd_views(d, hkv, cuda):
+    """float32 rows read through the views' strides by 16-byte copies."""
+    _check_flash_bshd_views(d, hkv, "float32", "ffma", cuda)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("case", WG_STEP_CASES, ids=lambda c: "b{}h{}k{}s{}d{}{}w{}".format(
+    c[0], c[1], c[2], c[3], c[4], "c" if c[5] else "", c[6]))
+def test_cuda_step_ffma_chain_matches_plain_every_offset(case, r, cuda):
+    _check_step_chain(case, r, "float32", "ffma", cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_step_ffma_updates_carry_in_place_and_init(cuda):
+    _check_step_carry("float32", "ffma", cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_ffma_designs_give_the_same_bits_twice(cuda):
+    """No atomics and no split over keys: two launches of the ffma forward
+    at the executor's shape, and of the ffma step at the f32 ring's, give
+    the same bits."""
+    q, k, v = _att_inputs((4, 32, 512, 128), (4, 32, 512, 128), cuda, "float32")
+    a = ops.flash_attention(q, k, v)
+    assert torch.equal(a, ops.flash_attention(q, k, v))
+    q, k, v = _att_inputs((4, 32, 128, 128), (4, 32, 128, 128), cuda, "float32")
+    kw = dict(q_offset=384, kv_offset=128)
+    a = ops.flash_attention_step(q, k, v, None, **kw)
+    b = ops.flash_attention_step(q, k, v, None, **kw)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -770,9 +861,9 @@ def _grads_through(fn, ins, seed=3):
 GRAD_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window, dtype, design)
     (2, 8, 2, 256, 256, 128, True, 0, "bfloat16", "wgmma"),      # GQA 4:1
     (1, 4, 4, 200, 200, 64, True, 64, "bfloat16", "wgmma"),      # window, ragged
-    (1, 4, 2, 128, 128, 64, True, 0, "float32", "template"),
+    (1, 4, 2, 128, 128, 64, True, 0, "float32", "ffma"),
     (2, 2, 1, 96, 96, 32, True, 24, "float32", "template"),     # window, GQA
-    (1, 2, 2, 64, 160, 64, False, 0, "float32", "template"),    # cross
+    (1, 2, 2, 64, 160, 64, False, 0, "float32", "ffma"),        # cross
 ]
 
 

@@ -483,12 +483,13 @@ def test_continuous_command_line_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("s", [256, 512])
 def test_engine_prefill_shape_takes_the_wgmma_flash_design(s):
     """An engine prefill reaches the flash kernel at batch 1: q, k and v as
-    transposed views of the (1, s, heads, 128) bf16 projections.  The
-    shape rule reads only shapes, strides and addresses, so it is checked
-    here on CPU tensors laid out as on the card."""
+    transposed views of the (1, s, heads, 128) bf16 projections (float32
+    in the f32 engine, which takes the ffma design).  The shape rule reads
+    only shapes, strides and addresses, so it is checked here on CPU
+    tensors laid out as on the card."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = (torch.empty(1, s, 32, 128, dtype=torch.bfloat16).transpose(1, 2)
                for _ in range(3))
     assert fa.design(q, k, v) == "wgmma"
-    assert fa.design(q.float(), k.float(), v.float()) == "template"
+    assert fa.design(q.float(), k.float(), v.float()) == "ffma"
