@@ -139,7 +139,45 @@
 22. engine parity: llama-7b width and qwen2-moe width, 2 layers, float32,
    3 requests through 2 slots on the card and on the CPU (every flash and
    gmm launch of the ffma design); tokens equal, every decode step's
-   logits within 1e-4 of max|logit|.
+   logits within 1e-4 of max|logit|;
+23. the model zoo's flash shapes, bf16: hymba-1.5b's prefill (4, 25, 2048,
+   64) with GQA 5:1 and a window of 1024 that binds (the wgmma design) and
+   paligemma-3b's (4, 8, 512, 256) with MQA 8:1 (head dim 256: the
+   template), each against its plain version, its device time beside
+   SDPA's on the same function (``enable_gqa``; hymba's window as a mask;
+   SDPA's kernels printed to name its backend), the template's and the
+   bound;
+24-26. serve hymba-1.5b (prompt 2048, so the window binds in prefill and
+   decode runs on the ring buffer), xlstm-125m (prompt 512; no flash kernel
+   runs) and paligemma-3b (prompt 512 from tokens, as the reference serves
+   it; then one ``make_prefill_step`` call on 256 seeded prefix embeddings
+   and 256 tokens) at full width and depth, bf16, batch 4, 16 new tokens,
+   as phase 5 serves llama-7b (hymba's flash launches wgmma, paligemma's
+   the template), each prefill and decode step profiled;
+27. zoo slice parity, float32, full width, 2 layers (xlstm: one mLSTM and
+   one sLSTM block), batch 1, the same weights on the card and the CPU:
+   logits (1e-4 x max|logit|), ``loss_fn`` (1e-4 relative) and every
+   gradient leaf (1e-3 x its max|g|: at hymba's s = 1280 the card's plain
+   path, run beside it without the kernel and printed, already differs
+   from the CPU by a few 1e-4 of max|g|), all finite; for hymba, the CPU's gradients
+   without the window must move every attention leaf by more than that
+   limit; hymba at s = 1280 (the window binds; the ffma flash), xlstm at
+   s = 512, paligemma with 256 prefix embeddings and 64 tokens (the f32
+   template at d = 256); then one
+   block period of hymba's (b=4, s=2048) and paligemma's (b=4, s=512)
+   prefill EinGraph in bf16 through ``executor="shard_map"`` on the
+   one-rank mesh against the dense run (the wgmma matmul at d_model 1600,
+   kv 320, d_ff 5504 and d_ff 16384, vocab 257,280);
+28. the engine on hymba-1.5b at full size (2 slots, 3 requests with prompts
+   from seed 28 in 1100..1500, exact buckets, 8 new tokens), held against
+   ``serve()`` of each request alone as phase 20, its logit limit twice
+   what serving each request in a batch of two does to ``serve()``'s own
+   bf16 logits in the same run (hymba amplifies bf16 rounding through its
+   32 layers; the limit must still tell another context apart); the same
+   engine in float32 at full width and depth, held against ``serve()`` at
+   1e-4 x max|logit| with no unexplained token flip; and the engine parity
+   of phase 22 for xlstm-125m width.  The kernels line gives every kernel's
+   zoo launches by design (``ops.design_counts()`` over phases 24-28).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -580,6 +618,27 @@ def main() -> int:
     results["engine_parity"] = _engine_parity(cfg, ops)
     results["engine_parity_moe"] = _engine_parity(moe_cfg, ops)
 
+    # 23. the zoo's flash shapes: hymba's (wgmma, GQA 5:1, window 1024), paligemma's (d = 256)
+    results["zoo_timing"] = _zoo_flash_timing(fa, ops, ref)
+
+    # 24-26. serve hymba-1.5b, xlstm-125m and paligemma-3b at full width and depth, bf16
+    results["zoo_serve"] = _zoo_serve(ops)
+
+    # 27. zoo slice parity (f32, card against CPU) and the zoo's executor path (bf16)
+    results["zoo_parity"] = _zoo_slice_parity(ops)
+    results["zoo_executor"] = _zoo_executor(ops)
+
+    # 28. the engine on hymba-1.5b at full size, and the xlstm engine parity (f32)
+    hymba = get_config("hymba-1.5b")
+    hymba_lens = np.random.default_rng(28).integers(1100, 1501, 3).tolist()
+    results["engine_hymba"] = _engine_phase(
+        hymba, ops, results["zoo_serve"]["hymba-1.5b"]["profile"]["decode_step"], slots=2,
+        block=16, max_seq=1520, lens=hymba_lens, max_new=8, baseline=True)
+    results["engine_hymba_f32"] = _engine_f32_full(hymba, ops, slots=2, block=16,
+                                                   max_seq=1520, lens=hymba_lens, max_new=8)
+    results["engine_parity_xlstm"] = _engine_parity(get_config("xlstm-125m"), ops)
+    zoo_designs = _zoo_design_counts(results)
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -626,7 +685,14 @@ def main() -> int:
          "f32_train_parity_design": _path_design(results["train_parity"]["designs"]),
          "f32_engine_parity_launches": results["engine_parity"]["launches"]["flash_attention"],
          "f32_engine_parity_design": _path_design(
-             results["engine_parity"]["designs"]["flash_attention"])},
+             results["engine_parity"]["designs"]["flash_attention"]),
+         "zoo": {name: {k: z[k] for k in ("design", "device_ms", "template_device_ms",
+                                          "plain_ms", "library_device_ms", "library_kernels",
+                                          "bound_ms", "bound_by", "max_abs_err")}
+                 for name, z in results["zoo_timing"].items()},
+         "zoo_serve_launches": {a: r["launches"]["flash_attention"]
+                                for a, r in results["zoo_serve"].items()},
+         "zoo_launches_by_design": zoo_designs["flash_attention"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -658,7 +724,10 @@ def main() -> int:
          "f32_plain_ms": m32["plain_ms"], "f32_library_ms": m32["library_ms"],
          "f32_bound_ms": m32["bound_ms"], "f32_bound_by": m32["bound_by"],
          "ffnn_launches_per_step": results["ffnn"]["matmul_launches_per_step"],
-         "ffnn_design": _path_design(results["ffnn"]["designs"]["matmul"])},
+         "ffnn_design": _path_design(results["ffnn"]["designs"]["matmul"]),
+         "zoo_executor_launches": {a: r["launches"]["matmul"]
+                                   for a, r in results["zoo_executor"].items()},
+         "zoo_launches_by_design": zoo_designs["matmul"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -677,8 +746,10 @@ def main() -> int:
          "decode_bound_ms": gdec["bound_ms"], "decode_bound_by": gdec["bound_by"],
          "decode_library_ms": gdec["library_ms"],
          "engine_launches": results["engine_moe"]["launches"]["gmm"],
-         "engine_design": _path_design(results["engine_moe"]["designs"]["gmm"])},
+         "engine_design": _path_design(results["engine_moe"]["designs"]["gmm"]),
+         "zoo_launches_by_design": zoo_designs["gmm"]},
     ]}
+    kernels["kernels"][1]["zoo_launches_by_design"] = zoo_designs["flash_attention_step"]
     results.update(kernels)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -691,6 +762,26 @@ def main() -> int:
     return 0
 
 
+def _zoo_design_counts(results: dict) -> dict:
+    """Every kernel's launches by design over the zoo's counted runs
+    (phases 24-28): the three serve calls, the prefix prefill excluded (it
+    ran with the counters of its own check), the slice parities, the two
+    executor calls and both engines' second runs."""
+    runs = [r["designs"] for r in results["zoo_serve"].values()]
+    runs += [{"flash_attention": r["designs"]} for r in results["zoo_parity"].values()]
+    runs += [r["designs"] for r in results["zoo_executor"].values()]
+    runs += [results["engine_hymba"]["designs"], results["engine_hymba_f32"]["designs"],
+             results["engine_parity_xlstm"]["designs"]]
+    out = {k: dict.fromkeys(DESIGNS_ALL, 0) for k in ("flash_attention", "flash_attention_step",
+                                                      "matmul", "gmm")}
+    for run in runs:
+        for kernel, by_design in run.items():
+            for d, n in by_design.items():
+                out[kernel][d] += n
+    return out
+
+
+DESIGNS_ALL = ("wgmma", "ffma", "template")
 ENGINE_PREFILL = (1, 32, 32, 512, 512, 128, True, 0)  # one llama-7b request, 512 bucket
 
 
@@ -750,13 +841,24 @@ def _flash_timing(fa, ops, ref, case, what: str, seed: int, iters: int) -> dict:
             "bound_by": bound_by, "bytes": nbytes, "ops": nops}
 
 
-def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16) -> dict:
+def _attn_layers(cfg) -> int:
+    """Layers that run attention (attn and hymba blocks): one flash launch
+    each a prefill."""
+    return sum(1 for blk in cfg.blocks() if blk in ("attn", "hymba"))
+
+
+def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
+                 flash_design: str = "wgmma") -> dict:
     """Serve ``cfg`` at full width and depth on the card (bf16, random
     weights from seed 0) through ``launch.serve.serve``: planned through a
     plan-cache file (cold here, a hit in the serve call), a short warm-up
     request, then the counted request with the launch counters set to 0
     just before it and read just after.  Then one prefill and one decode
-    step, each counted and profiled."""
+    step, each counted and profiled.  Every flash launch takes
+    ``flash_design``, every matmul and gmm launch wgmma.  Where the config
+    has a prefix (paligemma), one more prefill through ``make_prefill_step``
+    on ``prefix_len`` seeded prefix embeddings and ``prompt_len -
+    prefix_len`` tokens, counted and profiled the same way."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
     from repro_torch.core.plancache import PlanCache
@@ -797,16 +899,18 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
     assert warm.stats["hits"] == 1 and warm.stats["misses"] == 0, warm.stats
     # gmm: w1 (w3) and w2 per MoE layer, in prefill and in every decode step
     per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
-    per_prefill = {"flash_attention": cfg.n_layers, "flash_attention_step": 0,
+    per_prefill = {"flash_attention": _attn_layers(cfg), "flash_attention_step": 0,
                    "matmul": 0, "gmm": per_layer * cfg.n_layers}
     per_decode = dict(per_prefill, flash_attention=0)
     want = dict(per_prefill, gmm=per_layer * cfg.n_layers * (1 + stats["decode_steps"]))
     assert launches == want, (launches, want)
-    # bf16 at head dim 128 with tensors TMA can address: every flash and
-    # gmm launch of the serve call took the wgmma design
+    # bf16 at head dim 64 or 128 with tensors TMA can address: every flash
+    # and gmm launch of the serve call took the wgmma design (head dim 256:
+    # flash takes the template)
     for kernel in ("flash_attention", "matmul", "gmm"):
-        assert designs[kernel]["wgmma"] == launches[kernel] == sum(designs[kernel].values()), \
-            designs
+        want_design = flash_design if kernel == "flash_attention" else "wgmma"
+        assert designs[kernel][want_design] == launches[kernel] == sum(
+            designs[kernel].values()), designs
     assert gen.shape == (b, max_new), gen.shape
     assert ((gen >= 0) & (gen < cfg.vocab_padded)).all()
     # where the time goes: one prefill and one decode step, counted, then profiled
@@ -829,6 +933,19 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
             "prefill": _profile(lambda: prefill(params, {"tokens": tokens})),
             "decode_step": _profile(lambda: decode(params, tok, caches, prompt_len)),
         }
+        if cfg.prefix_len:  # the stubbed vision tower's patch embeddings, then tokens
+            pe = torch.as_tensor(np.random.default_rng(1).normal(
+                size=(b, cfg.prefix_len, cfg.d_model)).astype(np.float32), device="cuda")
+            pbatch = {"tokens": tokens[:, :prompt_len - cfg.prefix_len], "prefix_embeds": pe}
+            ops.reset_launch_counts()
+            logits_pe, _ = prefill(params, pbatch)
+            got_prefix = ops.launch_counts()
+            assert got_prefix == per_prefill, got_prefix
+            assert ops.design_counts()["flash_attention"][flash_design] == _attn_layers(cfg)
+            assert logits_pe.shape == (b, 1, cfg.vocab_padded)
+            assert bool(torch.isfinite(logits_pe).all()), "non-finite prefix prefill logits"
+            breakdown["prefix_prefill"] = _profile(lambda: prefill(params, pbatch))
+            del pe, pbatch, logits_pe
     for name, br in breakdown.items():
         log("profile", f"{cfg.name} {name}: wall {br['wall_ms']:.3f} ms, device busy "
                        f"{br['device_ms']:.3f} ms (idle share {br['idle_share']:.3f}), "
@@ -846,6 +963,7 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16)
                 "launches": launches, "designs": designs,
                 "launches_per_prefill": got_prefill,
                 "launches_per_decode_step": got_decode, "n_params": n_params,
+                "flash_design": flash_design,
                 "batch": b, "prompt_len": prompt_len, "max_new": max_new,
                 "profile": breakdown})
     del params, logits, caches, tokens, tok
@@ -900,9 +1018,9 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     port's flash-attention, ring-step, matmul and gmm kernels of every
     design, cuBLAS matrix products, everything else), and the idle share
     of the unprofiled wall time (tracing itself slows the host down).
-    A trace started late in a process can lose the device events of its
-    first ~100 ms, so the first call only fills that window, and a spin
-    kernel between the calls marks where the read call starts.
+    A trace started late in a process can lose its first device events, so
+    ``_fill_trace_start`` and the first call only fill that window, and a
+    spin kernel between the calls marks where the read call starts.
     ``ranges`` names ``record_function`` ranges whose kernels' device time
     is reported too (``range_ms``, the read call's half of the ranges;
     those kernels also count in their kinds), for which the host's ops are
@@ -918,6 +1036,7 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0)
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
     with profile(activities=activities) as prof:
+        _fill_trace_start()
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1 << 16)  # the marker
@@ -1164,24 +1283,52 @@ def _device_ms(fn, iters: int, match: str | None) -> float:
     kernels' device time averaged.  For kernels short enough that the
     host's launch path, not the card, would set an events time.  With
     ``match=None``, the device time of every kernel ``fn`` launches, per
-    call (a library call or a composite of several kernels)."""
-    from torch.autograd import DeviceType
+    call (a library call or a composite of several kernels).  A trace
+    started late in a process can lose its first device events, so
+    ``_fill_trace_start`` fills that window first, and only the kernels
+    after it are read."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _fill_trace_start()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and (match is None or match in e.name)]
+    times = [e.time_range.elapsed_us() for e in _after_spin(prof)
+             if match is None or match in e.name]
     if match is None:
         assert times, "no kernel in the trace"
         return sum(times) / iters / 1e3
     # the trace may drop an event at its edge; never more than one a call
     assert 0 < len(times) <= iters, (match, len(times), iters)
     return sum(times) / len(times) / 1e3
+
+
+def _fill_trace_start() -> None:
+    """What a trace started late in a process may lose first: a spin kernel
+    of about 0.2 s (at the H100's ~1.8 GHz) and 8192 short ones; then a
+    spin whose end marks where the read events start."""
+    torch.cuda._sleep(360_000_000)
+    for _ in range(8192):
+        torch.cuda._sleep(64)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 16)
+    torch.cuda.synchronize()
+
+
+def _after_spin(prof) -> list:
+    """The device kernels of ``prof`` that start after its last spin
+    kernel (``_fill_trace_start``), in time order."""
+    from torch.autograd import DeviceType
+
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [e for e in device if "spin_kernel" in e.name]
+    assert marks, "the trace lost the spin kernel"
+    start = marks[-1].time_range.end
+    return [e for e in device if e.time_range.start >= start]
 
 
 def _attention_backward_ms(ref, q, k, v, kw) -> float:
@@ -2078,7 +2225,8 @@ class _RouteLog:
 
 
 def _sequential(cfg, params, prompt: np.ndarray, max_new: int, kv_len: int, device="cuda",
-                force: np.ndarray | None = None, routes: _RouteLog | None = None):
+                force: np.ndarray | None = None, routes: _RouteLog | None = None,
+                companion: np.ndarray | None = None):
     """One request alone through ``launch.serve``'s steps (the exact-length
     prefill, ``prepare_decode_caches``, decode steps, as ``serve`` runs
     them): the argmax at each position and the logits behind it (float32,
@@ -2086,21 +2234,24 @@ def _sequential(cfg, params, prompt: np.ndarray, max_new: int, kv_len: int, devi
     ``force[i]`` instead (teacher forcing), so position i's logits condition
     on that prefix.  With ``routes``, also the experts each decode step
     picked for the token, (layers, top_k) per position (None at position 0,
-    the prefill's)."""
+    the prefill's).  With ``companion`` (a prompt of the same length) the
+    request runs as row 0 of a batch of two, the companion decoding
+    greedily beside it: what serving it in a batch does to its rounding."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
 
     prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
     toks, logs, experts = [], [], [None]
+    rows = prompt[None] if companion is None else np.stack([prompt, companion])
     with torch.inference_mode():
-        logits, caches = prefill(params, {"tokens": torch.as_tensor(prompt[None], device=device)})
+        logits, caches = prefill(params, {"tokens": torch.as_tensor(rows, device=device)})
         caches = serve_mod.prepare_decode_caches(cfg, caches, len(prompt), kv_len)
         for i in range(max_new):
             logs.append(logits[0, -1].float().cpu())
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
             toks.append(int(tok[0, 0]))
             if force is not None:
-                tok = torch.full_like(tok, int(force[i]))
+                tok[0, 0] = int(force[i])
             if i + 1 < max_new:
                 step = lambda: decode(params, tok, caches, len(prompt) + i)  # noqa: E731
                 if routes is None:
@@ -2159,13 +2310,13 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
 
 def _hold_against_sequential(what: str, got: np.ndarray, got_logits: list,
                              seq_logits: list, other_logits: list, got_experts=None,
-                             seq_experts=None) -> dict:
+                             seq_experts=None, limit: float = LOGIT_TOL) -> dict:
     """The engine's tokens and logits against the sequential run's logits
     on the same prefix (teacher-forced on the engine's tokens), and against
     another request's (``other_logits``: what serving the wrong context
     would look like).  Returns the measured differences and the failures:
-    a position where the two runs' logits differ by more than LOGIT_TOL x
-    max|logit|, or where the engine's token is not the sequential argmax
+    a position where the two runs' logits differ by more than ``limit`` x
+    max|logit| (LOGIT_TOL unless a measured rounding baseline sets more), or where the engine's token is not the sequential argmax
     and the top-2 gap is not under twice the measured difference (a flip
     the rounding of the two runs does not explain).  With the experts each
     run's MoE layers picked, the comparison stops at the first position
@@ -2196,9 +2347,9 @@ def _hold_against_sequential(what: str, got: np.ndarray, got_logits: list,
                           f"max|logit|), the runs' logits differ by {delta:.4e} "
                           f"({delta / scale:.2e}); token {int(got[i])} "
                           f"{'=' if int(got[i]) == want else '!='} {want}")
-        if delta > LOGIT_TOL * scale:
+        if delta > limit * scale:
             failures.append(f"{what}: position {i}: logits differ by {delta:.4e}, beyond "
-                            f"{LOGIT_TOL} x max|logit| {scale:.3f}")
+                            f"{limit:.3e} x max|logit| {scale:.3f}")
         if int(got[i]) != want:
             flips.append(i)
             if gap >= 2 * delta:
@@ -2232,7 +2383,8 @@ def _engine_run(cfg, params, prompts, max_new, *, batch: int, block: int, max_se
 
 
 def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_seq: int,
-                  lens: list[int], max_new: int, seed: int = 0, device="cuda") -> dict:
+                  lens: list[int], max_new: int, seed: int = 0, device="cuda",
+                  baseline: bool = False) -> dict:
     """``cfg`` at full width and depth (bf16, random weights from ``seed``)
     served by the continuous-batching engine on the card: a first engine
     over a new plan-cache file, then a second over the same file (plans
@@ -2242,7 +2394,13 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     MoE products x layers x (prefills + decode steps), every bf16 launch of
     the wgmma design, registry compiles = distinct buckets + 1 decode cell.
     Then one engine decode step with every slot live, profiled beside the
-    dense serve loop's decode step (phase 5 or 14)."""
+    dense serve loop's decode step (phase 5 or 14).  With ``baseline``, the
+    logit limit is measured first: each request served alone against the
+    same request served as one row of a batch of two (a seeded companion
+    prompt of its length beside it), teacher-forced alike; the engine is
+    then held to twice the largest such difference where that exceeds
+    LOGIT_TOL, and the limit must still tell another context apart."""
+    from repro_torch.core import tree
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
@@ -2271,7 +2429,7 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     # the counted runs: what every launch did
     moe_per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
     for run, met in ((run1, m1), (run2, m)):
-        want = {"flash_attention": cfg.n_layers * met.prefills, "flash_attention_step": 0,
+        want = {"flash_attention": _attn_layers(cfg) * met.prefills, "flash_attention_step": 0,
                 "matmul": 0,
                 "gmm": moe_per_layer * cfg.n_layers * (met.prefills + met.decode_steps)}
         assert run["launches"] == want, (run["launches"], want)
@@ -2280,7 +2438,8 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     assert m.prefills == m1.prefills == len(lens), (m.prefills, m1.prefills)
     assert m.tokens_generated == len(lens) * max_new, m.tokens_generated
     same = all(np.array_equal(first[r], res[r]) for r in res)
-    pool_bytes = sum(c.k.nbytes + c.v.nbytes for c in eng.caches)
+    # the KV pools, and the per-slot recurrent states where the arch has them
+    pool_bytes = sum(t.nbytes for t in tree.leaves(eng.caches))
     # a third run that copies out the logits behind every token, and each
     # request against the serve loop's run of it alone on the same prefix
     routes = _RouteLog() if cfg.moe else None
@@ -2302,6 +2461,20 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
         if routes is not None:
             routes.close()
     same_rec = all(np.array_equal(rec_res[r], res[r]) for r in res)
+    base_rel, limit = [], LOGIT_TOL
+    if baseline:  # what batching alone does to serve()'s logits, in this run
+        comp_rng = np.random.default_rng(seed + 1)
+        for rid, p in enumerate(prompts):
+            comp = comp_rng.integers(0, cfg.vocab, size=p.shape).astype(np.int32)
+            _, logs2, _ = _sequential(cfg, params, p, max_new, eng.seq, device,
+                                      force=rec_res[rid], companion=comp)
+            base_rel.append(max(float((a - b).abs().max() / b.abs().max())
+                                for a, b in zip(logs2, seq[rid][1])))
+        limit = max(LOGIT_TOL, 2 * max(base_rel))
+        log("engine", f"{cfg.name}: serve() of each request in a batch of two against serve() "
+                      f"alone, teacher-forced alike: max|logit diff| / max|logit| "
+                      f"{[format(x, '.2e') for x in base_rel]}; the engine is held to "
+                      f"{limit:.3e} of max|logit|")
     gen, _ = serve_mod.serve(cfg, prompts[0][None], max_new=max_new, params=params,
                              kv_len=eng.seq, device=device)
     free = _sequential(cfg, params, prompts[0], max_new, eng.seq, device)[0]
@@ -2310,7 +2483,7 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
                                      rec_res[rid], rec[rid], seq[rid][1],
                                      seq[(rid + 1) % len(prompts)][1],
                                      rec_experts[rid] if routes else None,
-                                     seq[rid][2] if routes else None)
+                                     seq[rid][2] if routes else None, limit=limit)
             for rid, p in enumerate(prompts)]
     # one engine decode step, every slot live, profiled
     for p in prompts[:slots]:
@@ -2338,12 +2511,12 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
                   f"{[h['routing_stop'] for h in held]}, tokens before the first flip "
                   f"{[h['held'] for h in held]} of {max_new}; max|logit diff| / max|logit| per request "
                   f"{[format(h['max_rel_logit_diff'], '.2e') for h in held]} (limit "
-                  f"{LOGIT_TOL}); against the next request's logits (another context) at "
+                  f"{limit:.3e}); against the next request's logits (another context) at "
                   f"least {[format(h['min_rel_diff_to_other_request'], '.2e') for h in held]}")
     failures = [f for h in held for f in h["failures"]]
     assert not failures, failures
     # the limit tells a request served from another context apart
-    assert min(h["min_rel_diff_to_other_request"] for h in held) > LOGIT_TOL, held
+    assert min(h["min_rel_diff_to_other_request"] for h in held) > limit, held
     for name, br in (("engine decode step", prof), ("dense decode step", dense_decode)):
         log("profile", f"{cfg.name} {name}: wall {br['wall_ms']:.3f} ms, device busy "
                        f"{br['device_ms']:.3f} ms (idle share {br['idle_share']:.3f}), "
@@ -2357,6 +2530,7 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
            "launches": run2["launches"], "designs": run2["designs"],
            "max_memory_allocated": run2["max_memory_allocated"], "pool_bytes": pool_bytes,
            "against_sequential": held, "generations": {r: res[r].tolist() for r in res},
+           "batch_baseline_rel": base_rel, "logit_limit_rel": limit,
            "decode_step_launches": step_launches, "profile_decode_step": prof,
            "dense_decode_step": dense_decode}
     del eng, params
@@ -2367,9 +2541,10 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
 def _engine_parity(cfg, ops, device="cuda") -> dict:
     """``cfg`` at full width, 2 layers, float32: the engine on the card
     (the flash kernel's ffma design in each bucketed prefill, the gmm
-    kernel's ffma design in each MoE product) and on the CPU (the plain path), the
-    same weights and requests; tokens equal, the logits behind every token
-    (each prefill's and each decode step's) within 1e-4 x max|logit|."""
+    kernel's ffma design in each MoE product; xlstm launches neither) and
+    on the CPU (the plain path), the same weights and requests; tokens
+    equal, the logits behind every token (each prefill's and each decode
+    step's) within 1e-4 x max|logit|."""
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
 
@@ -2392,7 +2567,8 @@ def _engine_parity(cfg, ops, device="cuda") -> dict:
     (got, grec, m, launches, designs), (want, wrec, _, cpu_launches, _) = (
         out[device], out["cpu"])
     moe_per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
-    assert launches == {"flash_attention": 2 * m.prefills, "flash_attention_step": 0,
+    assert launches == {"flash_attention": _attn_layers(cfg2) * m.prefills,
+                        "flash_attention_step": 0,
                         "matmul": 0, "gmm": 2 * moe_per_layer * (m.prefills + m.decode_steps)
                         }, launches
     assert m.prefills == 3 and not any(cpu_launches.values()), cpu_launches
@@ -2418,6 +2594,367 @@ def _engine_parity(cfg, ops, device="cuda") -> dict:
             "max_abs_logit": scale, "launches": launches, "designs": designs,
             "tokens": {r: got[r].tolist() for r in got}}
 
+
+
+# ---------------------------------------------------------------------------
+# 23-27. the rest of the model zoo: hymba, xlstm, paligemma
+# ---------------------------------------------------------------------------
+
+# hymba-1.5b's prefill at b=4, prompt 2048 (GQA 5:1, head dim 64, the
+# window of 1024 binds) and paligemma-3b's at b=4, 512 (MQA 8:1, head dim 256)
+HYMBA_PREFILL = (4, 25, 5, 2048, 2048, 64, True, 1024, torch.bfloat16)
+PALIGEMMA_PREFILL = (4, 8, 1, 512, 512, 256, True, 0, torch.bfloat16)
+
+
+def _sdpa_call(case, q, k, v):
+    """SDPA on the same function as the kernel at ``case``: GQA by
+    ``enable_gqa``; a binding window as a boolean mask (causal within the
+    window), else ``is_causal``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, sk, window = case[3], case[4], case[7]
+    if window:
+        i = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        j = torch.arange(sk, device=q.device)[None, :]
+        mask = (j <= i) & (j > i - window)
+        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    return lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def _kernel_names(fn) -> list[str]:
+    """The device kernels one warmed call of ``fn`` launches (names cut to
+    90 characters): which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _fill_trace_start()
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:90] for e in _after_spin(prof)})
+
+
+def _zoo_flash_timing(fa, ops, ref) -> dict:
+    """Phase 23: the forward kernel at hymba's and paligemma's prefill
+    shapes (bf16): held against its plain version, then its device time,
+    SDPA's device time on the same function (its backend named by its
+    kernels), the template's device time (its C entry), the plain
+    version's time by events and the bound."""
+    res = {}
+    for name, case in (("hymba", HYMBA_PREFILL), ("paligemma", PALIGEMMA_PREFILL)):
+        q, k, v, kw = _inputs(case, seed=23)
+        design = fa.design(q, k, v)
+        assert design == _expected_flash_design(case), (name, design)
+        kernel = lambda: ops.flash_attention(q, k, v, impl="kernel", **kw)  # noqa: E731
+        got, served = _served_by(ops, "flash_attention", kernel)
+        assert served == design, (name, served)
+        want = ref.attention(q, k, v, **kw)
+        err = _max_err(got, want, TOL[case[-1]], f"flash at {name}'s prefill {case[:8]}")
+        lib = _sdpa_call(case, q, k, v)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        del got, want
+        template, _ = _flash_template(fa, q, k, v, causal=True, window=case[7])
+        t_kernel = _time_ms(kernel, 10)
+        t_device = _device_ms(kernel, 10, FLASH_DEVICE_KERNEL[design])
+        t_template = _device_ms(template, 5, "flash_fwd_kernel")
+        t_plain = _time_ms(lambda: ref.attention(q, k, v, **kw), 3)
+        t_lib = _time_ms(lib, 10)
+        t_lib_device = _device_ms(lib, 10, None)
+        backend = _kernel_names(lib)
+        bound_ms, bound_by, nbytes, nops = _attention_bound_ms(case, ref)
+        log("zoo-timing", f"flash_attention {name} {case[:8]} bf16: kernel ({design}) "
+                          f"{t_kernel:.4f} ms ({t_device:.4f} ms device time; "
+                          f"{t_device / bound_ms:.2f}x the bound), template {t_template:.4f} ms "
+                          f"device time, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
+                          f"({t_lib_device:.4f} ms device time; kernels {backend}; "
+                          f"max|sdpa - plain| {lib_err:.3e}), bound {bound_ms:.4f} ms "
+                          f"({bound_by}: {nbytes} B, {nops} ops); max|kernel - plain| {err:.3e}")
+        res[name] = {"case": str(case), "design": design, "max_abs_err": err,
+                     "kernel_ms": t_kernel, "device_ms": t_device,
+                     "template_device_ms": t_template, "plain_ms": t_plain,
+                     "library_ms": t_lib, "library_device_ms": t_lib_device,
+                     "library_kernels": backend, "library_max_abs_err": lib_err,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": nops}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return res
+
+
+def _zoo_serve(ops) -> dict:
+    """Phases 24-26: hymba-1.5b (prompt 2048, so the window binds in prefill
+    and decode runs on the ring buffer), xlstm-125m (prompt 512; no flash
+    kernel runs) and paligemma-3b (prompt 512 from tokens, as the
+    reference serves it, then one prefill of 256 prefix embeddings and
+    256 tokens) at full width and depth, bf16, batch 4, 16 new tokens."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, prompt_len, design in (("hymba-1.5b", 2048, "wgmma"),
+                                     ("xlstm-125m", 512, "wgmma"),
+                                     ("paligemma-3b", 512, "template")):
+        cfg = get_config(arch)
+        res = _serve_phase(cfg, ops, prompt_len=prompt_len, flash_design=design)
+        if not _attn_layers(cfg):
+            assert res["launches"]["flash_attention"] == 0, res["launches"]
+            log("serve", f"{arch}: no attention layer, so no flash kernel runs; the mLSTM "
+                         f"and sLSTM recurrences are plain torch, as in the reference")
+        out[arch] = res
+    return out
+
+
+ZOO_SLICE = {"hymba-1.5b": 1280, "xlstm-125m": 512, "paligemma-3b": 64}
+ZOO_TOL = 1e-4       # logits (x max|logit|) and the loss (relative), as phase 17
+# every gradient leaf, x its max|g|: the attention backward over rows of
+# up to 1024 keys subtracts nearly equal f32 sums, so the card's plain path
+# alone differs from the CPU by a few 1e-4 at hymba's s = 1280
+ZOO_GRAD_TOL = 1e-3
+
+
+class _PlainAttention:
+    """Stands in for ``kernels.ops`` inside ``models.attention`` while it is
+    set there: flash attention through its plain version on any device,
+    so the card's plain path can be held against the CPU's."""
+
+    def __init__(self, ops):
+        self._ops = ops
+
+    def __getattr__(self, name):
+        return getattr(self._ops, name)
+
+    def flash_attention(self, *args, **kw):
+        return self._ops.flash_attention(*args, impl="ref", **kw)
+
+
+def _value_and_grads(cfg, cpu_params, batch_np: dict, dev: str, ops, plain: bool = False):
+    """Logits of ``forward`` and ``loss_fn`` with every gradient leaf, on
+    ``dev`` (``plain``: the card without the flash kernel), with the flash
+    launches of the forward and of the loss and its backward."""
+    from repro_torch.core import tree
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tf
+
+    params = tree.map(lambda t: t.to(dev, copy=True), cpu_params)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+    if plain:
+        attn_mod.ops = _PlainAttention(ops)
+    try:
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, _, _ = tf.forward(params, batch["tokens"], cfg,
+                                      prefix_embeds=batch.get("prefix_embeds"))
+        fwd = ops.launch_counts()["flash_attention"]
+        leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
+        loss, _ = tf.loss_fn(params, batch, cfg)  # remat on: the reference's default
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        attn_mod.ops = ops
+    out = {"logits": logits.float().cpu(), "loss": float(loss.detach()),
+           "grads": [g.float().cpu() for g in grads],
+           "launches": (fwd, ops.launch_counts()["flash_attention"] - fwd),
+           "designs": ops.design_counts()["flash_attention"]}
+    del params, grads, leaves, loss, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_errs(got: dict, want: dict) -> tuple[float, list[float]]:
+    """max|logit diff| / max|logit|, and per gradient leaf max|diff| / max|g|."""
+    scale = float(want["logits"].abs().max())
+    lg = float((got["logits"] - want["logits"]).abs().max()) / scale
+    return lg, [float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for g, c in zip(got["grads"], want["grads"])]
+
+
+def _zoo_slice_parity(ops) -> dict:
+    """Phase 27: hymba (s = 1280: the window binds; head dim 64, the ffma
+    flash), xlstm (one mLSTM and one sLSTM block, s = 512) and paligemma
+    (256 prefix embeddings and 64 tokens; head dim 256, the f32 template)
+    at full width, 2 layers, float32, batch 1: the same weights and inputs
+    on the card and on the CPU.  The logits of ``forward`` (ZOO_TOL x
+    max|logit|), ``loss_fn`` (ZOO_TOL relative) and every gradient leaf
+    (ZOO_GRAD_TOL x its max|g|), all finite.  Beside them, the card's plain
+    path (no flash kernel) against the CPU, the rounding the card shows
+    without the kernel; and for hymba, the CPU's gradients of the same
+    model without its window, against which every attention leaf must
+    differ by more than the limit (the limit sees a wrong mask)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for arch, s in ZOO_SLICE.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+        cpu_params = tf.init_params(cfg, seed=27, device="cpu")
+        rng = np.random.default_rng(27)
+        toks = rng.integers(0, cfg.vocab, size=(1, s)).astype(np.int32)
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.prefix_len:
+            batch["prefix_embeds"] = rng.normal(
+                size=(1, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+        gpu = _value_and_grads(cfg, cpu_params, batch, "cuda", ops)
+        plain = _value_and_grads(cfg, cpu_params, batch, "cuda", ops, plain=True)
+        cpu = _value_and_grads(cfg, cpu_params, batch, "cpu", ops)
+        n_att = _attn_layers(cfg)
+        # the forward, then the loss's forward and its remat recompute
+        assert gpu["launches"] == (n_att, 2 * n_att), gpu["launches"]
+        assert plain["launches"] == cpu["launches"] == (0, 0), (plain["launches"],
+                                                                cpu["launches"])
+        design = "ffma" if cfg.hd in (64, 128) else "template"
+        assert gpu["designs"][design] == 3 * n_att, gpu["designs"]
+        assert gpu["logits"].shape == (1, s + cfg.prefix_len, cfg.vocab_padded)
+        assert bool(torch.isfinite(gpu["logits"]).all())
+        lg_err, g_errs = _rel_errs(gpu, cpu)
+        lg_plain, g_plain = _rel_errs(plain, cpu)
+        loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        names = [f"leaf {i} {tuple(c.shape)}" for i, c in enumerate(cpu["grads"])]
+        for name, e, ep in zip(names, g_errs, g_plain):
+            log("zoo-parity", f"{arch} grad {name}: max|card - CPU| / max|g| {e:.3e} "
+                              f"(card without the kernel {ep:.3e}; limit {ZOO_GRAD_TOL})")
+        contrast = None
+        if cfg.window:  # the same model without its window: a wrong mask
+            nowin = _value_and_grads(dataclasses.replace(cfg, window=0), cpu_params, batch,
+                                     "cpu", ops)
+            _, c_errs = _rel_errs(nowin, cpu)
+            att = [i for i, n in enumerate(names) if len(cpu["grads"][i].shape) == 4]
+            contrast = min(c_errs[i] for i in att)
+            log("zoo-parity", f"{arch}: without its window, the CPU's attention gradient "
+                              f"leaves move by at least {contrast:.3e} of their max|g| "
+                              f"(limit {ZOO_GRAD_TOL})")
+            assert contrast > ZOO_GRAD_TOL, contrast
+        assert all(bool(torch.isfinite(g).all()) for g in gpu["grads"]), arch
+        assert lg_err <= ZOO_TOL and loss_err <= ZOO_TOL, (arch, lg_err, loss_err)
+        worst = max(range(len(g_errs)), key=lambda i: g_errs[i])
+        assert g_errs[worst] <= ZOO_GRAD_TOL, (arch, names[worst], g_errs[worst])
+        log("zoo-parity", f"{arch} width, 2 layers ({'+'.join(cfg.block_pattern)}), f32, b=1, "
+                          f"s={s}{f' + {cfg.prefix_len} prefix' if cfg.prefix_len else ''}: "
+                          f"max|logit diff| / max|logit| {lg_err:.3e} (without the kernel "
+                          f"{lg_plain:.3e}; limit {ZOO_TOL}); loss card {gpu['loss']:.7f} CPU "
+                          f"{cpu['loss']:.7f} (relative {loss_err:.3e}); {len(g_errs)} gradient "
+                          f"leaves, worst {names[worst]} at {g_errs[worst]:.3e} of its max|g| "
+                          f"(without the kernel {max(g_plain):.3e} at worst); flash launches "
+                          f"(forward, loss and grad) {gpu['launches']}, by design "
+                          f"{gpu['designs']}")
+        out[arch] = {"seq": s, "prefix_len": cfg.prefix_len, "logit_rel_err": lg_err,
+                     "logit_rel_err_plain": lg_plain, "loss": gpu["loss"],
+                     "loss_rel_err": loss_err, "grad_rel_errs": g_errs,
+                     "grad_rel_errs_plain": g_plain, "window_contrast": contrast,
+                     "launches": gpu["launches"], "designs": gpu["designs"],
+                     "design": design}
+        del cpu_params, gpu, plain, cpu
+    return out
+
+
+def _zoo_executor(ops) -> dict:
+    """Phase 27 (cont.): one block period of hymba's prefill EinGraph (b=4,
+    s=2048) and of paligemma's (b=4, s=512) in bf16 through
+    ``executor="shard_map"`` on the one-rank mesh, against the dense run:
+    every clean contraction through the matmul kernel (wgmma), one flash
+    launch (hymba wgmma, paligemma the template); the scans and the MoE
+    stubs are ``models.opaque_stubs``' deterministic stand-ins."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import spmd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.models.opaque_stubs import make_stub_opaques
+
+    make_stub_opaques()
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda")
+    out = {}
+    for arch, seq in (("hymba-1.5b", 2048), ("paligemma-3b", 512)):
+        cfg = get_config(arch)
+        prog = program_for(cfg, ShapeConfig("serve", "prefill", seq, 4))
+        g = prog.graph
+        n_mm = sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec))
+        run = prog.compile(mesh=mesh, executor="shard_map")
+        dense = prog.compile(mesh_axes=dict(mesh.sizes), device="cuda")
+        feeds = _graph_feeds(g, cfg, torch.bfloat16, seed=27)
+        mm_shapes = sorted({tuple(g.nodes[n.inputs[1]].shape) for n in g.nodes
+                            if n.kind == "einsum" and spmd._as_matmul(n.spec)})
+        with torch.inference_mode():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            got = run(feeds)["logits"]
+            torch.cuda.synchronize()
+            launches, designs = ops.launch_counts(), ops.design_counts()
+            want = dense(feeds)["logits"]
+            torch.cuda.synchronize()
+            # the yardstick's products are torch.einsum (cuBLAS), not the kernel
+            assert ops.launch_counts()["matmul"] == n_mm, ops.launch_counts()
+            prof = _profile(lambda: run(feeds))
+        flash_design = "wgmma" if cfg.hd in (64, 128) else "template"
+        assert launches == {"flash_attention": 1, "flash_attention_step": 0, "matmul": n_mm,
+                            "gmm": 0}, launches
+        assert designs["matmul"]["wgmma"] == n_mm, designs
+        assert designs["flash_attention"][flash_design] == 1, designs
+        assert got.shape == (4, seq, cfg.vocab_padded) and bool(torch.isfinite(got).all())
+        scale = float(want.float().abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        if not diff <= 1e-2 * scale:  # as the llama-7b executor path's bf16
+            raise AssertionError(f"{arch} executor bf16: max|shard_map - dense| = {diff:.3e} "
+                                 f"> 1e-2 x max|logit| {scale:.3f}")
+        log("zoo-executor", f"{arch} prefill graph (b=4, s={seq}), bf16: {len(g.nodes)} nodes, "
+                            f"launches {launches} by design {designs}; weights of the products "
+                            f"{mm_shapes}; max|shard_map - dense| {diff:.3e} (max|logit| "
+                            f"{scale:.3f}, tol 1e-2 x that); profiled wall {prof['wall_ms']:.3f} "
+                            f"ms, device busy {prof['device_ms']:.3f} ms (idle share "
+                            f"{prof['idle_share']:.3f}); device ms by kind {prof['by_kind_ms']}")
+        out[arch] = {"seq": seq, "launches": launches, "designs": designs,
+                     "max_abs_logit_diff": diff, "max_abs_logit": scale,
+                     "product_weights": [list(t) for t in mm_shapes], "profile": prof}
+        del feeds, got, want, run, dense
+        torch.cuda.empty_cache()
+    return out
+
+
+ENGINE_F32_TOL = 1e-4  # x max|logit|: float32 sums in another order (phase 22's)
+
+
+def _engine_f32_full(cfg, ops, *, slots: int, block: int, max_seq: int, lens: list[int],
+                     max_new: int, seed: int = 28) -> dict:
+    """Phase 28 (cont.): ``cfg`` at full width and depth in float32 through
+    the engine on the card (each bucketed prefill's flash launch of the
+    ffma design at head dim 64), every request held against ``serve()`` of
+    it alone on the card, teacher-forced on the engine's tokens: logits
+    within ENGINE_F32_TOL x max|logit| at every position, no token flip the
+    two runs' difference does not explain.  Where bf16 rounding is
+    amplified through the layers, this pins the engine's function."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tf.init_params(cfg32, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    eng = ServingEngine(cfg32, batch=slots, max_seq=max_seq, block=block, params=params,
+                        device="cuda")
+    rec, _ = _record_logits(eng)
+    for p in prompts:
+        eng.submit(p, max_new)
+    ops.reset_launch_counts()
+    res, m = eng.run()
+    launches, designs = ops.launch_counts(), ops.design_counts()
+    assert launches["flash_attention"] == _attn_layers(cfg) * m.prefills, launches
+    assert designs["flash_attention"]["ffma"] == launches["flash_attention"], designs
+    seq = [_sequential(cfg32, params, p, max_new, eng.seq, "cuda", force=res[rid])
+           for rid, p in enumerate(prompts)]
+    held = [_hold_against_sequential(f"{cfg.name} f32 request {rid} (prompt {len(p)})",
+                                     res[rid], rec[rid], seq[rid][1],
+                                     seq[(rid + 1) % len(prompts)][1], limit=ENGINE_F32_TOL)
+            for rid, p in enumerate(prompts)]
+    failures = [f for h in held for f in h["failures"]]
+    assert not failures, failures
+    assert min(h["min_rel_diff_to_other_request"] for h in held) > ENGINE_F32_TOL, held
+    log("engine", f"{cfg.name} float32, full width and depth, {slots} slots, prompts {lens}, "
+                  f"{max_new} new: against serve() of each request alone, max|logit diff| / "
+                  f"max|logit| {[format(h['max_rel_logit_diff'], '.2e') for h in held]} (limit "
+                  f"{ENGINE_F32_TOL}), token flips {[h['flips'] for h in held]}; launches "
+                  f"{launches}, flash by design {designs['flash_attention']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"prompt_lens": lens, "max_new": max_new, "against_sequential": held,
+            "launches": launches, "designs": designs,
+            "generations": {r: res[r].tolist() for r in res}}
 
 if __name__ == "__main__":
     sys.exit(main())

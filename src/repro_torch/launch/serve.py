@@ -21,6 +21,8 @@ shape-bucket registry and the plan cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
         --reduced --continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --reduced --device cpu   # also xlstm-125m, paligemma-3b
 """
 from __future__ import annotations
 
@@ -66,18 +68,25 @@ def _ring_pack(cache_kv: KVCache, prompt_len: int, window: int) -> KVCache:
 
 
 def prepare_decode_caches(cfg, prefill_caches, prompt_len: int, kv_len: int):
-    """Convert prefill-collected caches into decode-ready buffers: the
-    preallocated (units, b, kv_len, kv_heads, hd) caches of
-    ``tf.init_caches`` holding the prompt's K/V (ring order for windowed
-    archs)."""
-    k0 = prefill_caches[0][0]
-    if cfg.window:
-        return [_ring_pack(KVCache(k, v), prompt_len, kv_len)
-                for k, v in prefill_caches]
-    out = tf.init_caches(cfg, k0.shape[1], kv_len, device=k0.device)
-    for cache, (k, v) in zip(out, prefill_caches):
-        cache.k[:, :, :prompt_len] = k
-        cache.v[:, :, :prompt_len] = v
+    """Convert prefill-collected caches into decode-ready buffers: per
+    pattern position, the KV of attn and hymba blocks in (units, b,
+    kv_len, kv_heads, hd) buffers holding the prompt's K/V (ring order for
+    windowed archs); hymba keeps its SSM state beside them, and mlstm and
+    slstm states pass through untouched (decode writes them in place)."""
+    out = []
+    for blk, cache in zip(cfg.block_pattern, prefill_caches):
+        if blk not in ("attn", "hymba"):
+            out.append(cache)
+            continue
+        k, v = cache[0] if blk == "hymba" else cache
+        if cfg.window:
+            kv = _ring_pack(KVCache(k, v), prompt_len, kv_len)
+        else:
+            shape = k.shape[:2] + (kv_len,) + k.shape[3:]
+            kv = KVCache(k.new_zeros(shape), v.new_zeros(shape))
+            kv.k[:, :, :prompt_len] = k
+            kv.v[:, :, :prompt_len] = v
+        out.append((kv, cache[1]) if blk == "hymba" else kv)
     return out
 
 

@@ -24,7 +24,9 @@ def make_train_step(cfg, *, policy=None, mesh=None,
     unit rematerialized as the policy says, ``loss_fn``), then
     ``adamw_update``, which writes the parameters and moments in place.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``
-    as 0-d tensors.
+    as 0-d tensors.  ``batch`` holds ``tokens`` and ``labels``, and
+    ``prefix_embeds`` where the config has a prefix (``loss_fn`` reads
+    it).
 
     On one rank there is nothing to shard the gradients to (the
     reference's ``gshard`` is the identity there).  A mesh of more than one
@@ -66,8 +68,12 @@ def _like(params, flat: list):
 
 
 def make_prefill_step(cfg) -> Callable:
+    """``prefill_step(params, batch) -> (logits (b, 1, v), caches)``;
+    ``batch["prefix_embeds"]``, where given, goes before the tokens."""
+
     def prefill_step(params, batch):
         logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
+                                       prefix_embeds=batch.get("prefix_embeds"),
                                        collect_cache=True, last_logit_only=True)
         return logits, caches
 
@@ -89,6 +95,7 @@ def make_bucket_prefill_step(cfg) -> Callable:
 
     def bucket_prefill_step(params, batch, last_index: int):
         logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
+                                       prefix_embeds=batch.get("prefix_embeds"),
                                        collect_cache=True,
                                        logit_index=last_index)
         return logits, caches

@@ -12,6 +12,10 @@ choice among it).  The step itself differentiates the model stack with
 ``torch.autograd``: flash attention runs through the kernel, whose
 backward is the plain version's.
 
+Configs with a prefix (paligemma's patch embeddings, a stub of the
+vision tower) get float32 normal prefix embeddings drawn from
+``default_rng(step)``, as in the reference; the model casts them.
+
 Fault tolerance, as in the reference: checkpoints carry {params,
 opt_state} and the step; the data pipeline is counter-based, so step N's
 batch is the same across restarts; checkpoint writes run on a background
@@ -97,7 +101,8 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
 
     data = SyntheticLM(cfg.vocab, shape.seq - cfg.prefix_len, shape.batch,
                        seed=seed)
-    bdev = batch_shardings(policy, mesh, {"tokens": None, "labels": None})
+    bdev = batch_shardings(policy, mesh, {"tokens": None, "labels": None,
+                                          "prefix_embeds": None})
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
@@ -113,6 +118,10 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
         hb = data.global_batch_at(step)
         batch = {k: torch.as_tensor(np.asarray(hb[k]), device=bdev[k])
                  for k in ("tokens", "labels")}
+        if cfg.prefix_len:  # the stubbed frontend's embeddings, step-seeded
+            pe = np.random.default_rng(step).normal(
+                size=(shape.batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+            batch["prefix_embeds"] = torch.as_tensor(pe, device=bdev["prefix_embeds"])
         _sync(dev)
         ts = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)

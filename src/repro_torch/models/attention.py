@@ -54,10 +54,16 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def attention_full(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, tuple]:
+def attention_full(p: dict, x: torch.Tensor, cfg, *,
+                   prefix_len: int = 0) -> tuple[torch.Tensor, tuple]:
     """Prefill path.  Returns (out, (k, v)) with k/v in (b, s, kv_heads, hd).
     One flash-attention call per layer; the (b, s, h, d) projections reach
-    the kernel as transposed views, without a copy."""
+    the kernel as transposed views, without a copy.
+
+    ``prefix_len`` > 0 marks a non-causal prefix (paligemma's patch
+    embeddings).  As in the reference, the whole span stays plain causal
+    (a documented simplification: the decomposition structure is the
+    same), so it changes nothing here."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)

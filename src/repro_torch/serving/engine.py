@@ -5,7 +5,8 @@ paged-decode program's batch) plus an admission queue.  Each loop
 iteration: (1) admit queued requests into free slots — a bucketed
 batch-1 prefill through the ``BucketRegistry`` resolves the shape cell's
 compiled handle (warm after first touch), then a scatter copies the
-prefill caches into the paged KV pool under the request's block table;
+prefill caches into the paged KV pool under the request's block table,
+and the recurrent states of hymba and xLSTM blocks into the slot's rows;
 (2) run ONE batched decode step for all live slots — per-slot positions
 and block tables mean requests join and leave mid-flight without any
 replanning; (3) evict finished requests and return their blocks.

@@ -4,8 +4,9 @@ Device side, the pool is ``models.attention.PagedKVCache`` — ``n_blocks``
 blocks of ``block`` cache rows shared by every decode slot — and the
 per-step lookup is the ``kv_block_gather`` OpDef, so the planner prices it
 like any other op.  This module owns the *host* side: a free-list block
-allocator, and the admission scatter that copies a bucketed prefill's
-collected caches into the pool under a slot's block table.
+allocator, and the admission that copies a bucketed prefill's collected
+caches into the pool under a slot's block table, and its recurrent states
+(hymba, xLSTM) into the slot's rows.
 
 Block 0 is reserved as scratch: idle slots keep all-zero table rows, so
 their (masked, never-read) decode writes land there instead of in live
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tree
 from repro_torch.models.attention import PagedKVCache
 
 
@@ -84,33 +86,44 @@ def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
     return pool
 
 
+def _set_slot(state, src, slot: int):
+    """Copy a batch-1 prefill state tree into row ``slot`` of the stacked
+    decode state tree in place (leaves (L, b, ...) <- (L, 1, ...))."""
+    for d, x in zip(tree.leaves(state), tree.leaves(src)):
+        d[:, slot] = x[:, 0]
+    return state
+
+
 def make_admit_fn(cfg):
     """Admission: scatter one request's prefill caches into the paged decode
     caches and seed its first token.
 
     Signature: ``admit(caches, pre_caches, blocks, slot, tok0, tokens) ->
     (caches, tokens)`` with ``blocks`` the (W,) int table row, ``slot`` an
-    int, ``tok0`` the prefill argmax (1,) int32.  The pools are written in
-    place (where the reference donates them).  The token buffer is not: the
-    engine's step log holds the last decode step's token tensor, which is
-    the buffer passed in, so the new token goes into a copy — writing the
-    buffer itself would rewrite the logged token of the request that last
-    held the slot.
-
-    Only ``attn`` blocks are ported; the recurrent blocks (hymba, mlstm,
-    slstm), whose per-slot states the reference copies in here too, come
-    with the rest of the model zoo (ROADMAP Queue 1 item 3) and raise.
+    int, ``tok0`` the prefill argmax (1,) int32.  Per pattern position,
+    an ``attn`` block's KV goes into the pool under the table row; a
+    ``hymba`` block's KV likewise, and its SSM state into the slot's row;
+    ``mlstm`` and ``slstm`` states into the slot's rows.  The pools and
+    states are written in place (where the reference donates them).  The
+    token buffer is not: the engine's step log holds the last decode step's
+    token tensor, which is the buffer passed in, so the new token goes into
+    a copy — writing the buffer itself would rewrite the logged token of
+    the request that last held the slot.
     """
-    for blk_kind in cfg.block_pattern:
-        if blk_kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: admitting {blk_kind!r} blocks into the serving "
-                "tier needs their recurrent states, which come with the rest "
-                "of the model zoo (ROADMAP Queue 1 item 3)")
+    pattern = cfg.block_pattern
 
     def admit(caches, pre_caches, blocks, slot: int, tok0, tokens):
-        for cache, (k, v) in zip(caches, pre_caches):
-            _scatter_kv(cache, k, v, blocks)
+        for blk_kind, cache, pre in zip(pattern, caches, pre_caches):
+            if blk_kind == "attn":
+                k, v = pre
+                _scatter_kv(cache, k, v, blocks)
+            elif blk_kind == "hymba":
+                (k, v), st_pre = pre
+                pool, st = cache
+                _scatter_kv(pool, k, v, blocks)
+                _set_slot(st, st_pre, slot)
+            else:  # mlstm / slstm: per-slot recurrent state rows
+                _set_slot(cache, pre, slot)
         tokens = tokens.clone()
         tokens[slot, 0] = tok0[0]
         return caches, tokens

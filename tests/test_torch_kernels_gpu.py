@@ -1011,3 +1011,54 @@ def test_reduced_engine_on_card_equals_cpu(n_kv, cuda):
     scale = max(float(w.abs().max()) for w in want_logs)
     for g, w in zip(got_logs, want_logs):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
+    ((1, 25, 5, 2048, 2048, 64, True, 1024), "bfloat16", "wgmma"),    # hymba prefill, GQA 5:1
+    ((2, 25, 5, 1337, 1337, 64, True, 1024), "bfloat16", "wgmma"),    # ragged, window binds
+    ((1, 25, 5, 1280, 1280, 64, True, 1024), "float32", "ffma"),      # hymba f32 parity
+    ((2, 8, 1, 512, 512, 256, True, 0), "bfloat16", "template"),      # paligemma, MQA 8:1
+    ((1, 8, 1, 260, 260, 256, True, 0), "float32", "template"),       # f32, ragged
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,dt,design", ZOO_ATT_CASES, ids=lambda c: (
+    "b{}h{}k{}q{}s{}d{}{}w{}".format(c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "",
+                                     c[7]) if isinstance(c, tuple) else str(c)))
+def test_cuda_flash_zoo_shapes_match_plain_version(case, dt, design, cuda):
+    """The model zoo's attention shapes: hymba's GQA 5:1 at head dim 64
+    with a window of 1024 that binds past 1024 keys (wgmma in bf16, ffma
+    in float32), paligemma's MQA 8:1 at head dim 256 (the template)."""
+    _check_flash(case, dt, design, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-125m", "paligemma-3b"])
+def test_reduced_zoo_serve_on_card_equals_cpu(arch, cuda):
+    """Reduced hymba, xlstm and paligemma in float32: prefill logits
+    (paligemma with prefix embeddings) within 1e-4 of max|logit|, and
+    greedy generations of ``serve()`` equal, card against CPU; hymba's
+    prompt runs past its window."""
+    from repro_torch.launch import steps
+
+    cfg = reduced(get_config(arch))
+    params = tf.init_params(cfg, seed=2, device="cpu")
+    gpu_params = _to(params, cuda)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab, size=(2, 24)).astype(np.int32)
+    batch = {"tokens": prompts}
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = rng.normal(size=(2, cfg.prefix_len, cfg.d_model)).astype(
+            np.float32)
+    with torch.inference_mode():
+        want, _ = steps.make_prefill_step(cfg)(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()})
+        got, _ = steps.make_prefill_step(cfg)(
+            gpu_params, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
+    g_gpu, _ = port_serve.serve(cfg, prompts, max_new=5, params=gpu_params, device="cuda")
+    g_cpu, _ = port_serve.serve(cfg, prompts, max_new=5, params=params, device="cpu")
+    np.testing.assert_array_equal(g_gpu, g_cpu)
+

@@ -24,6 +24,7 @@ from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import tree  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -142,9 +143,23 @@ def test_decode_writes_the_preallocated_cache_in_place():
 
 
 def test_unported_blocks_raise_naming_their_slice():
-    for arch, match in (("hymba-1.5b", "recurrent"), ("xlstm-125m", "recurrent")):
-        with pytest.raises(NotImplementedError, match=match):
-            tf.init_params(reduced(get_config(arch)), device="cpu")
+    """The hymba and xLSTM blocks, which raised until the recurrent slice
+    ported them, now build the reference's parameter leaves: the same
+    tree, and every leaf of the same shape and dtype.  Only a block kind
+    the reference does not know raises, naming it."""
+    for arch in ("hymba-1.5b", "xlstm-125m"):
+        ref_cfg = ref_reduced(ref_get_config(arch))
+        want = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(0))
+        got = tf.init_params(reduced(get_config(arch)), device="cpu")
+        want_leaves, want_tree = jax.tree.flatten(want)
+        assert len(tree.leaves(got)) == len(want_leaves), arch
+        for g, w in zip(tree.leaves(got), want_leaves):
+            assert tuple(g.shape) == w.shape and str(g.dtype) == f"torch.{w.dtype}", arch
+        assert jax.tree.structure(jax.tree.map(
+            np.asarray, tree.map(lambda t: t.numpy(), got))) == want_tree, arch
+    cfg = dataclasses.replace(reduced(get_config("llama-7b")), block_pattern=("rwkv",))
+    with pytest.raises(ValueError, match="rwkv"):
+        tf.init_params(cfg, device="cpu")
 
 
 def test_serve_cli_runs_on_cpu(capsys, monkeypatch):

@@ -40,6 +40,7 @@ from repro.serving import ServingEngine as RefServingEngine  # noqa: E402
 from repro.serving.paged_kv import make_admit_fn as ref_make_admit_fn  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import tree  # noqa: E402
 from repro_torch.core.plancache import PlanCache  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -171,8 +172,47 @@ def test_bucket_registry_raises_for_what_is_not_ported():
         reg.analyze()
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         BucketRegistry(cfg, {"data": 2, "model": 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        make_admit_fn(reduced(get_config("xlstm-125m")))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
+def test_admission_sets_the_slot_state_rows(arch):
+    """Admission of a recurrent arch, which raised until the recurrent
+    slice: the request's prefill states land in its slot's rows of every
+    state leaf as the reference's admission puts them (the two packages'
+    prefills agree at this file's float32 tolerance), the other slots'
+    rows stay as they were, and hymba's KV goes into the pool under the
+    table row."""
+    ref_cfg, cfg = (ref_reduced(ref_get_config(arch)), reduced(get_config(arch)))
+    ref_params, params = _params(ref_cfg, cfg, seed=3)
+    prompt = _prompts(cfg, [11], seed=3)[0]
+    ref_logits, ref_pre = ref_tf.forward(ref_params, jnp.asarray(prompt[None]), ref_cfg,
+                                         collect_cache=True, remat=False)[:2]
+    with torch.inference_mode():
+        _, pre, _ = tf.forward(params, torch.from_numpy(prompt[None]), cfg,
+                               collect_cache=True)
+        caches = tf.init_paged_caches(cfg, 3, 6, 4, device="cpu")
+        for leaf in tree.leaves(caches):
+            leaf.fill_(0.5)
+        blocks = torch.tensor([2, 3, 4], dtype=torch.int32)
+        out, _ = make_admit_fn(cfg)(caches, pre, blocks, 1, torch.tensor([7], dtype=torch.int32),
+                                    torch.zeros((3, 1), dtype=torch.int32))
+    ref_caches = ref_tf.init_paged_caches(ref_cfg, 3, 6, 4)
+    ref_caches = jax.tree.map(lambda t: jnp.full_like(t, 0.5), ref_caches)
+    ref_out, _ = ref_make_admit_fn(ref_cfg)(ref_caches, ref_pre, jnp.asarray([2, 3, 4]),
+                                            1, jnp.asarray([7], jnp.int32),
+                                            jnp.zeros((3, 1), jnp.int32))
+    got_leaves, want_leaves = tree.leaves(out), jax.tree.leaves(ref_out)
+    assert len(got_leaves) == len(want_leaves)
+    n_state = 0
+    for g, w in zip(got_leaves, want_leaves):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), rtol=RTOL, atol=ATOL)
+        if g.shape[1] == 3:  # a per-slot state leaf (units, slots, ...)
+            n_state += 1
+            assert (g[:, [0, 2]] == 0.5).all()
+            assert not (g[:, 1] == 0.5).all()
+    assert n_state == {"xlstm-125m": 7, "hymba-1.5b": 2}[arch]
+    assert out is caches
 
 
 # ---------------------------------------------------------------------------
