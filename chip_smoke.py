@@ -7,13 +7,15 @@
    with its grouped twin ``gmm``) from the sources in this checkout, one
    nvcc per source, all started together, with nvcc's ``-Xptxas -v``
    report (registers, shared memory, spills) and a summary of the wgmma
-   and ffma kernels' registers, spills and dynamic shared memory;
+   and ffma kernels' registers, spills and dynamic shared memory (every
+   one of them, the forward's wgmma kernel at head dim 256 included, with
+   0 spill bytes);
 3. kernel parity: the forward kernel against its plain torch version on
    the card, at the reference kernel tests' shapes and tolerances (float32
    2e-5, bfloat16 2e-2), ragged lengths, GQA, windows, cross attention,
    q offsets and the serving path's shape, each case with the design that
-   served it (at head dim 64 and 128 the wgmma design for bf16 and the
-   ffma design for float32; the template for d = 16, 32 and 256), a
+   served it (the wgmma design for bf16 at head dim 64, 128 and 256, the
+   ffma design for float32 at 64 and 128; the template for the rest), a
    float32 (b, s, h, d) view (ffma) and a float32 base 4 bytes off 16
    (the template), and rows that see no key against the TPU kernel's tile
    convention (``ref.attention_tiled``) in all three designs;
@@ -42,7 +44,8 @@
    bf16 2e-2), each carry against the plain step and the finalised chain
    against the forward kernel, at the serving shape cut 4 ways too in
    bf16 and in float32, each case with its design (head dim 64 and 128:
-   bf16 wgmma, float32 ffma; d = 16 and 32 the template);
+   bf16 wgmma, float32 ffma; d = 16 and 32 the template; the step's wgmma
+   design stops at 128);
 9. timing (CUDA events; device time from torch.profiler where the host
    would bound a short kernel): matmul at every distinct product shape of
    llama-7b's prefill graph in float32 (the ffma design, the template
@@ -140,20 +143,21 @@
    3 requests through 2 slots on the card and on the CPU (every flash and
    gmm launch of the ffma design); tokens equal, every decode step's
    logits within 1e-4 of max|logit|;
-23. the model zoo's flash shapes, bf16: hymba-1.5b's prefill (4, 25, 2048,
-   64) with GQA 5:1 and a window of 1024 that binds (the wgmma design) and
-   paligemma-3b's (4, 8, 512, 256) with MQA 8:1 (head dim 256: the
-   template), each against its plain version, its device time beside
-   SDPA's on the same function (``enable_gqa``; hymba's window as a mask;
-   SDPA's kernels printed to name its backend), the template's and the
-   bound;
+23. the model zoo's flash shapes: hymba-1.5b's prefill (4, 25, 2048, 64)
+   with GQA 5:1 and a window of 1024 that binds and paligemma-3b's (4, 8,
+   512, 256) with MQA 8:1, both bf16 (the wgmma design; at head dim 256
+   its 64-key tiles), and paligemma's float32 slice (1, 8, 320, 256) of
+   phase 27 (the template), each against its plain version, its device
+   time beside SDPA's on the same function in the same type
+   (``enable_gqa``; hymba's window as a mask; SDPA's kernels printed to
+   name its backend), the template's and the bound;
 24-26. serve hymba-1.5b (prompt 2048, so the window binds in prefill and
    decode runs on the ring buffer), xlstm-125m (prompt 512; no flash kernel
    runs) and paligemma-3b (prompt 512 from tokens, as the reference serves
    it; then one ``make_prefill_step`` call on 256 seeded prefix embeddings
    and 256 tokens) at full width and depth, bf16, batch 4, 16 new tokens,
-   as phase 5 serves llama-7b (hymba's flash launches wgmma, paligemma's
-   the template), each prefill and decode step profiled;
+   as phase 5 serves llama-7b (every flash launch wgmma), each prefill and
+   decode step profiled;
 27. zoo slice parity, float32, full width, 2 layers (xlstm: one mLSTM and
    one sLSTM block), batch 1, the same weights on the card and the CPU:
    logits (1e-4 x max|logit|), ``loss_fn`` (1e-4 relative) and every
@@ -245,7 +249,7 @@ MASKED_CASES = [
     (1, 4, 2, 256, 256, 64, True, 0, torch.float32),      # ffma design
     (1, 4, 2, 256, 256, 128, True, 16, torch.float32),    # ffma, window
     (1, 4, 2, 256, 256, 32, True, 0, torch.float32),      # template (f32, d = 32)
-    (1, 4, 2, 256, 256, 256, True, 0, torch.bfloat16),    # template (d = 256)
+    (1, 4, 2, 256, 256, 256, True, 0, torch.bfloat16),    # wgmma, 64-key tiles (d = 256)
 ]
 MASKED_OFFSETS = {"q_offset": 0, "kv_offset": 100}
 # float32 at d = 128 reached through views: a (b, s, h, d) projection
@@ -254,12 +258,14 @@ MASKED_OFFSETS = {"q_offset": 0, "kv_offset": 100}
 VIEW_CASE = (2, 8, 2, 333, 333, 128, True, 0, torch.float32)
 
 
-def _expected_flash_design(case) -> str:
-    """The shape rule at the contiguous inputs of ``_inputs``."""
+def _expected_flash_design(case, step: bool = False) -> str:
+    """The shape rule at the contiguous inputs of ``_inputs``: bf16 wgmma at
+    head dim 64, 128 and 256 (the ring step 64 and 128), float32 ffma at 64
+    and 128, else the template."""
     d, dt = case[5], case[-1]
-    if d not in (64, 128):
-        return "template"
-    return "wgmma" if dt == torch.bfloat16 else "ffma"
+    if dt == torch.bfloat16 and d in ((64, 128) if step else (64, 128, 256)):
+        return "wgmma"
+    return "ffma" if dt == torch.float32 and d in (64, 128) else "template"
 
 
 def _served_by(ops, kernel: str, fn):
@@ -482,9 +488,12 @@ def main() -> int:
         log("build", f"{k['kernel']}: {k['registers']} registers, spill stores "
                      f"{k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
                      f"{k['smem']} B, dynamic smem {k['dynamic_smem']} B")
-    # flash wgmma and ffma <64|128, forward|step>, matmul/gmm wgmma and ffma
-    # <grouped, a_mn, b_mn>
-    assert len(wg_kernels) == 4 + 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
+    # flash wgmma <64|128, forward|step> and <256, forward>, flash ffma
+    # <64|128, forward|step>, matmul/gmm wgmma and ffma <grouped, a_mn, b_mn>
+    assert len(wg_kernels) == 5 + 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
+    assert "flash_wgmma_kernel<256,0>" in [k["kernel"] for k in wg_kernels], wg_kernels
+    spilled = [k["kernel"] for k in wg_kernels if k["spill_stores"] or k["spill_loads"]]
+    assert not spilled, f"ptxas spills registers in {spilled}"
     results["build"]["wgmma_kernels"] = wg_kernels
 
     # 3. kernel parity ----------------------------------------------------------
@@ -692,6 +701,8 @@ def main() -> int:
                  for name, z in results["zoo_timing"].items()},
          "zoo_serve_launches": {a: r["launches"]["flash_attention"]
                                 for a, r in results["zoo_serve"].items()},
+         "zoo_serve_designs": {a: _path_design(r["designs"]["flash_attention"])
+                               for a, r in results["zoo_serve"].items()},
          "zoo_launches_by_design": zoo_designs["flash_attention"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -904,9 +915,8 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
     per_decode = dict(per_prefill, flash_attention=0)
     want = dict(per_prefill, gmm=per_layer * cfg.n_layers * (1 + stats["decode_steps"]))
     assert launches == want, (launches, want)
-    # bf16 at head dim 64 or 128 with tensors TMA can address: every flash
-    # and gmm launch of the serve call took the wgmma design (head dim 256:
-    # flash takes the template)
+    # bf16 with tensors TMA can address: every flash and gmm launch of the
+    # serve call took the wgmma design
     for kernel in ("flash_attention", "matmul", "gmm"):
         want_design = flash_design if kernel == "flash_attention" else "wgmma"
         assert designs[kernel][want_design] == launches[kernel] == sum(
@@ -1216,7 +1226,7 @@ def _step_parity(ops, ref) -> dict:
                                            lambda: ops.flash_attention_step(
                                                qi, kj, vj, carry, impl="kernel", **off))
                 # head dim 64 / 128 (blocks the rule addresses): bf16 wgmma, f32 ffma
-                assert design == _expected_flash_design((0,) * 5 + (d, dt)), design
+                assert design == _expected_flash_design((0,) * 5 + (d, dt), step=True), design
                 plain = ref.attention_step(qi, kj, vj, plain, **off)
                 for part, got, want in zip("mla", carry, plain):
                     worst = max(worst, _max_err(got, want, tol,
@@ -1359,7 +1369,7 @@ def _step_timing(ops, ref, dt=torch.bfloat16) -> dict:
                for _ in range(3))
     off = dict(q_offset=3 * blk, kv_offset=blk)
     carry = ops.flash_attention_step(q, k, v, None, impl="kernel", **off)
-    design = fa.design(q, k, v)
+    design = fa.design(q, k, v, step=True)
     assert design == ("wgmma" if dt == torch.bfloat16 else "ffma"), design
     plain_carry = tuple(t.clone() for t in carry)
     t_carry = tuple(t.clone() for t in carry)
@@ -2601,9 +2611,11 @@ def _engine_parity(cfg, ops, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 # hymba-1.5b's prefill at b=4, prompt 2048 (GQA 5:1, head dim 64, the
-# window of 1024 binds) and paligemma-3b's at b=4, 512 (MQA 8:1, head dim 256)
+# window of 1024 binds) and paligemma-3b's at b=4, 512 (MQA 8:1, head dim
+# 256); paligemma's float32 slice of phase 27 (256 prefix + 64 tokens)
 HYMBA_PREFILL = (4, 25, 5, 2048, 2048, 64, True, 1024, torch.bfloat16)
 PALIGEMMA_PREFILL = (4, 8, 1, 512, 512, 256, True, 0, torch.bfloat16)
+PALIGEMMA_F32_SLICE = (1, 8, 1, 320, 320, 256, True, 0, torch.float32)
 
 
 def _sdpa_call(case, q, k, v):
@@ -2636,12 +2648,14 @@ def _kernel_names(fn) -> list[str]:
 
 def _zoo_flash_timing(fa, ops, ref) -> dict:
     """Phase 23: the forward kernel at hymba's and paligemma's prefill
-    shapes (bf16): held against its plain version, then its device time,
-    SDPA's device time on the same function (its backend named by its
-    kernels), the template's device time (its C entry), the plain
-    version's time by events and the bound."""
+    shapes (bf16, the wgmma design) and at paligemma's float32 slice (the
+    template): held against its plain version, then its device time,
+    SDPA's device time on the same function in the same type (its backend
+    named by its kernels), the template's device time (its C entry), the
+    plain version's time by events and the bound."""
     res = {}
-    for name, case in (("hymba", HYMBA_PREFILL), ("paligemma", PALIGEMMA_PREFILL)):
+    for name, case in (("hymba", HYMBA_PREFILL), ("paligemma", PALIGEMMA_PREFILL),
+                       ("paligemma_f32", PALIGEMMA_F32_SLICE)):
         q, k, v, kw = _inputs(case, seed=23)
         design = fa.design(q, k, v)
         assert design == _expected_flash_design(case), (name, design)
@@ -2662,10 +2676,12 @@ def _zoo_flash_timing(fa, ops, ref) -> dict:
         t_lib_device = _device_ms(lib, 10, None)
         backend = _kernel_names(lib)
         bound_ms, bound_by, nbytes, nops = _attention_bound_ms(case, ref)
-        log("zoo-timing", f"flash_attention {name} {case[:8]} bf16: kernel ({design}) "
+        log("zoo-timing", f"flash_attention {name} {case[:8]} {case[-1]}: kernel ({design}) "
                           f"{t_kernel:.4f} ms ({t_device:.4f} ms device time; "
-                          f"{t_device / bound_ms:.2f}x the bound), template {t_template:.4f} ms "
-                          f"device time, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
+                          f"{t_device / bound_ms:.2f}x the bound, {t_device / t_lib_device:.2f}x "
+                          f"sdpa), template {t_template:.4f} ms device time "
+                          f"({t_template / t_device:.2f}x the kernel), plain {t_plain:.4f} ms, "
+                          f"sdpa {t_lib:.4f} ms "
                           f"({t_lib_device:.4f} ms device time; kernels {backend}; "
                           f"max|sdpa - plain| {lib_err:.3e}), bound {bound_ms:.4f} ms "
                           f"({bound_by}: {nbytes} B, {nops} ops); max|kernel - plain| {err:.3e}")
@@ -2691,7 +2707,7 @@ def _zoo_serve(ops) -> dict:
     out = {}
     for arch, prompt_len, design in (("hymba-1.5b", 2048, "wgmma"),
                                      ("xlstm-125m", 512, "wgmma"),
-                                     ("paligemma-3b", 512, "template")):
+                                     ("paligemma-3b", 512, "wgmma")):
         cfg = get_config(arch)
         res = _serve_phase(cfg, ops, prompt_len=prompt_len, flash_design=design)
         if not _attn_layers(cfg):
@@ -2798,7 +2814,7 @@ def _zoo_slice_parity(ops) -> dict:
         assert gpu["launches"] == (n_att, 2 * n_att), gpu["launches"]
         assert plain["launches"] == cpu["launches"] == (0, 0), (plain["launches"],
                                                                 cpu["launches"])
-        design = "ffma" if cfg.hd in (64, 128) else "template"
+        design = _expected_flash_design((0,) * 5 + (cfg.hd, torch.float32))
         assert gpu["designs"][design] == 3 * n_att, gpu["designs"]
         assert gpu["logits"].shape == (1, s + cfg.prefix_len, cfg.vocab_padded)
         assert bool(torch.isfinite(gpu["logits"]).all())
@@ -2848,7 +2864,7 @@ def _zoo_executor(ops) -> dict:
     s=2048) and of paligemma's (b=4, s=512) in bf16 through
     ``executor="shard_map"`` on the one-rank mesh, against the dense run:
     every clean contraction through the matmul kernel (wgmma), one flash
-    launch (hymba wgmma, paligemma the template); the scans and the MoE
+    launch (wgmma: hymba at head dim 64, paligemma at 256); the scans and the MoE
     stubs are ``models.opaque_stubs``' deterministic stand-ins."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -2882,7 +2898,7 @@ def _zoo_executor(ops) -> dict:
             # the yardstick's products are torch.einsum (cuBLAS), not the kernel
             assert ops.launch_counts()["matmul"] == n_mm, ops.launch_counts()
             prof = _profile(lambda: run(feeds))
-        flash_design = "wgmma" if cfg.hd in (64, 128) else "template"
+        flash_design = _expected_flash_design((0,) * 5 + (cfg.hd, torch.bfloat16))
         assert launches == {"flash_attention": 1, "flash_attention_step": 0, "matmul": n_mm,
                             "gmm": 0}, launches
         assert designs["matmul"]["wgmma"] == n_mm, designs

@@ -23,27 +23,45 @@
 // the 989 TFLOP/s bf16 tensor-core peak.  So the work is bounded by bytes,
 // at about 20 us a launch (at s=2048 it would be bounded by operations).
 //
-// Design "wgmma" (flash_attention_wgmma_fwd: bf16, d in {64, 128}, operands
-// that TMA can address).  One block of 384 threads per (128-row q tile,
-// head, batch): two consumer warpgroups each own 64 q rows; a producer
-// warpgroup hands its registers to them (setmaxnreg: 240 a consumer thread,
-// so the d = 128 accumulators, scores and P fragments fit without spills)
-// and one of its threads issues the TMA loads (4-d tensor maps over (d, s,
-// h, b) with the tensors' own strides, so transposed (b, s, h, d) views load
-// without a copy).
-// The Q tile is loaded once; K and V tiles of 128 keys sit in a 2-stage
-// ring guarded by mbarriers (160 KB of shared memory at d = 128).  S = Q K^T
-// is wgmma m64n128k16 with both operands K-major in shared memory; the
-// softmax runs on the accumulator registers in f32, in base 2 (exp2f of
-// s * scale * log2 e: q is not pre-scaled in bf16), row maxima reduced over
-// the 4 lanes of a quad; P is rounded to bf16 in registers and is the
-// register A operand of O += P V, with V an MN-major B (the transpose bit).
-// Only tiles on the diagonal, the window's edge or past sk are masked, the
-// key loop visits only tiles that are not skipped, and q tiles are
-// scheduled heaviest first.  Each input byte is read once per q tile, the
-// output written once, in bf16.  With SWIZZLE_128B a box row holds at most
-// 128 bytes, so a 128-wide head row is two boxes and the descriptors step
-// over them.
+// Design "wgmma" (flash_attention_wgmma_fwd: bf16, d in {64, 128, 256},
+// operands that TMA can address).  One block of 384 threads per (128 q
+// rows, head, batch): two consumer warpgroups each own a chunk of 64 q
+// rows; a producer warpgroup hands its registers to them (setmaxnreg: 240
+// a consumer thread, so the accumulators, scores and P fragments fit
+// without spills) and one of its threads issues the TMA loads (4-d tensor
+// maps over (d, s, h, b) with the tensors' own strides, so transposed (b,
+// s, h, d) views load without a copy).
+// The Q rows are loaded once; K and V tiles of 128 keys (64 at d = 256)
+// sit in a 2-stage ring guarded by mbarriers (160 KB of shared memory at
+// d = 128, 193 KB at d = 256).  S = Q K^T is wgmma m64n128k16 (m64n64k16 at
+// d = 256) with both operands K-major in shared memory; the softmax runs
+// on the accumulator registers in f32, in base 2 (exp2f of s * scale *
+// log2 e: q is not pre-scaled in bf16), row maxima reduced over the 4
+// lanes of a quad; P is rounded to bf16 in registers and is the register
+// A operand of O += P V, with V an MN-major B (the transpose bit).  Only
+// tiles on the diagonal, the window's edge or past sk are masked, and the
+// key loop visits only tiles that are not skipped.  Each input byte is
+// read once per q tile, the output written once, in bf16.  With
+// SWIZZLE_128B a box row holds at most 128 bytes, so a head row is d / 64
+// boxes and the descriptors step over them.
+// At d = 64 and 128 a block's two chunks are one 128-row q tile, the
+// heaviest tiles first.  At d = 256 (paligemma-3b's prefill, (4, 8, 512,
+// 256), MQA 8:1) a ring of 128-key tiles would take 320 KB with Q, so K
+// and V tiles hold 64 keys: S is 16 k-steps of m64n64k16 over 4 boxes, P V
+// 4 key slices of m64n256k16 (a thread holds o[128], sc[32], pa[4][4]).  A
+// 64-key tile is visited exactly when its enclosing 128-key block of the
+// TPU grid is.  Its grid (128 blocks) is one wave, where the q-tile order
+// balances nothing, so each block pairs chunk n_c - 1 - z with chunk z,
+// heavy with light: the ring carries the tiles either chunk sees and each
+// warpgroup computes its own.  Bound at that shape: 18.9 MB, 5.6 us at
+// 3.35 TB/s, against 4.3 GFLOP, 4.4 us at the bf16 peak: bytes.  Measured
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke phase 23): 21.7 us of device
+// time, against 656.7 us for the template and 17.6 us for SDPA (cuDNN's
+// sm90 flash); 22.2 us unpaired.  What holds it back is the heavy chunk's
+// warpgroup running S, the softmax and P V in series (the light one is done
+// after 2 of its 8 tiles): without S it takes 18.2 us, without P V 19.3
+// us, without the K/V reloads 20.5-21.0 us (tools/flash_wgmma_variants.py).
+// Pairing at d = 64 and 128, whose grids take several waves, is slower.
 //
 // Design "ffma" (flash_attention_ffma_fwd: float32, d in {64, 128}, operands
 // whose rows 16-byte copies address: the wgmma rule in 4-byte elements).
@@ -432,10 +450,10 @@ bool bad_shape(int b, int hq, int hkv, int sq, int sk, int d) {
 }
 
 // ---------------------------------------------------------------------------
-// design "wgmma": bf16, d in {64, 128}; wgmma, TMA and an mbarrier pipeline
+// design "wgmma": bf16, d in {64, 128, 256}; wgmma, TMA and an mbarrier pipeline
 // ---------------------------------------------------------------------------
 
-constexpr int W_BLK = 128;      // q rows per block and keys per KV tile
+constexpr int W_BLK = 128;      // q rows per block (and keys per KV tile at d <= 128)
 constexpr int W_STAGES = 2;     // K/V ring
 constexpr int W_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int W_CONSUMER_WARPS = 8;
@@ -455,19 +473,37 @@ struct WParams {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory layout (bytes from a 1024-byte aligned base): the Q tile,
-// then W_STAGES K tiles, then W_STAGES V tiles, then the barriers.  A tile
-// is D / 64 boxes of 128 rows x 128 bytes.
+// Shared-memory layout (bytes from a 1024-byte aligned base): the two
+// consumer warpgroups' Q rows, then W_STAGES K tiles, then W_STAGES V
+// tiles, then the barriers.  A warpgroup's Q is D / 64 boxes of 64 rows x
+// 128 bytes, a K or V tile D / 64 boxes of BK rows x 128 bytes: BK = 128
+// keys at d = 64 and 128, 64 at d = 256, where a ring of 128-key tiles
+// would take 320 KB with Q (192 KB with 64).
 template <int D>
 struct WLayout {
-  static constexpr int BOX = W_BLK * 128;
-  static constexpr int TILE = (D / 64) * BOX;
+  static constexpr int BK = D == 256 ? 64 : W_BLK;  // keys per K/V tile
+  static constexpr int QBOX = 64 * 128;
+  static constexpr int KBOX = BK * 128;
+  static constexpr int QWG = (D / 64) * QBOX;
+  static constexpr int KTILE = (D / 64) * KBOX;
   static constexpr int Q = 0;
-  static constexpr int K = TILE;
-  static constexpr int V = K + W_STAGES * TILE;
-  static constexpr int BAR = V + W_STAGES * TILE;
+  static constexpr int K = 2 * QWG;
+  static constexpr int V = K + W_STAGES * KTILE;
+  static constexpr int BAR = V + W_STAGES * KTILE;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * W_STAGES) + 1024;  // + alignment slack
 };
+
+// O += P V over one key slice of 16: P's bf16 A fragment, V an MN-major B
+// of D columns (the transpose bit), in one wgmma.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t dv) {
+  if constexpr (D == 256)
+    hopper::wgmma_m64n256_rs<1>(o, a, dv, 1);
+  else if constexpr (D == 128)
+    hopper::wgmma_m64n128_rs<1>(o, a, dv, 1);
+  else
+    hopper::wgmma_m64n64_rs<1>(o, a, dv, 1);
+}
 
 // STEP: the ring-attention step (carry in and out, no tile skipping, the
 // softmax in natural units as ref.attention_step: see the step's entry).
@@ -483,12 +519,39 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + W_STAGES;
 
+  // Each consumer warpgroup owns a chunk of 64 q rows.  Unpaired (d = 64
+  // and 128, and the step): the two chunks of 128-row q tile n_qt - 1 - z,
+  // the last q tiles, which see the most keys, first.  Paired (d = 256):
+  // chunks n_c - 1 - z and z, heavy with light, so that under a causal mask
+  // every block does about the same work (the grid is the same); where n_c
+  // is odd the middle chunk's block runs it in both warpgroups and the
+  // second stores nothing.  Rows past sq are computed and not stored.
+  // Every warpgroup runs the same loop over the ring, so the ring's index
+  // stays warp-uniform (the uniform datapath addresses the stages).
+  constexpr bool PAIRED = !STEP && D == 256;
   const int n_qt = (p.sq + W_BLK - 1) / W_BLK;
-  const int qt = n_qt - 1 - blockIdx.z;  // the last q tiles see the most keys: first
+  const int n_c = (p.sq + 63) / 64;
+  const int z = blockIdx.z;
+  const int chunk0 = PAIRED ? n_c - 1 - z : 2 * (n_qt - 1 - z);
+  const int chunk1 = PAIRED ? min(z, chunk0) : chunk0 + 1;
   const int h = blockIdx.x;
   const int bi = blockIdx.y;
   const int hk = h / (p.hq / p.hkv);
-  const int n_kt = (p.sk + W_BLK - 1) / W_BLK;
+  constexpr int BK = L::BK;
+  const int n_kt = (p.sk + BK - 1) / BK;
+  // The forward's chunk sees a key tile where the pair of their enclosing
+  // blocks of the TPU grid is relevant (at d = 256 both 64-key halves of a
+  // 128-key block, or none); the step sees every tile.  The ring carries
+  // the tiles that either chunk sees (unpaired, both chunks see the same).
+  // qb: a chunk's q block on that grid; a key tile's key block is kt * BK /
+  // 128 (0 where sk < 128: then kt < 2).
+  const int qb0 = p.sq < 128 ? 0 : chunk0 / 2;
+  const int qb1 = p.sq < 128 ? 0 : chunk1 / 2;
+  auto sees = [&](int qb, int kt) {
+    return STEP || block_relevant(qb, kt * BK / 128, p.sq, p.sk, p.q_offset, p.kv_offset,
+                                  p.causal, p.window);
+  };
+  auto visited = [&](int kt) { return sees(qb0, kt) || (PAIRED && sees(qb1, kt)); };
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -509,22 +572,22 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   if (warp >= W_CONSUMER_WARPS) {
     hopper::setmaxnreg_dec<24>();
     if (warp == W_CONSUMER_WARPS && lane == 0) {
-      hopper::mbar_expect_tx(q_full, L::TILE);
-      for (int j = 0; j < D / 64; ++j)
-        hopper::tma_load_4d(smem + L::Q + j * L::BOX, &tq, q_full, 64 * j, qt * W_BLK, h, bi);
+      hopper::mbar_expect_tx(q_full, 2 * L::QWG);
+      for (int w = 0; w < 2; ++w)  // a chunk wholly past sq loads the last one's rows
+        for (int j = 0; j < D / 64; ++j)
+          hopper::tma_load_4d(smem + L::Q + w * L::QWG + j * L::QBOX, &tq, q_full, 64 * j,
+                              64 * min(w == 0 ? chunk0 : chunk1, n_c - 1), h, bi);
       int t = 0;
       for (int kt = 0; kt < n_kt; ++kt) {
-        if (!STEP &&
-            !block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
-          continue;
+        if (!visited(kt)) continue;
         const int s = t % W_STAGES;
         if (t >= W_STAGES) hopper::mbar_wait(&empty[s], ((t / W_STAGES) - 1) & 1);
-        hopper::mbar_expect_tx(&full[s], 2 * L::TILE);
+        hopper::mbar_expect_tx(&full[s], 2 * L::KTILE);
         for (int j = 0; j < D / 64; ++j) {
-          hopper::tma_load_4d(smem + L::K + s * L::TILE + j * L::BOX, &tk, &full[s], 64 * j,
-                              kt * W_BLK, hk, bi);
-          hopper::tma_load_4d(smem + L::V + s * L::TILE + j * L::BOX, &tv, &full[s], 64 * j,
-                              kt * W_BLK, hk, bi);
+          hopper::tma_load_4d(smem + L::K + s * L::KTILE + j * L::KBOX, &tk, &full[s], 64 * j,
+                              kt * BK, hk, bi);
+          hopper::tma_load_4d(smem + L::V + s * L::KTILE + j * L::KBOX, &tv, &full[s], 64 * j,
+                              kt * BK, hk, bi);
         }
         ++t;
       }
@@ -533,15 +596,18 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 
   hopper::setmaxnreg_inc<240>();
-  // consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63 of the tile; this
-  // thread holds rows r and r + 8 (r below) and, in each 8-column chunk c of
-  // an accumulator, columns 8 c + 2 (lane % 4) + {0, 1}
+  // consumers: warpgroup wg owns q rows 64 my .. 64 my + 63; this thread
+  // holds rows r and r + 8 (r below) and, in each 8-column chunk c of an
+  // accumulator, columns 8 c + 2 (lane % 4) + {0, 1}
   const int wg = warp / 4;
+  const int my = wg == 0 ? chunk0 : chunk1;
+  const int my_qb = wg == 0 ? qb0 : qb1;
+  const bool stores = !PAIRED || wg == 0 || chunk1 != chunk0;
   const int quad = lane % 4;
-  const int row0 = qt * W_BLK + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int row0 = 64 * my + (warp % 4) * 16 + lane / 4;
   const int qpos0 = p.q_offset + row0;
-  const int q_lo = p.q_offset + qt * W_BLK;
-  const uint32_t q_base = hopper::smem_u32(smem + L::Q) + wg * 64 * 128;
+  const int q_lo = p.q_offset + 64 * my;
+  const uint32_t q_base = hopper::smem_u32(smem + L::Q + wg * L::QWG);
 
   float o[D / 2];
 #pragma unroll
@@ -581,131 +647,129 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   hopper::mbar_wait(q_full, 0);
   int t = 0;
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (!STEP &&
-        !block_relevant(qt, kt, p.sq, p.sk, p.q_offset, p.kv_offset, p.causal, p.window))
-      continue;
+    if (!visited(kt)) continue;
     const int s = t % W_STAGES;
     hopper::mbar_wait(&full[s], (t / W_STAGES) & 1);
-    const uint32_t k_base = hopper::smem_u32(smem + L::K + s * L::TILE);
-    const uint32_t v_base = hopper::smem_u32(smem + L::V + s * L::TILE);
+    if (!PAIRED || sees(my_qb, kt)) {  // paired: a tile of the other chunk's only passes
+      const uint32_t k_base = hopper::smem_u32(smem + L::K + s * L::KTILE);
+      const uint32_t v_base = hopper::smem_u32(smem + L::V + s * L::KTILE);
 
-    // S = Q K^T (m64 x n128 per warpgroup), both operands K-major
-    float sc[64];
-    hopper::wgmma_fence();
+      // S = Q K^T (m64 x nBK per warpgroup), both operands K-major
+      float sc[BK / 2];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::BOX + (kk % 4) * 32;
-      hopper::wgmma_m64n128_ss<0, 0>(sc, hopper::make_desc(q_base + off, 16, 1024),
-                                     hopper::make_desc(k_base + off, 16, 1024), kk > 0);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // 16 columns of box kk / 4
+        const uint64_t dq = hopper::make_desc(q_base + (kk / 4) * L::QBOX + col, 16, 1024);
+        const uint64_t dk = hopper::make_desc(k_base + (kk / 4) * L::KBOX + col, 16, 1024);
+        if constexpr (BK == 128)
+          hopper::wgmma_m64n128_ss<0, 0>(sc, dq, dk, kk > 0);
+        else
+          hopper::wgmma_m64n64_ss<0, 0>(sc, dq, dk, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
 
-    // scale (into base 2 in the forward); mask only tiles on the diagonal, the window's edge
-    // or past sk (keys past sk weigh 0, masked keys -1e30 as in the TPU kernel)
-    const int k0 = kt * W_BLK;
-    const int kpos0 = p.kv_offset + k0;
-    const bool edge = k0 + W_BLK > p.sk;
-    const bool diag = p.causal && kpos0 + W_BLK - 1 > q_lo;
-    const bool wedge = p.window && kpos0 <= q_lo + W_BLK - 1 - p.window;
+      // scale (into base 2 in the forward); mask only tiles on the diagonal, the window's edge
+      // or past sk (keys past sk weigh 0, masked keys -1e30 as in the TPU kernel)
+      const int k0 = kt * BK;
+      const int kpos0 = p.kv_offset + k0;
+      const bool edge = k0 + BK > p.sk;
+      const bool diag = p.causal && kpos0 + BK - 1 > q_lo;
+      const bool wedge = p.window && kpos0 <= q_lo + 63 - p.window;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] *= p.scale;
-    if (edge || diag || wedge) {
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= p.scale;
+      if (edge || diag || wedge) {
 #pragma unroll
-      for (int c = 0; c < 16; ++c)
+        for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int key = 8 * c + 2 * quad + j;
-            const int kpos = kpos0 + key;
-            const int qpos = qpos0 + 8 * i;
-            float& x = sc[4 * c + 2 * i + j];
-            if (k0 + key >= p.sk)
-              x = -INFINITY;
-            else if ((p.causal && kpos > qpos) || (p.window && kpos <= qpos - p.window))
-              x = NEG_INF;
-          }
-    }
+            for (int j = 0; j < 2; ++j) {
+              const int key = 8 * c + 2 * quad + j;
+              const int kpos = kpos0 + key;
+              const int qpos = qpos0 + 8 * i;
+              float& x = sc[4 * c + 2 * i + j];
+              if (k0 + key >= p.sk)
+                x = -INFINITY;
+              else if ((p.causal && kpos > qpos) || (p.window && kpos <= qpos - p.window))
+                x = NEG_INF;
+            }
+      }
 
-    // online softmax on the accumulator: row max over the quad, then
-    // p = exp2(s - m); l keeps this thread's partial row sum
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int c = 0; c < 16; ++c)
-        mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * i], sc[4 * c + 2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // finite: every tile holds a key below sk, which scores at least -1e30
-      alpha[i] = exp2f((m[i] - mx) * unit);
-      m[i] = mx;
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float& x = sc[4 * c + 2 * i + j];
-          x = exp2f((x - mx) * unit);
-          rs += x;
-        }
-      l[i] = l[i] * alpha[i] + rs;
-    }
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+      // online softmax on the accumulator: row max over the quad, then
+      // p = exp2(s - m); l keeps this thread's partial row sum
+      float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        o[4 * c + 2 * i] *= alpha[i];
-        o[4 * c + 2 * i + 1] *= alpha[i];
+        float mx = m[i];
+#pragma unroll
+        for (int c = 0; c < BK / 8; ++c)
+          mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * i], sc[4 * c + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // finite: every tile holds a key below sk, which scores at least -1e30
+        alpha[i] = exp2f((m[i] - mx) * unit);
+        m[i] = mx;
+        float rs = 0.f;
+#pragma unroll
+        for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& x = sc[4 * c + 2 * i + j];
+            x = exp2f((x - mx) * unit);
+            rs += x;
+          }
+        l[i] = l[i] * alpha[i] + rs;
       }
-
-    // O += P V: P in bf16 registers (the A fragment of key slice kk is
-    // accumulator chunks 2 kk and 2 kk + 1), V an MN-major B.  The step
-    // carries the unnormalised acc, whose error P's rounding to bf16 would
-    // set (up to 2^-8 of each p, summed over the keys, with nothing to
-    // divide it by): it adds P's bf16 residual (P - bf16(P), itself rounded
-    // to bf16) as a second product, so each p enters P V to about 2^-16.
-    uint32_t pa[8][4];
-    uint32_t pr[STEP ? 8 : 1][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+      for (int c = 0; c < D / 8; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
-        pa[kk][r] = hopper::pack_bf16(x0, x1);
-        if constexpr (STEP) {
-          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
-          pr[kk][r] = hopper::pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+        for (int i = 0; i < 2; ++i) {
+          o[4 * c + 2 * i] *= alpha[i];
+          o[4 * c + 2 * i + 1] *= alpha[i];
         }
-      }
-    hopper::wgmma_fence();
+
+      // O += P V: P in bf16 registers (the A fragment of key slice kk is
+      // accumulator chunks 2 kk and 2 kk + 1), V an MN-major B.  The step
+      // carries the unnormalised acc, whose error P's rounding to bf16 would
+      // set (up to 2^-8 of each p, summed over the keys, with nothing to
+      // divide it by): it adds P's bf16 residual (P - bf16(P), itself rounded
+      // to bf16) as a second product, so each p enters P V to about 2^-16.
+      uint32_t pa[BK / 16][4];
+      uint32_t pr[STEP ? BK / 16 : 1][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t dv = hopper::make_desc(v_base + kk * 2048, L::BOX, 1024);
-      if constexpr (D == 128)
-        hopper::wgmma_m64n128_rs<1>(o, pa[kk], dv, 1);
-      else
-        hopper::wgmma_m64n64_rs<1>(o, pa[kk], dv, 1);
-      if constexpr (STEP) {
-        if constexpr (D == 128)
-          hopper::wgmma_m64n128_rs<1>(o, pr[kk], dv, 1);
-        else
-          hopper::wgmma_m64n64_rs<1>(o, pr[kk], dv, 1);
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+          pa[kk][r] = hopper::pack_bf16(x0, x1);
+          if constexpr (STEP) {
+            const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
+            pr[kk][r] = hopper::pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+          }
+        }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // keys 16 kk.. of the tile (16 rows of 128 bytes on); the next 64
+        // head columns are the next box
+        const uint64_t dv = hopper::make_desc(v_base + kk * 2048, L::KBOX, 1024);
+        wgmma_pv<D>(o, pa[kk], dv);
+        if constexpr (STEP) wgmma_pv<D>(o, pr[kk], dv);
       }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          asm volatile("" : "+r"(pa[kk][r])::"memory");
+          if constexpr (STEP) asm volatile("" : "+r"(pr[kk][r])::"memory");
+        }
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        asm volatile("" : "+r"(pa[kk][r])::"memory");
-        if constexpr (STEP) asm volatile("" : "+r"(pr[kk][r])::"memory");
-      }
     if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done with stage s
     ++t;
   }
@@ -717,7 +781,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row0 + 8 * i;
-    if (row >= p.sq) continue;
+    if (row >= p.sq || !stores) continue;
     if constexpr (STEP) {
       if (quad == 0) {
         p.m_io[carry0 + row] = m[i];
@@ -740,12 +804,12 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 }
 
 // Tensor map of q, k or v: dims (d, s, h, b) with the tensor's own element
-// strides; boxes of 64 head columns x 128 positions.
+// strides; boxes of 64 head columns x `rows` positions.
 cudaError_t qkv_map(CUtensorMap* map, const void* base, int d, int s, int h, int b,
-                    long long ss, long long sh, long long sb) {
+                    long long ss, long long sh, long long sb, int rows) {
   const uint64_t dims[4] = {(uint64_t)d, (uint64_t)s, (uint64_t)h, (uint64_t)b};
   const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, W_BLK, 1, 1};
+  const uint32_t box[4] = {64, (uint32_t)rows, 1, 1};
   return hopper::make_map(map, base, 4, dims, strides, box);
 }
 
@@ -761,13 +825,14 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
   return cudaGetLastError();
 }
 
-// The wgmma design's rule on q, k, v (see flash_attention_wgmma_fwd) and
-// their tensor maps; cudaErrorInvalidValue for what it does not take.
+// The wgmma design's rule on q, k, v (see flash_attention_wgmma_fwd; the
+// step takes d = 64 and 128 only) and their tensor maps, K and V in boxes of
+// the key tile; cudaErrorInvalidValue for what it does not take.
 cudaError_t wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const void* q,
                        const void* k, const void* v, int b, int hq, int hkv, int sq, int sk,
                        int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                        long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-                       long long v_ss) {
+                       long long v_ss, bool step) {
   using hopper::tma_stride_ok;
   const bool aligned =
       tma_stride_ok(q_ss, sq) && tma_stride_ok(q_sh, hq) && tma_stride_ok(q_sb, b) &&
@@ -775,12 +840,13 @@ cudaError_t wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const 
       tma_stride_ok(v_ss, sk) && tma_stride_ok(v_sh, hkv) && tma_stride_ok(v_sb, b) &&
       reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  if (bad_shape(b, hq, hkv, sq, sk, d) || (d != 64 && d != 128) || !aligned || b > 65535 ||
-      (sq + W_BLK - 1) / W_BLK > 65535)
+  if (bad_shape(b, hq, hkv, sq, sk, d) || (d != 64 && d != 128 && (step || d != 256)) ||
+      !aligned || b > 65535 || (sq + W_BLK - 1) / W_BLK > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = qkv_map(tq, q, d, sq, hq, b, q_ss, q_sh, q_sb);
-  if (err == cudaSuccess) err = qkv_map(tk, k, d, sk, hkv, b, k_ss, k_sh, k_sb);
-  if (err == cudaSuccess) err = qkv_map(tv, v, d, sk, hkv, b, v_ss, v_sh, v_sb);
+  const int bk = d == 256 ? WLayout<256>::BK : W_BLK;
+  cudaError_t err = qkv_map(tq, q, d, sq, hq, b, q_ss, q_sh, q_sb, 64);
+  if (err == cudaSuccess) err = qkv_map(tk, k, d, sk, hkv, b, k_ss, k_sh, k_sb, bk);
+  if (err == cudaSuccess) err = qkv_map(tv, v, d, sk, hkv, b, v_ss, v_sh, v_sb, bk);
   return err;
 }
 
@@ -1232,7 +1298,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   return dispatch_dtype<false>(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// Design "wgmma": bfloat16 only, d = 64 or 128; every tensor 16-byte aligned
+// Design "wgmma": bfloat16 only, d = 64, 128 or 256; every tensor 16-byte aligned
 // with its last dim contiguous and every other stride (of a dim longer than
 // 1) a positive multiple of 16 bytes, which is what TMA addresses.  Same
 // arguments as flash_attention_fwd otherwise (no dtype); o is (b, hq, sq, d)
@@ -1247,14 +1313,15 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void*
                               void* stream) {
   CUtensorMap tq, tk, tv;
   const cudaError_t err = wgmma_maps(&tq, &tk, &tv, q, k, v, b, hq, hkv, sq, sk, d, q_sb,
-                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss);
+                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   const WParams p{o,        o_sb,   o_sh,     o_ss,      hq,      hkv,     sq, sk,
                   scale * LOG2E, causal, window, q_offset, kv_offset, nullptr, nullptr,
                   nullptr, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 128 ? launch_wgmma<128, false>(tq, tk, tv, p, b, s)
-                                   : launch_wgmma<64, false>(tq, tk, tv, p, b, s));
+  return static_cast<int>(d == 256   ? launch_wgmma<256, false>(tq, tk, tv, p, b, s)
+                          : d == 128 ? launch_wgmma<128, false>(tq, tk, tv, p, b, s)
+                                     : launch_wgmma<64, false>(tq, tk, tv, p, b, s));
 }
 
 // One ring-attention step: fold k/v into the carry (m, l, acc), contiguous
@@ -1291,7 +1358,7 @@ int flash_attention_step_wgmma(const void* q, const void* k, const void* v, void
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   const cudaError_t err = wgmma_maps(&tq, &tk, &tv, q, k, v, b, hq, hkv, sq, sk, d, q_sb,
-                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss);
+                                     q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   const WParams p{nullptr, 0,      0,        0,         hq,
                   hkv,     sq,     sk,       scale,     causal,
@@ -1353,7 +1420,10 @@ int flash_attention_step_ffma(const void* q, const void* k, const void* v, void*
 
 // Dynamic shared memory of one block of the wgmma design at head dim d.
 int flash_attention_wgmma_smem_bytes(int d) {
-  return d == 128 ? WLayout<128>::BYTES : d == 64 ? WLayout<64>::BYTES : 0;
+  return d == 256   ? WLayout<256>::BYTES
+         : d == 128 ? WLayout<128>::BYTES
+         : d == 64  ? WLayout<64>::BYTES
+                    : 0;
 }
 
 // Dynamic shared memory of one block of the ffma design at head dim d.

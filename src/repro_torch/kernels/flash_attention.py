@@ -9,9 +9,10 @@ the TPU kernel's 128 x 128 tile skipping, GQA — which equals
 ``ref.attention`` on every row that sees a key.  It takes float32 and
 bfloat16 inputs with head_dim <= 256 and any sequence lengths.  It has
 three designs, picked before launch by :func:`design` and by nothing else:
-``"wgmma"`` (bf16, head_dim 64 or 128, tensors TMA can address: wgmma, TMA
-and an mbarrier pipeline), ``"ffma"`` (float32 under the same rule: cp.async
-copies and register-tiled f32 FMAs on the CUDA cores) and ``"template"``
+``"wgmma"`` (bf16, head_dim 64, 128 or 256, tensors TMA can address: wgmma,
+TMA and an mbarrier pipeline), ``"ffma"`` (float32 at head_dim 64 or 128
+under the same rule: cp.async copies and register-tiled f32 FMAs on the
+CUDA cores) and ``"template"``
 (everything else: f32 FMAs on the CUDA cores).  The wrapper checks what the
 kernel takes, allocates the output, launches on PyTorch's current stream
 and raises if the launch was refused.  It never falls back: a CPU tensor is
@@ -22,10 +23,11 @@ any design raises without trying another.
 The step kernel folds one KV block into a carried f32 state ``(m, l,
 acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
 and no tile skipping; it updates the carry it is given in place.  It has
-the same three designs under the same rule (:func:`design`): ``"wgmma"``
-and ``"ffma"`` are those forward kernels with the carry read into their
-accumulators and written back, ``"template"`` the template forward
-kernel's.
+the same three designs under the same rule (:func:`design` with
+``step=True``), except that its ``"wgmma"`` takes head_dim 64 and 128
+only: ``"wgmma"`` and ``"ffma"`` are those forward kernels with the carry
+read into their accumulators and written back, ``"template"`` the
+template forward kernel's.
 
 ``flash_attention.launches`` and ``flash_attention_step.launches`` count
 successful launches, so a run can show that its main path went through
@@ -49,7 +51,8 @@ from repro_torch.kernels import _build, _tma, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_STEP_HEAD_DIMS = (64, 128)  # no path runs the step at 256: the template
 FFMA_HEAD_DIMS = (64, 128)
 DESIGNS = _tma.DESIGNS  # ("wgmma", "ffma", "template")
 
@@ -133,15 +136,16 @@ def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(3) == 1 else t.contiguous()
 
 
-def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The design that serves (q, k, v), forward or step: where all three
-    are addressable (16-byte aligned bases, a contiguous head dim, every
-    other stride a positive multiple of 16 bytes: what TMA and 16-byte
-    cp.async copies take), ``"wgmma"`` for bfloat16 with head_dim 64 or 128
-    and ``"ffma"`` for float32 with head_dim 64 or 128; else
-    ``"template"``.  Reads dtypes, shapes, strides and base addresses
-    only."""
-    ruled = {torch.bfloat16: ("wgmma", WGMMA_HEAD_DIMS),
+def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           step: bool = False) -> str:
+    """The design that serves (q, k, v), the forward or (``step``) the
+    ring step: where all three are addressable (16-byte aligned bases, a
+    contiguous head dim, every other stride a positive multiple of 16
+    bytes: what TMA and 16-byte cp.async copies take), ``"wgmma"`` for
+    bfloat16 with head_dim 64, 128 or 256 (the step 64 or 128) and
+    ``"ffma"`` for float32 with head_dim 64 or 128; else ``"template"``.
+    Reads dtypes, shapes, strides and base addresses only."""
+    ruled = {torch.bfloat16: ("wgmma", WGMMA_STEP_HEAD_DIMS if step else WGMMA_HEAD_DIMS),
              torch.float32: ("ffma", FFMA_HEAD_DIMS)}.get(q.dtype)
     if ruled and q.shape[-1] in ruled[1] and all(
             _tma.tensor_addressable(t, inner=3) for t in (q, k, v)):
@@ -241,7 +245,8 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     non-f32 parts, and an acc whose base is not 16-byte aligned, are copied
     first and the copies updated); ``None`` starts from ``(-1e30, 0, 0)``.
     ``q_offset`` / ``kv_offset`` are the absolute positions of q[0] and
-    k[0].  The design is :func:`design`'s, read from q, k and v.
+    k[0].  The design is :func:`design`'s (``step=True``), read from q, k
+    and v.
 
     The carry is updated in place and there is no backward, so with grad
     mode on and an input (q, k, v or the carry) that requires grad this
@@ -278,7 +283,7 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return m, l, acc
     q, k, v = (_last_dim_contiguous(t) for t in (q, k, v))
     scale = (d ** -0.5) if scale is None else float(scale)
-    which = design(q, k, v)
+    which = design(q, k, v, step=True)
     lib = _lib()
     carry_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
                   l.data_ptr(), acc.data_ptr(), int(carry is None))

@@ -35,6 +35,9 @@ ATT_CASES = [
     (1, 8, 1, 128, 128, 128, True, 0, "float32"),
     (1, 4, 4, 128, 128, 64, True, 0, "bfloat16"),
     (2, 4, 2, 64, 64, 16, True, 32, "float32"),
+    # head dim 256 with MQA 8:1 (paligemma's attention), both types
+    (1, 8, 1, 128, 128, 256, True, 0, "float32"),
+    (1, 8, 1, 128, 192, 256, True, 64, "bfloat16"),
 ]
 # lengths that divide no tile, GQA 4:1, a window, bf16
 RAGGED_CASES = [
@@ -43,6 +46,8 @@ RAGGED_CASES = [
     (1, 4, 1, 50, 130, 64, True, 24, "float32"),
     (1, 2, 2, 33, 70, 16, False, 0, "float32"),
     (1, 4, 2, 100, 100, 128, True, 0, "bfloat16"),
+    (1, 8, 1, 77, 333, 256, True, 0, "float32"),     # head dim 256, MQA 8:1
+    (2, 8, 1, 260, 260, 256, True, 40, "bfloat16"),  # head dim 256, window
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -316,6 +321,8 @@ MASKED_CASES = [
     (1, 4, 2, 128, 256, 32, False, 64, 250, 0, "float32"),  # window without causal
     (1, 2, 1, 128, 256, 32, True, 16, 300, 0, "float32"),   # every block skipped
     (1, 4, 1, 256, 128, 64, True, 0, 0, 130, "bfloat16"),   # GQA 4:1, bf16
+    (1, 8, 1, 256, 256, 256, True, 0, 0, 100, "bfloat16"),  # head dim 256, MQA 8:1
+    (1, 8, 1, 256, 128, 256, True, 8, 0, 120, "float32"),   # head dim 256, window
 ]
 
 
@@ -436,7 +443,9 @@ def _misaligned(shape, dtype):
 @pytest.mark.parametrize("name,want", [
     ("bf16_d128", "wgmma"), ("bf16_d64", "wgmma"), ("bf16_bshd_views", "wgmma"),
     ("bf16_gqa", "wgmma"), ("bf16_ragged", "wgmma"),
-    ("f32_d128", "ffma"), ("bf16_d256", "template"), ("bf16_d192", "template"),
+    ("f32_d128", "ffma"), ("bf16_d256", "wgmma"), ("bf16_d256_bshd_views", "wgmma"),
+    ("bf16_d256_mqa_ragged", "wgmma"), ("bf16_d256_misaligned_base", "template"),
+    ("bf16_d192", "template"),
     ("bf16_d32", "template"), ("bf16_misaligned_base", "template"),
     ("bf16_rows_not_16_bytes", "template"), ("bf16_expanded_kv", "template"),
     ("f32_d64", "ffma"), ("f32_bshd_views", "ffma"), ("f32_gqa_ragged", "ffma"),
@@ -457,6 +466,12 @@ def test_flash_design_rule(name, want):
         "bf16_ragged": [t((1, 4, 77, 64)), t((1, 4, 333, 64)), t((1, 4, 333, 64))],
         "f32_d128": [t((4, 32, 512, 128), f32)] * 3,
         "bf16_d256": [t((1, 8, 77, 256))] * 3,
+        "bf16_d256_bshd_views": [t((4, 512, 8, 256)).transpose(1, 2),
+                                 t((4, 512, 1, 256)).transpose(1, 2),
+                                 t((4, 512, 1, 256)).transpose(1, 2)],
+        "bf16_d256_mqa_ragged": [t((2, 8, 77, 256)), t((2, 1, 333, 256)),
+                                 t((2, 1, 333, 256))],
+        "bf16_d256_misaligned_base": [_misaligned((1, 8, 77, 256), bf)] * 3,
         "bf16_d192": [t((1, 8, 77, 192))] * 3,
         "bf16_d32": [t((1, 8, 77, 32))] * 3,
         "bf16_misaligned_base": [_misaligned((1, 2, 128, 128), bf)] * 3,
@@ -569,15 +584,18 @@ def test_gmm_design_rule(name, want):
     ("bf16_d128_ring_blocks", "wgmma"), ("bf16_d64_ring_blocks", "wgmma"),
     ("bf16_bshd_views", "wgmma"), ("bf16_gqa_ragged_blocks", "wgmma"),
     ("f32_ring_blocks", "ffma"), ("bf16_d32", "template"),
-    ("bf16_d256", "template"), ("bf16_misaligned_base", "template"),
+    ("bf16_d256", "template"), ("bf16_d256_bshd_views", "template"),
+    ("bf16_misaligned_base", "template"),
     ("f32_d64_ring_blocks", "ffma"), ("f32_bshd_views", "ffma"),
     ("f32_gqa_ragged_blocks", "ffma"), ("f32_d32", "template"),
     ("f32_misaligned_base", "template"),
 ])
 def test_step_design_rule(name, want):
     """The ring step takes the forward's rule, read from q and the kv
-    block: a block sliced out of the full kv along s keeps its strides and
-    a 16-byte aligned base, so every ring position takes one design."""
+    block, except that its wgmma design stops at head dim 128 (at 256 the
+    step takes the template, though the forward takes wgmma): a block
+    sliced out of the full kv along s keeps its strides and a 16-byte
+    aligned base, so every ring position takes one design."""
     bf, f32 = torch.bfloat16, torch.float32
 
     def blocks(b, hq, hkv, s, d, r, dt=bf):
@@ -600,9 +618,13 @@ def test_step_design_rule(name, want):
         "f32_d32": blocks(2, 4, 4, 64, 32, 2, f32),
         "f32_misaligned_base": [(_misaligned((1, 2, 64, 128), f32),) * 3],
         "bf16_d256": blocks(1, 2, 2, 64, 256, 2),
+        "bf16_d256_bshd_views": [tuple(torch.zeros(2, 64, 4, 256, dtype=bf).transpose(1, 2)
+                                       for _ in range(3))],
         "bf16_misaligned_base": [(_misaligned((1, 2, 64, 128), bf),) * 3],
     }[name]
-    assert {fa.design(*qkv) for qkv in cases} == {want}
+    assert {fa.design(*qkv, step=True) for qkv in cases} == {want}
+    if name.startswith("bf16_d256"):  # the forward's rule at the same operands
+        assert {fa.design(*qkv) for qkv in cases} == {"wgmma"}
 
 
 @pytest.mark.parametrize("shapes,dt,match", [

@@ -1,7 +1,7 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
 matmul, gmm) against their plain torch versions, in every design of each
-(the wgmma design for bf16, the ffma design for float32, and the
-template, which the shape rule picks before launch), the reduced
+(the wgmma design for bf16, the ffma design for float32 at head dim 64
+and 128, and the template, which the shape rule picks before launch), the reduced
 serving path on
 the card against the CPU (the serve loop and the continuous-batching
 engine), a reduced llama program through the
@@ -474,17 +474,29 @@ WG_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window)
     (1, 4, 4, 1, 130, 128, True, 0),         # one query row
     (1, 4, 1, 100, 260, 128, False, 0),      # MQA, no mask, ragged
 ]
+# head dim 256 (64-key K/V tiles in the ring; only the forward)
+WG_ATT_CASES_256 = [
+    (4, 8, 1, 512, 512, 256, True, 0),       # paligemma-3b prefill, MQA 8:1
+    (1, 8, 1, 512, 512, 256, True, 0),       # batch 1
+    (2, 8, 4, 333, 333, 256, True, 0),       # GQA 2:1, ragged
+    (1, 8, 1, 77, 333, 256, True, 0),        # ragged, sq < sk (q offset 256)
+    (1, 8, 4, 260, 260, 256, True, 64),      # window, GQA 2:1, ragged
+    (1, 4, 1, 100, 260, 256, False, 0),      # MQA, no mask, ragged
+    (1, 4, 4, 1, 130, 256, True, 0),         # one query row
+    (1, 4, 4, 64, 64, 256, True, 0),         # one key tile
+]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", WG_ATT_CASES, ids=lambda c: "b{}h{}k{}q{}s{}d{}{}w{}".format(
-    c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "", c[7]))
+@pytest.mark.parametrize("case", WG_ATT_CASES + WG_ATT_CASES_256,
+                         ids=lambda c: "b{}h{}k{}q{}s{}d{}{}w{}".format(
+                             c[0], c[1], c[2], c[3], c[4], c[5], "c" if c[6] else "", c[7]))
 def test_cuda_flash_wgmma_matches_plain_version(case, cuda):
     _check_flash(case, "bfloat16", "wgmma", cuda)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2)])
+@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2), (256, 1), (256, 4)])
 def test_cuda_flash_wgmma_takes_bshd_views(d, hkv, cuda):
     """The tensor maps carry the views' strides."""
     _check_flash_bshd_views(d, hkv, "bfloat16", "wgmma", cuda)
@@ -513,7 +525,8 @@ def _misaligned(t):
                                          ("float32", 64, "ffma"),
                                          ("float32", 128, "ffma"),
                                          ("float32_misaligned", 64, "template"),
-                                         ("bfloat16", 256, "template")])
+                                         ("bfloat16", 256, "wgmma"),
+                                         ("bfloat16_misaligned", 256, "template")])
 @pytest.mark.parametrize("case", MASKED_GPU_CASES, ids=lambda c: "q{}s{}{}w{}qo{}ko{}".format(
     c[3], c[4], "c" if c[5] else "", c[6], c[7], c[8]))
 def test_cuda_flash_fully_masked_rows_follow_the_tile_convention(case, dt, d, design, cuda):
@@ -535,7 +548,7 @@ def test_cuda_flash_fully_masked_rows_follow_the_tile_convention(case, dt, d, de
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["misaligned_base", "rows_not_16_bytes", "expanded_kv",
-                                  "head_dim_256", "head_dim_32", "float32"])
+                                  "head_dim_256_misaligned_base", "head_dim_32", "float32"])
 def test_cuda_flash_shapes_outside_the_rule_take_the_template(name, cuda):
     """bf16 operands the rule refuses, and a float32 one (a base 4 bytes
     off 16), take the template."""
@@ -546,8 +559,9 @@ def test_cuda_flash_shapes_outside_the_rule_take_the_template(name, cuda):
         q, k, v = (torch.nn.functional.pad(t, (0, 4))[..., :64] for t in (q, k, v))
     elif name == "expanded_kv":
         k, v = k[:, :1].expand_as(k), v[:, :1].expand_as(v)
-    elif name == "head_dim_256":
+    elif name == "head_dim_256_misaligned_base":
         q, k, v = (torch.cat([t, -t], dim=-1) for t in (q, k, v))
+        q = _misaligned(q)
     elif name == "head_dim_32":
         q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
     else:  # float32, misaligned
@@ -564,6 +578,9 @@ def test_cuda_wgmma_designs_give_the_same_bits_twice(cuda):
     """No atomics and no split-K: two launches on the same inputs give the
     same bits, for each wgmma kernel at its path shape."""
     q, k, v = _att_inputs((4, 32, 512, 128), (4, 32, 512, 128), cuda)
+    a = ops.flash_attention(q, k, v)
+    assert torch.equal(a, ops.flash_attention(q, k, v))
+    q, k, v = _att_inputs((4, 8, 512, 256), (4, 1, 512, 256), cuda)  # paligemma's
     a = ops.flash_attention(q, k, v)
     assert torch.equal(a, ops.flash_attention(q, k, v))
     x, w = _mm_inputs(2048, 4096, 4096, "bfloat16", cuda)
@@ -787,6 +804,15 @@ def test_cuda_step_wgmma_updates_carry_in_place_and_init(cuda):
     _check_step_carry("bfloat16", "wgmma", cuda)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 4])
+def test_cuda_step_at_head_dim_256_takes_the_template(r, cuda):
+    """The step's wgmma design stops at head dim 128: a bf16 ring step at
+    256 launches the template, and its finalised chain equals the forward,
+    which takes the wgmma design there."""
+    _check_step_chain((1, 8, 1, 256, 256, True, 0), r, "bfloat16", "template", cuda)
+
+
 # ---------------------------------------------------------------------------
 # The flash forward's and the ring step's ffma design (float32, head dim 64
 # and 128, operands the rule addresses), at the float32 tolerance 2e-5
@@ -864,6 +890,8 @@ GRAD_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window, dtype, design)
     (1, 4, 2, 128, 128, 64, True, 0, "float32", "ffma"),
     (2, 2, 1, 96, 96, 32, True, 24, "float32", "template"),     # window, GQA
     (1, 2, 2, 64, 160, 64, False, 0, "float32", "ffma"),        # cross
+    (1, 8, 1, 200, 200, 256, True, 0, "bfloat16", "wgmma"),     # head dim 256, MQA 8:1
+    (2, 8, 4, 128, 128, 256, True, 32, "bfloat16", "wgmma"),    # head dim 256, GQA, window
 ]
 
 
@@ -1017,7 +1045,7 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
     ((1, 25, 5, 2048, 2048, 64, True, 1024), "bfloat16", "wgmma"),    # hymba prefill, GQA 5:1
     ((2, 25, 5, 1337, 1337, 64, True, 1024), "bfloat16", "wgmma"),    # ragged, window binds
     ((1, 25, 5, 1280, 1280, 64, True, 1024), "float32", "ffma"),      # hymba f32 parity
-    ((2, 8, 1, 512, 512, 256, True, 0), "bfloat16", "template"),      # paligemma, MQA 8:1
+    ((2, 8, 1, 512, 512, 256, True, 0), "bfloat16", "wgmma"),         # paligemma, MQA 8:1
     ((1, 8, 1, 260, 260, 256, True, 0), "float32", "template"),       # f32, ragged
 ]
 
@@ -1029,7 +1057,8 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
 def test_cuda_flash_zoo_shapes_match_plain_version(case, dt, design, cuda):
     """The model zoo's attention shapes: hymba's GQA 5:1 at head dim 64
     with a window of 1024 that binds past 1024 keys (wgmma in bf16, ffma
-    in float32), paligemma's MQA 8:1 at head dim 256 (the template)."""
+    in float32), paligemma's MQA 8:1 at head dim 256 (wgmma in bf16, the
+    template in float32)."""
     _check_flash(case, dt, design, cuda)
 
 
