@@ -8,14 +8,14 @@
    nvcc per source, all started together, with nvcc's ``-Xptxas -v``
    report (registers, shared memory, spills) and a summary of the wgmma
    and ffma kernels' registers, spills and dynamic shared memory (every
-   one of them, the forward's wgmma kernel at head dim 256 included, with
-   0 spill bytes);
+   one of them, the forward's wgmma and ffma kernels at head dim 256
+   included, with 0 spill bytes);
 3. kernel parity: the forward kernel against its plain torch version on
    the card, at the reference kernel tests' shapes and tolerances (float32
    2e-5, bfloat16 2e-2), ragged lengths, GQA, windows, cross attention,
    q offsets and the serving path's shape, each case with the design that
-   served it (the wgmma design for bf16 at head dim 64, 128 and 256, the
-   ffma design for float32 at 64 and 128; the template for the rest), a
+   served it (the wgmma design for bf16 and the ffma design for float32,
+   each at head dim 64, 128 and 256; the template for the rest), a
    float32 (b, s, h, d) view (ffma) and a float32 base 4 bytes off 16
    (the template), and rows that see no key against the TPU kernel's tile
    convention (``ref.attention_tiled``) in all three designs;
@@ -146,11 +146,12 @@
 23. the model zoo's flash shapes: hymba-1.5b's prefill (4, 25, 2048, 64)
    with GQA 5:1 and a window of 1024 that binds and paligemma-3b's (4, 8,
    512, 256) with MQA 8:1, both bf16 (the wgmma design; at head dim 256
-   its 64-key tiles), and paligemma's float32 slice (1, 8, 320, 256) of
-   phase 27 (the template), each against its plain version, its device
-   time beside SDPA's on the same function in the same type
-   (``enable_gqa``; hymba's window as a mask; SDPA's kernels printed to
-   name its backend), the template's and the bound;
+   its 64-key tiles), paligemma's float32 slice (1, 8, 320, 256) of
+   phase 27 and its prefill shape (4, 8, 512, 256) in float32 (the ffma
+   design, 32-row q tiles at head dim 256), each against its plain
+   version, its device time beside SDPA's on the same function in the
+   same type (``enable_gqa``; hymba's window as a mask; SDPA's kernels
+   printed to name its backend), the template's and the bound;
 24-26. serve hymba-1.5b (prompt 2048, so the window binds in prefill and
    decode runs on the ring buffer), xlstm-125m (prompt 512; no flash kernel
    runs) and paligemma-3b (prompt 512 from tokens, as the reference serves
@@ -166,8 +167,8 @@
    from the CPU by a few 1e-4 of max|g|), all finite; for hymba, the CPU's gradients
    without the window must move every attention leaf by more than that
    limit; hymba at s = 1280 (the window binds; the ffma flash), xlstm at
-   s = 512, paligemma with 256 prefix embeddings and 64 tokens (the f32
-   template at d = 256); then one
+   s = 512, paligemma with 256 prefix embeddings and 64 tokens (the ffma
+   flash at d = 256); then one
    block period of hymba's (b=4, s=2048) and paligemma's (b=4, s=512)
    prefill EinGraph in bf16 through ``executor="shard_map"`` on the
    one-rank mesh against the dense run (the wgmma matmul at d_model 1600,
@@ -250,6 +251,7 @@ MASKED_CASES = [
     (1, 4, 2, 256, 256, 128, True, 16, torch.float32),    # ffma, window
     (1, 4, 2, 256, 256, 32, True, 0, torch.float32),      # template (f32, d = 32)
     (1, 4, 2, 256, 256, 256, True, 0, torch.bfloat16),    # wgmma, 64-key tiles (d = 256)
+    (1, 4, 2, 256, 256, 256, True, 0, torch.float32),     # ffma, 32-row q tiles (d = 256)
 ]
 MASKED_OFFSETS = {"q_offset": 0, "kv_offset": 100}
 # float32 at d = 128 reached through views: a (b, s, h, d) projection
@@ -259,13 +261,13 @@ VIEW_CASE = (2, 8, 2, 333, 333, 128, True, 0, torch.float32)
 
 
 def _expected_flash_design(case, step: bool = False) -> str:
-    """The shape rule at the contiguous inputs of ``_inputs``: bf16 wgmma at
-    head dim 64, 128 and 256 (the ring step 64 and 128), float32 ffma at 64
-    and 128, else the template."""
+    """The shape rule at the contiguous inputs of ``_inputs``: bf16 wgmma
+    and float32 ffma at head dim 64, 128 and 256 (the ring step 64 and
+    128), else the template."""
     d, dt = case[5], case[-1]
-    if dt == torch.bfloat16 and d in ((64, 128) if step else (64, 128, 256)):
-        return "wgmma"
-    return "ffma" if dt == torch.float32 and d in (64, 128) else "template"
+    if d not in ((64, 128) if step else (64, 128, 256)):
+        return "template"
+    return {torch.bfloat16: "wgmma", torch.float32: "ffma"}.get(dt, "template")
 
 
 def _served_by(ops, kernel: str, fn):
@@ -488,10 +490,12 @@ def main() -> int:
         log("build", f"{k['kernel']}: {k['registers']} registers, spill stores "
                      f"{k['spill_stores']} B, spill loads {k['spill_loads']} B, static smem "
                      f"{k['smem']} B, dynamic smem {k['dynamic_smem']} B")
-    # flash wgmma <64|128, forward|step> and <256, forward>, flash ffma
-    # <64|128, forward|step>, matmul/gmm wgmma and ffma <grouped, a_mn, b_mn>
-    assert len(wg_kernels) == 5 + 4 + 8 + 8, [k["kernel"] for k in wg_kernels]
-    assert "flash_wgmma_kernel<256,0>" in [k["kernel"] for k in wg_kernels], wg_kernels
+    # flash wgmma and ffma <64|128, forward|step> and <256, forward>,
+    # matmul/gmm wgmma and ffma <grouped, a_mn, b_mn>
+    assert len(wg_kernels) == 5 + 5 + 8 + 8, [k["kernel"] for k in wg_kernels]
+    for name in ("flash_wgmma_kernel<256,0>", "flash_ffma_kernel<256,0>"):
+        assert name in [k["kernel"] for k in wg_kernels], (name, wg_kernels)
+        assert dynamic_smem(name) > 0, name
     spilled = [k["kernel"] for k in wg_kernels if k["spill_stores"] or k["spill_loads"]]
     assert not spilled, f"ptxas spills registers in {spilled}"
     results["build"]["wgmma_kernels"] = wg_kernels
@@ -647,6 +651,8 @@ def main() -> int:
                                                    max_seq=1520, lens=hymba_lens, max_new=8)
     results["engine_parity_xlstm"] = _engine_parity(get_config("xlstm-125m"), ops)
     zoo_designs = _zoo_design_counts(results)
+    # every flash launch of the zoo takes wgmma (bf16) or ffma (float32), none the template
+    assert zoo_designs["flash_attention"]["template"] == 0, zoo_designs["flash_attention"]
 
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
@@ -2612,10 +2618,12 @@ def _engine_parity(cfg, ops, device="cuda") -> dict:
 
 # hymba-1.5b's prefill at b=4, prompt 2048 (GQA 5:1, head dim 64, the
 # window of 1024 binds) and paligemma-3b's at b=4, 512 (MQA 8:1, head dim
-# 256); paligemma's float32 slice of phase 27 (256 prefix + 64 tokens)
+# 256); paligemma's float32 slice of phase 27 (256 prefix + 64 tokens), and
+# its prefill shape in float32 (on no path: a grid of several waves)
 HYMBA_PREFILL = (4, 25, 5, 2048, 2048, 64, True, 1024, torch.bfloat16)
 PALIGEMMA_PREFILL = (4, 8, 1, 512, 512, 256, True, 0, torch.bfloat16)
 PALIGEMMA_F32_SLICE = (1, 8, 1, 320, 320, 256, True, 0, torch.float32)
+PALIGEMMA_PREFILL_F32 = PALIGEMMA_PREFILL[:-1] + (torch.float32,)
 
 
 def _sdpa_call(case, q, k, v):
@@ -2648,14 +2656,16 @@ def _kernel_names(fn) -> list[str]:
 
 def _zoo_flash_timing(fa, ops, ref) -> dict:
     """Phase 23: the forward kernel at hymba's and paligemma's prefill
-    shapes (bf16, the wgmma design) and at paligemma's float32 slice (the
-    template): held against its plain version, then its device time,
-    SDPA's device time on the same function in the same type (its backend
-    named by its kernels), the template's device time (its C entry), the
-    plain version's time by events and the bound."""
+    shapes (bf16, the wgmma design), at paligemma's float32 slice and at its
+    prefill shape in float32 (the ffma design): held against its plain
+    version, then its device time, SDPA's device time on the same function
+    in the same type (its backend named by its kernels), the template's
+    device time (its C entry), the plain version's time by events and the
+    bound."""
     res = {}
     for name, case in (("hymba", HYMBA_PREFILL), ("paligemma", PALIGEMMA_PREFILL),
-                       ("paligemma_f32", PALIGEMMA_F32_SLICE)):
+                       ("paligemma_f32", PALIGEMMA_F32_SLICE),
+                       ("paligemma_f32_b4", PALIGEMMA_PREFILL_F32)):
         q, k, v, kw = _inputs(case, seed=23)
         design = fa.design(q, k, v)
         assert design == _expected_flash_design(case), (name, design)
@@ -2784,7 +2794,7 @@ def _rel_errs(got: dict, want: dict) -> tuple[float, list[float]]:
 def _zoo_slice_parity(ops) -> dict:
     """Phase 27: hymba (s = 1280: the window binds; head dim 64, the ffma
     flash), xlstm (one mLSTM and one sLSTM block, s = 512) and paligemma
-    (256 prefix embeddings and 64 tokens; head dim 256, the f32 template)
+    (256 prefix embeddings and 64 tokens; head dim 256, the ffma flash)
     at full width, 2 layers, float32, batch 1: the same weights and inputs
     on the card and on the CPU.  The logits of ``forward`` (ZOO_TOL x
     max|logit|), ``loss_fn`` (ZOO_TOL relative) and every gradient leaf

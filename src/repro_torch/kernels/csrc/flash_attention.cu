@@ -63,8 +63,9 @@
 // us, without the K/V reloads 20.5-21.0 us (tools/flash_wgmma_variants.py).
 // Pairing at d = 64 and 128, whose grids take several waves, is slower.
 //
-// Design "ffma" (flash_attention_ffma_fwd: float32, d in {64, 128}, operands
-// whose rows 16-byte copies address: the wgmma rule in 4-byte elements).
+// Design "ffma" (flash_attention_ffma_fwd: float32, d in {64, 128, 256},
+// operands whose rows 16-byte copies address: the wgmma rule in 4-byte
+// elements).
 // True f32: both products are f32 FMAs on the CUDA cores, no TF32 (the
 // reference holds float32 attention to 2e-5).  Bound, f32 causal: at one
 // engine prefill (1, 32, 512, 128) 2.15 GFLOP over the unmasked pairs, 32.1
@@ -101,7 +102,24 @@
 // instead of the grid's 40.  q tiles go heaviest first, or, where the whole
 // grid is resident at once, paired heavy with light (see the kernel).  The
 // step's design "ffma" (flash_attention_step_ffma) is this kernel's STEP
-// instantiation.
+// instantiation, at d = 64 and 128 only.
+// At d = 256 (float32 paligemma-3b: its slice (1, 8, 320, 256), MQA 8:1,
+// is 421 MFLOP, 6.3 us at the f32 peak, against 5.9 MB, 1.8 us) 8 rows a
+// thread would need 128 accumulators, so q tiles hold 32 rows of 4 (128
+// threads, 64 accumulators, one block an SM).  The slice's 80 q tiles
+// leave 52 of 132 SMs idle while the heaviest (5 visited 64-key tiles)
+// sets the time, about 50 us.  So where a grid has fewer q tiles than SMs,
+// each q tile takes a cluster of two blocks that visit its key tiles in
+// turn; block 1 stores its (m, l, acc) into block 0's shared memory
+// through distributed shared memory, and after one cluster barrier block 0
+// folds it into its own in a fixed order: no atomics, the same bits every
+// launch, the same tiles visited.  About 34 us: S runs at about 53% of the
+// f32 peak (2 float4 shared loads for 16 FMAs), P V at about 69%; without
+// either product and the refills it takes about 15 us (the first tile's
+// copies about 4, Q's load about 3, the combine about 2: NVIDIA H100 80GB
+// HBM3, 700 W; tools/flash_ffma_variants.py).  A grid of several waves
+// does not split: at (4, 8, 512, 256), about 188 us, 64-row tiles of 256
+// threads would take about 155.  ptxas: 165 registers, no spills.
 //
 // Design "template" (flash_attention_fwd: float32 outside the ffma rule,
 // other head dims, bf16 operands TMA cannot address): one block of 256
@@ -144,10 +162,10 @@
 // units of ref.attention_step (m of s * scale; exp2f((x - m) * log2 e)), so
 // the carry needs no conversion and a row fully masked so far weighs its
 // -1e30 scores exp2f(0) = 1 exactly.  The step's design "ffma"
-// (flash_attention_step_ffma: the ffma forward's rule) reads its rows of
-// the carry into its accumulators with float4 loads while the first K and V
-// copies fly, and keeps the softmax in the carry's natural units the same
-// way.  Bound at the f32 ring's step, (4, 32, 128, 128) float32: 1.07 GFLOP,
+// (flash_attention_step_ffma: the ffma forward's rule, d = 64 and 128)
+// reads its rows of the carry into its accumulators with float4 loads while
+// the first K and V copies fly, and keeps the softmax in the carry's natural
+// units the same way.  Bound at the f32 ring's step, (4, 32, 128, 128) float32: 1.07 GFLOP,
 // 16.0 us at the f32 peak, against 42.2 MB (q, k, v read, the carry read
 // and written), 12.6 us: bounded by operations.  The step's design
 // "template" (flash_attention_step: float32 outside the ffma rule, other
@@ -155,6 +173,7 @@
 // kernel's STEP instantiation: the same 64 x 32 tiles and f32 FMAs on the
 // CUDA cores.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -851,15 +870,10 @@ cudaError_t wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const 
 }
 
 // ---------------------------------------------------------------------------
-// design "ffma": float32, d in {64, 128}; cp.async copies and f32 FMAs
+// design "ffma": float32, d in {64, 128, 256}; cp.async copies and f32 FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 64;                    // q rows per block
-constexpr int F_BK = 64;                    // keys per KV tile
-constexpr int F_RT = 8;                     // q rows a thread owns
-constexpr int F_NTY = F_BQ / F_RT;          // row groups (ty)
-constexpr int F_THREADS = 16 * F_NTY;       // x 16 key / column groups (tx)
-constexpr int F_WARPS = F_THREADS / 32;
+constexpr int F_BK = 64;  // keys per KV tile
 
 struct FParams {
   const float* q;
@@ -879,19 +893,44 @@ struct FParams {
   float* acc_io;
   int init;  // 1: start from (-1e30, 0, 0) without reading the carry
   int one_wave;  // every block of the grid is resident at once
+  int split;     // d = 256: two blocks of a cluster share each q tile's key tiles
 };
 
-// Shared memory, in floats: Q [D][64] d-major; K [D][64] d-major; V [64][D]
-// row-major; P [64 keys][64 rows] key-major.  K and P swizzle their float4
-// slots (slot ^ (depth or key) % 8) instead of padding, so that both
-// blocks' 112 KB fit an SM at d = 128.
+// The block's tile at head dim D: BQ q rows, RT of them a thread, 16
+// threads (tx) a row group (ty), so BQ / RT row groups; each thread owns
+// RT x 4 of S and RT x D / 16 of the accumulator.  At d = 64 and 128, 64
+// rows of 8 (128 threads), two blocks an SM.  At d = 256, 32 rows of 4
+// (128 threads, 64 accumulators a thread; 8 rows would need 128), one
+// 200 KB block an SM; where the grid has fewer q tiles than the card has
+// SMs, each q tile takes a cluster of two blocks that share its key tiles
+// (SPLIT; paligemma's (1, 8, 320, 256) has 80 q tiles).
+// Shared memory, in floats: Q [D][BQ] d-major; K [D][64] d-major; V [64][D]
+// row-major; P [64 keys][BQ rows] key-major; at d = 256 R, where the
+// cluster's second block leaves its partial state.  K and P swizzle their
+// float4 slots (slot ^ (depth or key) % 8) instead of padding, so that both
+// blocks' 112 KB fit an SM at d = 128 (P's swizzle needs BQ >= 32).
 template <int D>
 struct FLayout {
+  static constexpr int BQ = D == 256 ? 32 : 64;  // q rows per block
+  static constexpr int RT = D == 256 ? 4 : 8;    // q rows a thread owns
+  static constexpr int NTY = BQ / RT;            // row groups (ty)
+  static constexpr int THREADS = 16 * NTY;       // x 16 key / column groups (tx)
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;  // blocks an SM (launch bounds)
+  // a grid that would leave SMs idle splits each q tile's key tiles between
+  // the two blocks of a cluster (see the kernel)
+  static constexpr bool SPLIT = D == 256;
+  // Q's float4 loads a thread has in flight: all of them at d = 256, where
+  // nothing else runs on the SM while they land
+  static constexpr int Q_UNROLL = D == 256 ? 16 : 4;
   static constexpr int Q = 0;
-  static constexpr int K = Q + D * F_BQ;
+  static constexpr int K = Q + D * BQ;
   static constexpr int V = K + D * F_BK;
   static constexpr int P = V + F_BK * D;
-  static constexpr int BYTES = (P + F_BK * F_BQ) * 4;
+  static constexpr int R = P + F_BK * BQ;  // split: block 1's acc [BQ][D], m [BQ], l [BQ]
+  static constexpr int BYTES = (R + (SPLIT ? BQ * D + 2 * BQ : 0)) * 4;
+  static_assert(BQ >= 32 && BQ % RT == 0 && RT % 4 == 0 && 128 % BQ == 0, "tile shape");
+  static_assert(D % (8 * WARPS) == 0 && THREADS % (D / 4) == 0, "copy shape");
 };
 
 // One K tile into shared memory d-major, through 4-byte copies that
@@ -900,10 +939,11 @@ struct FLayout {
 // copies 8 depths (lane % 8) of 4 keys kb + 16 r (r = lane / 8): 32-byte
 // pieces of 4 global rows, written to 32 distinct banks by the swizzle.
 // Each thread walks its 4 rows' pointer down the key bases kb; its depths
-// are 8 (F_WARPS c + warp) + lane % 8.  Keys past sk are zero-filled.
+// are 8 (WARPS c + warp) + lane % 8.  Keys past sk are zero-filled.
 template <int D>
 __device__ __forceinline__ void ffma_load_k(float* ks, const float* kg, long long k_ss, int k0,
                                             int sk) {
+  constexpr int F_WARPS = FLayout<D>::WARPS;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int dc = lane % 8, r = lane / 8;
   const int depth0 = 8 * warp + dc;
@@ -925,7 +965,7 @@ __device__ __forceinline__ void ffma_load_k(float* ks, const float* kg, long lon
 template <int D>
 __device__ __forceinline__ void ffma_load_v(float* vs, const float* vg, long long v_ss, int k0,
                                             int sk) {
-  constexpr int C4 = D / 4, ROWS = F_THREADS / C4;  // rows a pass of the block copies
+  constexpr int C4 = D / 4, ROWS = FLayout<D>::THREADS / C4;  // rows a pass of the block copies
   const int row0 = threadIdx.x / C4, c4 = threadIdx.x % C4;
   const float* src = vg + (long long)(k0 + row0) * v_ss + 4 * c4;
   float* dst = vs + row0 * D + 4 * c4;
@@ -936,24 +976,31 @@ __device__ __forceinline__ void ffma_load_v(float* vs, const float* vg, long lon
   }
 }
 
-// One block of 128 threads per (64-row q tile, head, batch).  Thread (ty,
-// tx) owns rows 4 ty + i and 32 + 4 ty + i (i < 4) of every tile: of S the
-// keys tx + 16 j (j < 4), of the accumulator the columns 4 tx + c and 64 +
-// 4 tx + c (c < 4; the second half at d = 128 only).  The 16 threads of a row group are one half-warp:
-// row maxima reduce by shuffles each tile (the 8 rows interleaved), row sums
-// stay per thread and reduce once at the end.  Per tile:
-// S = Q K^T (each depth: 3 float4 shared loads for 32 FMAs, the next
-// depth's fragments loaded during the current FMAs), the mask and online
-// softmax in registers, P to shared memory key-major, then O += P V (each
-// key: 2 float4 loads of P and d / 64 of V for 8 d / 16 FMAs).  K and V
-// each have one buffer that refills once every warp is past its product,
-// at the two barriers a tile has: the next tile's K copies run under this
-// tile's P V, its V copies under the next S and softmax; the second block
-// on the SM runs during the barriers.
+// One block of 128 threads per (BQ-row q tile, head, batch), or with
+// p.split (d = 256) a cluster of two.  Thread (ty, tx) owns rows 4 ty + i
+// and 32 + 4 ty + i (i < 4) of every tile (at d = 256 only the first
+// four): of S the keys tx + 16 j (j < 4), of the accumulator the columns
+// 64 c + 4 tx + e (e < 4, c < d / 64).  The 16 threads of a row group are
+// one half-warp: row maxima reduce by shuffles each tile (the rows
+// interleaved), row sums stay per thread and reduce once at the end.  Per
+// tile: S = Q K^T (each depth: RT / 4 + 1 float4 shared loads for 4 RT
+// FMAs, the next depth's fragments loaded during the current FMAs), the
+// mask and online softmax in registers, P to shared memory key-major, then
+// O += P V (each key: RT / 4 float4 loads of P and d / 64 of V for RT d /
+// 16 FMAs).  K and V each have one buffer that refills once every warp is
+// past its product, at the two barriers a tile has: the next tile's K
+// copies run under this tile's P V, its V copies under the next S and
+// softmax.  At d <= 128 the second block on the SM runs during the
+// barriers; at d = 256 (one block an SM) nothing does.  Split, block
+// `rank` of the cluster visits the q tile's key tiles of that parity (in
+// the order of visits), and block 0 folds block 1's (m, l, acc) into its
+// own at the end.
 template <int D, bool STEP>
-__global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams p) {
+__global__ void __launch_bounds__(FLayout<D>::THREADS, FLayout<D>::MIN_BLOCKS)
+    flash_ffma_kernel(const FParams p) {
   using L = FLayout<D>;
-  constexpr int NC = D / 16;  // accumulator columns a thread: 8 or 4
+  constexpr int F_BQ = L::BQ, F_RT = L::RT, F_NTY = L::NTY, F_THREADS = L::THREADS;
+  constexpr int NC = D / 16;  // accumulator columns a thread: 16, 8 or 4
   extern __shared__ __align__(16) float fsmem[];
   float* Qs = fsmem + L::Q;
   float* Ks = fsmem + L::K;
@@ -969,7 +1016,18 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
   // heaviest first; paired at (4, 32, 512, 128), which takes several waves,
   // 293.6 against 277.7: tools/flash_ffma_variants.py, on the H100).
   const int n_qt = (p.sq + F_BQ - 1) / F_BQ;
-  const int z = blockIdx.z, half = (n_qt + 1) / 2;
+  // split: cluster z / 2 takes q tile z / 2's place below, its block `rank`
+  // the visited key tiles of that parity
+  int z = blockIdx.z, rank = 0;
+  if constexpr (L::SPLIT) {
+    if (p.split) {
+      rank = z % 2, z /= 2;
+      // with the wait before block 1's stores into block 0 (below): both
+      // blocks have started
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    }
+  }
+  const int half = (n_qt + 1) / 2;
   const int q0 = (p.one_wave && z >= half ? z - half : n_qt - 1 - z) * F_BQ;
   const int h = blockIdx.x;
   const int bi = blockIdx.y;
@@ -1004,6 +1062,8 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
   };
 
   int kt = next_tile(0);
+  if constexpr (L::SPLIT)
+    if (rank == 1 && kt < n_kt) kt = next_tile(kt + 1);
   if (kt < n_kt) ffma_load_k<D>(Ks, kg, p.k_ss, kt * F_BK, p.sk);
   hopper::cp_async_commit();
   if (kt < n_kt) ffma_load_v<D>(Vs, vg, p.v_ss, kt * F_BK, p.sk);
@@ -1034,7 +1094,7 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
 
   // Q once, pre-scaled in f32, stored d-major: a warp writes 32 consecutive
   // rows of one depth (distinct banks); rows past sq are zeros
-#pragma unroll 4
+#pragma unroll (L::Q_UNROLL)
   for (int it = 0; it < F_BQ * D / 4 / F_THREADS; ++it) {
     const int idx = threadIdx.x + it * F_THREADS;
     const int row = idx % F_BQ, c4 = idx / F_BQ;
@@ -1058,7 +1118,9 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
   __syncthreads();             // everyone's have; Q is stored
   while (kt < n_kt) {
     const int k0 = kt * F_BK;
-    const int next = next_tile(kt + 1);
+    int next = next_tile(kt + 1);
+    if constexpr (L::SPLIT)
+      if (p.split && next < n_kt) next = next_tile(next + 1);
 
     // S = (q * scale) K^T: rows of this thread x keys tx + 16 j
     float s[F_RT][4];
@@ -1211,6 +1273,48 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
   for (int off = 8; off > 0; off /= 2)
 #pragma unroll
     for (int i = 0; i < F_RT; ++i) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  if constexpr (L::SPLIT) {
+    if (p.split) {
+      // block 1 stores its partial (m, l, acc) into block 0's R through
+      // distributed shared memory, and block 0 adds it to its own in a fixed
+      // order: the same bits every launch.  A row one block saw no tile of
+      // (m = -inf, l = 0) weighs 0 there; a row neither saw stays 0.
+      namespace cg = cooperative_groups;
+      cg::cluster_group cluster = cg::this_cluster();
+      float* Rs = fsmem + L::R;
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+      if (rank == 1) {
+        float* racc = cluster.map_shared_rank(Rs, 0);
+#pragma unroll
+        for (int i = 0; i < F_RT; ++i) {
+#pragma unroll
+          for (int c = 0; c < NC / 4; ++c)
+            *reinterpret_cast<float4*>(racc + frow(i) * D + 64 * c + 4 * tx) =
+                make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+          if (tx == 0) racc[F_BQ * D + frow(i)] = m[i], racc[F_BQ * D + F_BQ + frow(i)] = l[i];
+        }
+      }
+      cluster.sync();  // block 1's stores are visible to block 0
+      if (rank == 1) return;
+#pragma unroll
+      for (int i = 0; i < F_RT; ++i) {
+        const float m1 = Rs[F_BQ * D + frow(i)], l1 = Rs[F_BQ * D + F_BQ + frow(i)];
+        const float mx = fmaxf(m[i], m1);
+        const float a0 = m[i] == -INFINITY ? 0.f : exp2f(m[i] - mx);
+        const float a1 = m1 == -INFINITY ? 0.f : exp2f(m1 - mx);
+        l[i] = l[i] * a0 + l1 * a1;
+        const float* arow = Rs + frow(i) * D;
+#pragma unroll
+        for (int c = 0; c < NC / 4; ++c) {
+          const float4 r = *reinterpret_cast<const float4*>(arow + 64 * c + 4 * tx);
+          acc[i][4 * c] = acc[i][4 * c] * a0 + r.x * a1;
+          acc[i][4 * c + 1] = acc[i][4 * c + 1] * a0 + r.y * a1;
+          acc[i][4 * c + 2] = acc[i][4 * c + 2] * a0 + r.z * a1;
+          acc[i][4 * c + 3] = acc[i][4 * c + 3] * a0 + r.w * a1;
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < F_RT; ++i) {
     const int row = q0 + frow(i);
@@ -1237,42 +1341,65 @@ __global__ void __launch_bounds__(F_THREADS, 2) flash_ffma_kernel(const FParams 
 
 template <int D, bool STEP>
 cudaError_t launch_ffma(FParams p, int b, cudaStream_t stream) {
+  using L = FLayout<D>;
   auto kernel = flash_ffma_kernel<D, STEP>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FLayout<D>::BYTES);
-  if (err == cudaSuccess)  // room for two blocks' shared memory on an SM
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err == cudaSuccess)  // room for two blocks' shared memory on an SM (d <= 128)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F_THREADS,
-                                                        FLayout<D>::BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L::THREADS, L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.hq, b, (p.sq + F_BQ - 1) / F_BQ);
+  const dim3 grid(p.hq, b, (p.sq + L::BQ - 1) / L::BQ);
   p.one_wave = (long long)grid.x * grid.y * grid.z <= (long long)sms * per_sm;
-  kernel<<<grid, F_THREADS, FLayout<D>::BYTES, stream>>>(p);
+  if constexpr (L::SPLIT) {
+    // fewer q tiles than SMs: each gets a cluster of two blocks
+    p.split = (long long)grid.x * grid.y * grid.z < sms;
+    if (p.split) {
+      p.one_wave = 0;  // clusters of two do not all fit at once: heaviest first
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = 1, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 2;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(grid.x, grid.y, 2 * grid.z);
+      cfg.blockDim = dim3(L::THREADS);
+      cfg.dynamicSmemBytes = L::BYTES;
+      cfg.stream = stream;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, kernel, p);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    }
+  }
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The ffma design's rule on q, k, v (see flash_attention_ffma_fwd): float32
-// rows that 16-byte copies and float4 loads address.
+// rows that 16-byte copies and float4 loads address; the step stops at d = 128.
 bool ffma_takes(const void* q, const void* k, const void* v, int b, int hq, int hkv, int sq,
                 int sk, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-                long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss) {
+                long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                bool step) {
   auto ok = [](long long stride, int size) { return hopper::tma_stride_ok(stride, size, 4); };
-  return !bad_shape(b, hq, hkv, sq, sk, d) && (d == 64 || d == 128) && ok(q_ss, sq) &&
-         ok(q_sh, hq) && ok(q_sb, b) && ok(k_ss, sk) && ok(k_sh, hkv) && ok(k_sb, b) &&
-         ok(v_ss, sk) && ok(v_sh, hkv) && ok(v_sb, b) &&
+  const int bq = d == 256 ? FLayout<256>::BQ : FLayout<128>::BQ;
+  return !bad_shape(b, hq, hkv, sq, sk, d) && (d == 64 || d == 128 || (!step && d == 256)) &&
+         ok(q_ss, sq) && ok(q_sh, hq) && ok(q_sb, b) && ok(k_ss, sk) && ok(k_sh, hkv) &&
+         ok(k_sb, b) && ok(v_ss, sk) && ok(v_sh, hkv) && ok(v_sb, b) &&
          reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(v) % 16 == 0 && b <= 65535 &&
-         (sq + F_BQ - 1) / F_BQ <= 65535;
+         (sq + bq - 1) / bq <= 65535;
 }
 
 template <bool STEP>
 int dispatch_ffma(const FParams& p, int b, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (!STEP)
+    if (d == 256) return static_cast<int>(launch_ffma<256, false>(p, b, s));
   return static_cast<int>(d == 128 ? launch_ffma<128, STEP>(p, b, s)
                                    : launch_ffma<64, STEP>(p, b, s));
 }
@@ -1369,7 +1496,7 @@ int flash_attention_step_wgmma(const void* q, const void* k, const void* v, void
                                    : launch_wgmma<64, true>(tq, tk, tv, p, b, s));
 }
 
-// Design "ffma": float32 only, d = 64 or 128; every tensor 16-byte aligned
+// Design "ffma": float32 only, d = 64, 128 or 256; every tensor 16-byte aligned
 // with its last dim contiguous and every other stride (of a dim longer than
 // 1) a positive multiple of 16 bytes, the rule of the wgmma design in 4-byte
 // elements.  Same arguments as flash_attention_wgmma_fwd; o is float32 (b,
@@ -1384,20 +1511,21 @@ int flash_attention_ffma_fwd(const void* q, const void* k, const void* v, void* 
                              int causal, int window, int q_offset, int kv_offset, void* stream) {
   auto ok = [](long long stride, int size) { return hopper::tma_stride_ok(stride, size, 4); };
   if (!ffma_takes(q, k, v, b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-                  v_ss) ||
+                  v_ss, false) ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || !ok(o_ss, sq) || !ok(o_sh, hq) || !ok(o_sb, b))
     return static_cast<int>(cudaErrorInvalidValue);
   const FParams p{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
                   q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                   scale * LOG2E, causal, window, q_offset, kv_offset, nullptr, nullptr, nullptr,
-                  0, 0};
+                  0, 0, 0};
   return dispatch_ffma<false>(p, b, d, stream);
 }
 
 // Design "ffma" of flash_attention_step: the ffma forward kernel's STEP
-// instantiation, with the same rule on q, k, v (float32, d = 64 or 128);
-// m_io, l_io, acc_io as for flash_attention_step, acc_io 16-byte aligned.
+// instantiation, with the same rule on q, k, v except that d is 64 or 128
+// only (float32); m_io, l_io, acc_io as for flash_attention_step, acc_io
+// 16-byte aligned.
 // Returns cudaErrorInvalidValue for what it does not take, else
 // cudaGetLastError() after the launch.
 int flash_attention_step_ffma(const void* q, const void* k, const void* v, void* m_io,
@@ -1407,14 +1535,14 @@ int flash_attention_step_ffma(const void* q, const void* k, const void* v, void*
                               long long v_sh, long long v_ss, float scale, int causal,
                               int window, int q_offset, int kv_offset, void* stream) {
   if (!ffma_takes(q, k, v, b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-                  v_ss) ||
+                  v_ss, true) ||
       reinterpret_cast<uintptr_t>(acc_io) % 16 != 0 || m_io == nullptr || l_io == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const FParams p{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), nullptr, hq, hkv, sq, sk,
                   q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0,
                   scale, causal, window, q_offset, kv_offset, static_cast<float*>(m_io),
-                  static_cast<float*>(l_io), static_cast<float*>(acc_io), init, 0};
+                  static_cast<float*>(l_io), static_cast<float*>(acc_io), init, 0, 0};
   return dispatch_ffma<true>(p, b, d, stream);
 }
 
@@ -1428,7 +1556,10 @@ int flash_attention_wgmma_smem_bytes(int d) {
 
 // Dynamic shared memory of one block of the ffma design at head dim d.
 int flash_attention_ffma_smem_bytes(int d) {
-  return d == 128 ? FLayout<128>::BYTES : d == 64 ? FLayout<64>::BYTES : 0;
+  return d == 256   ? FLayout<256>::BYTES
+         : d == 128 ? FLayout<128>::BYTES
+         : d == 64  ? FLayout<64>::BYTES
+                    : 0;
 }
 
 const char* flash_attention_error_string(int err) {

@@ -10,10 +10,10 @@ the TPU kernel's 128 x 128 tile skipping, GQA — which equals
 bfloat16 inputs with head_dim <= 256 and any sequence lengths.  It has
 three designs, picked before launch by :func:`design` and by nothing else:
 ``"wgmma"`` (bf16, head_dim 64, 128 or 256, tensors TMA can address: wgmma,
-TMA and an mbarrier pipeline), ``"ffma"`` (float32 at head_dim 64 or 128
-under the same rule: cp.async copies and register-tiled f32 FMAs on the
-CUDA cores) and ``"template"``
-(everything else: f32 FMAs on the CUDA cores).  The wrapper checks what the
+TMA and an mbarrier pipeline), ``"ffma"`` (float32 at head_dim 64, 128 or
+256 under the same rule: cp.async copies and register-tiled f32 FMAs on
+the CUDA cores, in 32-row q tiles at 256) and ``"template"`` (everything
+else: f32 FMAs on the CUDA cores).  The wrapper checks what the
 kernel takes, allocates the output, launches on PyTorch's current stream
 and raises if the launch was refused.  It never falls back: a CPU tensor is
 an error here (the dispatcher in ``kernels/ops.py`` routes CPU tensors to
@@ -24,8 +24,8 @@ The step kernel folds one KV block into a carried f32 state ``(m, l,
 acc)`` with the finite ``-1e30`` masking of ``kernels/ref.attention_step``
 and no tile skipping; it updates the carry it is given in place.  It has
 the same three designs under the same rule (:func:`design` with
-``step=True``), except that its ``"wgmma"`` takes head_dim 64 and 128
-only: ``"wgmma"`` and ``"ffma"`` are those forward kernels with the carry
+``step=True``), except that its ``"wgmma"`` and ``"ffma"`` take head_dim 64
+and 128 only: ``"wgmma"`` and ``"ffma"`` are those forward kernels with the carry
 read into their accumulators and written back, ``"template"`` the
 template forward kernel's.
 
@@ -53,7 +53,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_STEP_HEAD_DIMS = (64, 128)  # no path runs the step at 256: the template
-FFMA_HEAD_DIMS = (64, 128)
+FFMA_HEAD_DIMS = (64, 128, 256)
+FFMA_STEP_HEAD_DIMS = (64, 128)
 DESIGNS = _tma.DESIGNS  # ("wgmma", "ffma", "template")
 
 
@@ -142,11 +143,12 @@ def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ring step: where all three are addressable (16-byte aligned bases, a
     contiguous head dim, every other stride a positive multiple of 16
     bytes: what TMA and 16-byte cp.async copies take), ``"wgmma"`` for
-    bfloat16 with head_dim 64, 128 or 256 (the step 64 or 128) and
-    ``"ffma"`` for float32 with head_dim 64 or 128; else ``"template"``.
-    Reads dtypes, shapes, strides and base addresses only."""
+    bfloat16 and ``"ffma"`` for float32, each with head_dim 64, 128 or 256
+    (the step 64 or 128); else ``"template"``.  Reads dtypes, shapes,
+    strides and base addresses only."""
     ruled = {torch.bfloat16: ("wgmma", WGMMA_STEP_HEAD_DIMS if step else WGMMA_HEAD_DIMS),
-             torch.float32: ("ffma", FFMA_HEAD_DIMS)}.get(q.dtype)
+             torch.float32: ("ffma", FFMA_STEP_HEAD_DIMS if step else FFMA_HEAD_DIMS)
+             }.get(q.dtype)
     if ruled and q.shape[-1] in ruled[1] and all(
             _tma.tensor_addressable(t, inner=3) for t in (q, k, v)):
         return ruled[0]

@@ -91,7 +91,12 @@ def test_ref_attention_matches_reference(case):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dt], atol=TOL[dt])
 
 
-@pytest.mark.parametrize("case", ATT_CASES, ids=_case_id)
+# paligemma-3b's float32 slice (256 prefix + 64 tokens, MQA 8:1, head dim
+# 256): the ffma design's path shape
+PALIGEMMA_F32_SLICE = (1, 8, 1, 320, 320, 256, True, 0, "float32")
+
+
+@pytest.mark.parametrize("case", ATT_CASES + [PALIGEMMA_F32_SLICE], ids=_case_id)
 def test_ref_attention_matches_pallas_interpret(case):
     q, k, v, kw = _inputs(case)
     dt = case[-1]
@@ -450,7 +455,9 @@ def _misaligned(shape, dtype):
     ("bf16_rows_not_16_bytes", "template"), ("bf16_expanded_kv", "template"),
     ("f32_d64", "ffma"), ("f32_bshd_views", "ffma"), ("f32_gqa_ragged", "ffma"),
     ("f32_d32", "template"), ("f32_misaligned_base", "template"),
-    ("f32_rows_not_16_bytes", "template"), ("f32_d256", "template"),
+    ("f32_rows_not_16_bytes", "template"), ("f32_d256", "ffma"),
+    ("f32_d256_bshd_views", "ffma"), ("f32_d256_misaligned_base", "template"),
+    ("f32_d192", "template"),
     ("f32_base_16_bytes_in", "ffma"), ("f32_expanded_kv", "template"),
 ])
 def test_flash_design_rule(name, want):
@@ -487,6 +494,11 @@ def test_flash_design_rule(name, want):
         # rows of 66 floats (264 bytes): a stride no 16-byte copy can step
         "f32_rows_not_16_bytes": [t((1, 2, 128, 66), f32)[..., :64]] * 3,
         "f32_d256": [t((1, 8, 77, 256), f32)] * 3,
+        "f32_d256_bshd_views": [t((4, 512, 8, 256), f32).transpose(1, 2),
+                                t((4, 512, 1, 256), f32).transpose(1, 2),
+                                t((4, 512, 1, 256), f32).transpose(1, 2)],
+        "f32_d256_misaligned_base": [_misaligned((1, 8, 77, 256), f32)] * 3,
+        "f32_d192": [t((1, 8, 77, 192), f32)] * 3,
         "f32_base_16_bytes_in": [torch.zeros(2 * 64 * 64 + 4)[4:].view(1, 2, 64, 64)] * 3,
         "f32_expanded_kv": [t((1, 8, 128, 64), f32),
                             t((1, 1, 128, 64), f32).expand(1, 8, 128, 64),
@@ -588,12 +600,13 @@ def test_gmm_design_rule(name, want):
     ("bf16_misaligned_base", "template"),
     ("f32_d64_ring_blocks", "ffma"), ("f32_bshd_views", "ffma"),
     ("f32_gqa_ragged_blocks", "ffma"), ("f32_d32", "template"),
-    ("f32_misaligned_base", "template"),
+    ("f32_misaligned_base", "template"), ("f32_d256", "template"),
 ])
 def test_step_design_rule(name, want):
     """The ring step takes the forward's rule, read from q and the kv
-    block, except that its wgmma design stops at head dim 128 (at 256 the
-    step takes the template, though the forward takes wgmma): a block
+    block, except that its wgmma and ffma designs stop at head dim 128 (at
+    256 the step takes the template, though the forward takes wgmma or
+    ffma): a block
     sliced out of the full kv along s keeps its strides and a 16-byte
     aligned base, so every ring position takes one design."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -618,6 +631,7 @@ def test_step_design_rule(name, want):
         "f32_d32": blocks(2, 4, 4, 64, 32, 2, f32),
         "f32_misaligned_base": [(_misaligned((1, 2, 64, 128), f32),) * 3],
         "bf16_d256": blocks(1, 2, 2, 64, 256, 2),
+        "f32_d256": blocks(1, 8, 1, 320, 256, 2, f32),
         "bf16_d256_bshd_views": [tuple(torch.zeros(2, 64, 4, 256, dtype=bf).transpose(1, 2)
                                        for _ in range(3))],
         "bf16_misaligned_base": [(_misaligned((1, 2, 64, 128), bf),) * 3],

@@ -1,7 +1,7 @@
 """On a card: the CUDA kernels (flash attention, the ring-attention step,
 matmul, gmm) against their plain torch versions, in every design of each
-(the wgmma design for bf16, the ffma design for float32 at head dim 64
-and 128, and the template, which the shape rule picks before launch), the reduced
+(the wgmma design for bf16, the ffma design for float32 at head dim 64,
+128 and 256, and the template, which the shape rule picks before launch), the reduced
 serving path on
 the card against the CPU (the serve loop and the continuous-batching
 engine), a reduced llama program through the
@@ -524,6 +524,7 @@ def _misaligned(t):
                                          ("bfloat16", 128, "wgmma"),
                                          ("float32", 64, "ffma"),
                                          ("float32", 128, "ffma"),
+                                         ("float32", 256, "ffma"),
                                          ("float32_misaligned", 64, "template"),
                                          ("bfloat16", 256, "wgmma"),
                                          ("bfloat16_misaligned", 256, "template")])
@@ -813,14 +814,36 @@ def test_cuda_step_at_head_dim_256_takes_the_template(r, cuda):
     _check_step_chain((1, 8, 1, 256, 256, True, 0), r, "bfloat16", "template", cuda)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 4])
+def test_cuda_f32_step_at_head_dim_256_takes_the_template(r, cuda):
+    """The step's ffma design stops at head dim 128 too: a float32 ring
+    step at 256 launches the template, and its finalised chain equals the
+    forward, which takes the ffma design there."""
+    _check_step_chain((1, 8, 1, 256, 256, True, 0), r, "float32", "template", cuda)
+
+
 # ---------------------------------------------------------------------------
 # The flash forward's and the ring step's ffma design (float32, head dim 64
-# and 128, operands the rule addresses), at the float32 tolerance 2e-5
+# and 128, the forward also 256, operands the rule addresses), at the
+# float32 tolerance 2e-5
 # ---------------------------------------------------------------------------
 
 FFMA_ATT_CASES = WG_ATT_CASES + [  # (b, hq, hkv, sq, sk, d, causal, window)
     (1, 32, 32, 512, 512, 128, True, 0),     # an engine prefill
     (1, 4, 2, 160, 96, 64, False, 0),        # cross, sk < sq
+    # head dim 256: 32-row q tiles; where the grid has fewer q tiles than the
+    # card has SMs (every case here but the prefill shape and the GQA 2:1
+    # one), a cluster of two blocks each
+    (1, 8, 1, 320, 320, 256, True, 0),       # paligemma-3b's f32 slice, MQA 8:1
+    (4, 8, 1, 512, 512, 256, True, 0),       # paligemma-3b's prefill shape
+    (2, 8, 4, 333, 333, 256, True, 0),       # GQA 2:1, ragged
+    (1, 8, 1, 77, 333, 256, True, 0),        # ragged, sq < sk (q offset 256)
+    (1, 8, 4, 260, 260, 256, True, 64),      # window, GQA 2:1, ragged
+    (1, 4, 4, 1, 130, 256, True, 0),         # one query row
+    (1, 4, 2, 160, 96, 256, False, 0),       # cross, sk < sq
+    (1, 4, 1, 100, 260, 256, False, 0),      # MQA, no mask, ragged
+    (1, 4, 4, 32, 32, 256, True, 0),         # one q tile, one key tile
 ]
 
 
@@ -832,7 +855,7 @@ def test_cuda_flash_ffma_matches_plain_version(case, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2)])
+@pytest.mark.parametrize("d,hkv", [(128, 8), (64, 2), (256, 1), (256, 4)])
 def test_cuda_flash_ffma_takes_bshd_views(d, hkv, cuda):
     """float32 rows read through the views' strides by 16-byte copies."""
     _check_flash_bshd_views(d, hkv, "float32", "ffma", cuda)
@@ -854,12 +877,16 @@ def test_cuda_step_ffma_updates_carry_in_place_and_init(cuda):
 
 @pytest.mark.gpu
 def test_cuda_flash_ffma_designs_give_the_same_bits_twice(cuda):
-    """No atomics and no split over keys: two launches of the ffma forward
-    at the executor's shape, and of the ffma step at the f32 ring's, give
-    the same bits."""
+    """No atomics: two launches of the ffma forward at the executor's shape
+    and at paligemma's float32 slice (head dim 256, where the two blocks of
+    a cluster split each q tile's keys and combine in a fixed order), and
+    of the ffma step at the f32 ring's, give the same bits."""
     q, k, v = _att_inputs((4, 32, 512, 128), (4, 32, 512, 128), cuda, "float32")
     a = ops.flash_attention(q, k, v)
     assert torch.equal(a, ops.flash_attention(q, k, v))
+    q, k, v = _att_inputs((1, 8, 320, 256), (1, 1, 320, 256), cuda, "float32")
+    a, which = _served_by("flash_attention", lambda: ops.flash_attention(q, k, v))
+    assert which == "ffma" and torch.equal(a, ops.flash_attention(q, k, v))
     q, k, v = _att_inputs((4, 32, 128, 128), (4, 32, 128, 128), cuda, "float32")
     kw = dict(q_offset=384, kv_offset=128)
     a = ops.flash_attention_step(q, k, v, None, **kw)
@@ -892,6 +919,7 @@ GRAD_ATT_CASES = [  # (b, hq, hkv, sq, sk, d, causal, window, dtype, design)
     (1, 2, 2, 64, 160, 64, False, 0, "float32", "ffma"),        # cross
     (1, 8, 1, 200, 200, 256, True, 0, "bfloat16", "wgmma"),     # head dim 256, MQA 8:1
     (2, 8, 4, 128, 128, 256, True, 32, "bfloat16", "wgmma"),    # head dim 256, GQA, window
+    (1, 8, 1, 200, 200, 256, True, 0, "float32", "ffma"),       # head dim 256, MQA 8:1
 ]
 
 
@@ -1046,7 +1074,7 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
     ((2, 25, 5, 1337, 1337, 64, True, 1024), "bfloat16", "wgmma"),    # ragged, window binds
     ((1, 25, 5, 1280, 1280, 64, True, 1024), "float32", "ffma"),      # hymba f32 parity
     ((2, 8, 1, 512, 512, 256, True, 0), "bfloat16", "wgmma"),         # paligemma, MQA 8:1
-    ((1, 8, 1, 260, 260, 256, True, 0), "float32", "template"),       # f32, ragged
+    ((1, 8, 1, 260, 260, 256, True, 0), "float32", "ffma"),           # f32, ragged
 ]
 
 
@@ -1057,8 +1085,8 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
 def test_cuda_flash_zoo_shapes_match_plain_version(case, dt, design, cuda):
     """The model zoo's attention shapes: hymba's GQA 5:1 at head dim 64
     with a window of 1024 that binds past 1024 keys (wgmma in bf16, ffma
-    in float32), paligemma's MQA 8:1 at head dim 256 (wgmma in bf16, the
-    template in float32)."""
+    in float32), paligemma's MQA 8:1 at head dim 256 (wgmma in bf16, ffma
+    in float32)."""
     _check_flash(case, dt, design, cuda)
 
 
