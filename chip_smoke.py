@@ -182,7 +182,31 @@
    engine in float32 at full width and depth, held against ``serve()`` at
    1e-4 x max|logit| with no unexplained token flip; and the engine parity
    of phase 22 for xlstm-125m width.  The kernels line gives every kernel's
-   zoo launches by design (``ops.design_counts()`` over phases 24-28).
+   zoo launches by design (``ops.design_counts()`` over phases 24-28);
+29. the pipelined path: llama-7b's prefill graph of phase 10 (b=4, s=512)
+   compiled with ``pipeline=PipelineSpec(stages=p, microbatches=m)`` on a
+   ``{"pp": p}`` mesh of p gloo ranks sharing the card (handoffs staged
+   through the host), (p, m) = (1, 1) on one rank, then (2, 1), (2, 4) and
+   (4, 2), each in float32 and bf16: the static schedules against the
+   reference's (stages, handoff elems, bubble); on every rank the logits
+   bit for bit equal to the unpipelined compile of the stitched plan on the
+   same mesh, m x (8 matmul, 1 flash) launches, all ffma in float32 and all
+   wgmma in bf16, the collectives issued equal to the static trace
+   (ppermute over ``pp`` only, none at p = 1); rank 0's logits against the
+   dense one-card run to phase 10's limits; the rank walls are host-staged
+   gloo, not a speed path;
+30. the static verifier on the card: (a) ``python -m repro_torch.analysis``
+   over the reduced zoo in a subprocess, clean, with CUDA never initialised
+   and no jax in it; (b) the memory pass's per-device peak
+   (``analyze_compiled(run).memory["peak_bytes"]``) against the
+   allocator's peak of one warmed call (``max_memory_allocated`` less what
+   was allocated before the call and is not its feeds), within 10%, for
+   phase 10's one-rank llama-7b prefill graph in float32 and in bf16 (its
+   float nodes typed bfloat16) and phase 19's FFNN gradient program;
+   (c) ``BucketRegistry.analyze()`` of phase 20's engine registry, every
+   bucket clean.  The kernels line gives the matmul and flash rows'
+   launches on the pipelined path by design (``pipeline_launches``,
+   ``pipeline_design``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -654,6 +678,13 @@ def main() -> int:
     # every flash launch of the zoo takes wgmma (bf16) or ffma (float32), none the template
     assert zoo_designs["flash_attention"]["template"] == 0, zoo_designs["flash_attention"]
 
+    # 29. the pipelined path: llama-7b's prefill graph on 1, 2 and 4 gloo ranks of a pp axis
+    results["pipeline"] = _pipeline_path(cfg)
+
+    # 30. the static verifier: the CLI, the memory pass against the allocator, the registry
+    results["analysis"] = _analysis_phase(cfg, results)
+    pipe_designs = results["pipeline"]["designs_total"]
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -709,7 +740,9 @@ def main() -> int:
                                 for a, r in results["zoo_serve"].items()},
          "zoo_serve_designs": {a: _path_design(r["designs"]["flash_attention"])
                                for a, r in results["zoo_serve"].items()},
-         "zoo_launches_by_design": zoo_designs["flash_attention"]},
+         "zoo_launches_by_design": zoo_designs["flash_attention"],
+         "pipeline_launches": sum(pipe_designs["flash_attention"].values()),
+         "pipeline_design": pipe_designs["flash_attention"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -744,7 +777,9 @@ def main() -> int:
          "ffnn_design": _path_design(results["ffnn"]["designs"]["matmul"]),
          "zoo_executor_launches": {a: r["launches"]["matmul"]
                                    for a, r in results["zoo_executor"].items()},
-         "zoo_launches_by_design": zoo_designs["matmul"]},
+         "zoo_launches_by_design": zoo_designs["matmul"],
+         "pipeline_launches": sum(pipe_designs["matmul"].values()),
+         "pipeline_design": pipe_designs["matmul"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -2092,6 +2127,7 @@ def _ffnn_phase(ops) -> dict:
     """The paper's Experiment 2 at AmazonCat-14K sizes on one card: the
     FFNN's gradient program through ``executor="shard_map"`` on the 1x1
     mesh (planned through a plan-cache file), 3 SGD steps."""
+    from repro_torch.analysis import analyze_compiled
     from repro_torch.core import spmd
     from repro_torch.core.plancache import PlanCache
     from repro_torch.launch.mesh import Mesh
@@ -2188,6 +2224,12 @@ def _ffnn_phase(ops) -> dict:
            "matmul_launches_per_step": n_mm, "designs": designs, "flops": flops,
            "bound_ms": bound_ms, "bound_by": bound_by, "profile": prof, "events_ms": events_ms,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    # one more warmed call, untimed, held against the memory pass in phase 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, measured = _allocator_peak(lambda: run(feeds), feeds)
+    del out
+    res["memory"] = {"static": analyze_compiled(run).memory, "measured": measured}
     del feeds
     torch.cuda.empty_cache()
     return res
@@ -2548,7 +2590,13 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
            "against_sequential": held, "generations": {r: res[r].tolist() for r in res},
            "batch_baseline_rel": base_rel, "logit_limit_rel": limit,
            "decode_step_launches": step_launches, "profile_decode_step": prof,
-           "dense_decode_step": dense_decode}
+           "dense_decode_step": dense_decode,
+           # the static verifier over every live bucket (phase 30 reads it)
+           "registry_analysis": {
+               "/".join(str(k) for k in key): {
+                   "findings": [f.format() for f in rep.findings],
+                   "peak_bytes": rep.memory["peak_bytes"]}
+               for key, rep in eng.registry.analyze().items()}}
     del eng, params
     torch.cuda.empty_cache()
     return out
@@ -2981,6 +3029,272 @@ def _engine_f32_full(cfg, ops, *, slots: int, block: int, max_seq: int, lens: li
     return {"prompt_lens": lens, "max_new": max_new, "against_sequential": held,
             "launches": launches, "designs": designs,
             "generations": {r: res[r].tolist() for r in res}}
+
+
+# ---------------------------------------------------------------------------
+# 29. the pipelined path
+# ---------------------------------------------------------------------------
+
+# (stages, microbatches) -> the reference's static schedule of llama-7b's
+# prefill graph (24 nodes, 14 computed; the JAX package, on the CPU): nodes
+# a stage, handoff elems, static bubble
+PIPE_CASES = {(1, 1): ([14], 0, 0.0), (2, 1): ([7, 7], 16_777_216, 0.5),
+              (2, 4): ([7, 7], 16_777_216, 0.2),
+              (4, 2): ([1, 6, 6, 1], 100_663_296, 0.6)}
+PIPE_DTYPES = ("float32", "bfloat16")
+# rank 0's logits against the dense one-card run, of max|logit|: phase 10's
+PIPE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def pipeline_rank(rank: int, world: int, cases: list) -> dict:
+    """One gloo rank of the pipelined path (run by ``launch.mesh.spawn``,
+    or called as rank 0 of 1): each (p, m) of ``cases`` (p = world)
+    compiled with ``pipeline=`` and as its baseline, the unpipelined
+    compile of the stitched plan on the same mesh; then in each of
+    ``PIPE_DTYPES`` the pipelined call with the launch counters set to 0
+    just before and read just after, the baseline, and on rank 0 the dense
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.pipeline import PipelineSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama-7b")
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    mesh = Mesh({"pp": world}, device="cuda:0")
+    res = {}
+    for p, m in cases:
+        run = prog.compile(mesh=mesh, executor="shard_map",
+                           pipeline=PipelineSpec(stages=p, microbatches=m))
+        base = prog.compile(mesh=mesh, executor="shard_map",
+                            plan=run.pipeline_schedule.stitched)
+        trace = sorted((e.nid, e.kind, e.axes, e.elems) for e in run.collectives.events)
+        for name in PIPE_DTYPES:
+            feeds = _graph_feeds(prog.graph, cfg, getattr(torch, name), seed=7)
+            with torch.inference_mode():
+                run(feeds)  # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = run(feeds)["logits"]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches, designs = ops.launch_counts(), ops.design_counts()
+                issued = sorted(run._fn.issued)
+                want = base(feeds)["logits"]
+                out = {"launches": launches, "designs": designs, "wall_s": wall,
+                       "bit_equal": bool(torch.equal(got, want)),
+                       "max_abs_diff_stitched": float((got.float() - want.float()).abs().max()),
+                       "issued_is_trace": issued == trace,
+                       "issued": sorted({(e[1], e[2]) for e in issued}),
+                       "handoff_bytes": sum(e[3] for e in issued if e[2] == ("pp",))
+                       * got.element_size(),
+                       "shape": tuple(got.shape), "finite": bool(torch.isfinite(got).all())}
+                del want
+                if rank == 0:  # against the dense run of the same feeds on the card
+                    dense = prog.compile(device="cuda:0")(feeds)["logits"].float()
+                    out["max_abs_logit"] = float(dense.abs().max())
+                    out["max_abs_logit_diff"] = float((got.float() - dense).abs().max())
+                    del dense
+            res[(p, m, name)] = out
+            del feeds, got
+            torch.cuda.empty_cache()
+    return res
+
+
+def _pipeline_path(cfg) -> dict:
+    """llama-7b's prefill graph through ``compile(pipeline=)`` on 1, 2 and
+    4 gloo ranks sharing the card (see the module doc, phase 29)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.pipeline import PipelineSpec, build_pipeline_schedule
+
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    g = prog.graph
+    assert (len(g.nodes), sum(n.kind != "input" for n in g.nodes)) == (24, 14)
+    static = {}
+    for (p, m), want in PIPE_CASES.items():
+        ps = build_pipeline_schedule(g, PipelineSpec(stages=p, microbatches=m), {"pp": p},
+                                     [prog._out["logits"]])
+        got = ([len(st.nids) for st in ps.stages], ps.handoff_elems, round(ps.bubble, 12))
+        assert got == want, ((p, m), got, want)
+        static[f"p{p}m{m}"] = {"stage_nodes": got[0], "handoff_elems": got[1], "bubble": got[2],
+                               "bubble_weighted": ps.bubble_weighted}
+    torch.cuda.empty_cache()  # the ranks share this card
+    t0 = time.perf_counter()
+    ranks = {1: [pipeline_rank(0, 1, [(1, 1)])]}  # one rank: no process group
+    for p in (2, 4):
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks[p] = spawn(p, pipeline_rank, [c for c in PIPE_CASES if c[0] == p],
+                             tmpdir=tmp, backend="gloo", timeout=400)
+    t_all = time.perf_counter() - t0
+    designs_total = {k: dict.fromkeys(DESIGNS_ALL, 0) for k in ("flash_attention", "matmul")}
+    res = {"static": static, "wall_s": t_all}
+    for (p, m), (sizes, elems, bubble) in PIPE_CASES.items():
+        for name in PIPE_DTYPES:
+            per_rank = [r[(p, m, name)] for r in ranks[p]]
+            design = "wgmma" if name == "bfloat16" else "ffma"
+            for r in per_rank:
+                assert r["bit_equal"], ((p, m, name), r["max_abs_diff_stitched"])
+                assert r["launches"] == {"flash_attention": m, "flash_attention_step": 0,
+                                         "matmul": 8 * m, "gmm": 0}, r["launches"]
+                for k, total in designs_total.items():
+                    assert r["designs"][k][design] == r["launches"][k], r["designs"]
+                    for d, n in r["designs"][k].items():
+                        total[d] += n
+                assert r["issued_is_trace"], ((p, m, name), r["issued"])
+                assert r["issued"] == ([] if p == 1 else [("ppermute", ("pp",))]), r["issued"]
+                assert r["finite"] and r["shape"] == (4, 512, cfg.vocab_padded), r["shape"]
+            r0 = per_rank[0]
+            scale, diff = r0["max_abs_logit"], r0["max_abs_logit_diff"]
+            if not diff <= PIPE_TOL[name] * scale:
+                raise AssertionError(f"pipelined p={p} m={m} {name}: max|pipelined - dense| = "
+                                     f"{diff:.3e} > {PIPE_TOL[name]} x max|logit| {scale:.3f}")
+            log("pipeline", f"p={p} m={m} {name}: stages of {sizes} nodes, bubble {bubble}, "
+                            f"handoff {elems} elems, {r0['handoff_bytes']} B a call; every rank's "
+                            f"logits bit-equal to the stitched plan's compile; launches per rank "
+                            f"{r0['launches']} by design {r0['designs']}; collectives issued "
+                            f"{r0['issued']} (the static trace); max|pipelined - dense| = "
+                            f"{diff:.3e} (max|logit| {scale:.3f}, tol {PIPE_TOL[name]} x that); "
+                            f"rank walls {[round(r['wall_s'], 4) for r in per_rank]} s "
+                            f"(host-staged gloo, not a speed path)")
+            res[f"p{p}m{m}_{name}"] = {
+                "launches_per_rank": [r["launches"] for r in per_rank],
+                "designs_per_rank": [r["designs"] for r in per_rank],
+                "bit_equal_per_rank": [r["bit_equal"] for r in per_rank],
+                "issued": r0["issued"], "handoff_bytes": r0["handoff_bytes"],
+                "max_abs_logit_diff": diff, "max_abs_logit": scale, "tol_rel": PIPE_TOL[name],
+                "wall_s": [r["wall_s"] for r in per_rank]}
+    for k, total in designs_total.items():
+        assert total["template"] == 0, designs_total
+    res["designs_total"] = designs_total
+    log("pipeline", f"every case, every rank in {t_all:.1f} s; launches by design {designs_total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 30. the static verifier on the card
+# ---------------------------------------------------------------------------
+
+# the memory pass's peak against the allocator's: the reference's own band
+# against XLA (tests/test_analysis.py)
+MEM_BAND = 0.10
+
+
+def _retyped(g, dtype):
+    """A copy of EinGraph ``g`` whose float nodes are typed ``dtype``."""
+    from repro_torch.core.einsum import EinGraph
+
+    out = EinGraph(g.name)
+    out.nodes = [dataclasses.replace(n, dtype=dtype) if np.dtype(n.dtype).kind == "f" else n
+                 for n in g.nodes]
+    return out
+
+
+def _allocator_peak(call, feeds) -> tuple:
+    """``call()``'s result, and the allocator's peak over it less what was
+    allocated before it and is not one of ``feeds``: what the call adds to
+    its arguments, plus the arguments, as the memory pass counts."""
+    feed_bytes = sum(t.nbytes for t in feeds.values() if torch.is_tensor(t) and t.is_cuda)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"measured_bytes": peak - (before - feed_bytes), "feed_bytes": feed_bytes,
+                 "allocated_before": before, "max_memory_allocated": peak}
+
+
+def _memory_check(what: str, static: dict, measured: dict) -> dict:
+    ratio = static["peak_bytes"] / measured["measured_bytes"]
+    log("analysis", f"{what}: memory pass peak {static['peak_bytes']} B (args "
+                    f"{static['args_bytes']}, outputs {static['out_bytes']}, at node "
+                    f"{static['peak_pos']}); allocator {measured['measured_bytes']} B "
+                    f"(max_memory_allocated {measured['max_memory_allocated']} less "
+                    f"{measured['allocated_before'] - measured['feed_bytes']} B held before the "
+                    f"call that are not its feeds); static / measured {ratio:.4f}")
+    assert abs(ratio - 1.0) <= MEM_BAND, (what, ratio, static["peak_bytes"], measured)
+    return {"static_peak_bytes": static["peak_bytes"], "static_args_bytes": static["args_bytes"],
+            "static_out_bytes": static["out_bytes"], "static_peak_pos": static["peak_pos"],
+            **measured, "ratio": ratio}
+
+
+def _analysis_phase(cfg, results: dict) -> dict:
+    """(a) the analysis CLI over the zoo in a subprocess; (b) the memory
+    pass against the allocator; (c) phase 20's registry (see the module
+    doc, phase 30)."""
+    import os
+
+    from repro_torch.analysis import analyze_compiled
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.frontend import Program
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    report = out_dir / "analysis_zoo.json"
+    snippet = ("import sys, torch\n"
+               "from repro_torch.analysis.__main__ import main\n"
+               f"rc = main(['--json', {str(report)!r}])\n"
+               "print('cuda initialised:', torch.cuda.is_initialized(), '; jax imported:',\n"
+               "      'jax' in sys.modules)\n"
+               "assert not torch.cuda.is_initialized() and 'jax' not in sys.modules\n"
+               "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", snippet], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+                          cwd=str(ROOT))
+    t_cli = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    payload = json.loads(report.read_text())
+    assert payload["n_errors"] == payload["n_warnings"] == 0 and len(payload["cells"]) == 11
+    tail = proc.stdout.strip().splitlines()[-3:]
+    log("analysis", f"python -m repro_torch.analysis over the reduced zoo: exit 0 in {t_cli:.1f} s, "
+                    f"{len(payload['cells'])} cells, 0 findings; {tail}")
+    res = {"cli": {"exit": proc.returncode, "cells": len(payload["cells"]), "wall_s": t_cli,
+                   "tail": tail}}
+
+    # (b) phase 10's one-rank compile of llama-7b's prefill graph, f32 and bf16
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda")
+    memory = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        p = prog if dt == torch.float32 else Program.from_graph(_retyped(prog.graph, dt),
+                                                                prog._out)
+        run = p.compile(mesh=mesh, executor="shard_map")
+        feeds = _graph_feeds(prog.graph, cfg, dt, seed=7)
+        with torch.inference_mode():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            gc.collect()
+            logits, measured = _allocator_peak(lambda: run(feeds), feeds)
+        del logits
+        memory[f"executor_{name}"] = _memory_check(
+            f"llama-7b prefill graph, one rank, {name}", analyze_compiled(run).memory, measured)
+        del feeds, run
+        torch.cuda.empty_cache()
+    memory["ffnn"] = _memory_check("FFNN gradient program at AmazonCat-14K sizes, float32",
+                                   results["ffnn"]["memory"]["static"],
+                                   results["ffnn"]["memory"]["measured"])
+    res["memory"] = memory
+
+    # (c) the engine's bucket registry of phase 20 (analysed there, before it went)
+    for phase in ("engine", "engine_moe", "engine_hymba"):
+        cells = results[phase]["registry_analysis"]
+        assert cells and all(c["findings"] == [] for c in cells.values()), (phase, cells)
+        log("analysis", f"{phase}'s BucketRegistry.analyze(): {len(cells)} live buckets, all "
+                        f"clean; peak bytes a bucket "
+                        f"{ {k: c['peak_bytes'] for k, c in cells.items()} }")
+    res["registry"] = {phase: results[phase]["registry_analysis"]
+                       for phase in ("engine", "engine_moe", "engine_hymba")}
+    return res
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -674,10 +674,19 @@ def _plan_layout(node: Node, axes_by_label: dict[str, tuple[str, ...]],
 
 
 def _itemsize(dtype) -> int:
+    """Bytes an element of ``dtype``: a torch dtype's own, else numpy's,
+    else that of the torch dtype of that name (``"bfloat16"``, which the
+    reference's numpy knows through ml_dtypes).  Raises on a dtype that
+    neither can size."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
     try:
         return np.dtype(dtype).itemsize
     except TypeError:
-        return 4
+        named = getattr(torch, str(dtype), None)
+        if isinstance(named, torch.dtype):
+            return named.itemsize
+        raise TypeError(f"cannot size an element of dtype {dtype!r}") from None
 
 
 def _record_steps(trace: CollectiveTrace, steps: list[tuple],
@@ -1105,7 +1114,7 @@ class StepContext:
         self.n_dev = math.prod(sizes.values()) if sizes else 1
         self.nid = -1
         self.issued: list[tuple] = []
-        self._stage = (mesh.device.type == "cuda" and self.n_dev > 1
+        self._stage = (mesh.device.type == "cuda" and mesh.world_size > 1
                        and _backend() == "gloo")
 
     # -- layouts ----------------------------------------------------------------
@@ -1282,16 +1291,22 @@ class StepContext:
         return _Pending(dist.batch_isend_irecv(ops), lambda: finish(bufs),
                         keep=xs)
 
-    def ring_shift(self, xs, axes: tuple[str, ...]) -> _Pending:
+    def ring_shift(self, xs, axes: tuple[str, ...], *, nid: int | None = None,
+                   sizes: dict[str, int] | None = None) -> _Pending:
         """Pass every tensor of ``xs`` one hop around the ring over
         ``axes`` (linear index i -> i + 1), recorded as one ppermute event
-        per tensor; ``wait()`` returns the received list."""
+        per tensor for ``nid`` (default: the current node) and ring-priced
+        over ``sizes`` (default: this context's; a pipeline handoff rides
+        the pp axis, which a stage's context does not span, and is priced
+        over the whole mesh); ``wait()`` returns the received list."""
         mesh = self.mesh
-        r = math.prod(self.sizes[a] for a in axes)
+        sizes = self.sizes if sizes is None else sizes
+        nid = self.nid if nid is None else nid
+        n_dev = math.prod(sizes.values())
+        r = math.prod(sizes[a] for a in axes)
         idx = mesh.linear_index(axes)
         for x in xs:
-            self.issued.append((self.nid, "ppermute", tuple(axes),
-                                self.n_dev * x.numel()))
+            self.issued.append((nid, "ppermute", tuple(axes), n_dev * x.numel()))
         finish = lambda got: got  # noqa: E731
         if self._stage:
             dev = xs[0].device

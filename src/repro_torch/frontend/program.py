@@ -160,11 +160,28 @@ class Program:
         and the graph-wide overlap window, as in the reference: outputs
         are bit-identical across both knobs.
 
+        ``pipeline=PipelineSpec(stages=p, microbatches=m)`` compiles the
+        pipelined realization (``repro_torch.pipeline``): the graph is cut
+        into ``p`` stage subgraphs, each planned by the same §8 DP against
+        the intra-stage submesh (warm through ``cache``), and run as the
+        GPipe cell schedule by every rank of ``mesh``, with ppermute
+        handoffs over the ``spec.axis`` (default ``"pp"``) mesh axis — the
+        mesh must carry that axis at size ``stages``.  Outputs are
+        bit-identical to the unpipelined compile of the stitched plan;
+        ``.plan`` is that stitched full-graph plan and
+        ``.pipeline_schedule`` the static schedule (cells, per-stage
+        traces, bubble fraction).  Requires ``executor='shard_map'``;
+        donation is not supported.
+
+        ``plan=`` short-circuits planning with a caller-supplied mesh-mode
+        plan (e.g. the pipeline tier's stitched plan, to compile the exact
+        bit-identity baseline) — mutually exclusive with ``pipeline=``.
+
         Not ported yet, and raising ``NotImplementedError``: ``gspmd`` on a
-        mesh of more than one rank (DTensor placements per node, a later
-        slice), ``pipeline=`` (the pipeline slice) and ``donate=`` (buffer
-        donation: PyTorch has no jit to donate to; the eager runner
-        already frees each value after its last reader).
+        mesh of more than one rank (DTensor placements per node, ROADMAP
+        Queue 1 item 4) and ``donate=`` (buffer donation: PyTorch has no
+        jit to donate to; the eager runner already frees each value after
+        its last reader).
         """
         from repro_torch.core.decomp import eindecomp
         from repro_torch.core.engine import EXECUTORS, mesh_axes_dict
@@ -173,17 +190,6 @@ class Program:
         if executor not in EXECUTORS:
             raise ValueError(f"compile: unknown executor {executor!r}; "
                              f"choose from {EXECUTORS}")
-        if pipeline is not None:
-            raise NotImplementedError(
-                "compile: pipeline= belongs to the pipeline slice of the "
-                "port (pipeline/partition, plan, schedule, exec), not "
-                "ported yet")
-        if donate:
-            raise NotImplementedError(
-                "compile: donate= is not ported — PyTorch has no jit "
-                "donation; the eager runner frees each intermediate after "
-                "its last reader, and donating the feeds themselves is a "
-                "later slice")
         cache = PlanCache.coerce(cache)
         if mesh is not None and mesh_axes is None:
             mesh_axes = mesh_axes_dict(mesh)
@@ -191,6 +197,36 @@ class Program:
             raise ValueError("compile: executor='shard_map' needs a mesh "
                              "(launch.mesh.Mesh; mesh_axes alone cannot "
                              "place shards)")
+        if pipeline is not None:
+            if plan is not None:
+                raise ValueError("compile: pipeline= builds its own "
+                                 "stitched plan — plan= is mutually "
+                                 "exclusive with it")
+            if executor != "shard_map" or mesh is None:
+                raise ValueError("compile: pipeline= needs "
+                                 "executor='shard_map' and a mesh "
+                                 "carrying the pipeline axis")
+            if donate:
+                raise ValueError("compile: donate is not supported with "
+                                 "pipeline= — microbatch chunks alias the "
+                                 "fed batch buffers")
+            from repro_torch.pipeline import build_pipeline_schedule
+
+            psched = build_pipeline_schedule(
+                self.graph, pipeline, mesh_axes,
+                [self._out[k] for k in self._out],
+                cache=cache, offpath_repart=offpath_repart,
+                cost_mode=cost_model, fuse=fuse, lookahead=lookahead)
+            return CompiledProgram(self, plan=psched.stitched, mesh=mesh,
+                                   executor="shard_map", fuse=fuse,
+                                   lookahead=lookahead,
+                                   pipeline_schedule=psched)
+        if donate:
+            raise NotImplementedError(
+                "compile: donate= is not ported — PyTorch has no jit "
+                "donation; the eager runner frees each intermediate after "
+                "its last reader, and donating the feeds themselves is a "
+                "later slice")
         if plan is not None:
             pass  # caller-supplied plan
         elif mesh_axes is not None or p is not None:
@@ -216,7 +252,11 @@ class CompiledProgram:
     ShardingPolicy.  ``.executor`` names the execution strategy; for
     ``"shard_map"``, ``.collectives`` is the static ``CollectiveTrace`` the
     program executes (None under gspmd), ``.collectives_by_rule`` its
-    per-shard-rule view, and ``.lookahead`` the overlap window.
+    per-shard-rule view, and ``.lookahead`` the overlap window.  A
+    pipelined compile carries ``.pipeline_schedule`` (None otherwise), and
+    its ``.collectives`` is that schedule's combined, (stage,
+    microbatch)-tagged trace.  ``.donate_argnums`` is always ``()``: the
+    port donates no feed.
 
     The device is resolved at the first call: ``mesh.device`` under
     shard_map, else ``device`` as compiled, else the card — raising where
@@ -225,7 +265,7 @@ class CompiledProgram:
 
     def __init__(self, program: Program, *, plan=None, mesh=None,
                  executor: str = "gspmd", fuse: bool = True,
-                 lookahead: int = 1, device=None):
+                 lookahead: int = 1, device=None, pipeline_schedule=None):
         self.program = program
         self.plan = plan
         self.mesh = mesh
@@ -234,12 +274,21 @@ class CompiledProgram:
         self.lookahead = int(lookahead)
         self.device = device
         self.collectives = None
+        self.pipeline_schedule = pipeline_schedule
+        self.donate_argnums: tuple[int, ...] = ()
         g = program.graph
         self._in_names = tuple(g.nodes[i].name for i in g.input_ids())
         self._out_names = tuple(program._out)
         self._out_ids = [program._out[k] for k in self._out_names]
         self._fn = None
-        if executor == "shard_map":
+        if pipeline_schedule is not None:
+            from repro_torch.pipeline.exec import make_pipeline_runner
+
+            # the combined trace is static — built at schedule time, with
+            # (stage, microbatch) attribution and rule="handoff" ppermutes
+            self.collectives = pipeline_schedule.trace
+            self._fn = make_pipeline_runner(g, pipeline_schedule, mesh)
+        elif executor == "shard_map":
             from repro_torch.core import spmd
 
             self.collectives = spmd.CollectiveTrace()

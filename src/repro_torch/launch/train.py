@@ -20,7 +20,9 @@ Fault tolerance, as in the reference: checkpoints carry {params,
 opt_state} and the step; the data pipeline is counter-based, so step N's
 batch is the same across restarts; checkpoint writes run on a background
 thread.  Meshes of more than one rank (DTensor placements, ROADMAP Queue 1
-item 4) and ``--pp > 1`` (the pipeline tier, item 5) raise.
+item 4) raise.  ``--pp > 1`` prints the static pipeline summary of the
+forward program (stages, bubble, handoff wire); the step itself runs the
+unpipelined plan, as in the reference.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
           mesh=None, ckpt_dir: str | None = None, ckpt_every: int = 50,
           schedule: str = "cosine", peak_lr: float = 3e-4,
           log_every: int = 10, seed: int = 0, plan_cache=None,
-          executor: str = "gspmd", pp: int = 1, device=None) -> dict:
+          executor: str = "gspmd", pp: int = 1, microbatches: int = 1,
+          device=None) -> dict:
     """Train ``cfg`` for ``steps_total`` steps on batches of ``shape``.
 
     Returns ``{"history": [(step, loss) every log_every steps and at the
@@ -62,15 +65,14 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     "params", "opt_state"}``; ``wall_s`` is the step's host time ending in
     a synchronize.  ``device`` defaults to the card (``mesh.device`` where
     a mesh is given); the weights are seeded random ones made there.
-    ``plan_cache`` is a ``PlanCache`` or a path to its JSON store."""
-    if pp > 1:
-        raise NotImplementedError(
-            f"train: --pp {pp} needs the pipeline tier of the port "
-            "(pipeline/partition, plan, schedule, exec; ROADMAP Queue 1 "
-            "item 5), not ported yet")
+    ``plan_cache`` is a ``PlanCache`` or a path to its JSON store.  With
+    ``pp > 1`` the static pipeline summary over ``pp`` stages and
+    ``microbatches`` is printed first."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     mesh = mesh or Mesh(ONE_DEVICE_MESH, device=dev)
     axes = dict(mesh.sizes)
+    if pp > 1:
+        _print_pipeline_summary(cfg, shape, axes, pp, microbatches)
     # warm-start planning from the persistent cache: on restart the §8 DP
     # is a cache hit instead of a re-run
     compiled = program_for(cfg, shape).compile(
@@ -146,6 +148,32 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
             "opt_state": opt_state}
 
 
+def _print_pipeline_summary(cfg, shape: ShapeConfig, intra_axes: dict,
+                            pp: int, microbatches: int) -> None:
+    """Static pipeline report for the forward program: partition the graph
+    into ``pp`` stages over a combined (pp, intra) mesh, price the GPipe
+    bubble and handoff wire, and print the fill/drain summary.  The
+    training step itself still runs the unpipelined plan — 1F1B grad-path
+    pipelining is the pipeline tier's documented stretch goal."""
+    from repro_torch.pipeline import PipelineSpec, build_pipeline_schedule
+
+    prog = program_for(cfg, shape)
+    combined = {"pp": pp, **intra_axes}
+    psched = build_pipeline_schedule(
+        prog.graph, PipelineSpec(stages=pp, microbatches=microbatches),
+        combined, [prog._out[k] for k in prog._out])
+    cut_b = sum(psched.cut_elems) * 4
+    print(f"[train] pipeline (static): p={pp} m={psched.spec.microbatches} "
+          f"bubble={psched.bubble:.3f} "
+          f"(weighted {psched.bubble_weighted:.3f}) "
+          f"cut={cut_b:,}B handoff={psched.handoff_elems:,} elems")
+    for st in psched.stages:
+        print(f"[train]   stage {st.index}: {len(st.nids)} nodes, "
+              f"recv {len(st.recv)} tensors")
+    print("[train] note: the optimizer step runs the unpipelined plan "
+          "(1F1B grad pipelining is the tier's stretch goal)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-7b")
@@ -164,8 +192,13 @@ def main(argv=None) -> None:
                     help="plan realization; shard_map prints the compiled "
                          "program's static collective schedule")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (> 1 needs the pipeline tier, "
-                         "not ported yet)")
+                    help="pipeline stages: with --pp > 1, partition the "
+                         "forward graph over a pp mesh axis and print the "
+                         "static GPipe schedule (bubble, cut bytes, "
+                         "handoff wire) before training")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="GPipe microbatches per step for the --pp summary "
+                         "(must divide --batch)")
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
@@ -176,7 +209,8 @@ def main(argv=None) -> None:
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     train(cfg, shape, steps_total=args.steps, ckpt_dir=args.ckpt,
           schedule=args.schedule, plan_cache=args.plan_cache,
-          executor=args.executor, pp=args.pp, device=args.device)
+          executor=args.executor, pp=args.pp,
+          microbatches=args.microbatches, device=args.device)
 
 
 if __name__ == "__main__":

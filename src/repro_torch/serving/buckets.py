@@ -173,12 +173,20 @@ class BucketRegistry:
     # -- static verification --------------------------------------------------
 
     def analyze(self, max_hbm: int | None = None) -> dict:
-        """The reference statically re-verifies every live bucket cell here
-        (``repro.analysis``); the port's static analysis is not written
-        yet (ROADMAP Queue 1 item 6)."""
-        raise NotImplementedError(
-            "BucketRegistry.analyze needs the static analysis passes "
-            "(analysis/*), which are not ported yet (ROADMAP Queue 1 item 6)")
+        """Statically re-verify every live bucket cell
+        (``repro_torch.analysis``): each entry's CompiledProgram is checked
+        with its own plan and donation set under this registry's mesh
+        shape — graph, plan, schedule, and memory passes, all
+        backend-free, so it is safe to call on a loaded serving host.
+        Returns ``{bucket key: Report}``; callers gate on
+        ``report.has_errors``."""
+        from repro_torch.analysis import analyze_compiled
+
+        return {
+            key: analyze_compiled(
+                ent.compiled, max_hbm=max_hbm, mesh_axes=dict(self.axes),
+                meta={"bucket": "/".join(str(k) for k in key)})
+            for key, ent in sorted(self._entries.items())}
 
     def _make_step(self, kind: str) -> Callable:
         if kind == "prefill":

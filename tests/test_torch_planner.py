@@ -308,8 +308,8 @@ def test_unported_lowering_and_vjp_raise():
         prog.compile(p=1)({})
     with pytest.raises(ValueError, match="needs a mesh"):
         prog.compile(p=1, executor="shard_map")
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        prog.compile(p=1, pipeline=object())
+    with pytest.raises(ValueError, match="executor='shard_map' and a mesh"):
+        prog.compile(p=1, pipeline=object())  # the reference's guard
     with pytest.raises(NotImplementedError, match="donat"):
         prog.compile(p=1, donate=True)
 

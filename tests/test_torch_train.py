@@ -183,16 +183,29 @@ class _Mesh:
         self.world_size, self.device = world, torch.device("cpu")
 
 
-def test_batch_placement_and_train_step_raise_past_one_rank():
+def test_batch_placement_and_train_step_raise_past_one_rank(capsys):
+    """Placement and the train step past one rank raise (ROADMAP Queue 1
+    item 4); ``pp=2`` no longer raises: it prints the reference's static
+    pipeline summary, then trains on the unpipelined plan."""
+    from repro.configs.base import ShapeConfig as RefShape
+    from repro.launch.train import _print_pipeline_summary as ref_summary
+
     assert batch_shardings(None, _Mesh(1), {"tokens": 0, "labels": 0}) == {
         "tokens": torch.device("cpu"), "labels": torch.device("cpu")}
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         batch_shardings(None, _Mesh(4), {"tokens": 0})
-    _, cfg = _cfgs()
+    ref_cfg, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         steps.make_train_step(cfg, mesh=_Mesh(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_mod.train(cfg, ShapeConfig("t", "train", 16, 2), pp=2, device="cpu")
+    capsys.readouterr()
+    out = train_mod.train(cfg, ShapeConfig("t", "train", 16, 2), steps_total=1,
+                          pp=2, microbatches=2, device="cpu")
+    ours = [ln for ln in capsys.readouterr().out.splitlines()
+            if "pipeline" in ln or "stage" in ln]
+    ref_summary(ref_cfg, RefShape("t", "train", 16, 2), {"data": 1, "model": 1}, 2, 2)
+    assert ours == capsys.readouterr().out.splitlines()
+    assert ours[0].startswith("[train] pipeline (static): p=2 m=2")
+    assert np.isfinite(out["steps"][0]["loss"])
 
 
 # ---------------------------------------------------------------------------
