@@ -206,7 +206,37 @@
    (c) ``BucketRegistry.analyze()`` of phase 20's engine registry, every
    bucket clean.  The kernels line gives the matmul and flash rows'
    launches on the pipelined path by design (``pipeline_launches``,
-   ``pipeline_design``).
+   ``pipeline_design``);
+31. the DTensor path, on gloo ranks sharing the card (DTensor's
+   all-gathers staged through the host): (a) phase 10's llama-7b prefill
+   graph (b=4, s=512, one block period) through ``executor="gspmd"`` on 4
+   ranks, meshes (2, 2) (llama-7b's plan: f and v on both axes) and
+   (1, 4), float32 and bf16: every rank's logits against the one-card
+   dense run and the shard_map run on the same mesh (phase 10's limits),
+   8 matmul + 1 flash launches a rank (ffma in float32, wgmma in bf16),
+   the collectives DTensor issued by kind and bytes (``CommLog``) beside
+   shard_map's static trace, the rank walls; (b) a train step at
+   llama-7b width, 2 layers, float32, b=2, s=128, on 2 ranks: data
+   parallel on {"data": 2} (reduced llama's plan at that cell: the batch
+   on data, the weights stored on it, Partial gradients reduce-scattered
+   into their shards) and tensor parallel on {"model": 2} (llama-7b's
+   plan): loss, grad norm (the clip active) and
+   every gradient against the one-rank step on the card (1e-4), the
+   parameters after AdamW (within 1e-4 x lr and one float32 ulp where the
+   gradient clears 30 x its tolerance, within 2 x lr, one step either way,
+   below that); (c) llama-7b at full size (bf16, 32 layers)
+   served on 4 ranks, mesh (1, 4), b=4, prompt 512, 16 new, after the
+   one-rank reference ran alone: each rank's weight bytes, peak memory;
+   the serve loop fed the one-rank tokens, every step's logits against the
+   one-rank run (the first within 2e-2 of max|logit|, each later one
+   within the larger of that and twice the noise floor: the one-rank bf16
+   run against the same weights in float32, printed per step); a 4-layer
+   float32 slice fed its one-rank tokens the same way, every step within
+   1e-4 of max|logit|; ``serve(mesh=)``'s generations token for token (a
+   divergence must sit on a top-2 margin under 2e-2 of max|logit|, and is
+   printed), the prefill and decode walls.  The
+   kernels line gives the flash and matmul launches a rank on the gspmd
+   path (``gspmd_launches_per_rank``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -523,7 +553,6 @@ def main() -> int:
     spilled = [k["kernel"] for k in wg_kernels if k["spill_stores"] or k["spill_loads"]]
     assert not spilled, f"ptxas spills registers in {spilled}"
     results["build"]["wgmma_kernels"] = wg_kernels
-
     # 3. kernel parity ----------------------------------------------------------
     parity = []
     masked = [(case, offsets) for case in MASKED_CASES for offsets in [MASKED_OFFSETS]]
@@ -685,6 +714,10 @@ def main() -> int:
     results["analysis"] = _analysis_phase(cfg, results)
     pipe_designs = results["pipeline"]["designs_total"]
 
+    # 31. gspmd on DTensor; llama-7b trained and served on a mesh (gloo ranks on the card)
+    results["mesh"] = _mesh_phase(ops)
+    gx = results["mesh"]["gspmd"]
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -742,7 +775,10 @@ def main() -> int:
                                for a, r in results["zoo_serve"].items()},
          "zoo_launches_by_design": zoo_designs["flash_attention"],
          "pipeline_launches": sum(pipe_designs["flash_attention"].values()),
-         "pipeline_design": pipe_designs["flash_attention"]},
+         "pipeline_design": pipe_designs["flash_attention"],
+         "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
+             "flash_attention"] for m in gx for dt in RING_DTYPES},
+         "mesh_serve_launches_per_rank": results["mesh"]["serve"]["flash_launches"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -779,7 +815,9 @@ def main() -> int:
                                    for a, r in results["zoo_executor"].items()},
          "zoo_launches_by_design": zoo_designs["matmul"],
          "pipeline_launches": sum(pipe_designs["matmul"].values()),
-         "pipeline_design": pipe_designs["matmul"]},
+         "pipeline_design": pipe_designs["matmul"],
+         "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
+             "matmul"] for m in gx for dt in RING_DTYPES}},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -3294,6 +3332,545 @@ def _analysis_phase(cfg, results: dict) -> dict:
     res["registry"] = {phase: results[phase]["registry_analysis"]
                        for phase in ("engine", "engine_moe", "engine_hymba")}
     return res
+
+
+# ---------------------------------------------------------------------------
+# 31. the gspmd executor on DTensor, and llama-7b trained and served on a mesh
+# ---------------------------------------------------------------------------
+
+GSPMD_MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4}}
+# every rank's logits against the one-card dense run and the shard_map run
+# on the same mesh, relative to max|logit|: phase 10's limits
+GSPMD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def gspmd_rank(rank: int, world: int, sizes: dict) -> dict:
+    """One gloo rank of phase 31(a): phase 10's llama-7b prefill graph
+    through ``executor="gspmd"`` on ``sizes``, in both dtypes, counted and
+    held against the shard_map run on the same mesh and the dense run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import spmd
+    from repro_torch.core.engine import spec_for_node
+    from repro_torch.core.gspmd import comm_summary
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama-7b")
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    g = prog.graph
+    mesh = Mesh(sizes, device="cuda:0")
+    run = prog.compile(mesh=mesh, executor="gspmd")
+    sm = prog.compile(mesh=mesh, executor="shard_map")
+    dense = prog.compile(device="cuda:0")
+    specs = [spec_for_node(n, run.plan.axes_by_node.get(n.nid, {})) for n in g.nodes]
+    res = {"n_mm": sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec)),
+           "policy": {l: list(a) for l, a in run.policy().label_axes.items()},
+           "two_axis_nodes": sum(1 for sp in specs if any(isinstance(e, tuple) for e in sp)),
+           "collectives": run.collectives,
+           "static": {"counts": sm.collectives.counts,
+                      "bytes": sm.collectives.bytes_by_kind}}
+    for name in RING_DTYPES:
+        feeds = _graph_feeds(g, cfg, getattr(torch, name), seed=7)
+        with torch.no_grad():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            run._fn.log_comms = True
+            t0 = time.perf_counter()
+            got = run(feeds)["logits"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run._fn.log_comms = False
+            out = {"launches": ops.launch_counts(), "designs": ops.design_counts(),
+                   "wall_s": wall, "comms": comm_summary(run._fn.comms),
+                   "shape": list(got.shape), "dtype": str(got.dtype),
+                   "finite": bool(torch.isfinite(got).all())}
+            got = got.float()
+            want = dense(feeds)["logits"].float()
+            out["max_abs_logit"] = float(want.abs().max())
+            out["diff_dense"] = float((got - want).abs().max())
+            del want
+            out["diff_shard_map"] = float((got - sm(feeds)["logits"].float()).abs().max())
+        res[name] = out
+        del feeds, got
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gspmd_executor(ops) -> dict:
+    from repro_torch.launch.mesh import spawn
+
+    res = {}
+    for mesh_id, sizes in GSPMD_MESHES.items():
+        torch.cuda.empty_cache()  # the ranks share this card
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = spawn(4, gspmd_rank, sizes, tmpdir=tmp, backend="gloo", timeout=600)
+            t_spawn = time.perf_counter() - t0
+        r0 = ranks[0]
+        assert r0["collectives"] is None  # the reference's gspmd has no static trace
+        if mesh_id == "2x2":  # llama-7b's plan: f and v on both axes
+            assert r0["policy"]["f"] == r0["policy"]["v"] == ["data", "model"], r0["policy"]
+            assert r0["two_axis_nodes"] > 0
+        out = {"spawn_s": t_spawn, "policy": r0["policy"],
+               "two_axis_nodes": r0["two_axis_nodes"], "static": r0["static"]}
+        for name in RING_DTYPES:
+            design = "wgmma" if name == "bfloat16" else "ffma"
+            per_rank = [r[name] for r in ranks]
+            for rank, r in enumerate(per_rank):
+                assert r["launches"] == {"flash_attention": 1, "flash_attention_step": 0,
+                                         "matmul": r0["n_mm"], "gmm": 0}, (rank, r["launches"])
+                for kernel in ("flash_attention", "matmul"):
+                    assert r["designs"][kernel][design] == r["launches"][kernel], r["designs"]
+                assert r["finite"] and r["shape"][:2] == [4, 512], r
+                tol = GSPMD_TOL[name] * r["max_abs_logit"]
+                for what in ("diff_dense", "diff_shard_map"):
+                    if not r[what] <= tol:
+                        raise AssertionError(f"gspmd {mesh_id} {name} rank {rank}: {what} "
+                                             f"{r[what]:.3e} > {GSPMD_TOL[name]} x max|logit| "
+                                             f"{r['max_abs_logit']:.3f}")
+                assert r["comms"] == per_rank[0]["comms"], (rank, r["comms"])
+            r = per_rank[0]
+            log("gspmd", f"{mesh_id} {name}: llama-7b prefill graph (b=4, s=512, one block "
+                         f"period) on 4 gloo ranks sharing the card; policy {r0['policy']}, "
+                         f"{r0['two_axis_nodes']} nodes with a label on two axes; launches "
+                         f"per rank {r['launches']} by design {r['designs']}; max|gspmd - "
+                         f"dense| {max(x['diff_dense'] for x in per_rank):.3e}, max|gspmd - "
+                         f"shard_map| {max(x['diff_shard_map'] for x in per_rank):.3e} "
+                         f"(max|logit| {r['max_abs_logit']:.3f}, tol {GSPMD_TOL[name]} x "
+                         f"that); DTensor issued a rank {r['comms']}; shard_map's static "
+                         f"trace {r0['static']}; rank walls "
+                         f"{[round(x['wall_s'], 3) for x in per_rank]} s (host-staged gloo, "
+                         f"not a speed path)")
+            out[name] = {"launches_per_rank": [x["launches"] for x in per_rank],
+                         "designs_per_rank": [x["designs"] for x in per_rank],
+                         "comms_per_rank": r["comms"],
+                         "max_abs_logit": r["max_abs_logit"],
+                         "max_diff_dense": max(x["diff_dense"] for x in per_rank),
+                         "max_diff_shard_map": max(x["diff_shard_map"] for x in per_rank),
+                         "tol_rel": GSPMD_TOL[name],
+                         "wall_s": [x["wall_s"] for x in per_rank]}
+        res[mesh_id] = out
+    return res
+
+
+# each mesh with the plan its policy comes from: data2 under reduced
+# llama's plan at the same cell (the batch on "data": data parallel, the
+# weights' feature dims stored on it, Partial gradients reduce-scattered
+# into their shards), model2 under llama-7b's (heads, d_model, ffn and
+# vocab split)
+MESH_TRAIN_MESHES = {"data2": ({"data": 2}, "reduced"), "model2": ({"model": 2}, "llama-7b")}
+MESH_TRAIN_LR = 1e-3
+# a weight's AdamW step is held tight where its gradient clears this many
+# times the gradients' tolerance (see mesh_train_rank)
+ADAM_CLEAR = 30
+
+
+def mesh_train_rank(rank: int, world: int) -> dict:
+    """One gloo rank of phase 31(b): llama-7b width, 2 layers, float32, b=2,
+    s=128.  Rank 0 first runs the one-rank step on the card alone (the
+    others wait at a barrier), then every rank runs the sharded step on
+    each mesh of ``MESH_TRAIN_MESHES``; rank 0 holds the loss, every
+    gradient and every parameter after AdamW against the one-rank step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.core.gspmd import full
+    from repro_torch.data.synthetic import place_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.optim import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama-7b"), n_layers=2, dtype="float32")
+    toks = np.random.default_rng(31).integers(0, cfg.vocab, size=(2, 128)).astype(np.int32)
+    host = {"tokens": toks, "labels": toks}
+
+    def value_grads_step(mesh, policy):
+        params = tf.init_placed_params(cfg, policy, mesh, seed=2)
+        batch = place_batch(host, policy, mesh)
+        leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
+        loss, _ = tf.loss_fn(params, batch, cfg, policy=policy, mesh=mesh)
+        grads = torch.autograd.grad(loss, leaves)
+        if mesh.world_size > 1:
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
+        for p in leaves:
+            p.requires_grad_(False)
+        loss = float(full(loss).detach())
+        step = steps.make_train_step(cfg, policy=policy, mesh=mesh,
+                                     lr_fn=lambda s: MESH_TRAIN_LR)
+        t0 = time.perf_counter()
+        params, _, met = step(params, adamw_init(params), batch)
+        torch.cuda.synchronize()
+        return loss, grads, params, met, time.perf_counter() - t0
+
+    ref = None
+    if rank == 0:
+        one = Mesh({"data": 1}, device="cuda:0")
+        pol1 = program_for(cfg, ShapeConfig("t", "train", 128, 2)).compile(
+            mesh_axes={"data": 1}, device="cuda:0").policy()
+        loss, grads, params, met, _ = value_grads_step(one, pol1)
+        ref = {"loss": loss, "grads": [g.detach().cpu() for g in grads],
+               "params": [p.cpu() for p in tree.leaves(params)],
+               "grad_norm": float(met["grad_norm"])}
+        del grads, params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return {mesh_id: _sharded_step(rank, Mesh(sizes, device="cuda:0"), plan_of, cfg, ref,
+                                   value_grads_step)
+            for mesh_id, (sizes, plan_of) in MESH_TRAIN_MESHES.items()}
+
+
+def _sharded_step(rank, mesh, plan_of: str, cfg, ref, value_grads_step) -> dict:
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.core.gspmd import full
+    from repro_torch.models.eingraphs import fsdp_axes_for, program_for
+
+    axes = dict(mesh.sizes)
+    planned = reduced(cfg) if plan_of == "reduced" else cfg
+    policy = program_for(planned, ShapeConfig("t", "train", 128, 2)).compile(
+        mesh_axes=axes, device="cuda:0").policy(fsdp_axes=fsdp_axes_for(axes))
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, params, met, wall = value_grads_step(mesh, policy)
+    res = {"policy": {l: list(a) for l, a in policy.label_axes.items()},
+           "fsdp": list(policy.fsdp_axes),
+           "loss": loss, "grad_norm": float(met["grad_norm"]),
+           "step_loss": float(met["loss"]), "step_wall_s": wall,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    grad_errs, param_errs = [], []
+    for i, g in enumerate(grads):
+        g = full(g)
+        if rank == 0:
+            w = ref["grads"][i]
+            grad_errs.append((float((g.cpu() - w).abs().max()), float(w.abs().max())))
+        del g
+    for i, p in enumerate(tree.leaves(params)):
+        p = full(p)
+        if rank == 0:
+            # Adam's first step moves a weight by lr g/(|g| + 1e-8); a
+            # gradient error dg moves that by lr 1e-8 dg / g^2, so where |g|
+            # clears 30 x the gradients' tolerance the step agrees within
+            # about 1e-5 lr, and below that its size and sign are rounding
+            # (beyond one float32 ulp of the weight itself)
+            g = ref["grads"][i].abs()
+            sure = g >= ADAM_CLEAR * TRAIN_TOL * float(g.max())
+            w = ref["params"][i]
+            d = (p.cpu() - w).abs() - torch.finfo(torch.float32).eps * w.abs()
+            param_errs.append((float(d[sure].max()) if bool(sure.any()) else 0.0,
+                               float(d.max()), float(sure.float().mean())))
+        del p
+    if rank == 0:
+        res.update({"ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"],
+                    "grad_errs": grad_errs, "param_errs": param_errs})
+    return res
+
+
+def _mesh_train() -> dict:
+    from repro_torch.launch.mesh import spawn
+
+    res = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:  # one spawn: both meshes
+        t0 = time.perf_counter()
+        both = spawn(2, mesh_train_rank, tmpdir=tmp, backend="gloo", timeout=600)
+        t_spawn = time.perf_counter() - t0
+    # two layouts, not one: the batch split on data2, whole on model2
+    assert both[0]["data2"]["policy"]["b"] == ["data"], both[0]["data2"]["policy"]
+    assert both[0]["data2"]["fsdp"] == ["data"], both[0]["data2"]
+    assert "b" not in both[0]["model2"]["policy"], both[0]["model2"]["policy"]
+    for mesh_id in MESH_TRAIN_MESHES:
+        ranks = [r[mesh_id] for r in both]
+        r0 = ranks[0]
+        assert r0["ref_grad_norm"] > 1.0  # the clip (max norm 1) is active
+        for what, ref in (("loss", "ref_loss"), ("grad_norm", "ref_grad_norm"),
+                          ("step_loss", "ref_loss")):
+            err = abs(r0[what] - r0[ref]) / abs(r0[ref])
+            assert err <= TRAIN_TOL, (mesh_id, what, r0[what], r0[ref])
+        assert ranks[1]["loss"] == r0["loss"], (ranks[1]["loss"], r0["loss"])
+        worst_g = max(e / max(s, 1e-30) for e, s in r0["grad_errs"])
+        assert worst_g <= TRAIN_TOL, (mesh_id, r0["grad_errs"])
+        worst_sure = max(e[0] for e in r0["param_errs"])
+        worst_p = max(e[1] for e in r0["param_errs"])
+        worst_frac = min(e[2] for e in r0["param_errs"])
+        assert worst_sure <= 1e-4 * MESH_TRAIN_LR and worst_p <= 2 * MESH_TRAIN_LR, \
+            r0["param_errs"]
+        log("mesh-train", f"{mesh_id}: llama-7b width, 2 layers, f32, b=2, s=128 on 2 gloo "
+                          f"ranks sharing the card; policy {r0['policy']} (the "
+                          f"{MESH_TRAIN_MESHES[mesh_id][1]} plan's), fsdp {r0['fsdp']}; loss "
+                          f"{r0['loss']:.7f} vs one rank {r0['ref_loss']:.7f}, grad norm "
+                          f"{r0['grad_norm']:.6f} vs {r0['ref_grad_norm']:.6f} (clip at 1); "
+                          f"worst gradient leaf {worst_g:.3e} of its max|g| (limit "
+                          f"{TRAIN_TOL}); parameters after AdamW (lr {MESH_TRAIN_LR}): max "
+                          f"|diff| beyond an ulp {worst_sure:.3e} where |g| clears {ADAM_CLEAR} x "
+                          f"{TRAIN_TOL} x max|g| (limit 1e-4 x lr; at least {worst_frac:.4f} "
+                          f"of each leaf), {worst_p:.3e} over all (limit 2 x lr); step walls "
+                          f"{[round(r['step_wall_s'], 2) for r in ranks]} s, peak "
+                          f"{[r['peak_bytes'] for r in ranks]} B a rank; both meshes in one spawn of {t_spawn:.1f} s")
+        res[mesh_id] = {"policy": r0["policy"], "fsdp": r0["fsdp"],
+                        "plan_of": MESH_TRAIN_MESHES[mesh_id][1],
+                        "loss": r0["loss"], "ref_loss": r0["ref_loss"],
+                        "grad_norm": r0["grad_norm"], "ref_grad_norm": r0["ref_grad_norm"],
+                        "worst_grad_rel": worst_g, "worst_param_abs": worst_p,
+                        "worst_param_abs_clear": worst_sure,
+                        "min_share_clear": worst_frac,
+                        "step_wall_s": [r["step_wall_s"] for r in ranks],
+                        "peak_bytes": [r["peak_bytes"] for r in ranks], "spawn_s": t_spawn}
+    return res
+
+
+MESH_SERVE = {"mesh": {"data": 1, "model": 4}, "b": 4, "prompt_len": 512, "max_new": 16}
+
+
+# a float32 slice of llama-7b (full width, the first layers) served on the
+# same mesh and held at every step to phase 10's float32 limit: at float32
+# a misplaced block shows where bf16's rounding would hide it
+MESH_SLICE_LAYERS = 4
+MESH_F32_TOL = 1e-4
+
+
+def _greedy(cfg, params, toks, max_new: int):
+    """The one-rank greedy serve loop on the card: (generations, every
+    step's last-position logits (b, max_new, v) float32 on the host)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+
+    plen = toks.shape[1]
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    with torch.inference_mode():
+        logits, caches = prefill(params, {"tokens": toks})
+        caches = serve_mod.prepare_decode_caches(cfg, caches, plen, plen + max_new)
+        kept = [logits[:, -1].float().cpu()]
+
+        def step(params, tok, caches, pos):
+            logits, caches = decode(params, tok, caches, pos)
+            kept.append(logits[:, -1].float().cpu())
+            return logits, caches
+
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        gen, _, _ = serve_mod.decode_loop(step, params, caches, tok, plen, max_new)
+    return gen, torch.stack(kept, 1)
+
+
+def _forced(cfg, params, toks, gen: np.ndarray, *, policy=None, mesh=None):
+    """The serve loop fed ``gen`` (teacher-forced: step i reads ``gen[:,
+    i]``), on one rank or under ``policy`` on ``mesh``: every step's
+    last-position logits (b, steps, v), float32 on the host."""
+    from repro_torch.core.gspmd import full
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+
+    plen = toks.shape[1]
+    prefill = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)
+    decode = steps.make_serve_step(cfg, policy=policy, mesh=mesh)
+    # DTensor views cannot be made of inference tensors: no_grad on a mesh
+    with torch.no_grad() if mesh is not None else torch.inference_mode():
+        logits, caches = prefill(params, {"tokens": toks})
+        caches = serve_mod.prepare_decode_caches(cfg, caches, plen, plen + gen.shape[1],
+                                                 policy=policy, mesh=mesh)
+        kept = [full(logits)[:, -1].float().cpu()]
+        for i in range(gen.shape[1] - 1):
+            tok = torch.as_tensor(gen[:, i:i + 1], device=toks.device)
+            logits, caches = decode(params, tok, caches, plen + i)
+            kept.append(full(logits)[:, -1].float().cpu())
+    return torch.stack(kept, 1)
+
+
+def _one_rank_serve(cfg, prompts, max_new: int) -> dict:
+    """The one-rank serve on the card (seed-0 weights) in bf16: the
+    generations, every step's logits and top-2 margins; the same weights
+    upcast to float32 and fed the bf16 generations — the witness of how far
+    bf16's own rounding moves the logits; and the float32 slice's greedy
+    generations and logits."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tf
+
+    toks = torch.as_tensor(prompts, device="cuda")
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    out = {}
+    out["gen"], out["bfloat16"] = _greedy(cfg, params, toks, max_new)
+    params = tree.map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    out["float32"] = _forced(dataclasses.replace(cfg, dtype="float32"), params, toks,
+                             out["gen"])
+    del params
+    torch.cuda.empty_cache()
+    sl = _f32_slice(cfg)
+    out["slice_gen"], out["slice"] = _greedy(sl, tf.init_params(sl, seed=0, device="cuda"),
+                                             toks, max_new)
+    torch.cuda.empty_cache()
+    top2 = torch.topk(out["bfloat16"], 2, dim=-1).values
+    out["margins"] = (top2[..., 0] - top2[..., 1]).numpy()
+    return out
+
+
+def _f32_slice(cfg):
+    return dataclasses.replace(cfg, n_layers=MESH_SLICE_LAYERS, dtype="float32")
+
+
+def mesh_serve_rank(rank: int, world: int, one: dict) -> dict:
+    """One gloo rank of phase 31(c): llama-7b at full size (bf16) served on
+    ``MESH_SERVE["mesh"]``: the weights placed by ``param_shardings`` (the
+    ranks take turns making them); the serve loop fed the one-rank
+    generations, every step's logits held against the one-rank bf16 and
+    float32 runs (``one``, from ``_one_rank_serve``); ``serve(mesh=)``;
+    then the float32 slice fed its one-rank generations."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.eingraphs import program_for
+
+    cfg = get_config("llama-7b")
+    b, plen, new = MESH_SERVE["b"], MESH_SERVE["prompt_len"], MESH_SERVE["max_new"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(b, plen)).astype(np.int32)
+    toks = torch.as_tensor(prompts, device="cuda:0")
+    mesh = Mesh(MESH_SERVE["mesh"], device="cuda:0")
+    policy = program_for(cfg, ShapeConfig("serve", "prefill", plen, b)).compile(
+        mesh_axes=dict(mesh.sizes), device="cuda:0").policy()
+    params = tf.init_placed_params(cfg, policy, mesh, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    got = _forced(cfg, params, toks, one["gen"], policy=policy, mesh=mesh)
+    forced_launches = ops.launch_counts()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    free, stats = serve_mod.serve(cfg, prompts, max_new=new, mesh=mesh, params=params)
+    res = {"gen": free, "param_bytes": stats["param_bytes"],
+           "t_prefill_s": stats["t_prefill_s"], "t_decode_s": stats["t_decode_s"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "forced_launches": forced_launches, "serve_launches": ops.launch_counts(),
+           "designs": ops.design_counts(), "policy": dict(stats["policy"])}
+    del params
+    torch.cuda.empty_cache()
+    sl = _f32_slice(cfg)
+    got_sl = _forced(sl, tf.init_placed_params(sl, policy, mesh, seed=0), toks,
+                     one["slice_gen"], policy=policy, mesh=mesh)
+
+    def per_step(got, want):
+        return (got - want).abs().amax(dim=(0, 2)).tolist()
+
+    res.update(diff_bf16=per_step(got, one["bfloat16"]), diff_f32=per_step(got, one["float32"]),
+               diff_slice=per_step(got_sl, one["slice"]))
+    return res
+
+
+# the first step's logits on the mesh against the one-rank serve's,
+# relative to max|logit|: the bf16 tolerance
+MESH_SERVE_TOL = 2e-2
+
+
+def _mesh_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    cfg = get_config("llama-7b")
+    b, plen, new = MESH_SERVE["b"], MESH_SERVE["prompt_len"], MESH_SERVE["max_new"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(b, plen)).astype(np.int32)
+    # the one-rank reference first, so it and the ranks never hold the card at once
+    t0 = time.perf_counter()
+    one = _one_rank_serve(cfg, prompts, new)
+    t_one = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(4, mesh_serve_rank, {k: one[k] for k in (
+            "gen", "bfloat16", "float32", "slice_gen", "slice")},
+            tmpdir=tmp, backend="gloo", timeout=900)
+        t_spawn = time.perf_counter() - t0
+
+    def rel(xs, ref):  # each step's max|diff| over that step's max|logit|
+        return [x / s for x, s in zip(xs, ref.abs().amax(dim=(0, 2)).tolist())]
+
+    floor = rel((one["bfloat16"] - one["float32"]).abs().amax(dim=(0, 2)).tolist(),
+                one["float32"])
+    r0 = ranks[0]
+    total = sum(r["param_bytes"] for r in ranks)
+    gen, want = r0["gen"], one["gen"]
+    diverged = []
+    for row in range(b):
+        cols = np.nonzero(gen[row] != want[row])[0]
+        if len(cols):
+            c = int(cols[0])  # margin of the one-rank logits behind that token
+            diverged.append({"row": row, "step": c, "margin": float(one["margins"][row, c]),
+                             "got": int(gen[row, c]), "want": int(want[row, c])})
+    mesh_bf16 = rel(r0["diff_bf16"], one["bfloat16"])
+    mesh_f32 = rel(r0["diff_f32"], one["float32"])
+    mesh_slice = rel(r0["diff_slice"], one["slice"])
+    scale = float(one["bfloat16"][:, 0].abs().max())
+    fmt = lambda xs: "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"  # noqa: E731
+    log("mesh-serve", f"llama-7b bf16, 32 layers, b={b}, prompt {plen}, {new} new on 4 gloo "
+                      f"ranks sharing the card, mesh {MESH_SERVE['mesh']}, policy "
+                      f"{r0['policy']}: weight bytes a rank "
+                      f"{[r['param_bytes'] for r in ranks]} (total {total}); peak "
+                      f"{[r['peak_bytes'] for r in ranks]} B a rank; fed the one-rank "
+                      f"tokens, each of the {new} steps' max|diff| / max|logit|: mesh - one "
+                      f"rank {fmt(mesh_bf16)} (first step limit {MESH_SERVE_TOL}); the noise "
+                      f"floor, one rank bf16 - the same weights in f32 {fmt(floor)}; mesh - "
+                      f"f32 {fmt(mesh_f32)}; the f32 slice ({MESH_SLICE_LAYERS} layers), "
+                      f"mesh - one rank {fmt(mesh_slice)} (limit {MESH_F32_TOL}); "
+                      f"serve(mesh=) tokens equal {int((gen == want).sum())} of {gen.size}, "
+                      f"first divergences {diverged or 'none'}; prefill walls "
+                      f"{[round(r['t_prefill_s'], 2) for r in ranks]} s, decode walls "
+                      f"{[round(r['t_decode_s'], 2) for r in ranks]} s ({new - 1} steps; "
+                      f"host-staged gloo, not a speed path); flash launches a rank "
+                      f"{r0['serve_launches']['flash_attention']} by design "
+                      f"{r0['designs']['flash_attention']}; one-rank runs "
+                      f"{t_one:.1f} s, ranks {t_spawn:.1f} s")
+    for rank, r in enumerate(ranks):
+        for what in ("diff_bf16", "diff_f32", "diff_slice"):  # every rank the same logits
+            assert r[what] == r0[what], (rank, what)
+        assert (r["gen"] == r0["gen"]).all(), rank  # every rank the same tokens
+        assert r["forced_launches"]["flash_attention"] == cfg.n_layers, r["forced_launches"]
+        assert r["designs"]["flash_attention"]["template"] == 0, r["designs"]
+        assert r["param_bytes"] < 0.3 * total, (rank, r["param_bytes"], total)
+    if not r0["diff_bf16"][0] <= MESH_SERVE_TOL * scale:
+        raise AssertionError(f"mesh serve: first-step logits differ by "
+                             f"{r0['diff_bf16'][0]:.3e} > {MESH_SERVE_TOL} x max|logit| "
+                             f"{scale:.3f}")
+    # later steps: the mesh may differ from the one-rank bf16 run by as much
+    # as two bf16 runs each as far from the float32 run as the one-rank is
+    floor_abs = (one["bfloat16"] - one["float32"]).abs().amax(dim=(0, 2)).tolist()
+    scales = one["bfloat16"].abs().amax(dim=(0, 2)).tolist()
+    for i, (d, f, sc) in enumerate(zip(r0["diff_bf16"], floor_abs, scales)):
+        if not d <= max(MESH_SERVE_TOL * sc, 2 * f):
+            raise AssertionError(f"mesh serve: step {i}'s logits differ by {d:.3e}, over "
+                                 f"{MESH_SERVE_TOL} x max|logit| {sc:.3f} and twice the "
+                                 f"bf16 noise floor {f:.3e}")
+    if not max(mesh_slice) <= MESH_F32_TOL:
+        raise AssertionError(f"mesh serve: the f32 slice's logits differ by {fmt(mesh_slice)} "
+                             f"x max|logit| > {MESH_F32_TOL}")
+    for d in diverged:  # a flip is a bf16 near tie, or a fault
+        assert d["margin"] <= MESH_SERVE_TOL * scale, (d, scale)
+    return {"mesh": MESH_SERVE["mesh"], "policy": r0["policy"],
+            "param_bytes": [r["param_bytes"] for r in ranks], "param_bytes_total": total,
+            "peak_bytes": [r["peak_bytes"] for r in ranks], "max_abs_logit": scale,
+            "rel_mesh_one_rank": mesh_bf16, "rel_mesh_f32": mesh_f32,
+            "rel_noise_floor": floor, "rel_slice": mesh_slice, "tol_rel": MESH_SERVE_TOL,
+            "tol_slice": MESH_F32_TOL,
+            "tokens_equal": int((gen == want).sum()), "tokens": int(gen.size),
+            "diverged": diverged, "t_prefill_s": [r["t_prefill_s"] for r in ranks],
+            "t_decode_s": [r["t_decode_s"] for r in ranks],
+            "flash_launches": r0["serve_launches"]["flash_attention"],
+            "flash_designs": r0["designs"]["flash_attention"],
+            "t_one_rank_s": t_one, "spawn_s": t_spawn}
+
+
+def _mesh_phase(ops) -> dict:
+    """Phase 31: (a) the gspmd executor, (b) the sharded train step, (c)
+    llama-7b served on a mesh — gloo ranks sharing the card."""
+    return {"gspmd": _gspmd_executor(ops), "train": _mesh_train(), "serve": _mesh_serve()}
 
 
 if __name__ == "__main__":

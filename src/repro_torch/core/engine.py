@@ -8,10 +8,10 @@ has one, so flash attention launches its kernel on a card).
 
 Two executors realize a plan (``EXECUTORS``):
 
-  * ``gspmd`` — the dense run on one device.  The reference applies the
-    plan as per-node sharding constraints that XLA's partitioner realizes;
-    the port's counterpart (DTensor placements per node) is a later slice,
-    so on a mesh of more than one rank ``make_runner`` raises.
+  * ``gspmd`` — the dense run on one device; on a mesh of more than one
+    rank the plan's per-node shardings as DTensor placements
+    (``core/gspmd.py``), the port's counterpart of the reference's
+    per-node sharding constraints that XLA's partitioner realizes.
   * ``shard_map`` — core/spmd.py: the plan's TRA dataflow as explicit
     ``torch.distributed`` collectives between the ranks of a
     ``launch.mesh.Mesh``, every clean contraction through the matmul kernel,
@@ -98,11 +98,46 @@ def lower_einsum(spec: EinSpec, *args):
 from repro_torch.core.opdef import MAP_FNS, OPAQUE_FNS  # noqa: E402
 
 
+def register_opaque(name: str, fn: Callable) -> None:
+    """Deprecated: register through the unified OpDef API instead —
+    ``ein.defop(name, "<signature>", fn=...)`` bundles the signature, dense
+    impl, kernel dispatcher, VJP, comm declaration, and shard rule in one
+    record (this shim installs a bare impl with none of that metadata)."""
+    from repro_torch.core import opdef
+
+    opdef.register_legacy(name, fn, surface="engine.register_opaque")
+
+
 def mesh_axes_dict(mesh) -> dict[str, int]:
     """{axis name: size} for a ``launch.mesh.Mesh`` — the planner's mesh
     description.  (Re-exported by launch/mesh.py; lives here so core never
     imports launch.)"""
     return dict(mesh.sizes)
+
+
+# ---------------------------------------------------------------------------
+# Plan -> placements
+# ---------------------------------------------------------------------------
+
+
+def spec_for_node(node, axes_by_label: dict[str, tuple[str, ...]]) -> tuple:
+    """Per-dim mesh axes of a node's output from its label->axes map: the
+    plain-tuple form of the reference's PartitionSpec (``None`` =
+    unsharded, an axis name, or a tuple of axis names)."""
+    from repro_torch.core.gspmd import spec_of
+
+    return spec_of(node.labels, axes_by_label)
+
+
+def plan_shardings(g: EinGraph, plan, mesh) -> dict[int, tuple]:
+    """DTensor placements per node output for a mesh-mode plan (the
+    reference's ``NamedSharding`` per node), one per axis of ``mesh`` (a
+    ``launch.mesh.Mesh`` or ``{axis: size}``)."""
+    from repro_torch.core.gspmd import placements
+
+    return {n.nid: placements(spec_for_node(n, plan.axes_by_node.get(n.nid, {})),
+                              mesh)
+            for n in g.nodes}
 
 
 # ---------------------------------------------------------------------------
@@ -131,13 +166,27 @@ def live_nodes(g: EinGraph, keep) -> set[int]:
 
 
 def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
-        keep: set[int] | None = None) -> dict[int, torch.Tensor]:
+        keep: set[int] | None = None, plan=None,
+        mesh=None) -> dict[int, torch.Tensor]:
     """Evaluate the graph densely with torch on ``device`` (default: where
     the feeds are).  ``feeds`` may be keyed by input *name* or node id
     (``resolve_feeds``).  Returns every node's value, or with ``keep``
     only those in ``keep``: the others are dropped after their last
-    reader, and nodes that ``keep`` does not depend on are not run."""
+    reader, and nodes that ``keep`` does not depend on are not run.
+
+    With a mesh-mode ``plan`` and a ``mesh`` of more than one rank every
+    rank runs the ``gspmd`` executor (``core/gspmd.py``): each rank keeps
+    its blocks of the feeds, every node computes on local blocks and is
+    redistributed to its planned placements, and the values come back
+    whole on every rank, as the reference returns global arrays."""
     feeds = resolve_feeds(g, feeds)
+    if _multi_rank(mesh):
+        from repro_torch.core.gspmd import GspmdRunner, full
+
+        ids = sorted(keep) if keep is not None else [n.nid for n in g.nodes]
+        runner = GspmdRunner(g, plan, mesh, ids)
+        vals = runner.run_nodes(feeds, set(ids))
+        return {k: full(v) for k, v in vals.items()}
     last: dict[int, int] = {}
     live = None
     if keep is not None:
@@ -168,9 +217,10 @@ def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
 
 
 #: executors ``make_runner`` / ``Program.compile`` can build:
-#:   gspmd     — the dense run on one device (sharding-constraint hints in
-#:               the reference; DTensor placements on a multi-rank mesh are
-#:               a later slice of the port and raise until then).
+#:   gspmd     — the dense run on one device; on a mesh of more than one
+#:               rank, the plan's per-node placements on DTensor
+#:               (core/gspmd.py), DTensor choosing the collectives as XLA's
+#:               partitioner does for the reference's constraints.
 #:   shard_map — core/spmd.py: the plan's TRA dataflow emitted literally as
 #:               torch.distributed collectives between the mesh's ranks;
 #:               opaque nodes dispatch per rank through the shard-rule
@@ -198,7 +248,10 @@ def make_runner(g: EinGraph, out_ids: Sequence[int] | None = None, *,
     ``executor`` selects how the plan is realized (see ``EXECUTORS``):
     ``"gspmd"`` runs densely on ``device`` (on ``mesh.device`` when a
     one-rank mesh is given; on the card when neither is, raising where
-    there is none — pass ``device="cpu"`` for the host); ``"shard_map"`` runs the plan's
+    there is none — pass ``device="cpu"`` for the host), and on a mesh of
+    more than one rank places every node as the plan says on DTensor
+    (``core/gspmd.py``; a bare mesh self-plans, as under shard_map), each
+    rank returning the whole outputs; ``"shard_map"`` runs the plan's
     join→agg→repartition dataflow with explicit collectives over ``mesh``
     (a ``launch.mesh.Mesh``; it needs a mesh-mode plan, so a bare mesh
     self-plans).  ``collective_trace`` (a ``core.spmd.CollectiveTrace``)
@@ -216,11 +269,6 @@ def make_runner(g: EinGraph, out_ids: Sequence[int] | None = None, *,
     if collective_trace is not None and executor != "shard_map":
         raise ValueError("make_runner: collective_trace is only produced by "
                          "the shard_map executor")
-    if executor == "gspmd" and _multi_rank(mesh):
-        raise NotImplementedError(
-            "make_runner: executor='gspmd' on a mesh of more than one rank "
-            "needs DTensor placements per node — the DTensor slice of the "
-            "port, not ported yet; use executor='shard_map'")
     if (plan is None and cache is not None and mesh is None
             and p is None and mesh_axes is None):
         raise ValueError(
@@ -228,7 +276,8 @@ def make_runner(g: EinGraph, out_ids: Sequence[int] | None = None, *,
             "mesh, mesh_axes, or p")
     if plan is None and (p is not None or mesh_axes is not None
                          or (cache is not None and mesh is not None)
-                         or (executor == "shard_map" and mesh is not None)):
+                         or (executor == "shard_map" and mesh is not None)
+                         or (executor == "gspmd" and _multi_rank(mesh))):
         from repro_torch.core.decomp import eindecomp
 
         if mesh is None and cache is None:
@@ -262,6 +311,18 @@ def make_runner(g: EinGraph, out_ids: Sequence[int] | None = None, *,
 
         f_spmd.runner = mapped
         return f_spmd
+
+    if _multi_rank(mesh):
+        from repro_torch.core.gspmd import GspmdRunner
+
+        runner = GspmdRunner(g, plan, mesh, out_ids)
+
+        def f_gspmd(*arrays):
+            outs = runner(*arrays)
+            return outs[0] if len(outs) == 1 else outs
+
+        f_gspmd.runner = runner
+        return f_gspmd
 
     if device is None and mesh is not None:
         device = mesh.device

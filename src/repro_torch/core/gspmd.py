@@ -1,0 +1,496 @@
+"""The ``gspmd`` executor on DTensor: a plan's per-node shardings as
+placements on the ``DeviceMesh`` a ``launch.mesh.Mesh`` carries.
+
+The reference applies a mesh-mode plan as ``with_sharding_constraint`` on
+every node output and lets XLA's partitioner choose the collectives.  The
+port's counterpart of GSPMD is DTensor (``torch.distributed.tensor``):
+
+  * a spec — one entry per tensor dim, ``None``, an axis name or a tuple of
+    axis names, the plain-tuple form of a ``PartitionSpec`` — becomes one
+    placement per mesh dim (``placements``): ``Shard(d)`` where the axis
+    splits dim ``d``, ``Replicate()`` elsewhere.  An entry naming several
+    axes becomes ``[Shard(d), Shard(d)]``, which nests the blocks in mesh
+    order, as JAX's ``P(("data", "model"))`` does; an entry whose axes are
+    out of mesh order would need ``_StridedShard`` and raises instead;
+  * ``with_sharding_constraint`` becomes ``redistribute`` to those
+    placements (``constrain``), and DTensor's redistribution planner picks
+    the collectives (all-gather, all-to-all, all-reduce, reduce-scatter);
+  * model code between constraints runs on DTensors, and DTensor's sharding
+    propagation places each op, as XLA's partitioner does for the
+    reference.
+
+The graph executor (``GspmdRunner``) computes each node's join on the
+local blocks of its inputs, placed as the plan's join layout says — the
+layout the ``shard_map`` executor computes in — and wraps the block with
+``DTensor.from_local``: contracted axes come back as ``Partial``, and the
+redistribution to the node's planned placements resolves them.  It does
+not hand a whole contraction to ``torch.einsum`` on DTensors: a plan may
+put one label on two mesh axes (llama-7b's ``f`` and ``v`` on ``("data",
+"model")``), and DTensor cannot take such a layout through the views
+``torch.einsum`` decomposes into.  So every collective the executor issues
+is a redistribution between two placements, chosen by DTensor.  Opaque
+nodes run their kernels on local blocks placed as their shard rule keeps
+them local (flash attention: batch and heads, whole sequence), and an op
+that cannot be placed raises.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Any, Callable, Sequence
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.debug import CommDebugMode
+
+from repro_torch.core.einsum import EinGraph, Node
+
+# ---------------------------------------------------------------------------
+# Specs -> placements
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name, or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def entry_of(axes: Sequence[str]):
+    """The spec entry of a tuple of mesh axes (None, a name, or a tuple)."""
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def spec_of(labels: Sequence[str], axes_by_label: dict) -> tuple:
+    """Spec of a tensor with ``labels`` under a label->axes map."""
+    return tuple(entry_of(axes_by_label.get(l, ())) for l in labels)
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a ``launch.mesh.Mesh``, a dict of axis sizes, or
+    anything with the reference mesh's ``axis_names`` and
+    ``devices.shape``."""
+    if hasattr(mesh, "sizes"):
+        return dict(mesh.sizes)
+    if hasattr(mesh, "axis_names"):
+        return dict(zip(mesh.axis_names, mesh.devices.shape))
+    return dict(mesh)
+
+
+def placements(spec: Sequence, mesh, partial: Sequence[tuple[str, str]] = ()
+               ) -> tuple:
+    """DTensor placements (one per mesh axis, in mesh order) for ``spec``,
+    with ``partial`` — ``(axis, "sum" | "max" | "min")`` pairs — marking
+    axes that hold partial results.  Size-1 axes shard nothing and are
+    dropped.  Raises ``NotImplementedError`` for an entry whose axes are
+    out of mesh order, ``ValueError`` for an axis the mesh lacks or one
+    that splits two dims."""
+    sizes = mesh_sizes(mesh)
+    names = tuple(sizes)
+    out: list = [Replicate()] * len(names)
+    used: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        unknown = [a for a in axes if a not in sizes]
+        if unknown:
+            raise ValueError(f"spec {tuple(spec)}: axes {unknown} are not "
+                             f"on the mesh {sizes}")
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise NotImplementedError(
+                f"spec entry {entry!r} (dim {d} of {tuple(spec)}) lists its "
+                f"mesh axes out of the mesh's order {names}: DTensor's "
+                "[Shard(d), Shard(d)] nests blocks in mesh order, and the "
+                "port does not place the other order (_StridedShard)")
+        for a, i in zip(axes, idx):
+            if a in used:
+                raise ValueError(f"spec {tuple(spec)}: axis {a!r} splits "
+                                 f"dims {used[a]} and {d}")
+            used[a] = d
+            out[i] = Shard(d)
+    for a, op in partial:
+        if sizes[a] > 1:
+            out[names.index(a)] = Partial(op)
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` under ``spec``: each
+    entry's axes split its dim major to minor, as ``placements`` nests
+    them."""
+    sizes = mesh_sizes(mesh)
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            if sizes[a] > 1:
+                n = x.shape[d] // sizes[a]
+                x = x.narrow(d, mesh.coord[a] * n, n)
+    return x
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(s)
+    return tuple(reversed(stride))
+
+
+def wrap(local: torch.Tensor, mesh, spec: Sequence, shape,
+         partial: Sequence[tuple[str, str]] = ()) -> DTensor:
+    """The DTensor whose block on this rank is ``local`` (no collective).
+    ``partial`` marks a block the executor computes forward only:
+    ``from_local`` would hand a Partial block's gradient back divided
+    among the ranks."""
+    return DTensor.from_local(local, mesh.dmesh,
+                              placements(spec, mesh, partial),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def distribute(x, mesh, spec: Sequence) -> DTensor:
+    """Place a global tensor that every rank holds: each rank keeps its
+    block (a local slice — no scatter, no collective)."""
+    x = torch.as_tensor(x)
+    if x.device != mesh.device:
+        x = x.to(mesh.device)
+    block = local_block(x, spec, mesh)
+    if block.numel() != x.numel():  # a copy: the whole tensor can go
+        block = block.clone(memory_format=torch.contiguous_format)
+    return wrap(block, mesh, spec, x.shape)
+
+
+def constrain(x, mesh, spec: Sequence):
+    """The counterpart of ``with_sharding_constraint``: ``x`` (a DTensor)
+    redistributed to ``spec``'s placements; DTensor chooses the
+    collectives.  A plain tensor is returned as it is (one rank)."""
+    if not isinstance(x, DTensor):
+        return x
+    want = placements(spec, mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh.dmesh, want)
+
+
+def full(x):
+    """The whole tensor on every rank (``full_tensor``); a plain tensor
+    as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def spec_of_placements(pl: Sequence, ndim: int, mesh) -> tuple:
+    """The spec of ``ndim``-d placements ``pl`` of ``Shard``/``Replicate``
+    (shards nested in mesh order); raises on a ``Partial`` or strided
+    placement."""
+    entries: list[list[str]] = [[] for _ in range(ndim)]
+    for name, p in zip(mesh.axis_names, pl):
+        if p.is_partial() or (p.is_shard() and type(p) is not Shard):
+            raise NotImplementedError(f"spec_of_placements: {p} on {name!r}")
+        if p.is_shard():
+            entries[p.dim].append(name)
+    return tuple(entry_of(e) for e in entries)
+
+
+def replicate_like(t: torch.Tensor, ref):
+    """``t`` as a replicated DTensor on ``ref``'s mesh where ``ref`` is a
+    DTensor (a constant the model builds beside DTensor activations:
+    RoPE angles, masks); ``t`` itself otherwise."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def splits_contraction(x, w) -> bool:
+    """Whether ``x @ w`` contracts a dim that ``x`` or ``w`` holds sharded
+    (``x``'s last dim, ``w``'s second to last), so that the product comes
+    out as partial blocks."""
+    def sharded(t, dim):
+        return isinstance(t, DTensor) and any(
+            p.is_shard() and p.dim == dim % t.ndim for p in t.placements)
+
+    return sharded(x, -1) or sharded(w, -2 if w.ndim > 1 else 0)
+
+
+def matmul(x, w):
+    """``x @ w``.  Where a low-precision product contracts a dim split
+    across ranks, it runs in float32 and its partial blocks are summed in
+    float32 before one rounding to ``x``'s dtype, as a one-rank product
+    accumulates in float32 and rounds once (DTensor's own partial sums
+    would round every block to bf16 first).  Every other product — float32,
+    or a contraction each rank holds whole — is ``torch.matmul`` as it is,
+    placed by DTensor."""
+    if not isinstance(x, DTensor) or x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if not splits_contraction(x, w):
+        y = torch.matmul(x, w)
+        if not any(p.is_partial() for p in y.placements):
+            return y
+        del y  # DTensor split the contraction itself: redo it in float32
+    y = torch.matmul(x.float(), w.float())
+    whole = [Replicate() if p.is_partial() else p for p in y.placements]
+    if whole != list(y.placements):  # sum the partial blocks in float32
+        y = y.redistribute(y.device_mesh, whole)
+    return y.to(x.dtype)
+
+
+def run_local(fn: Callable, args: Sequence, specs: Sequence[tuple],
+              out_spec, mesh):
+    """``fn`` on this rank's blocks: each DTensor argument redistributed to
+    its spec, ``fn`` run on the local tensors, its result wrapped under
+    ``out_spec`` (a tuple of specs where ``fn`` returns a tuple) with the
+    global shape it has on the whole tensors — the treatment of an op
+    DTensor cannot propagate (a kernel, a masked softmax).  ``fn`` must be
+    local under those specs: the block of its output is its value on the
+    blocks of its inputs."""
+    local = [constrain(a, mesh, s).to_local() for a, s in zip(args, specs)]
+    out = fn(*local)
+    if isinstance(out, (tuple, list)):
+        return tuple(wrap_block(o, mesh, s) for o, s in zip(out, out_spec))
+    return wrap_block(out, mesh, out_spec)
+
+
+def wrap_block(block: torch.Tensor, mesh, spec) -> DTensor:
+    """``wrap`` with the global shape read off the block and the spec."""
+    shape = list(block.shape)
+    sizes = mesh_sizes(mesh)
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            shape[d] *= sizes[a]
+    return wrap(block, mesh, spec, shape)
+
+
+# ---------------------------------------------------------------------------
+# What DTensor issued
+# ---------------------------------------------------------------------------
+
+#: functional collectives DTensor issues, by the kind names of
+#: ``spmd.CollectiveTrace``
+_KINDS = {"all_gather_into_tensor": "all_gather",
+          "reduce_scatter_tensor": "reduce_scatter",
+          "all_reduce": "all_reduce",
+          "all_to_all_single": "all_to_all"}
+
+
+class CommLog(CommDebugMode):
+    """``CommDebugMode`` that also sums, per kind, the bytes of the buffer
+    each collective was handed on this rank.  ``counts`` and ``bytes`` are
+    keyed by kind (``all_gather``, ``reduce_scatter``, ``all_reduce``,
+    ``all_to_all``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: Counter = Counter()
+        self.bytes: Counter = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kind = _KINDS.get(func._overloadpacket.__name__)
+        if kind is not None and func.namespace == "_c10d_functional":
+            t = args[0]
+            self.counts[kind] += 1
+            self.bytes[kind] += t.numel() * t.element_size()
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+# ---------------------------------------------------------------------------
+# The graph executor
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class NodeStep:
+    """One node of the executor's static program: the specs its inputs
+    are redistributed to, the spec (and partial axes) of the block it
+    computes locally, the planned spec it is constrained to, and for
+    opaque nodes the shard rule's local program."""
+
+    nid: int
+    arg_specs: list[tuple] = field(default_factory=list)
+    local_spec: tuple = ()
+    partial: tuple[tuple[str, str], ...] = ()
+    out_spec: tuple = ()
+    run: Callable | None = None
+    rule: str = ""
+
+
+#: aggregations a DTensor ``Partial`` can hold
+_PARTIAL_AGGS = ("sum", "max", "min")
+
+#: opaque shard rules whose local program issues no collective of its own
+_LOCAL_RULES = ("local", "paged")
+
+
+def _layout_spec(layout) -> tuple:
+    return tuple(entry_of(axes) for axes in layout)
+
+
+def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
+    from repro_torch.core import opaque_rules
+
+    rule_name = opaque_rules.resolve_rule_name(n)
+    step = NodeStep(nid=n.nid, rule=rule_name)
+    if rule_name == "replicate":
+        # the op declares no shard rule: it runs whole, as declared
+        step.arg_specs = [tuple(None for _ in g.nodes[a].shape)
+                          for a in n.inputs]
+        step.local_spec = tuple(None for _ in n.shape)
+
+        def run(args, ctx, _n=n):
+            from repro_torch.core.engine import OPAQUE_FNS
+
+            return OPAQUE_FNS[_n.op](*args, **_n.call_params)
+
+        step.run = run
+        return step
+    low = None
+    if rule_name == "ring":
+        # the ring label unsharded: one local flash call per rank on its
+        # batch and head blocks (the sequence is gathered by DTensor)
+        from repro_torch.core import opdef
+
+        ring = {c["label"] for c in opdef.comm_for_node(n)
+                if c.get("kind") == "ring"}
+        ax_local = {l: a for l, a in ax_n.items() if l not in ring}
+        low = opaque_rules.RULES["ring"].lower(g, n, ax_local, sizes)
+    elif rule_name in _LOCAL_RULES:
+        low = opaque_rules.RULES[rule_name].lower(g, n, ax_n, sizes)
+    else:
+        raise NotImplementedError(
+            f"gspmd: opaque node {n.name!r} ({n.op}) declares the "
+            f"{rule_name!r} shard rule, whose collectives the DTensor "
+            "executor does not issue — MoE under a mesh of more than one "
+            "rank waits for ROADMAP Queue 1 item 4 (the blocks under a "
+            "mesh); use executor='shard_map'")
+    if low is None:
+        raise NotImplementedError(
+            f"gspmd: opaque node {n.name!r} ({n.op}) cannot be placed "
+            f"locally under its plan assignment {ax_n} (rule "
+            f"{rule_name!r}); use executor='shard_map', whose rule falls "
+            "back to replicating it")
+    step.arg_specs = [_layout_spec(lay) for lay in low.arg_layouts]
+    step.local_spec = _layout_spec(low.out_layout)
+    step.run = low.run
+    return step
+
+
+def build_program(g: EinGraph, plan, mesh_axes: dict[str, int]
+                  ) -> list[NodeStep]:
+    """The executor's static program for a mesh-mode plan, in node order:
+    pure Python over the graph, the plan and the mesh shape."""
+    if plan is None or plan.mode != "mesh":
+        raise ValueError("gspmd on a mesh of more than one rank needs a "
+                         "mesh-mode plan (plan with mesh_axes)")
+    sizes = {a: int(s) for a, s in mesh_axes.items()}
+    steps: list[NodeStep] = []
+    for n in g.nodes:
+        ax_n = plan.axes_by_node.get(n.nid, {})
+        out_spec = spec_of(n.labels, ax_n)
+        if n.kind == "input":
+            step = NodeStep(nid=n.nid, local_spec=out_spec)
+        elif n.kind == "map":
+            # elementwise on the local block: its input's planned spec
+            src = spec_of(g.nodes[n.inputs[0]].labels,
+                          plan.axes_by_node.get(n.inputs[0], {}))
+            step = NodeStep(nid=n.nid, arg_specs=[src], local_spec=src)
+        elif n.kind == "einsum":
+            spec = n.spec
+            step = NodeStep(nid=n.nid,
+                            arg_specs=[spec_of(ls, ax_n)
+                                       for ls in spec.in_labels],
+                            local_spec=out_spec)
+            partial = []
+            for l in spec.agg_labels:
+                for a in ax_n.get(l, ()):
+                    if sizes.get(a, 1) > 1:
+                        if spec.agg not in _PARTIAL_AGGS:
+                            raise NotImplementedError(
+                                f"gspmd: node {n.name!r} aggregates "
+                                f"{spec.agg!r} over mesh axis {a!r}; DTensor "
+                                "has no Partial for it — use "
+                                "executor='shard_map'")
+                        partial.append((a, spec.agg))
+            step.partial = tuple(partial)
+        else:
+            step = _opaque_step(g, n, ax_n, sizes)
+        step.out_spec = out_spec
+        steps.append(step)
+    for st in steps:  # every spec must be placeable before anything runs
+        for s in st.arg_specs + [st.local_spec, st.out_spec]:
+            placements(s, sizes)
+    return steps
+
+
+class GspmdRunner:
+    """``f(*global_inputs) -> tuple(global outputs)`` on every rank of
+    ``mesh``.  Each rank is handed the global inputs and keeps its blocks
+    (``distribute``); every node computes on local blocks and is
+    constrained to its planned placements; the outputs come back whole on
+    every rank, as the reference returns global arrays.  With
+    ``log_comms`` set, ``comms`` is the ``CommLog`` of the last call."""
+
+    def __init__(self, g: EinGraph, plan, mesh, out_ids: Sequence[int]):
+        from repro_torch.core.engine import mesh_axes_dict
+
+        self.graph = g
+        self.plan = plan
+        self.mesh = mesh
+        self.out_ids = list(out_ids)
+        self.program = build_program(g, plan, mesh_axes_dict(mesh))
+        self.log_comms = False
+        self.comms: CommLog | None = None
+
+    def __call__(self, *arrays):
+        if not self.log_comms:
+            return self._run(arrays)
+        with CommLog() as log:
+            outs = self._run(arrays)
+        self.comms = log
+        return outs
+
+    def run_nodes(self, feeds: dict[int, Any], keep: set[int]) -> dict[int, Any]:
+        """Every node ``keep`` depends on, placed; returns ``keep``'s values
+        as DTensors (the others are dropped after their last reader)."""
+        from repro_torch.core import spmd
+        from repro_torch.core.engine import MAP_FNS, live_nodes
+
+        g, mesh = self.graph, self.mesh
+        live = live_nodes(g, keep)
+        frees = spmd._last_uses(g, live)
+        vals: dict[int, Any] = {}
+        for nid in g.topo_order():
+            if nid not in live:
+                continue
+            n, st = g.nodes[nid], self.program[nid]
+            if n.kind == "input":
+                vals[nid] = distribute(feeds[nid], mesh, st.out_spec)
+                continue
+            args = [constrain(vals[a], mesh, s).to_local()
+                    for a, s in zip(n.inputs, st.arg_specs)]
+            if n.kind == "einsum":
+                v = spmd.local_einsum(n.spec, *args)
+            elif n.kind == "map":
+                v = MAP_FNS[n.op](args[0], **n.params)
+            else:
+                v = st.run(args, None)
+            del args
+            v = wrap(v, mesh, st.local_spec, n.shape, st.partial)
+            vals[nid] = constrain(v, mesh, st.out_spec)
+            for a in frees.get(nid, ()):
+                if a not in keep:
+                    vals.pop(a, None)
+        return {k: vals[k] for k in keep}
+
+    def _run(self, arrays):
+        feeds = dict(zip(self.graph.input_ids(), arrays))
+        vals = self.run_nodes(feeds, set(self.out_ids))
+        return tuple(full(vals[o]) for o in self.out_ids)
+
+
+def comm_summary(log: CommLog) -> dict[str, dict[str, int]]:
+    """{kind: {"count", "bytes"}} from a ``CommLog``."""
+    return {k: {"count": int(log.counts[k]), "bytes": int(log.bytes[k])}
+            for k in sorted(log.counts)}
+

@@ -63,17 +63,42 @@ class SyntheticLM:
 
 
 def batch_shardings(policy, mesh, batch_spec: dict) -> dict:
-    """Where each batch entry goes: ``{name: device}`` for the one-device
-    mesh (``mesh.device``; ``None`` without a mesh, for the caller's
-    device).  The batch is whole on that device, as the reference's
-    NamedShardings place it on a mesh of one.  Sharding the batch over a
-    larger mesh needs DTensor placements per label, which come with the
-    DTensor slice of the port (ROADMAP Queue 1 item 4), so a mesh of more
-    than one rank raises."""
-    if mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            f"batch_shardings: a mesh of {mesh.world_size} ranks needs DTensor "
-            "placements per label — the DTensor slice of the port (ROADMAP "
-            "Queue 1 item 4), not ported yet")
-    dev = None if mesh is None else mesh.device
-    return {k: dev for k in batch_spec}
+    """Placements for a batch dict, as the reference's NamedShardings:
+    tokens and labels on ``"b s"``, prefix embeddings on ``"b s a"``,
+    ``pos`` unplaced (None).  ``batch_spec`` maps each name to its shape
+    (anything with ``.shape``, or a shape tuple), which makes the spec
+    safe for it; a value of None skips that check.  The placements are
+    one per axis of ``mesh`` (a ``launch.mesh.Mesh`` or ``{axis: size}``);
+    on a one-rank mesh every entry is Replicate."""
+    out = {}
+    for k, v in batch_spec.items():
+        if k == "pos":
+            out[k] = None
+            continue
+        labels = "b s a" if k == "prefix_embeds" else "b s"
+        shape = getattr(v, "shape", v)
+        out[k] = policy.sharding(mesh, labels, None if shape is None
+                                 else tuple(shape))
+    return out
+
+
+def place_batch(batch: dict, policy, mesh) -> dict:
+    """A host batch (numpy arrays or tensors, whole on every rank) on
+    ``mesh``: on a mesh of more than one rank each entry becomes a DTensor
+    of its ``batch_shardings`` placements (each rank keeps its block, no
+    collective); on one rank each becomes a tensor on ``mesh.device``."""
+    import torch
+
+    if mesh.world_size <= 1:
+        return {k: torch.as_tensor(np.asarray(v), device=mesh.device)
+                for k, v in batch.items()}
+    from repro_torch.core.gspmd import distribute
+    from repro_torch.models.policy import safe_spec
+
+    out = {}
+    for k, v in batch.items():
+        labels = "b s a" if k == "prefix_embeds" else "b s"
+        a = np.asarray(v)
+        spec = safe_spec(policy.act_spec(labels), a.shape, mesh)
+        out[k] = distribute(torch.as_tensor(a), mesh, spec)
+    return out

@@ -42,8 +42,8 @@ _FRONTEND_DIR = os.path.dirname(os.path.abspath(__file__))
 def _caller_srcloc() -> str:
     """``"path/to/file.py:line"`` of the first stack frame *outside* this
     package — the user (or model-zoo) line that built the expression.  The
-    static analyzer (the reference's ``analysis`` package, a later slice of
-    the port) reports findings at these locations; canonical graph hashing
+    static analyzer (``repro_torch.analysis``) reports findings at these
+    locations; canonical graph hashing
     never sees them (``canon.node_struct`` enumerates hashed Node fields
     explicitly)."""
     f = sys._getframe(1)

@@ -38,6 +38,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from repro_torch.core.einsum import EinGraph
+from repro_torch.core.engine import spec_for_node
 from repro_torch.frontend.expr import Expr, trace
 
 
@@ -152,7 +153,9 @@ class Program:
 
         ``executor`` picks how the plan is realized
         (``engine.EXECUTORS``): ``"gspmd"`` runs densely on one device
-        (``device``, or the card); ``"shard_map"`` runs the plan's
+        (``device``, or the card), and with a ``mesh`` of more than one rank
+        places every node as the plan says on DTensor (``core/gspmd.py``),
+        each rank returning the whole outputs; ``"shard_map"`` runs the plan's
         join→agg→repartition dataflow with explicit collectives between
         the ranks of ``mesh`` (required), on ``mesh.device``, and exposes
         its static schedule as ``.collectives``.  ``fuse`` and
@@ -177,11 +180,10 @@ class Program:
         plan (e.g. the pipeline tier's stitched plan, to compile the exact
         bit-identity baseline) — mutually exclusive with ``pipeline=``.
 
-        Not ported yet, and raising ``NotImplementedError``: ``gspmd`` on a
-        mesh of more than one rank (DTensor placements per node, ROADMAP
-        Queue 1 item 4) and ``donate=`` (buffer donation: PyTorch has no
-        jit to donate to; the eager runner already frees each value after
-        its last reader).
+        Not ported yet, and raising ``NotImplementedError``: ``donate=``
+        (buffer donation: PyTorch has no jit to donate to; the eager runner
+        already frees each value after its last reader; ROADMAP Queue 1
+        item 4).
         """
         from repro_torch.core.decomp import eindecomp
         from repro_torch.core.engine import EXECUTORS, mesh_axes_dict
@@ -225,8 +227,8 @@ class Program:
             raise NotImplementedError(
                 "compile: donate= is not ported — PyTorch has no jit "
                 "donation; the eager runner frees each intermediate after "
-                "its last reader, and donating the feeds themselves is a "
-                "later slice")
+                "its last reader, and donating the feeds themselves waits "
+                "for ROADMAP Queue 1 item 4")
         if plan is not None:
             pass  # caller-supplied plan
         elif mesh_axes is not None or p is not None:
@@ -258,9 +260,11 @@ class CompiledProgram:
     microbatch)-tagged trace.  ``.donate_argnums`` is always ``()``: the
     port donates no feed.
 
-    The device is resolved at the first call: ``mesh.device`` under
-    shard_map, else ``device`` as compiled, else the card — raising where
-    there is none.
+    Under gspmd on a mesh of more than one rank every rank runs the
+    DTensor executor (``core/gspmd.GspmdRunner``) on ``mesh.device``, and
+    ``.collectives`` stays None, as in the reference.  Otherwise the device
+    is resolved at the first call: ``mesh.device`` under shard_map, else
+    ``device`` as compiled, else the card — raising where there is none.
     """
 
     def __init__(self, program: Program, *, plan=None, mesh=None,
@@ -296,10 +300,9 @@ class CompiledProgram:
                 g, self._out_ids, plan=plan, mesh=mesh,
                 trace=self.collectives, fuse=fuse, lookahead=lookahead)
         elif mesh is not None and math.prod(mesh.sizes.values()) > 1:
-            raise NotImplementedError(
-                "compile: executor='gspmd' on a mesh of more than one rank "
-                "needs DTensor placements per node — the DTensor slice of "
-                "the port, not ported yet; use executor='shard_map'")
+            from repro_torch.core.gspmd import GspmdRunner
+
+            self._fn = GspmdRunner(g, plan, mesh, self._out_ids)
 
     @property
     def graph(self) -> EinGraph:
@@ -389,15 +392,6 @@ class CompiledProgram:
         return LoweredProgram(graph=self.graph, plan=self.plan,
                               shardings=shardings,
                               outputs=dict(self.program._out))
-
-
-def spec_for_node(node, axes_by_label: dict[str, tuple[str, ...]]) -> tuple:
-    """Per-dim mesh axes of a node's output from its label->axes map."""
-    entries = []
-    for l in node.labels:
-        ax = tuple(axes_by_label.get(l, ()))
-        entries.append(None if not ax else ax[0] if len(ax) == 1 else ax)
-    return tuple(entries)
 
 
 @dataclass

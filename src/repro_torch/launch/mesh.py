@@ -10,8 +10,20 @@ grouped reduce-scatter agree with the reference's ``shard_map``.
 ``torch.distributed.new_group`` is collective — every rank must call it,
 in the same order — so the mesh builds all its process groups once, at
 construction: one for every subset of its axes larger than one rank, in a
-fixed order.  A mesh whose axes all have size 1 needs no process group and
-no initialised ``torch.distributed``: that is the one-card case.
+fixed order, and then the ``DeviceMesh`` of the same axes, sizes and
+row-major rank layout (``dmesh``) that DTensor places tensors on (the
+``gspmd`` executor and the model stack under a mesh, ``core/gspmd.py``).
+A mesh whose axes all have size 1 needs no process group, no DeviceMesh
+and no initialised ``torch.distributed``: that is the one-card case.
+
+gloo ranks that hold CUDA tensors (several ranks sharing one card) have
+DTensor's all-gathers staged through the host (``stage_all_gather``): on
+torch 2.11 a functional all-gather of CUDA tensors over gloo never
+returns, while gloo's all-reduce, reduce-scatter and all-to-all of CUDA
+tensors complete.
+
+``make_mesh``, ``make_host_mesh`` and ``make_production_mesh`` are the
+reference's constructors over an initialised process group.
 
 ``spawn`` starts N ranks as processes with a ``file://`` rendezvous in a
 directory of the caller's (a per-test tmp path), runs a function in each
@@ -70,8 +82,10 @@ class Mesh:
                 self.device = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(self.device)  # NCCL works on the current card
         self._groups: dict[frozenset, Any] = {}
+        self.dmesh = None
         if self.world_size > 1:
             self._build_groups()
+            self._build_device_mesh()
 
     # -- coordinates --------------------------------------------------------------
 
@@ -144,6 +158,20 @@ class Mesh:
                     if self.rank in ranks:
                         self._groups[frozenset(subset)] = pg
 
+    def _build_device_mesh(self) -> None:
+        """The DTensor ``DeviceMesh`` over the same ranks (collective: it
+        builds one process group per axis, after ``_build_groups`` on every
+        rank)."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = torch.arange(self.world_size).reshape(
+            tuple(self.sizes.values()))
+        self.dmesh = DeviceMesh(self.device.type, ranks,
+                                mesh_dim_names=self.axis_names)
+        if self.device.type == "cuda" and dist.get_backend() == "gloo":
+            stage_all_gather("CUDA")
+
     def group(self, axes):
         """This rank's process group over ``axes`` (any order)."""
         key = frozenset(a for a in axes if self.sizes[a] > 1)
@@ -159,6 +187,97 @@ class Mesh:
 
 
 from repro_torch.core.engine import mesh_axes_dict  # noqa: E402,F401  (re-export)
+
+
+# ---------------------------------------------------------------------------
+# Host-staged all-gathers for gloo ranks on a card
+# ---------------------------------------------------------------------------
+
+_STAGED: dict[str, Any] = {}
+
+
+def _staged_all_gather(inp, group_size: int, group_name: str):
+    """``_c10d_functional.all_gather_into_tensor`` with its buffers on the
+    host: the input block is copied to the host, gathered there by gloo,
+    and the result copied back to the input's device."""
+    import warnings
+
+    import torch.distributed as dist
+    from torch._C._distributed_c10d import _resolve_process_group
+
+    host = inp.detach().to("cpu").contiguous()
+    out = torch.empty((group_size * host.shape[0],) + tuple(host.shape[1:]),
+                      dtype=host.dtype)
+    with warnings.catch_warnings():  # renamed all_gather_single in 2.13
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, host,
+                                    group=_resolve_process_group(group_name))
+    return out.to(inp.device)
+
+
+def stage_all_gather(dispatch_key: str) -> None:
+    """Route DTensor's all-gathers of tensors with ``dispatch_key``
+    (``"CUDA"``) through the host, once per process: the functional
+    all-gather op gets a kernel for that key (``torch.library``) that
+    stages its buffers.  Every other collective keeps its own kernel, and
+    the op itself — what ``CommDebugMode`` counts — is unchanged.  A mesh
+    of gloo ranks on a card calls this at construction; tests call it with
+    ``"CPU"`` to run the staged path on CPU ranks."""
+    import warnings
+
+    if dispatch_key in _STAGED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():  # replacing the registered kernel
+        warnings.simplefilter("ignore")
+        lib.impl("all_gather_into_tensor", _staged_all_gather, dispatch_key)
+    _STAGED[dispatch_key] = lib
+
+
+# ---------------------------------------------------------------------------
+# The reference's mesh constructors
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(shape, axes, *, device=None) -> Mesh:
+    """A ``Mesh`` of ``shape`` over ``axes`` (major→minor)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"make_mesh: shape {shape} and axes {axes} differ "
+                         "in length")
+    return Mesh(dict(zip(axes, shape)), device=device)
+
+
+def world_size() -> int:
+    """Ranks in the initialised process group, 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_host_mesh(shape=(2, 4), axes=("data", "model"), *,
+                   device=None) -> Mesh:
+    """A small mesh over whatever ranks exist (tests, host benchmarks):
+    ``shape`` where the process group has that many ranks, else ``(1, n)``
+    with ``n`` its world size (1 without one) — the reference's rule."""
+    n = world_size()
+    if math.prod(shape) > n:
+        shape = (1, n)
+    return make_mesh(shape, axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production mesh: (16, 16) over ``("data", "model")``, or
+    (2, 16, 16) over ``("pod", "data", "model")``, over an initialised
+    process group of exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if world_size() != math.prod(shape):
+        raise RuntimeError(
+            f"make_production_mesh: {dict(zip(axes, shape))} needs an "
+            f"initialised process group of {math.prod(shape)} ranks; this "
+            f"process has {world_size()}")
+    return make_mesh(shape, axes, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,13 @@ explicit-collective executor on the one-rank mesh, and its static
 collective schedule is printed (the serving steps themselves still run the
 model stack, as in the reference).
 
+``serve(mesh=...)`` on a ``launch.mesh.Mesh`` of more than one rank (each
+rank a process, ``launch.mesh.spawn``) plans on the mesh's axes, places
+the weights by ``transformer.param_shardings`` and runs prefill and decode
+under the projected policy on DTensors, the caches placed by
+``cache_shardings``; every rank returns the whole generations.  The CLI
+stays one process.
+
 ``--continuous`` switches to the serving tier proper
 (``repro_torch.serving.ServingEngine``): slot-based continuous batching
 over a paged KV-block pool, with prefill programs resolved through the
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.gspmd import full, run_local
 from repro_torch.core.plancache import PlanCache
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
@@ -67,26 +75,56 @@ def _ring_pack(cache_kv: KVCache, prompt_len: int, window: int) -> KVCache:
     return KVCache(pack(cache_kv.k), pack(cache_kv.v))
 
 
-def prepare_decode_caches(cfg, prefill_caches, prompt_len: int, kv_len: int):
+def _decode_kv(cfg, k, v, prompt_len: int, kv_len: int) -> KVCache:
+    """One block's (units, b, kv_len, kv_heads, hd) decode buffers holding
+    the prompt's K/V (ring order for windowed archs)."""
+    if cfg.window:
+        return _ring_pack(KVCache(k, v), prompt_len, kv_len)
+    shape = k.shape[:2] + (kv_len,) + k.shape[3:]
+    kv = KVCache(k.new_zeros(shape), v.new_zeros(shape))
+    kv.k[:, :, :prompt_len] = k
+    kv.v[:, :, :prompt_len] = v
+    return kv
+
+
+def prepare_decode_caches(cfg, prefill_caches, prompt_len: int, kv_len: int,
+                          *, policy=None, mesh=None):
     """Convert prefill-collected caches into decode-ready buffers: per
     pattern position, the KV of attn and hymba blocks in (units, b,
     kv_len, kv_heads, hd) buffers holding the prompt's K/V (ring order for
     windowed archs); hymba keeps its SSM state beside them, and mlstm and
-    slstm states pass through untouched (decode writes them in place)."""
+    slstm states pass through untouched (decode writes them in place).
+    On a mesh of more than one rank the prefill K/V are DTensors and the
+    buffers are made on each rank's blocks, placed by
+    ``transformer.cache_shardings``."""
+    if mesh is not None and mesh.world_size > 1:
+        return _placed_decode_caches(cfg, prefill_caches, prompt_len, kv_len,
+                                     policy, mesh)
     out = []
     for blk, cache in zip(cfg.block_pattern, prefill_caches):
         if blk not in ("attn", "hymba"):
             out.append(cache)
             continue
         k, v = cache[0] if blk == "hymba" else cache
-        if cfg.window:
-            kv = _ring_pack(KVCache(k, v), prompt_len, kv_len)
-        else:
-            shape = k.shape[:2] + (kv_len,) + k.shape[3:]
-            kv = KVCache(k.new_zeros(shape), v.new_zeros(shape))
-            kv.k[:, :, :prompt_len] = k
-            kv.v[:, :, :prompt_len] = v
+        kv = _decode_kv(cfg, k, v, prompt_len, kv_len)
         out.append((kv, cache[1]) if blk == "hymba" else kv)
+    return out
+
+
+def _placed_decode_caches(cfg, prefill_caches, prompt_len, kv_len, policy,
+                          mesh):
+    tf.check_mesh(cfg, mesh)  # attn blocks only
+    batch = prefill_caches[0][0].shape[1]
+    specs = tf.cache_specs(cfg, batch, kv_len, policy, mesh)
+    out = []
+    for (k, v), spec in zip(prefill_caches, specs):
+        if spec.k[2] is not None:
+            raise NotImplementedError(
+                f"serve: a decode cache split along time ({spec.k}) has no "
+                "local prefill copy")
+        out.append(KVCache(*run_local(
+            lambda k, v: tuple(_decode_kv(cfg, k, v, prompt_len, kv_len)),
+            (k, v), (spec.k, spec.v), (spec.k, spec.v), mesh)))
     return out
 
 
@@ -115,7 +153,7 @@ def decode_loop(decode, params, caches, first_tok, prompt_len: int,
     return torch.cat(outs, dim=1).cpu().numpy(), caches, n_steps
 
 
-def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
+def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
           kv_len: int | None = None, params=None, seed: int = 0,
           plan_cache=None, device=None, executor: str = "gspmd"):
     """prompts: (b, prompt_len) int32.  Returns (generations (b, max_new),
@@ -132,35 +170,59 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
     ``executor`` selects how the cell's Program realizes its plan
     (``engine.EXECUTORS``); with ``"shard_map"`` the compiled program's
     static collective schedule is printed.
+
+    ``mesh`` (a ``launch.mesh.Mesh``, default the one-device mesh): on more
+    than one rank every rank of the process group calls ``serve`` with the
+    same prompts; the plan is made on the mesh's axes, the weights (seeded,
+    or ``params`` given whole) are placed by ``param_shardings``, and every
+    rank returns the whole generations.  ``stats["param_bytes"]`` is this
+    rank's share of the weights.
     """
-    dev = resolve_device(device)
+    placed = mesh is not None and mesh.world_size > 1
+    dev = mesh.device if mesh is not None else resolve_device(device)
     b, prompt_len = prompts.shape
     kv_len = kv_len or (cfg.kv_len(ShapeConfig("serve", "decode",
                                                prompt_len + max_new, b)))
     shape = ShapeConfig("serve", "prefill", prompt_len, b)
+    tf.check_mesh(cfg, mesh)
     # declare -> trace -> decompose (through the plan cache) -> project
     t0 = time.perf_counter()
-    mesh = Mesh(ONE_DEVICE_MESH, device=dev) if executor == "shard_map" else None
+    if mesh is None and executor == "shard_map":
+        mesh = Mesh(ONE_DEVICE_MESH, device=dev)
+    axes = dict(mesh.sizes) if mesh is not None else dict(ONE_DEVICE_MESH)
     compiled = program_for(cfg, shape).compile(
-        mesh_axes=dict(ONE_DEVICE_MESH), cache=PlanCache.coerce(plan_cache),
-        mesh=mesh, executor=executor, device=dev)
+        mesh_axes=axes, cache=PlanCache.coerce(plan_cache),
+        mesh=mesh if executor == "shard_map" else None, executor=executor,
+        device=dev)
     policy = compiled.policy()
     if compiled.collectives is not None:
         print(f"[serve] shard_map executor schedule for {cfg.name}:")
         print(compiled.collectives.summary())
     t_plan = time.perf_counter() - t0
 
+    if not placed:
+        mesh = None
     if params is None:
-        params = tf.init_params(cfg, seed=seed, device=dev)
-    prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_serve_step(cfg)
+        params = (tf.init_placed_params(cfg, policy, mesh, seed=seed) if placed
+                  else tf.init_params(cfg, seed=seed, device=dev))
+    else:
+        params = tf.place_params(params, cfg, policy, mesh)
+    prefill = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)
+    serve_step = steps.make_serve_step(cfg, policy=policy, mesh=mesh)
 
-    with torch.inference_mode():
+    def decode(params, tok, caches, pos):
+        logits, caches = serve_step(params, tok, caches, pos)
+        return full(logits), caches
+
+    # DTensor views cannot be made of inference tensors: no_grad on a mesh
+    with torch.no_grad() if placed else torch.inference_mode():
         tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
         _sync(dev)
         t0 = time.perf_counter()
         logits, caches = prefill(params, {"tokens": tokens})
-        caches = prepare_decode_caches(cfg, caches, prompt_len, kv_len)
+        logits = full(logits)
+        caches = prepare_decode_caches(cfg, caches, prompt_len, kv_len,
+                                       policy=policy, mesh=mesh)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
@@ -175,7 +237,18 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32,
                  "decode_steps": decode_steps,
                  "tok_per_s": b * decode_steps / max(t_decode, 1e-9),
                  "plan_cost": compiled.plan.cost,
-                 "policy": dict(policy.label_axes)}
+                 "policy": dict(policy.label_axes),
+                 "param_bytes": _local_bytes(params)}
+
+
+def _local_bytes(params) -> int:
+    """Bytes of this rank's blocks of the weights."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import tree
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for t in tree.leaves(params))
 
 
 def main(argv: list[str] | None = None) -> None:

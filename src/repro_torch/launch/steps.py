@@ -11,6 +11,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import tree
+from repro_torch.core.gspmd import full
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import loss_fn
 from repro_torch.optim import adamw_update
@@ -28,16 +29,16 @@ def make_train_step(cfg, *, policy=None, mesh=None,
     ``prefix_embeds`` where the config has a prefix (``loss_fn`` reads
     it).
 
-    On one rank there is nothing to shard the gradients to (the
-    reference's ``gshard`` is the identity there).  A mesh of more than one
-    rank needs the DTensor placements of ROADMAP Queue 1 item 4, so it
-    raises."""
-    if mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            f"make_train_step: a mesh of {mesh.world_size} ranks needs "
-            "gradient and parameter placements (DTensor) — the DTensor "
-            "slice of the port (ROADMAP Queue 1 item 4), not ported yet")
+    On a mesh of more than one rank the parameters and moments are
+    DTensors (``transformer.place_params``, ``adamw_init``) and so is the
+    batch (``data.synthetic.place_batch``); each gradient is pinned to its
+    parameter's placements before AdamW — the reference's ``gshard``: a
+    ``Partial`` gradient of a data-sharded batch becomes a reduce-scatter
+    into the parameter's shard (an all-reduce where the parameter is
+    replicated).  The metrics come back whole on every rank.  On one rank
+    there is nothing to pin (``gshard`` is the identity there)."""
     lr_fn = lr_fn or (lambda step: 3e-4)
+    placed = mesh is not None and mesh.world_size > 1
 
     def train_step(params, opt_state, batch):
         leaves = tree.leaves(params)
@@ -45,16 +46,21 @@ def make_train_step(cfg, *, policy=None, mesh=None,
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = loss_fn(params, batch, cfg, policy=policy)
-            grads = _like(params, torch.autograd.grad(loss, leaves))
+            loss, metrics = loss_fn(params, batch, cfg, policy=policy,
+                                    mesh=mesh)
+            grads = torch.autograd.grad(loss, leaves)
         finally:
             for p, was in zip(leaves, tracked):
                 p.requires_grad_(was)
+        if placed:  # gshard: each gradient in its parameter's placements
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
+        grads = _like(params, grads)
         lr = lr_fn(opt_state.step)
         params, opt_state, gnorm = adamw_update(
             params, grads, opt_state, lr, weight_decay=weight_decay)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update({"loss": loss.detach(), "grad_norm": gnorm,
+        metrics = {k: full(v).detach() for k, v in metrics.items()}
+        metrics.update({"loss": full(loss).detach(), "grad_norm": gnorm,
                         "lr": torch.as_tensor(lr, dtype=torch.float32)})
         return params, opt_state, metrics
 
@@ -67,27 +73,33 @@ def _like(params, flat: list):
     return tree.map(lambda _: next(it), params)
 
 
-def make_prefill_step(cfg) -> Callable:
+def make_prefill_step(cfg, *, policy=None, mesh=None) -> Callable:
     """``prefill_step(params, batch) -> (logits (b, 1, v), caches)``;
-    ``batch["prefix_embeds"]``, where given, goes before the tokens."""
+    ``batch["prefix_embeds"]``, where given, goes before the tokens.  On a
+    mesh of more than one rank the logits and caches are DTensors."""
 
     def prefill_step(params, batch):
         logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
                                        prefix_embeds=batch.get("prefix_embeds"),
+                                       policy=policy, mesh=mesh,
                                        collect_cache=True, last_logit_only=True)
         return logits, caches
 
     return prefill_step
 
 
-def make_serve_step(cfg) -> Callable:
+def make_serve_step(cfg, *, policy=None, mesh=None) -> Callable:
+    """``serve_step(params, tokens, caches, pos) -> (logits, caches)``,
+    the caches written in place (DTensors on a mesh of more than one
+    rank, as ``transformer.place_caches`` places them)."""
     def serve_step(params, tokens, caches, pos):
-        return tf.decode_step(params, tokens, caches, pos, cfg)
+        return tf.decode_step(params, tokens, caches, pos, cfg,
+                              policy=policy, mesh=mesh)
 
     return serve_step
 
 
-def make_bucket_prefill_step(cfg) -> Callable:
+def make_bucket_prefill_step(cfg, *, policy=None, mesh=None) -> Callable:
     """Prefill over a bucket-padded prompt: ``prefill_step`` except that the
     LM head runs at ``last_index`` (the last *real* token) instead of the
     final, padded, position.  Structurally the same graph, so the two share
@@ -96,6 +108,7 @@ def make_bucket_prefill_step(cfg) -> Callable:
     def bucket_prefill_step(params, batch, last_index: int):
         logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
                                        prefix_embeds=batch.get("prefix_embeds"),
+                                       policy=policy, mesh=mesh,
                                        collect_cache=True,
                                        logit_index=last_index)
         return logits, caches
@@ -103,11 +116,13 @@ def make_bucket_prefill_step(cfg) -> Callable:
     return bucket_prefill_step
 
 
-def make_paged_serve_step(cfg) -> Callable:
+def make_paged_serve_step(cfg, *, mesh=None) -> Callable:
     """Continuous-batching decode step: per-slot positions and block tables
-    into the paged KV pools (``kv_block_gather``)."""
+    into the paged KV pools (``kv_block_gather``); a mesh of more than one
+    rank raises (``transformer.decode_step_paged``)."""
 
     def paged_serve_step(params, tokens, caches, tables, pos):
-        return tf.decode_step_paged(params, tokens, caches, tables, pos, cfg)
+        return tf.decode_step_paged(params, tokens, caches, tables, pos, cfg,
+                                    mesh=mesh)
 
     return paged_serve_step

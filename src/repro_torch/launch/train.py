@@ -1,5 +1,6 @@
 """Training driver: the training loop with checkpoint/restart,
-deterministic data replay and async checkpointing, on one device.
+deterministic data replay and async checkpointing, on one device or on a
+mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-7b \\
         --reduced --steps 2 --seq 32 --batch 2 --device cpu
@@ -19,8 +20,13 @@ vision tower) get float32 normal prefix embeddings drawn from
 Fault tolerance, as in the reference: checkpoints carry {params,
 opt_state} and the step; the data pipeline is counter-based, so step N's
 batch is the same across restarts; checkpoint writes run on a background
-thread.  Meshes of more than one rank (DTensor placements, ROADMAP Queue 1
-item 4) raise.  ``--pp > 1`` prints the static pipeline summary of the
+thread.  On a ``launch.mesh.Mesh`` of more than one rank (``train(mesh=)``
+in every rank of the process group) the weights and AdamW moments are
+placed by ``transformer.param_shardings``, the batch by
+``batch_shardings``, and the step pins each gradient to its parameter's
+placements (``steps.make_train_step``); under ``executor="gspmd"`` the
+cell's Program is compiled on that mesh.  Checkpoints of a sharded run are
+not ported (they raise).  ``--pp > 1`` prints the static pipeline summary of the
 forward program (stages, bubble, handoff wire); the step itself runs the
 unpipelined plan, as in the reference.
 """
@@ -36,7 +42,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.plancache import PlanCache
-from repro_torch.data.synthetic import SyntheticLM, batch_shardings
+from repro_torch.data.synthetic import SyntheticLM, place_batch
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.serve import ONE_DEVICE_MESH
@@ -71,14 +77,19 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     dev = mesh.device if mesh is not None else resolve_device(device)
     mesh = mesh or Mesh(ONE_DEVICE_MESH, device=dev)
     axes = dict(mesh.sizes)
+    placed = mesh.world_size > 1
+    if placed and ckpt_dir:
+        raise NotImplementedError(
+            "train: checkpoints of a run on a mesh of more than one rank "
+            "(DTensor leaves) are not ported")
     if pp > 1:
         _print_pipeline_summary(cfg, shape, axes, pp, microbatches)
     # warm-start planning from the persistent cache: on restart the §8 DP
     # is a cache hit instead of a re-run
     compiled = program_for(cfg, shape).compile(
         mesh_axes=axes, cache=PlanCache.coerce(plan_cache),
-        mesh=mesh if executor == "shard_map" else None, executor=executor,
-        device=dev)
+        mesh=mesh if executor == "shard_map" or placed else None,
+        executor=executor, device=dev)
     policy = compiled.policy(fsdp_axes=fsdp_axes_for(axes))
     if compiled.collectives is not None:
         print(f"[train] shard_map executor schedule for {cfg.name}:")
@@ -96,15 +107,12 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
                                    warmup=max(steps_total // 10, 1),
                                    total=steps_total)
 
-    # raises on a mesh of more than one rank (ROADMAP Queue 1 item 4)
     step_fn = steps.make_train_step(cfg, policy=policy, mesh=mesh, lr_fn=lr_fn)
-    params = tf.init_params(cfg, seed=seed, device=dev)
+    params = tf.init_placed_params(cfg, policy, mesh, seed=seed)
     opt_state = adamw_init(params)
 
     data = SyntheticLM(cfg.vocab, shape.seq - cfg.prefix_len, shape.batch,
                        seed=seed)
-    bdev = batch_shardings(policy, mesh, {"tokens": None, "labels": None,
-                                          "prefix_embeds": None})
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
@@ -118,12 +126,11 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     t0 = time.time()
     for step in range(start, steps_total):
         hb = data.global_batch_at(step)
-        batch = {k: torch.as_tensor(np.asarray(hb[k]), device=bdev[k])
-                 for k in ("tokens", "labels")}
+        host = {k: hb[k] for k in ("tokens", "labels")}
         if cfg.prefix_len:  # the stubbed frontend's embeddings, step-seeded
-            pe = np.random.default_rng(step).normal(
+            host["prefix_embeds"] = np.random.default_rng(step).normal(
                 size=(shape.batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
-            batch["prefix_embeds"] = torch.as_tensor(pe, device=bdev["prefix_embeds"])
+        batch = place_batch(host, policy, mesh)
         _sync(dev)
         ts = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)

@@ -15,13 +15,23 @@ Two call modes:
 Parameter layout keeps heads (h) and head_dim (d) as separate tensor dims —
 these are exactly the EinSum labels EinDecomp assigns mesh axes to (the
 multi-head-attention EinGraph of paper §3).
+
+Under a mesh of more than one rank (DTensor activations, ``policy`` and
+``mesh`` given) the projections run on DTensors, and the attention core —
+the flash kernel in prefill, the masked cache softmax and the in-place
+cache write in decode — runs on each rank's (batch, head) blocks, as the
+``ring`` shard rule keeps flash attention local: q heads and kv heads
+split on the same axes, so GQA groups stay whole; the sequence, the cache
+time and the head dim unsplit.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.core import gspmd
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamFactory, apply_rope, resolve_device
 
@@ -41,10 +51,29 @@ def init_attention(pf: ParamFactory, cfg) -> dict:
     return p
 
 
+def _proj_in(x, w):
+    """x (b, s, a) @ w (a, h, d) -> (b, s, h, d).  On DTensors one
+    ``gspmd.matmul`` over (h, d) flattened head-major: torch.einsum may
+    flatten them in (d, h) order, which torch 2.11's DTensor cannot do with
+    heads split."""
+    if isinstance(x, DTensor):
+        a, h, d = w.shape
+        return gspmd.matmul(x, w.reshape(a, h * d)).reshape(*x.shape[:2], h, d)
+    return torch.einsum("bsa,ahd->bshd", x, w)
+
+
+def _proj_out(o, w):
+    """o (b, s, h, d) @ w (h, d, a) -> (b, s, a), as ``_proj_in``."""
+    if isinstance(o, DTensor):
+        b, s, h, d = o.shape
+        return gspmd.matmul(o.reshape(b, s, h * d), w.reshape(h * d, w.shape[-1]))
+    return torch.einsum("bshd,hda->bsa", o, w)
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
-    q = torch.einsum("bsa,ahd->bshd", x, p["wq"])
-    k = torch.einsum("bsa,akd->bskd", x, p["wk"])
-    v = torch.einsum("bsa,akd->bskd", x, p["wv"])
+    q = _proj_in(x, p["wq"])
+    k = _proj_in(x, p["wk"])
+    v = _proj_in(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -54,8 +83,40 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def attention_full(p: dict, x: torch.Tensor, cfg, *,
-                   prefix_len: int = 0) -> tuple[torch.Tensor, tuple]:
+def head_spec(policy, mesh, batch: int, heads: int, kv_heads: int) -> tuple:
+    """``(batch entry, head entry)`` of the blocks attention runs on under
+    ``policy``: the batch on the policy's batch axes, q and kv heads on the
+    union of its ``h`` and ``k`` axes (as the ring rule co-shards them);
+    axes that do not divide the batch, or both head counts, are dropped."""
+    from repro_torch.models.policy import safe_spec
+
+    sizes = gspmd.mesh_sizes(mesh)
+    b_entry = safe_spec((policy.act_spec("b")[0],), (batch,), mesh)[0]
+    used = set() if b_entry is None else set(
+        (b_entry,) if isinstance(b_entry, str) else b_entry)
+    head_axes, n = [], 1
+    for a in policy._axes("h") + policy._axes("k"):
+        if a in used or a in head_axes:
+            continue
+        if heads % (n * sizes[a]) == 0 and kv_heads % (n * sizes[a]) == 0:
+            head_axes.append(a)
+            n *= sizes[a]
+    return b_entry, gspmd.entry_of(head_axes)
+
+
+def _flash_placed(q, k, v, policy, mesh, **kw):
+    """The flash kernel on each rank's (batch, head) blocks of DTensor
+    q (b, h, s, d) and k/v (b, kv, s, d)."""
+    from repro_torch.core.gspmd import run_local
+
+    be, he = head_spec(policy, mesh, q.shape[0], q.shape[1], k.shape[1])
+    spec = (be, he, None, None)
+    return run_local(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                     (q, k, v), (spec, spec, spec), spec, mesh)
+
+
+def attention_full(p: dict, x: torch.Tensor, cfg, *, prefix_len: int = 0,
+                   policy=None, mesh=None) -> tuple[torch.Tensor, tuple]:
     """Prefill path.  Returns (out, (k, v)) with k/v in (b, s, kv_heads, hd).
     One flash-attention call per layer; the (b, s, h, d) projections reach
     the kernel as transposed views, without a copy.
@@ -67,10 +128,16 @@ def attention_full(p: dict, x: torch.Tensor, cfg, *,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=cfg.window)
+    if mesh is not None and mesh.world_size > 1:
+        o = _flash_placed(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), policy, mesh, causal=True,
+                          window=cfg.window)
+    else:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=cfg.window)
     o = o.transpose(1, 2)  # (b, s, h, d)
-    out = torch.einsum("bshd,hda->bsa", o, p["wo"])
+    out = _proj_out(o, p["wo"])
     return out, (k, v)
 
 
@@ -88,7 +155,7 @@ def init_kv_cache(cfg, batch: int, length: int, dtype,
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
-                     cfg) -> tuple[torch.Tensor, KVCache]:
+                     cfg, *, mesh=None) -> tuple[torch.Tensor, KVCache]:
     """One decode step.  x: (b, 1, d_model); pos: absolute position.
 
     The step's K/V are written **in place** into the preallocated cache
@@ -103,13 +170,6 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
 
     slot = (pos % S) if cfg.window else pos
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
-
-    qh = q.transpose(1, 2)          # (b, h, 1, hd)
-    kh = cache.k.transpose(1, 2)    # (b, kv, S, hd)
-    vh = cache.v.transpose(1, 2)
-
     idx = torch.arange(S, device=x.device)
     if cfg.window:
         # ring buffer: absolute position of slot i given current pos
@@ -118,10 +178,37 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     else:
         valid = idx <= pos
 
-    o = _decode_attend(qh, kh, vh, valid)
-    o = o.transpose(1, 2)
-    out = torch.einsum("bshd,hda->bsa", o, p["wo"])
+    def core(q, k_new, v_new, ck, cv):
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new[:, 0]
+        o = _decode_attend(q.transpose(1, 2), ck.transpose(1, 2),
+                           cv.transpose(1, 2), valid)
+        return o.transpose(1, 2)
+
+    if mesh is not None and mesh.world_size > 1:
+        o = _decode_placed(core, q, k_new, v_new, cache, mesh)
+    else:
+        o = core(q, k_new, v_new, cache.k, cache.v)
+    out = _proj_out(o, p["wo"])
     return out, cache
+
+
+def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh):
+    """``core`` on each rank's (batch, kv-head) blocks of the DTensor
+    cache, written in place: q and this step's K/V are placed as the cache
+    is (q heads on the cache's kv-head axes).  A cache split along its
+    time dim raises."""
+    from repro_torch.core import gspmd
+
+    be, te, ke, de = gspmd.spec_of_placements(cache.k.placements, 4, mesh)
+    if te is not None or de is not None:
+        raise NotImplementedError(
+            f"attention_decode: a KV cache split along time or head dim "
+            f"({(be, te, ke, de)}) has no local decode step")
+    spec = (be, None, ke, None)
+    return gspmd.run_local(
+        lambda q, k, v: core(q, k, v, cache.k.to_local(), cache.v.to_local()),
+        (q, k_new, v_new), (spec, spec, spec), spec, mesh)
 
 
 class PagedKVCache(NamedTuple):
@@ -183,7 +270,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, pool: PagedKVCache,
 
     o = _decode_attend(qh, kh, vh, valid)
     o = o.transpose(1, 2)
-    out = torch.einsum("bshd,hda->bsa", o, p["wo"])
+    out = _proj_out(o, p["wo"])
     return out, pool
 
 

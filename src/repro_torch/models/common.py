@@ -97,11 +97,13 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., s, h, hd); positions: (s,) or broadcastable to x[..., :, 0, 0].
     Computed in f32, cast back to x's dtype."""
+    from repro_torch.core.gspmd import replicate_like
+
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
     ang = positions.to(torch.float32)[..., None] * freqs    # (..., s, hd/2)
-    cos = torch.cos(ang)[..., None, :]                      # (..., s, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicate_like(torch.cos(ang)[..., None, :], x)   # (..., s, 1, hd/2)
+    sin = replicate_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -118,12 +120,46 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """x (b, s, d) @ head (d, v) -> (b, s, v)."""
-    return torch.matmul(x, head)
+    from repro_torch.core.gspmd import matmul
+
+    return matmul(x, head)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 vocab_real: int | None = None) -> torch.Tensor:
-    """Mean next-token cross-entropy, f32 logsumexp, padded ids masked."""
+                 vocab_real: int | None = None, *, mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy, f32 logsumexp, padded ids masked.
+
+    On DTensors (``mesh`` the ``launch.mesh.Mesh`` they live on) each rank
+    sums the token losses of its (batch, sequence) block with the whole
+    vocabulary gathered — a logsumexp DTensor cannot propagate on every
+    torch this runs on — and the sum over ranks, divided by the token
+    count, is the mean, replicated."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return _xent_placed(logits, labels, vocab_real, mesh)
+    return torch.mean(_xent_terms(logits, labels, vocab_real))
+
+
+def _xent_placed(logits, labels, vocab_real, mesh):
+    from repro_torch.core import gspmd
+
+    # keep the batch and sequence shards; gather the vocabulary
+    spec = gspmd.spec_of_placements(
+        [p if p.is_shard() and p.dim < 2 else gspmd.Replicate()
+         for p in logits.placements], logits.ndim, mesh)
+    lf = gspmd.constrain(logits, mesh, spec).to_local()
+    lb = gspmd.constrain(labels, mesh, spec[:2]).to_local()
+    # each rank's sum as one entry of a (batch shards, sequence shards)
+    # grid; the sum over the grid is the total, and its gradient reaches
+    # every rank's sum with weight one
+    local = torch.sum(_xent_terms(lf, lb, vocab_real)).reshape(1, 1)
+    grid = gspmd.wrap_block(local, mesh, spec[:2])
+    return gspmd.constrain(torch.sum(grid), mesh, ()) / labels.numel()
+
+
+def _xent_terms(logits, labels, vocab_real):
+    """Per-token ``logsumexp - gold logit`` in f32."""
     lf = logits.to(torch.float32)
     if vocab_real is not None and vocab_real < lf.shape[-1]:
         pad = lf.shape[-1] - vocab_real
@@ -134,7 +170,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         lf = lf + mask
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - gold)
+    return lse - gold
 
 
 def activation(name: str):

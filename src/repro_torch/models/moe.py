@@ -18,8 +18,9 @@ Translation notes: the sort is stable (``jnp.argsort`` is), so a token's
 rank inside its expert, and hence which tokens a full expert drops, is the
 reference's.  The combine sums each token's K contributions in k order in
 the activations' dtype, without atomics, so a run on the card gives the
-same bits every time.  ``policy`` and ``mesh`` are accepted and ignored, as
-everywhere in the port's model stack.
+same bits every time.  ``policy`` and ``mesh`` are accepted and ignored:
+MoE blocks run on one rank, and a mesh of more than one raises before
+them (``transformer.check_mesh``; ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -162,7 +163,7 @@ def _group_local(p, x, cfg, G: int):
 def moe_ffn(p: dict, x: torch.Tensor, cfg, *, policy=None, mesh=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (out, aux_loss)."""
-    del policy, mesh  # the port runs the model stack on one device
+    del policy, mesh  # one rank: transformer.check_mesh raises on more
     b, s, D = x.shape
     G = max(1, cfg.moe_groups)
     if G > 1 and b % G == 0:

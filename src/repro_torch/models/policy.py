@@ -13,8 +13,9 @@ projection of it).
 
 ``act_spec`` / ``param_spec`` return plain tuples, one entry per dim
 (``None`` = unsharded, an axis name, or a tuple of axis names) — the
-reference's PartitionSpecs without jax.  Placing tensors by them (the
-reference's ``NamedSharding``) belongs to the distributed slice of the port.
+reference's PartitionSpecs without jax.  ``sharding`` turns one into
+DTensor placements on a mesh (``core/gspmd.placements``), the reference's
+``NamedSharding``; ``safe_spec`` drops the axes that do not divide a dim.
 
 ``fsdp_axes`` additionally shards *parameters only* along a feature dim
 over the data axis (ZeRO-3 style storage sharding, all-gathered at use).
@@ -71,11 +72,47 @@ class ShardingPolicy:
                         break
         return tuple(_entry(tuple(e)) for e in entries)
 
+    def sharding(self, mesh, labels: str, shape=None, *,
+                 param: bool = False) -> tuple:
+        """DTensor placements (one per mesh axis) for a tensor with
+        ``labels`` on ``mesh`` (a ``launch.mesh.Mesh`` or ``{axis: size}``):
+        the parameter spec with ``param``, else the activation spec, made
+        safe for ``shape`` where it is given."""
+        from repro_torch.core.gspmd import placements
+
+        spec = self.param_spec(labels) if param else self.act_spec(labels)
+        if shape is not None:
+            spec = safe_spec(spec, shape, mesh)
+        return placements(spec, mesh)
+
 
 def _entry(ax: tuple[str, ...]):
     if not ax:
         return None
     return ax[0] if len(ax) == 1 else tuple(ax)
+
+
+def safe_spec(spec: tuple, shape, mesh) -> tuple:
+    """Drop mesh axes that do not divide the corresponding dim (divisibility
+    guard: e.g. 25 heads on a 16-way axis)."""
+    from repro_torch.core.gspmd import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    spec = tuple(spec)
+    out = []
+    for dim, entry in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        keep = []
+        d = int(dim)
+        for a in axes:
+            if d % sizes[a] == 0:
+                keep.append(a)
+                d //= sizes[a]
+        out.append(_entry(tuple(keep)))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,20 @@ states are per batch slot (paged or not); each decode step copies the new
 state into them.  Training differentiates ``loss_fn`` with
 ``torch.autograd``, each unit rematerialized as the reference's
 ``jax.checkpoint`` does (``forward(remat=...)``).
+
+Sharding: a ``ShardingPolicy`` (usually projected from an EinDecomp plan)
+supplies the specs.  On a ``launch.mesh.Mesh`` of more than one rank the
+parameters, caches and batch are DTensors (``param_shardings``,
+``cache_shardings``, ``data.synthetic.place_batch``), the model code runs
+on them under DTensor's sharding propagation, and the activations are
+constrained where the reference constrains them (``_cst``: ``"b s a"``
+after the embedding and each residual, ``"b s k d"`` on k/v, ``"b s v"``
+on the logits, ``"b t k d"`` on the caches).  Dense attention + FFN blocks
+run under a mesh; the MoE, hymba and xLSTM blocks raise there.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +56,25 @@ def _check_supported(cfg) -> None:
         if blk not in BLOCKS:
             raise ValueError(f"{cfg.name}: unknown block {blk!r}; expected "
                              f"one of {BLOCKS}")
+
+
+def _placed(mesh) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise for a block the model stack does not place on a mesh of more
+    than one rank: only dense attention + FFN blocks run there."""
+    if not _placed(mesh):
+        return
+    other = sorted({b for b in cfg.block_pattern if b != "attn"}
+                   | ({"moe"} if cfg.moe else set()))
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: the {', '.join(other)} blocks do not run on a mesh "
+            f"of {mesh.world_size} ranks yet (ROADMAP Queue 1 item 4: the "
+            "MoE, hymba and xLSTM blocks under a mesh); dense attention + "
+            "FFN blocks do")
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +228,260 @@ def _head(params) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Labels and placements (mirroring init_params / init_caches)
+# ---------------------------------------------------------------------------
+
+
+def _block_labels(cfg, blk: str) -> dict:
+    p: dict[str, Any] = {"norm1": "L a"}
+    if blk in ("attn", "hymba"):
+        at = {"wq": "L a h d", "wk": "L a k d", "wv": "L a k d", "wo": "L h d a"}
+        if cfg.qkv_bias:
+            at.update({"bq": "L h d", "bk": "L k d", "bv": "L k d"})
+        p["attn"] = at
+        p["norm2"] = "L a"
+        ffl = {"w1": "L a f", "w2": "L f a"}
+        if cfg.gated_ffn:
+            ffl["w3"] = "L a f"
+        if blk == "attn" and cfg.moe:
+            ml = {"router": "L a e", "w1": "L e a f", "w2": "L e f a"}
+            if cfg.gated_ffn:
+                ml["w3"] = "L e a f"
+            if cfg.shared_expert_ff:
+                ml["shared"] = dict(ffl)
+            p["moe"] = ml
+        else:
+            p["ffn"] = dict(ffl)
+    if blk == "hymba":
+        p["ssm"] = {"in_proj": "L a f", "conv_w": "L z a", "x_proj": "L a z",
+                    "a_log": "L a n", "d_skip": "L a", "out_proj": "L f a"}
+        p["norm_a"] = "L a"
+        p["norm_s"] = "L a"
+    if blk == "mlstm":
+        p["mlstm"] = {"w_up": "L a f", "wq": "L a f", "wk": "L a f",
+                      "wv": "L a f", "w_if": "L a z", "w_down": "L f a",
+                      "norm": "L a"}
+    if blk == "slstm":
+        p["slstm"] = {"w_in": "L a f", "r": "L a f", "w_down": "L f a",
+                      "norm": "L a"}
+    return p
+
+
+def param_labels(cfg) -> dict:
+    """Label strings mirroring ``init_params``' structure."""
+    labels = {
+        "embed": "v a",
+        "layers": [_block_labels(cfg, blk) for blk in cfg.block_pattern],
+        "final_norm": "a",
+    }
+    if not cfg.tie_embeddings:
+        labels["head"] = "a v"
+    return labels
+
+
+def cache_labels(cfg) -> list:
+    """Label strings mirroring ``init_caches``' structure."""
+    def one(blk):
+        kv = attn_mod.KVCache("L b t k d", "L b t k d")
+        if blk == "attn":
+            return kv
+        if blk == "hymba":
+            return (kv, ssm_mod.SSMState("L b a n", "L b z a"))
+        if blk == "mlstm":
+            return xlstm_mod.MLSTMState("L b h d d", "L b h d", "L b h")
+        if blk == "slstm":
+            return xlstm_mod.SLSTMState("L b a", "L b a", "L b a", "L b a")
+        raise ValueError(blk)
+
+    return [one(blk) for blk in cfg.block_pattern]
+
+
+def _zip_map(fn, tree, labels):
+    """``fn(leaf, label)`` over a tree of tensors and a tree of the same
+    structure whose leaves may be tuples (labels, specs, placements)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], labels[k]) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, t, l) for t, l in zip(tree, labels)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, t, l) for t, l in zip(tree, labels))
+    return fn(tree, labels)
+
+
+def param_specs(cfg, policy, mesh) -> dict:
+    """Per-dim mesh axes of every parameter (``policy.param_spec`` made
+    safe for its shape), mirroring ``init_params`` (walk it beside a
+    parameter tree: its leaves are tuples)."""
+    from repro_torch.models.policy import safe_spec
+
+    return _zip_map(lambda t, lab: safe_spec(policy.param_spec(lab), t.shape,
+                                             mesh),
+                    init_params(cfg, device="meta"), param_labels(cfg))
+
+
+def param_shardings(cfg, policy, mesh) -> dict:
+    """DTensor placements of every parameter on ``mesh`` (a
+    ``launch.mesh.Mesh`` or ``{axis: size}``), mirroring ``init_params``:
+    the reference's NamedShardings (leaves are tuples of placements)."""
+    from repro_torch.core.gspmd import placements
+
+    return _zip_map(lambda _, spec: placements(spec, mesh),
+                    init_params(cfg, device="meta"),
+                    param_specs(cfg, policy, mesh))
+
+
+def cache_specs(cfg, batch: int, kv_len: int, policy, mesh) -> list:
+    """Per-dim mesh axes of every decode-cache leaf, mirroring
+    ``init_caches``."""
+    from repro_torch.models.policy import safe_spec
+
+    return _zip_map(lambda t, lab: safe_spec(policy.act_spec(lab), t.shape,
+                                             mesh),
+                    init_caches(cfg, batch, kv_len, device="meta"),
+                    cache_labels(cfg))
+
+
+def cache_shardings(cfg, batch: int, kv_len: int, policy, mesh) -> list:
+    """DTensor placements of every decode-cache leaf, mirroring
+    ``init_caches``."""
+    from repro_torch.core.gspmd import placements
+
+    return _zip_map(lambda _, spec: placements(spec, mesh),
+                    init_caches(cfg, batch, kv_len, device="meta"),
+                    cache_specs(cfg, batch, kv_len, policy, mesh))
+
+
+def place_params(params, cfg, policy, mesh):
+    """``params`` on ``mesh``: on more than one rank each leaf becomes a
+    DTensor of its ``param_shardings`` placements, each rank keeping its
+    blocks of the whole tree it holds (no collective; a leaf that is
+    already a DTensor stays as it is); on one rank the tree as it is."""
+    if not _placed(mesh):
+        return params
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.gspmd import distribute
+
+    return _zip_map(lambda t, spec: t if isinstance(t, DTensor)
+                    else distribute(t, mesh, spec), params,
+                    param_specs(cfg, policy, mesh))
+
+
+def init_placed_params(cfg, policy, mesh, *, seed: int = 0) -> dict:
+    """Seeded parameters on ``mesh`` (``mesh.device``): every rank makes the
+    whole tree from the seed — the weights of ``init_params`` — and keeps
+    its blocks.  Ranks that share a card take turns, a barrier apart, so
+    the card holds one whole copy at a time."""
+    if not _placed(mesh):
+        return init_params(cfg, seed=seed, device=mesh.device)
+    import torch.distributed as dist
+
+    dev = mesh.device
+    shared = dev.type == "cuda" and torch.cuda.device_count() < mesh.world_size
+    placed = None
+    for r in range(mesh.world_size if shared else 1):
+        if not shared or r == mesh.rank:
+            placed = place_params(init_params(cfg, seed=seed, device=dev),
+                                  cfg, policy, mesh)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if shared:
+            dist.barrier()
+    return placed
+
+
+class InputSpec(NamedTuple):
+    """A model input's shape, dtype and placements (None: unplaced) — the
+    counterpart of the reference's ShapeDtypeStruct."""
+
+    shape: tuple
+    dtype: torch.dtype
+    placements: tuple | None = None
+
+
+def input_specs(cfg, shape, *, policy=None, mesh=None) -> dict:
+    """``InputSpec`` stand-ins for every model input of a shape cell,
+    placed by ``policy`` on ``mesh`` where both are given."""
+    def spec(shp, dtype, labels):
+        pl = (policy.sharding(mesh, labels, shp)
+              if policy is not None and mesh is not None else None)
+        return InputSpec(tuple(shp), dtype, pl)
+
+    B, S = shape.batch, shape.seq
+    if shape.kind in ("train", "prefill"):
+        toks = S - (cfg.prefix_len or 0)
+        out = {"tokens": spec((B, toks), torch.int32, "b s"),
+               "labels": spec((B, toks), torch.int32, "b s")}
+        if cfg.prefix_len:
+            out["prefix_embeds"] = spec((B, cfg.prefix_len, cfg.d_model),
+                                        dtype_of(cfg), "b s a")
+        if shape.kind == "prefill":
+            out.pop("labels")
+        return out
+    return {"tokens": spec((B, 1), torch.int32, "b s"),
+            "pos": InputSpec((), torch.int32)}
+
+
+def _cst(x, labels: str, policy, mesh):
+    """The reference's sharding constraint: ``x`` redistributed to the
+    policy's placements for ``labels`` on a mesh of more than one rank."""
+    if policy is None or not _placed(mesh):
+        return x
+    from repro_torch.core.gspmd import constrain
+    from repro_torch.models.policy import safe_spec
+
+    return constrain(x, mesh, safe_spec(policy.act_spec(labels), x.shape,
+                                        mesh))
+
+
+def _lookup(table, ids, mesh):
+    """Token embeddings.  Where the vocab is split across ranks, each rank
+    looks its tokens up in its own vocab block (tokens outside it give
+    zeros) and the blocks' lookups are summed over the vocab's mesh axes:
+    a ``Partial`` sum that the ``"b s a"`` constraint resolves, so the
+    table is never gathered.  DTensor's own masked lookup takes the vocab
+    split on one mesh axis only."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(table, DTensor):
+        return embed(table, ids)
+    from repro_torch.core import gspmd
+
+    spec = gspmd.spec_of_placements(table.placements, 2, mesh)
+    vocab_axes = gspmd.entry_axes(spec[0])
+    if not vocab_axes:
+        return embed(table, ids)
+    block = table.to_local()
+    sizes = gspmd.mesh_sizes(mesh)
+    j = 0  # this rank's vocab block: the axes split the vocab major to minor
+    for a in vocab_axes:
+        j = j * sizes[a] + mesh.coord[a]
+    ids = gspmd.constrain(ids, mesh, (None,) * ids.ndim).to_local().long()
+    rel = ids - j * block.shape[0]
+    hit = (rel >= 0) & (rel < block.shape[0])
+    out = embed(block, torch.where(hit, rel, 0)).masked_fill(~hit[..., None], 0)
+    # one (1, *ids, a) block a rank of a grid split over the vocab's axes;
+    # the sum over the grid is the lookup, and its gradient reaches every
+    # rank's block with weight one
+    grid = gspmd.wrap_block(out.unsqueeze(0), mesh,
+                            (spec[0],) + (None,) * ids.ndim + (spec[1],))
+    return torch.sum(grid, dim=0)
+
+
+def _place_tokens(tokens, policy, mesh):
+    """Token ids on the mesh (``"b s"``), where they are not yet."""
+    from torch.distributed.tensor import DTensor
+
+    if not _placed(mesh) or isinstance(tokens, DTensor):
+        return tokens
+    from repro_torch.core.gspmd import distribute
+    from repro_torch.models.policy import safe_spec
+
+    return distribute(tokens, mesh, safe_spec(policy.act_spec("b s"),
+                                              tokens.shape, mesh))
+
+
+# ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
@@ -215,16 +498,19 @@ def _hymba_mix(p: dict, a_out, s_out, cfg):
                   + rmsnorm(s_out, p["norm_s"], cfg.norm_eps))
 
 
-def _block_forward(blk: str, p: dict, x, cfg):
+def _block_forward(blk: str, p: dict, x, cfg, policy=None, mesh=None):
     """Full-sequence block.  Returns (x, cache, aux or None); the cache is
     the block's decode state (see the module docstring)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     aux = None
     if blk == "attn":
-        a_out, cache = attn_mod.attention_full(p["attn"], h, cfg)
-        x = x + a_out
+        a_out, kv = attn_mod.attention_full(p["attn"], h, cfg, policy=policy,
+                                            mesh=mesh)
+        cache = (_cst(kv[0], "b s k d", policy, mesh),
+                 _cst(kv[1], "b s k d", policy, mesh))
+        x = x + _cst(a_out, "b s a", policy, mesh)
         m_out, aux = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
-        x = x + m_out
+        x = x + _cst(m_out, "b s a", policy, mesh)
     elif blk == "hymba":
         a_out, kv = attn_mod.attention_full(p["attn"], h, cfg)
         s_out, st = ssm_mod.ssm_forward(p["ssm"], h, cfg)
@@ -276,18 +562,20 @@ def _rematerialized(unit, remat):
     return lambda x, u: checkpoint(unit, x, u, use_reentrant=False, **kw)
 
 
-def _embed_tokens(params, tokens, prefix_embeds, cfg):
+def _embed_tokens(params, tokens, prefix_embeds, cfg, policy=None,
+                  mesh=None):
     """Token embeddings in the model's dtype, the prefix embeddings (cast
     to it) before them where the config has a prefix and they are given."""
-    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+    x = _lookup(params["embed"], _place_tokens(tokens, policy, mesh),
+                mesh).to(dtype_of(cfg))
     if cfg.prefix_len and prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
-    return x
+    return _cst(x, "b s a", policy, mesh)
 
 
-def forward(params, tokens, cfg, *, prefix_embeds=None,
-            collect_cache: bool = False, last_logit_only: bool = False,
-            logit_index=None, remat=False):
+def forward(params, tokens, cfg, *, prefix_embeds=None, policy=None,
+            mesh=None, collect_cache: bool = False,
+            last_logit_only: bool = False, logit_index=None, remat=False):
     """Full-sequence forward.  Returns (logits, caches, aux_loss), the
     aux loss summed over the MoE layers (0 without MoE).
 
@@ -305,9 +593,16 @@ def forward(params, tokens, cfg, *, prefix_embeds=None,
     reference's: ``True`` recomputes each unit (one pattern period) in the
     backward from its input, ``"dots"`` keeps the unit's matrix products
     and recomputes the rest, ``False`` (the default, what serving runs)
-    keeps every activation."""
+    keeps every activation.
+
+    ``policy`` and ``mesh`` (a ``launch.mesh.Mesh``): on a mesh of more
+    than one rank the parameters are DTensors (``place_params``), the
+    tokens are placed on ``"b s"`` where they are not yet, and the
+    activations are constrained at the reference's points; the logits and
+    caches come back as DTensors."""
     _check_supported(cfg)
-    x = _embed_tokens(params, tokens, prefix_embeds, cfg)
+    check_mesh(cfg, mesh)
+    x = _embed_tokens(params, tokens, prefix_embeds, cfg, policy, mesh)
     pattern = cfg.block_pattern
     per_pos: list[list] = [[] for _ in pattern]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -316,7 +611,7 @@ def forward(params, tokens, cfg, *, prefix_embeds=None,
         caches, auxs = [], []
         for ppos, blk in enumerate(pattern):
             x, cache, a = _block_forward(blk, _unit(params["layers"][ppos], u),
-                                         x, cfg)
+                                         x, cfg, policy, mesh)
             caches.append(cache)
             if a is not None:
                 auxs.append(a)
@@ -336,23 +631,29 @@ def forward(params, tokens, cfg, *, prefix_embeds=None,
         x = x[:, -1:]
     elif logit_index is not None:
         x = x.narrow(1, int(logit_index), 1)
-    return lm_logits(x, _head(params)), caches, aux
+    logits = _cst(lm_logits(x, _head(params)), "b s v", policy, mesh)
+    return logits, caches, aux
 
 
-def loss_fn(params, batch, cfg, *, policy=None, remat=None):
+def loss_fn(params, batch, cfg, *, policy=None, mesh=None, remat=None):
     """Training loss: mean next-token cross-entropy plus 0.01 x the MoE aux
     loss, over the token positions only (the prefix positions of
     ``batch["prefix_embeds"]``, where the config has a prefix, predict
     nothing).  Returns ``(loss, {"ce", "aux"})``.  ``remat`` defaults as in
-    the reference: the policy's, else True."""
+    the reference: the policy's, else True.  On a mesh of more than one
+    rank the loss is a replicated DTensor."""
+    from repro_torch.core.gspmd import replicate_like
+
     if remat is None:
         remat = policy.remat if policy is not None else True
     logits, _, aux = forward(params, batch["tokens"], cfg,
                              prefix_embeds=batch.get("prefix_embeds"),
-                             remat=remat)
+                             policy=policy, mesh=mesh, remat=remat)
     if cfg.prefix_len:
         logits = logits[:, cfg.prefix_len:]
-    ce = softmax_xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+    labels = _place_tokens(batch["labels"], policy, mesh)
+    ce = softmax_xent(logits[:, :-1], labels[:, 1:], cfg.vocab, mesh=mesh)
+    aux = replicate_like(aux, ce)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -426,25 +727,44 @@ def _block_decode(blk: str, p: dict, x, cache, cfg, attend):
     return x + out
 
 
-def _decode_layers(params, tokens, caches, cfg, attend):
-    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+def _decode_layers(params, tokens, caches, cfg, attend, policy=None,
+                   mesh=None):
+    x = _embed_tokens(params, tokens, None, cfg, policy, mesh)
     pattern = cfg.block_pattern
     for u in range(_n_units(cfg)):
         for ppos, blk in enumerate(pattern):
             x = _block_decode(blk, _unit(params["layers"][ppos], u), x,
                               _unit(caches[ppos], u), cfg, attend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(x, _head(params))
+    return _cst(lm_logits(x, _head(params)), "b s v", policy, mesh)
 
 
-def decode_step(params, tokens, caches, pos: int, cfg):
+def decode_step(params, tokens, caches, pos: int, cfg, *, policy=None,
+                mesh=None):
     """One token for the whole batch.  tokens (b, 1); pos the absolute
     position.  Writes this step's K/V and recurrent states into ``caches``
-    in place and returns (logits (b, 1, v), caches)."""
-    def attend(p, h, kv):
-        return attn_mod.attention_decode(p, h, kv, pos, cfg)[0]
+    in place and returns (logits (b, 1, v), caches).  On a mesh of more
+    than one rank the parameters and caches are DTensors
+    (``place_caches``), each rank writes its cache blocks, and the logits
+    come back as a DTensor."""
+    check_mesh(cfg, mesh)
 
-    return _decode_layers(params, tokens, caches, cfg, attend), caches
+    def attend(p, h, kv):
+        return attn_mod.attention_decode(p, h, kv, pos, cfg, mesh=mesh)[0]
+
+    return _decode_layers(params, tokens, caches, cfg, attend, policy,
+                          mesh), caches
+
+
+def place_caches(caches, cfg, batch: int, kv_len: int, policy, mesh):
+    """Decode caches (whole on every rank) on ``mesh``: each leaf becomes a
+    DTensor of its ``cache_shardings`` placements; one rank: unchanged."""
+    if not _placed(mesh):
+        return caches
+    from repro_torch.core.gspmd import distribute
+
+    return _zip_map(lambda t, spec: distribute(t, mesh, spec), caches,
+                    cache_specs(cfg, batch, kv_len, policy, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -474,13 +794,21 @@ def init_paged_caches(cfg, batch: int, n_blocks: int, block: int, *,
     return _stacked_caches(cfg, one)
 
 
-def decode_step_paged(params, tokens, caches, tables, pos, cfg):
+def decode_step_paged(params, tokens, caches, tables, pos, cfg, *,
+                      mesh=None):
     """One continuous-batching decode step.  tokens (b, 1); tables (b, W)
     int block tables; pos (b,) int per-slot positions.  Writes this step's
     K/V into the pools of ``caches`` and every slot's recurrent state in
     place, and returns (logits (b, 1, v), caches).  Idle slots point their
     table rows at the scratch block 0 with pos 0, so their writes land
-    there; their recurrent rows run on and are overwritten at admission."""
+    there; their recurrent rows run on and are overwritten at admission.
+    A mesh of more than one rank raises (the engine's paged decode on a
+    mesh is ROADMAP Queue 1 item 4)."""
+    if _placed(mesh):
+        raise NotImplementedError(
+            f"decode_step_paged: the paged decode on a mesh of "
+            f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 item 4: "
+            "the engine's paged decode on a mesh)")
     tables, pos = tables.long(), pos.long()  # once a step, not once a layer
 
     def attend(p, h, pool):

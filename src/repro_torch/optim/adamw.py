@@ -9,6 +9,12 @@ moments in place, so a step holds one f32 working copy of one leaf at a
 time beside the state.  Trees are nested dicts, lists and tuples of
 tensors; leaves are visited in the reference's flattening order
 (``core/tree.py``), so the global norm sums in the same order.
+
+On a mesh the parameters, gradients and moments are DTensors of one
+placement per leaf: the moments are made beside the parameters' blocks,
+each leaf's sum of squares is taken over the whole tensor (DTensor reduces
+it across the ranks that split it) before the global norm sums the
+leaves, and the update runs on each rank's blocks.
 """
 from __future__ import annotations
 
@@ -16,7 +22,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core import tree
+from repro_torch.core.gspmd import full, replicate_like
 
 
 class AdamWState(NamedTuple):
@@ -31,6 +40,8 @@ def adamw_init(params) -> AdamWState:
     dev = leaves[0].device if leaves else None
 
     def zero(p):
+        if isinstance(p, DTensor):  # the parameter's placements
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
@@ -40,11 +51,12 @@ def adamw_init(params) -> AdamWState:
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, each back in
     its own dtype, the norm before clipping)."""
-    g2 = sum(torch.sum(torch.square(g.to(torch.float32)))
+    g2 = sum(full(torch.sum(torch.square(g.to(torch.float32))))
              for g in tree.leaves(grads))
     norm = torch.sqrt(g2)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
-    return tree.map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+    return tree.map(lambda g: (g.to(torch.float32)
+                               * replicate_like(scale, g)).to(g.dtype),
                     grads), norm
 
 
@@ -78,6 +90,7 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
         lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
         for p, g, m, v in zip(tree.leaves(params), tree.leaves(grads),
                               tree.leaves(state.m), tree.leaves(state.v)):
+            p, g, m, v = (_local(t) for t in (p, g, m, v))
             gf = g.to(torch.float32)
             m.mul_(b1).add_((1 - b1) * gf)
             v.mul_(b2).add_((1 - b2) * gf * gf)
@@ -87,3 +100,8 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
             pf = pf - lr * (update.add_(weight_decay * pf))
             p.copy_(pf)
     return params, AdamWState(step, state.m, state.v), gnorm
+
+
+def _local(t):
+    """A DTensor's block on this rank (an alias: writes land in it)."""
+    return t.to_local() if isinstance(t, DTensor) else t

@@ -17,12 +17,14 @@ state and MoE capacity couples rows, so padding would change real
 outputs, not just waste FLOPs.
 
 The registry plans on the one-device mesh (``launch.serve.ONE_DEVICE_MESH``)
-and runs on one device; a mesh of more than one rank needs the DTensor
-placements of ROADMAP Queue 1 item 4 and raises.
+by default.  Given a mesh of more than one rank it plans on that mesh's
+axes: a dict of axis sizes plans, projects policies and ``analyze()``s
+without a device; a ``launch.mesh.Mesh`` also runs each bucket's prefill
+step under the policy on DTensors.  The paged decode step raises on such
+a mesh (ROADMAP Queue 1 item 4: the engine's paged decode on a mesh).
 """
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -79,31 +81,32 @@ class RegistryStats:
 
 def _mesh_axes(mesh) -> dict[str, int]:
     """``{axis: size}`` of ``mesh`` (a ``launch.mesh.Mesh``, a dict of axis
-    sizes, or None for the one-device mesh); more than one rank raises."""
+    sizes, or None for the one-device mesh)."""
     if mesh is None:
         return dict(ONE_DEVICE_MESH)
-    axes = dict(getattr(mesh, "sizes", mesh))
-    if math.prod(axes.values()) > 1:
-        raise NotImplementedError(
-            f"BucketRegistry: a mesh of {math.prod(axes.values())} ranks "
-            f"({axes}) needs parameter and cache placements (DTensor) — the "
-            "DTensor slice of the port (ROADMAP Queue 1 item 4), not ported "
-            "yet")
-    return axes
+    return dict(getattr(mesh, "sizes", mesh))
 
 
 class BucketRegistry:
     """Per-(arch, shape-cell) compiled-handle cache over the plan cache.
 
-    ``device`` (default: the card) is where the compiled programs run;
+    ``mesh`` is None (the one-device mesh), a dict of axis sizes (plan,
+    policies and ``analyze()`` only) or a ``launch.mesh.Mesh`` (its device
+    runs the steps; on more than one rank the prefill step runs on
+    DTensors under the bucket's policy).  ``device`` (default: the card,
+    or the Mesh's) is where the compiled programs run;
     ``executor="shard_map"`` compiles them for the explicit-collective
-    executor on the one-rank mesh, as ``launch.serve.serve`` does."""
+    executor, on the one-rank mesh without a Mesh, as
+    ``launch.serve.serve`` does."""
 
     def __init__(self, cfg, mesh=None, *, plan_cache=None,
                  executor: str = "gspmd", bucket: str = "auto",
                  min_bucket: int = 8, device=None):
         self.cfg = cfg
         self.axes = _mesh_axes(mesh)
+        self.mesh = mesh if hasattr(mesh, "world_size") else None
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         self.executor = executor
         self.bucket = bucket
@@ -152,7 +155,7 @@ class BucketRegistry:
         if self.executor == "shard_map":
             from repro_torch.launch.mesh import Mesh
 
-            mesh = Mesh(self.axes, device=self.device)
+            mesh = self.mesh or Mesh(self.axes, device=self.device)
         compiled = prog.compile(mesh_axes=dict(self.axes),
                                 cache=self.plan_cache, mesh=mesh,
                                 executor=self.executor, device=self.device)
@@ -161,7 +164,7 @@ class BucketRegistry:
         policy = compiled.policy()
         ent = BucketEntry(key=key, canonical_key=compiled.canonical_key,
                           compiled=compiled, policy=policy,
-                          step=self._make_step(kind),
+                          step=self._make_step(kind, policy),
                           plan_time_s=plan_t, cache_hit=hit)
         self._entries[key] = ent
         self.stats.compiles += 1
@@ -188,10 +191,11 @@ class BucketRegistry:
                 meta={"bucket": "/".join(str(k) for k in key)})
             for key, ent in sorted(self._entries.items())}
 
-    def _make_step(self, kind: str) -> Callable:
+    def _make_step(self, kind: str, policy) -> Callable:
         if kind == "prefill":
-            return steps.make_bucket_prefill_step(self.cfg)
-        base = steps.make_paged_serve_step(self.cfg)
+            return steps.make_bucket_prefill_step(self.cfg, policy=policy,
+                                                  mesh=self.mesh)
+        base = steps.make_paged_serve_step(self.cfg, mesh=self.mesh)
 
         def decode_step(params, tokens, caches, tables, pos):
             logits, caches = base(params, tokens, caches, tables, pos)

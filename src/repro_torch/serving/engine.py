@@ -138,12 +138,21 @@ class ServingEngine:
     device:
         Where the engine runs; default the card, raising where there is
         none.
+    mesh:
+        A ``launch.mesh.Mesh``; one of more than one rank raises (the
+        paged decode on a mesh is not ported).
     """
 
     def __init__(self, cfg, *, batch: int = 4, max_seq: int = 128,
                  block: int = 16, n_blocks: int | None = None, params=None,
                  seed: int = 0, plan_cache=None, bucket: str = "auto",
-                 eos_id: int | None = None, device=None):
+                 eos_id: int | None = None, device=None, mesh=None):
+        if mesh is not None and mesh.world_size > 1:
+            raise NotImplementedError(
+                f"ServingEngine: the paged decode on a mesh of "
+                f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 "
+                "item 4: the engine's paged decode on a mesh); serve(mesh=) "
+                "runs the dense-cache decode on a mesh")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch

@@ -7,9 +7,9 @@ different orders).  Opaque ops the port does not run yet (the recurrent
 scans) get the reference test suite's stand-in on both sides.
 
 Then the wiring: ``make_runner`` and ``Program.compile`` build the dense
-runner and the shard_map runner on a one-rank CPU mesh, raise for what
-belongs to a later slice, and run on the card unless ``device="cpu"`` is
-asked for.
+runner and the shard_map runner on a one-rank CPU mesh, the gspmd
+(DTensor) runner on a mesh of more than one rank, raise for what they
+cannot run, and run on the card unless ``device="cpu"`` is asked for.
 """
 import itertools
 import math
@@ -110,6 +110,14 @@ def test_run_with_keep_drops_every_other_value():
 # ---------------------------------------------------------------------------
 
 
+def _hand_plan(g, axes):
+    from repro_torch.core.decomp import Plan
+
+    plan = Plan(p=4, mode="mesh")
+    plan.axes_by_node = {n.nid: dict(axes) for n in g.nodes}
+    return plan
+
+
 def _mlp_program():
     x = ein.tensor("x", "b a", (8, 16))
     w = ein.tensor("w", "a f", (16, 32))
@@ -149,11 +157,23 @@ def test_make_runner_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="mesh-mode"):
         engine.make_runner(g, outs, plan=eindecomp(g, 4), mesh=mesh,
                            executor="shard_map")
+    # gspmd on a mesh of more than one rank builds the DTensor runner (a
+    # bare mesh self-plans); what it runs is tests/test_torch_gspmd.py's
     two_by_two = types.SimpleNamespace(sizes={"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="DTensor"):
-        engine.make_runner(g, outs, mesh=two_by_two)
-    with pytest.raises(NotImplementedError, match="DTensor"):
-        _mlp_program().compile(mesh=two_by_two)
+    f = engine.make_runner(g, outs, mesh=two_by_two)
+    assert [st.nid for st in f.runner.program] == [n.nid for n in g.nodes]
+    assert f.runner.plan.mode == "mesh"
+    compiled = _mlp_program().compile(mesh=two_by_two)
+    assert compiled.collectives is None and compiled.plan.mode == "mesh"
+    assert type(compiled._fn).__name__ == "GspmdRunner"
+    # ...and raises for a plan it cannot place: an aggregation with no
+    # DTensor Partial (prod) over a mesh axis
+    pg = EinGraph("prod")
+    x = pg.input("x", "i j", (4, 4))
+    pg.einsum("i j -> i", x, combine="id", agg="prod")
+    with pytest.raises(NotImplementedError, match="prod"):
+        engine.make_runner(pg, mesh=two_by_two, plan=_hand_plan(
+            pg, {"j": ("model",)}))
 
 
 @pytest.mark.parametrize("executor", engine.EXECUTORS)

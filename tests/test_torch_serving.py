@@ -167,8 +167,13 @@ def test_bucket_registry_keys_and_paged_plan_equal_reference(tmp_path):
 
 def test_bucket_registry_raises_for_what_is_not_ported():
     """``analyze()`` is ported (the static verifier): every live bucket
-    comes back as a clean report; a mesh of two ranks still raises (ROADMAP
-    Queue 1 item 4)."""
+    comes back as a clean report.  A mesh of two ranks given as axis sizes
+    now plans, projects policies and analyzes as the reference's registry
+    does on that mesh; what still raises (ROADMAP Queue 1 item 4) is the
+    paged decode on such a mesh — the registry's decode step and the
+    engine.  (Prefill on a mesh of ranks: tests/test_torch_gspmd.py.)"""
+    import types
+
     cfg = reduced(get_config("llama-7b"))
     reg = BucketRegistry(cfg, device="cpu")
     assert reg.analyze() == {}
@@ -176,8 +181,25 @@ def test_bucket_registry_raises_for_what_is_not_ported():
     reports = reg.analyze()
     assert list(reports) == [(cfg.name, "prefill", 16, 1, 0)]
     assert not reports[(cfg.name, "prefill", 16, 1, 0)].findings
+    two = {"data": 2, "model": 1}
+    reg2 = BucketRegistry(cfg, two, device="cpu")
+    pre, dec = reg2.prefill(13), reg2.decode(32, 2, 8)
+    # what the reference's registry reads of a jax Mesh
+    ref_mesh = types.SimpleNamespace(axis_names=tuple(two),
+                                     devices=np.empty(tuple(two.values())))
+    ref_reg = RefBucketRegistry(ref_reduced(ref_get_config("llama-7b")),
+                                ref_mesh)
+    assert pre.compiled.plan.to_json() == ref_reg.prefill(13).compiled.plan.to_json()
+    assert dec.compiled.plan.to_json() == ref_reg.decode(32, 2, 8).compiled.plan.to_json()
+    assert pre.policy.label_axes == ref_reg.prefill(13).policy.label_axes
+    assert set(reg2.analyze()) == {pre.key, dec.key}
+    fake = types.SimpleNamespace(sizes=two, world_size=2,
+                                 device=torch.device("cpu"))
+    step = BucketRegistry(cfg, fake).decode(32, 2, 8).step
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        BucketRegistry(cfg, {"data": 2, "model": 1}, device="cpu")
+        step(None, None, None, None, None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        ServingEngine(cfg, device="cpu", mesh=fake)
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])

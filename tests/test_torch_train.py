@@ -181,22 +181,36 @@ def test_synthetic_batches_are_bit_equal():
 class _Mesh:
     def __init__(self, world):
         self.world_size, self.device = world, torch.device("cpu")
+        self.sizes = {"data": world}
 
 
 def test_batch_placement_and_train_step_raise_past_one_rank(capsys):
-    """Placement and the train step past one rank raise (ROADMAP Queue 1
-    item 4); ``pp=2`` no longer raises: it prints the reference's static
+    """Placement and the train step past one rank are ported: the batch's
+    placements are the reference's specs (``"b s"``, ``pos`` unplaced) as
+    DTensor placements, and ``make_train_step`` builds on a mesh of two
+    ranks (tests/test_torch_gspmd.py runs it against the one-rank step).
+    The blocks that still wait — MoE, hymba, xLSTM — raise on such a mesh,
+    naming ROADMAP Queue 1 item 4.  ``pp=2`` prints the reference's static
     pipeline summary, then trains on the unpipelined plan."""
     from repro.configs.base import ShapeConfig as RefShape
     from repro.launch.train import _print_pipeline_summary as ref_summary
+    from torch.distributed.tensor import Replicate, Shard
 
-    assert batch_shardings(None, _Mesh(1), {"tokens": 0, "labels": 0}) == {
-        "tokens": torch.device("cpu"), "labels": torch.device("cpu")}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        batch_shardings(None, _Mesh(4), {"tokens": 0})
+    from repro_torch.models.policy import manual_policy
+
+    pol = manual_policy({"b": "data", "a": "data"})
+    assert batch_shardings(pol, _Mesh(1).sizes, {"tokens": (8, 16), "labels": (8, 16)}) == {
+        "tokens": (Replicate(),), "labels": (Replicate(),)}
+    assert batch_shardings(pol, _Mesh(4).sizes, {
+        "tokens": (8, 16), "prefix_embeds": (8, 4, 32), "pos": ()}) == {
+        "tokens": (Shard(0),), "prefix_embeds": (Shard(0),), "pos": None}
+    assert batch_shardings(pol, _Mesh(4).sizes, {"tokens": (2, 16)}) == {
+        "tokens": (Replicate(),)}  # 2 rows on 4 ranks: safe_spec drops data
     ref_cfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        steps.make_train_step(cfg, mesh=_Mesh(2))
+    assert callable(steps.make_train_step(cfg, mesh=_Mesh(2)))
+    for arch in ("mixtral-8x7b", "hymba-1.5b", "xlstm-125m"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            tf.forward(None, None, reduced(get_config(arch)), mesh=_Mesh(2))
     capsys.readouterr()
     out = train_mod.train(cfg, ShapeConfig("t", "train", 16, 2), steps_total=1,
                           pp=2, microbatches=2, device="cpu")
