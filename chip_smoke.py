@@ -236,12 +236,36 @@
    divergence must sit on a top-2 margin under 2e-2 of max|logit|, and is
    printed), the prefill and decode walls.  The
    kernels line gives the flash and matmul launches a rank on the gspmd
-   path (``gspmd_launches_per_rank``).
+   path (``gspmd_launches_per_rank``).  (b)'s step is timed alone; a
+   second, untimed step on the same weights made again runs under a
+   ``launch.hlo_analysis.CollectiveRecorder``, which phase 32(c) reads;
+32. the dry run (``repro_torch.launch.dryrun``): (a) the CLI in a
+   subprocess per cell, all started together, with ``CUDA_VISIBLE_DEVICES``
+   empty, for llama-7b train_4k, prefill_32k and decode_32k on (16, 16)
+   and decode_32k on (2, 16, 16): each record's memory a card,
+   ``t_compute_s``, ``t_memory_s``, ``t_collective_s``, bottleneck, fit in
+   80 GB, kernel calls a rank by design, its wall, and CUDA never
+   initialised; the card's ``total_memory`` against ``dryrun.HBM_BYTES``;
+   (b) abstract against real on one rank: llama-7b at full width on a 1x1
+   mesh, phase 5's prefill (bf16, b=4, s=512) and phase 18's train step
+   (8 of 32 layers), ``build_cell`` on meta blocks under ``StepCosts``
+   against the same step from seeded weights on the card under
+   ``FlopCounterMode``: FLOPs equal, flash calls by design equal to
+   ``ops.design_counts()``, the abstract peak within 5% of
+   ``max_memory_allocated`` less what was allocated before the arguments;
+   (c) phase 31(b)'s train step on a fake 2-rank group against its 2 gloo
+   ranks on the card, on {data: 2} and {model: 2}: each collective kind's
+   count and bytes equal to what the ranks issued, the abstract peak within
+   5% of each rank's allocator peak of the step.  The kernels line gives the
+   dry run's flash calls a rank by design (``dryrun_calls_per_rank``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
 template's device time beside it, beside SDPA's device time in the same
-type.
+type.  Phases 4 and 9 give one call's host time through the forward's
+and matmul's operators (``repro_torch::flash_attention``, ``::matmul``)
+beside a direct call of the implementation behind each (``launch``: the
+wrapper as it was before the op), in turns.
 
 Every kernel has a design picked by the shape rule in its wrapper before
 launch (``"wgmma"`` for bf16 and ``"ffma"`` for float32 operands the rule
@@ -258,6 +282,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -453,6 +478,29 @@ def _flash_view_parity(fa, ops, ref) -> list[dict]:
     return out
 
 
+def _host_us(fn, iters: int = 200) -> float:
+    """Host microseconds a call: back-to-back calls on the host clock with
+    no synchronize between them (the launches queue on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def _op_host_us(op_call, direct_call) -> dict:
+    """One call's host time through a kernel's operator and through its
+    implementation called directly (the wrapper as it was before the op),
+    in turns (op, direct, direct, op), the least of each."""
+    times = {"op": [], "direct": []}
+    for which in ("op", "direct", "direct", "op"):
+        times[which].append(_host_us(op_call if which == "op" else direct_call))
+    return {"op_us": min(times["op"]), "direct_us": min(times["direct"])}
+
+
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -600,6 +648,8 @@ def main() -> int:
     t_lib = _time_ms(lambda: sdpa(q, k, v, is_causal=True), 50)
     t_lib_device = _device_ms(lambda: sdpa(q, k, v, is_causal=True), 20, None)
     t_bwd_plain = _attention_backward_ms(ref, q, k, v, kw)
+    host = _op_host_us(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw),
+                       lambda: fa.launch(q, k, v, True, 0, None, 0, 0))
     bound_ms, bound_by, nbytes, nops = _attention_bound_ms(SLICE, ref)
     log("timing", f"flash_attention {SLICE[:6]} bf16 causal: kernel (wgmma) {t_kernel:.4f} "
                   f"ms ({t_device:.4f} ms device time), template {t_template:.4f} ms "
@@ -607,8 +657,10 @@ def main() -> int:
                   f"{t_plain:.4f} ms, sdpa {t_lib:.4f} ms ({t_lib_device:.4f} ms device "
                   f"time), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); "
                   f"the backward (the plain version's VJP, from saved q, k, v) "
-                  f"{t_bwd_plain:.4f} ms")
-    results["timing"] = {"kernel_ms": t_kernel, "device_ms": t_device,
+                  f"{t_bwd_plain:.4f} ms; one call's host time through its operator "
+                  f"{host['op_us']:.1f} us, its implementation called directly "
+                  f"{host['direct_us']:.1f} us")
+    results["timing"] = {"kernel_ms": t_kernel, "device_ms": t_device, "host": host,
                          "template_ms": t_template,
                          "plain_ms": t_plain, "library_ms": t_lib,
                          "library_device_ms": t_lib_device,
@@ -718,6 +770,10 @@ def main() -> int:
     results["mesh"] = _mesh_phase(ops)
     gx = results["mesh"]["gspmd"]
 
+    # 32. the dry run: the production mesh with no card; abstract against real
+    results["dryrun"] = _dryrun_phase(ops, results)
+    dry = results["dryrun"]
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -778,7 +834,13 @@ def main() -> int:
          "pipeline_design": pipe_designs["flash_attention"],
          "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
              "flash_attention"] for m in gx for dt in RING_DTYPES},
-         "mesh_serve_launches_per_rank": results["mesh"]["serve"]["flash_launches"]},
+         "mesh_serve_launches_per_rank": results["mesh"]["serve"]["flash_launches"],
+         "op_host_us": results["timing"]["host"]["op_us"],
+         "direct_host_us": results["timing"]["host"]["direct_us"],
+         "dryrun_calls_per_rank": {cell: r["kernel_calls"]["flash_attention"]
+                                   for cell, r in dry["cli"].items() if cell != "hbm_bytes"},
+         "dryrun_one_rank_designs": {c: r["flash_designs"]
+                                     for c, r in dry["one_rank"].items()}},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -817,7 +879,8 @@ def main() -> int:
          "pipeline_launches": sum(pipe_designs["matmul"].values()),
          "pipeline_design": pipe_designs["matmul"],
          "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
-             "matmul"] for m in gx for dt in RING_DTYPES}},
+             "matmul"] for m in gx for dt in RING_DTYPES},
+         "op_host_us": mt["host"]["op_us"], "direct_host_us": mt["host"]["direct_us"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:58",
@@ -1348,7 +1411,9 @@ def _matmul_timing(cfg, ops, ref) -> dict:
             t_template = _time_ms(template, max(1, 5 // scale), warmup=1)
             t_plain = _time_ms(lambda: ref.matmul(x, w), max(1, 10 // scale))
             t_lib = _time_ms(lambda: torch.matmul(x, w), iters)
-            row = {"shape": [m, k, n], "design": design, "kernel_ms": t_kernel,
+            host = _op_host_us(lambda: ops.matmul(x, w, impl="kernel"),
+                               lambda: mm.launch(x, w))
+            row = {"shape": [m, k, n], "design": design, "kernel_ms": t_kernel, "host": host,
                    "template_ms": t_template, "plain_ms": t_plain, "library_ms": t_lib,
                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": nops,
                    "kernel_tflops": nops / t_kernel / 1e9,
@@ -1357,7 +1422,9 @@ def _matmul_timing(cfg, ops, ref) -> dict:
                           f"({nops / t_kernel / 1e9:.1f} TFLOP/s), template {t_template:.4f} ms "
                           f"({t_template / t_kernel:.2f}x), plain {t_plain:.4f} ms, "
                           f"torch.matmul {t_lib:.4f} ms ({t_kernel / t_lib:.2f}x of it), "
-                          f"bound {bound_ms:.4f} ms ({bound_by})")
+                          f"bound {bound_ms:.4f} ms ({bound_by}); one call's host time "
+                          f"through its operator {host['op_us']:.1f} us, directly "
+                          f"{host['direct_us']:.1f} us")
             res[f"{str(dt).split('.')[1]}_shapes"][name] = row
             del x, w
     res["float32"] = res["float32_shapes"]["qkvo_proj"]
@@ -3477,19 +3544,19 @@ def mesh_train_rank(rank: int, world: int) -> dict:
     gradient and every parameter after AdamW against the one-rank step."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
     from repro_torch.core.gspmd import full
     from repro_torch.data.synthetic import place_batch
     from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as tf
     from repro_torch.models.eingraphs import program_for
     from repro_torch.optim import adamw_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("llama-7b"), n_layers=2, dtype="float32")
+    cfg = _mesh_train_cfg()
     toks = np.random.default_rng(31).integers(0, cfg.vocab, size=(2, 128)).astype(np.int32)
     host = {"tokens": toks, "labels": toks}
 
@@ -3506,17 +3573,34 @@ def mesh_train_rank(rank: int, world: int) -> dict:
         loss = float(full(loss).detach())
         step = steps.make_train_step(cfg, policy=policy, mesh=mesh,
                                      lr_fn=lambda s: MESH_TRAIN_LR)
+        # the step's own peak, as the dry run counts it: the arguments and
+        # what the step allocates, less what else lies on the card
+        args_bytes = sum(_block_bytes(t) for t in tree.leaves(params) + list(batch.values()))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - args_bytes
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, _, met = step(params, adamw_init(params), batch)
         torch.cuda.synchronize()
-        return loss, grads, params, met, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        step_peak = torch.cuda.max_memory_allocated() - held
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        # a second step, untimed (the recorder's dispatch costs time), on the
+        # same weights made again: the first updated its own in place
+        spare = tf.init_placed_params(cfg, policy, mesh, seed=2)
+        rec = CollectiveRecorder()  # what the step issues: phase 32(c) reads it
+        with rec:
+            step(spare, adamw_init(spare), batch)
+        del spare
+        return loss, grads, params, met, wall, (peak, step_peak), rec.log.summary()
 
     ref = None
     if rank == 0:
         one = Mesh({"data": 1}, device="cuda:0")
         pol1 = program_for(cfg, ShapeConfig("t", "train", 128, 2)).compile(
             mesh_axes={"data": 1}, device="cuda:0").policy()
-        loss, grads, params, met, _ = value_grads_step(one, pol1)
+        loss, grads, params, met, _, _, _ = value_grads_step(one, pol1)
         ref = {"loss": loss, "grads": [g.detach().cpu() for g in grads],
                "params": [p.cpu() for p in tree.leaves(params)],
                "grad_norm": float(met["grad_norm"])}
@@ -3528,24 +3612,44 @@ def mesh_train_rank(rank: int, world: int) -> dict:
             for mesh_id, (sizes, plan_of) in MESH_TRAIN_MESHES.items()}
 
 
-def _sharded_step(rank, mesh, plan_of: str, cfg, ref, value_grads_step) -> dict:
+def _block_bytes(t) -> int:
+    """Bytes of this rank's block of ``t`` (a DTensor or a tensor)."""
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return t.numel() * t.element_size()
+
+
+def _mesh_train_cfg():
+    """Phase 31(b)'s cell: llama-7b width, 2 layers, float32 (b=2, s=128)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama-7b"), n_layers=2, dtype="float32")
+
+
+def _mesh_train_policy(cfg, axes: dict, plan_of: str):
+    """The policy phase 31(b) trains under on ``axes``: the plan of reduced
+    llama or of llama-7b at that cell, the weights stored on the data
+    axes."""
     from repro_torch.configs import reduced
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core import tree
-    from repro_torch.core.gspmd import full
     from repro_torch.models.eingraphs import fsdp_axes_for, program_for
 
-    axes = dict(mesh.sizes)
     planned = reduced(cfg) if plan_of == "reduced" else cfg
-    policy = program_for(planned, ShapeConfig("t", "train", 128, 2)).compile(
-        mesh_axes=axes, device="cuda:0").policy(fsdp_axes=fsdp_axes_for(axes))
+    return program_for(planned, ShapeConfig("t", "train", 128, 2)).compile(
+        mesh_axes=axes).policy(fsdp_axes=fsdp_axes_for(axes))
+
+
+def _sharded_step(rank, mesh, plan_of: str, cfg, ref, value_grads_step) -> dict:
+    from repro_torch.core import tree
+    from repro_torch.core.gspmd import full
+
+    policy = _mesh_train_policy(cfg, dict(mesh.sizes), plan_of)
     torch.cuda.reset_peak_memory_stats()
-    loss, grads, params, met, wall = value_grads_step(mesh, policy)
+    loss, grads, params, met, wall, (peak, step_peak), issued = value_grads_step(mesh, policy)
     res = {"policy": {l: list(a) for l, a in policy.label_axes.items()},
-           "fsdp": list(policy.fsdp_axes),
+           "fsdp": list(policy.fsdp_axes), "collectives": issued,
            "loss": loss, "grad_norm": float(met["grad_norm"]),
-           "step_loss": float(met["loss"]), "step_wall_s": wall,
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+           "step_loss": float(met["loss"]), "step_wall_s": wall, "peak_bytes": peak,
+           "step_peak_bytes": step_peak}
     grad_errs, param_errs = [], []
     for i, g in enumerate(grads):
         g = full(g)
@@ -3613,8 +3717,11 @@ def _mesh_train() -> dict:
                           f"|diff| beyond an ulp {worst_sure:.3e} where |g| clears {ADAM_CLEAR} x "
                           f"{TRAIN_TOL} x max|g| (limit 1e-4 x lr; at least {worst_frac:.4f} "
                           f"of each leaf), {worst_p:.3e} over all (limit 2 x lr); step walls "
-                          f"{[round(r['step_wall_s'], 2) for r in ranks]} s, peak "
-                          f"{[r['peak_bytes'] for r in ranks]} B a rank; both meshes in one spawn of {t_spawn:.1f} s")
+                          f"{[round(r['step_wall_s'], 2) for r in ranks]} s (the collectives "
+                          f"recorded in a second, untimed step), peak "
+                          f"{[r['peak_bytes'] for r in ranks]} B a rank, the step's own "
+                          f"{[r['step_peak_bytes'] for r in ranks]} B; both meshes in one spawn "
+                          f"of {t_spawn:.1f} s")
         res[mesh_id] = {"policy": r0["policy"], "fsdp": r0["fsdp"],
                         "plan_of": MESH_TRAIN_MESHES[mesh_id][1],
                         "loss": r0["loss"], "ref_loss": r0["ref_loss"],
@@ -3623,7 +3730,10 @@ def _mesh_train() -> dict:
                         "worst_param_abs_clear": worst_sure,
                         "min_share_clear": worst_frac,
                         "step_wall_s": [r["step_wall_s"] for r in ranks],
-                        "peak_bytes": [r["peak_bytes"] for r in ranks], "spawn_s": t_spawn}
+                        "peak_bytes": [r["peak_bytes"] for r in ranks],
+                        "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+                        "spawn_s": t_spawn,
+                        "collectives": r0["collectives"]}
     return res
 
 
@@ -3871,6 +3981,201 @@ def _mesh_phase(ops) -> dict:
     """Phase 31: (a) the gspmd executor, (b) the sharded train step, (c)
     llama-7b served on a mesh — gloo ranks sharing the card."""
     return {"gspmd": _gspmd_executor(ops), "train": _mesh_train(), "serve": _mesh_serve()}
+
+
+# ---------------------------------------------------------------------------
+# 32. the dry run
+# ---------------------------------------------------------------------------
+
+# llama-7b's cells run by the CLI with no card visible: (shape, multi_pod)
+DRYRUN_CELLS = [("train_4k", False), ("prefill_32k", False), ("decode_32k", False),
+                ("decode_32k", True)]
+DRYRUN_PEAK_TOL = 0.05  # abstract peak against the allocator's, relative
+
+
+def _dryrun_cli() -> dict:
+    """Phase 32(a): ``python -m repro_torch.launch.dryrun`` for llama-7b's
+    cells, one subprocess each, all started together, with
+    ``CUDA_VISIBLE_DEVICES`` empty; every record says CUDA was never
+    initialised."""
+    from repro_torch.launch import dryrun
+
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
+
+    def run(cell):
+        shape, multi_pod = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama-7b",
+               "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {cell}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(DRYRUN_CELLS)) as pool:
+        runs = list(pool.map(run, DRYRUN_CELLS))
+    res = {}
+    for (shape, multi_pod), (stdout, wall) in zip(DRYRUN_CELLS, runs):
+        mesh = "2x16x16" if multi_pod else "16x16"
+        rec = json.loads((out / f"llama-7b__{shape}__{mesh}.json").read_text())
+        assert stdout.startswith("OK") and rec["ok"], stdout
+        assert rec["cuda_initialized"] is False, rec
+        r = rec["roofline"]
+        calls = {k: {d: n for d, n in v.items() if n} for k, v in rec["kernel_calls"].items()
+                 if sum(v.values())}
+        log("dryrun", f"llama-7b {shape} on {mesh} ({rec['chips']} fake ranks, no card "
+                      f"visible, CUDA never initialised): {rec['memory']['per_device_gb']:.3f} "
+                      f"GB a card (fits 80 GB: {rec['fits_80gb']}), t_compute "
+                      f"{r['t_compute_s']:.4e} s, t_memory {r['t_memory_s']:.4e} s, "
+                      f"t_collective {r['t_collective_s']:.4e} s, bottleneck "
+                      f"{rec['bottleneck']}; kernel calls a rank by design {calls}; the "
+                      f"run {rec['total_s']} s, the subprocess {wall:.1f} s")
+        res[f"{shape}/{mesh}"] = {
+            "per_device_gb": rec["memory"]["per_device_gb"], "fits_80gb": rec["fits_80gb"],
+            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+            "t_collective_s": r["t_collective_s"], "bottleneck": rec["bottleneck"],
+            "kernel_calls": rec["kernel_calls"], "run_s": rec["total_s"], "wall_s": wall,
+            "collective_counts": r["collective_counts"]}
+    total = torch.cuda.get_device_properties(0).total_memory
+    log("dryrun", f"the card's memory: {total} B (dryrun.HBM_BYTES {dryrun.HBM_BYTES})")
+    assert total == dryrun.HBM_BYTES, (total, dryrun.HBM_BYTES)
+    res["hbm_bytes"] = total
+    return res
+
+
+def _dryrun_against_real(ops) -> dict:
+    """Phase 32(b): llama-7b at full width on a 1x1 mesh, phase 5's prefill
+    (bf16, b=4, s=512) and phase 18's train step (8 of 32 layers): the
+    step built abstractly (``build_cell``, meta blocks) and run under
+    ``StepCosts``, then the same step on the card from seeded weights under
+    ``FlopCounterMode``: FLOPs equal, the flash calls by design equal to
+    ``ops.design_counts()``, the abstract peak within DRYRUN_PEAK_TOL of
+    ``max_memory_allocated`` less what was allocated before the
+    arguments."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    llama = get_config("llama-7b")
+    cells = {"prefill": (llama, ShapeConfig("p", "prefill", 512, 4)),
+             "train": (dataclasses.replace(llama, n_layers=8),
+                       ShapeConfig("t", "train", 512, 4))}
+    res = {}
+    for name, (cfg, shape) in cells.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        step, args, _, _, policy = dryrun.build_cell(cfg, shape, dryrun.abstract_mesh((1, 1)))
+        abstract = dryrun.measure_step(step, args)
+        t_abstract = time.perf_counter() - t0
+        del step, args
+        assert all(n == 0 for n in ops.launch_counts().values())
+
+        mesh = Mesh({"data": 1, "model": 1}, device="cuda:0")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = tf.init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(32)
+        toks = torch.randint(0, cfg.vocab, (shape.batch, shape.seq), generator=g,
+                             device="cuda", dtype=torch.int32)
+        if name == "train":
+            step = steps.make_train_step(cfg, policy=policy, mesh=mesh)
+            args = (params, adamw_init(params), {"tokens": toks, "labels": toks})
+        else:
+            step = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)
+            args = (params, {"tokens": toks})
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        t_real = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        designs = ops.design_counts()
+        del out, args, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        flops = fc.get_total_flops()
+        ratio = abstract["memory"]["peak"] / peak
+        log("dryrun", f"{name}: llama-7b {cfg.n_layers} layers, {shape.kind} b={shape.batch} "
+                      f"s={shape.seq}, bf16, 1x1: FLOPs abstract {abstract['flops']} real "
+                      f"{flops} (FlopCounterMode); flash calls by design abstract "
+                      f"{abstract['kernel_calls']['flash_attention']} real "
+                      f"{designs['flash_attention']}; peak abstract "
+                      f"{abstract['memory']['peak']} B, allocator {peak} B (ratio "
+                      f"{ratio:.5f}, limit {DRYRUN_PEAK_TOL}); abstract {abstract['memory']}; "
+                      f"abstract run {t_abstract:.2f} s, real step {t_real:.2f} s")
+        assert abstract["flops"] == flops > 0, (name, abstract["flops"], flops)
+        for kernel in ("flash_attention", "matmul", "gmm"):
+            assert abstract["kernel_calls"][kernel] == designs[kernel], (name, kernel)
+        assert sum(designs["flash_attention"].values()) > 0
+        assert abs(ratio - 1) <= DRYRUN_PEAK_TOL, (name, abstract["memory"], peak)
+        res[name] = {"flops": flops, "abstract_flops": abstract["flops"],
+                     "flash_designs": designs["flash_attention"],
+                     "abstract_peak": abstract["memory"]["peak"], "allocator_peak": peak,
+                     "ratio": ratio, "abstract_memory": abstract["memory"],
+                     "abstract_s": t_abstract, "real_s": t_real}
+    return res
+
+
+def _dryrun_collectives(mesh_train: dict) -> dict:
+    """Phase 32(c): phase 31(b)'s train step on a fake 2-rank group (meta
+    blocks) against its 2 gloo ranks on the card, on {data: 2} and on
+    {model: 2}: each collective kind's count and bytes equal to what the
+    ranks issued, and the abstract peak within DRYRUN_PEAK_TOL of each
+    rank's allocator peak of the step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg = _mesh_train_cfg()
+    res = {}
+    try:
+        for mesh_id, (sizes, plan_of) in MESH_TRAIN_MESHES.items():
+            mesh = dryrun.abstract_mesh(tuple(sizes.values()), tuple(sizes))
+            policy = _mesh_train_policy(cfg, dict(sizes), plan_of)
+            costs, _, _ = dryrun.run_abstract(cfg, ShapeConfig("t", "train", 128, 2), mesh,
+                                              policy_override=policy)
+            got = costs["collectives"].summary()
+            want = mesh_train[mesh_id]["collectives"]
+            peak, real = costs["memory"]["peak"], mesh_train[mesh_id]["step_peak_bytes"]
+            ratios = [peak / r for r in real]
+            log("dryrun", f"{mesh_id}: phase 31(b)'s train step on a fake 2-rank group "
+                          f"issues {got}; its gloo ranks on the card issued {want}; peak "
+                          f"abstract {peak} B, the ranks' allocator {real} B (ratios "
+                          f"{[round(x, 5) for x in ratios]}, limit {DRYRUN_PEAK_TOL})")
+            for kind in set(got) | set(want):
+                for key in ("count", "bytes"):
+                    assert got[kind][key] == want[kind][key], (mesh_id, kind, got, want)
+            assert got, mesh_id
+            assert all(abs(x - 1) <= DRYRUN_PEAK_TOL for x in ratios), (mesh_id, peak, real)
+            res[mesh_id] = {"abstract": got, "real": want, "abstract_peak": peak,
+                            "allocator_peak": real, "ratios": ratios}
+    finally:
+        dryrun._MESHES.clear()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return res
+
+
+def _dryrun_phase(ops, results: dict) -> dict:
+    """Phase 32: (a) the CLI on the production mesh with no card visible,
+    (b) abstract against real on one rank, (c) the collectives against
+    phase 31(b)'s gloo ranks."""
+    return {"cli": _dryrun_cli(), "one_rank": _dryrun_against_real(ops),
+            "collectives": _dryrun_collectives(results["mesh"]["train"])}
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ port's counterpart of GSPMD is DTensor (``torch.distributed.tensor``):
     the collectives (all-gather, all-to-all, all-reduce, reduce-scatter);
   * model code between constraints runs on DTensors, and DTensor's sharding
     propagation places each op, as XLA's partitioner does for the
-    reference.
+    reference — but for the products of an activation and a weight, which
+    run on local blocks (``local_einsum``: where both operands are split,
+    the one that costs fewer bytes moves).
 
 The graph executor (``GspmdRunner``) computes each node's join on the
 local blocks of its inputs, placed as the plan's join layout says — the
@@ -35,6 +37,7 @@ that cannot be placed raises.
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
@@ -117,6 +120,19 @@ def placements(spec: Sequence, mesh, partial: Sequence[tuple[str, str]] = ()
     return tuple(out)
 
 
+def nested(spec: Sequence, mesh) -> tuple:
+    """``spec`` with each entry's axes in mesh order, the order in which
+    DTensor's ``[Shard(d), Shard(d)]`` nests blocks.  ``wrap``,
+    ``distribute`` and ``constrain`` place their specs so (``placements``
+    itself refuses an entry out of mesh order): a plan's ``("model", "pod")`` on ``("pod", "data", "model")``
+    then gives every rank a block of the same shape, and issues the same
+    collectives, with the blocks assigned to other ranks than the
+    reference's ``P(("model", "pod"))`` assigns them."""
+    order = {a: i for i, a in enumerate(mesh_sizes(mesh))}
+    return tuple(entry_of(sorted(entry_axes(e), key=order.__getitem__))
+                 for e in spec)
+
+
 def local_block(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``spec``: each
     entry's axes split its dim major to minor, as ``placements`` nests
@@ -143,16 +159,18 @@ def wrap(local: torch.Tensor, mesh, spec: Sequence, shape,
     """The DTensor whose block on this rank is ``local`` (no collective).
     ``partial`` marks a block the executor computes forward only:
     ``from_local`` would hand a Partial block's gradient back divided
-    among the ranks."""
+    among the ranks.  ``spec``'s entries nest in mesh order (``nested``)."""
     return DTensor.from_local(local, mesh.dmesh,
-                              placements(spec, mesh, partial),
+                              placements(nested(spec, mesh), mesh, partial),
                               run_check=False, shape=torch.Size(shape),
                               stride=_contiguous_stride(shape))
 
 
 def distribute(x, mesh, spec: Sequence) -> DTensor:
     """Place a global tensor that every rank holds: each rank keeps its
-    block (a local slice — no scatter, no collective)."""
+    block (a local slice — no scatter, no collective).  ``spec``'s entries
+    nest in mesh order (``nested``)."""
+    spec = nested(spec, mesh)
     x = torch.as_tensor(x)
     if x.device != mesh.device:
         x = x.to(mesh.device)
@@ -165,10 +183,11 @@ def distribute(x, mesh, spec: Sequence) -> DTensor:
 def constrain(x, mesh, spec: Sequence):
     """The counterpart of ``with_sharding_constraint``: ``x`` (a DTensor)
     redistributed to ``spec``'s placements; DTensor chooses the
-    collectives.  A plain tensor is returned as it is (one rank)."""
+    collectives; ``spec``'s entries nest in mesh order (``nested``).  A
+    plain tensor is returned as it is (one rank)."""
     if not isinstance(x, DTensor):
         return x
-    want = placements(spec, mesh)
+    want = placements(nested(spec, mesh), mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh.dmesh, want)
@@ -215,26 +234,108 @@ def splits_contraction(x, w) -> bool:
     return sharded(x, -1) or sharded(w, -2 if w.ndim > 1 else 0)
 
 
+def local_einsum(eq: str, x: DTensor, w) -> DTensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` (a DTensor) and a
+    weight ``w`` (a DTensor, or a tensor whole on every rank), computed on
+    local blocks by one rule for each mesh axis:
+
+      * the axis splits a label of ``x`` that the output keeps: the output
+        is split there too, and ``w`` is gathered along the axis where it
+        is split;
+      * it splits a label of ``x`` that is contracted: ``w`` is taken in the
+        same blocks (a local slice where it is whole, redistributed where
+        it is split otherwise), and the blocks' products are partial sums;
+      * it splits only ``w``: a label the output keeps splits the output; a
+        contracted one takes ``x`` in the same blocks, partial sums again;
+      * otherwise both are whole along it.
+
+    Where the axis splits both, along different labels, the operand that
+    costs fewer bytes moves: ``w`` gathered (``k`` of its blocks on an axis
+    of ``k`` ranks, also what a backward's reduce-scatter of its gradient
+    moves), or ``x`` — re-split along ``w``'s contracted label (one block
+    by all-to-all; the output's partial sums, ``k`` output blocks, are then
+    reduce-scattered back into ``x``'s layout), or gathered where ``w``'s
+    label is kept (``k`` blocks, which a backward holds, and one output
+    block left in ``w``'s layout for the next op to move back).  A
+    data-parallel step of large batches gathers its weights; a small batch
+    of the same step, and a decode step, move the activation instead.
+
+    Partial sums are reduced over their axes before the product returns —
+    in float32 for a low-precision product, rounded once, as a one-rank
+    product accumulates in float32 (DTensor would round every block to
+    bf16 first).  Each operand's gradient block is its own, or partial
+    where the other operand split the output.  Labels are single letters,
+    no ellipsis.  DTensor's own placement of a product flattens the batch
+    dims and the weight's output dims into one, which no abstract tensor
+    passes where several axes split them (a strided shard) and which fails
+    outright on some plans of a three-axis mesh (the model dim and the kv
+    heads on ``pod``)."""
+    ins, out = eq.split("->")
+    xl, wl = ins.split(",")
+    mesh = x.device_mesh
+    n = mesh.ndim
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * n, run_check=False)
+    sizes = dict(zip(xl, x.shape)) | dict(zip(wl, w.shape))
+    labels = [(xl[px.dim] if px.is_shard() else None, wl[pw.dim] if pw.is_shard() else None)
+              for px, pw in zip(x.placements, w.placements)]
+    x_bytes = x.to_local().numel() * x.element_size()
+    w_bytes = w.to_local().numel() * w.element_size()
+    y_bytes = math.prod(sizes[l] for l in out) * x.element_size() // math.prod(
+        k for k, (lx, lw) in zip(mesh.shape, labels) if {lx, lw} & set(out))
+    x_to, w_to, out_pl, y_to, gx, gw = [], [], [], [], [], []
+    for k, (px, pw), (lx, lw) in zip(mesh.shape, zip(x.placements, w.placements), labels):
+        keep = Shard(out.index(lx)) if lx and lx in out else Replicate()  # x's layout
+        if lx is not None and lw not in (None, lx) and (
+                (k * x_bytes if lw in out else x_bytes) + k * y_bytes < k * w_bytes):
+            lx = None  # the blocks disagree and x moves for fewer bytes
+        if lx is not None and lx in out:
+            x_to.append(px), w_to.append(Replicate())
+            out_pl.append(Shard(out.index(lx)))
+            gx.append(px), gw.append(Partial())
+        elif lx is not None:
+            x_to.append(px), w_to.append(Shard(wl.index(lx)))
+            out_pl.append(Partial())
+            gx.append(px), gw.append(w_to[-1])
+        elif lw is not None and lw in out:
+            x_to.append(Replicate()), w_to.append(pw)
+            out_pl.append(Shard(out.index(lw)))
+            gx.append(Partial()), gw.append(pw)
+        elif lw is not None and lw in xl:
+            x_to.append(Shard(xl.index(lw))), w_to.append(pw)
+            out_pl.append(Partial())
+            gx.append(x_to[-1]), gw.append(pw)
+        else:
+            x_to.append(Replicate()), w_to.append(Replicate())
+            out_pl.append(Replicate())
+            gx.append(Replicate()), gw.append(Replicate())
+        y_to.append(keep if out_pl[-1].is_partial() else out_pl[-1])
+    if list(x.placements) != x_to:
+        x = x.redistribute(mesh, x_to)
+    if list(w.placements) != w_to:
+        w = w.redistribute(mesh, w_to)
+    xb, wb = x.to_local(grad_placements=gx), w.to_local(grad_placements=gw)
+    partial = any(p.is_partial() for p in out_pl)
+    dtype = x.dtype
+    if partial and dtype != torch.float32:
+        xb, wb = xb.float(), wb.float()
+    y = torch.einsum(eq, xb, wb)
+    shape = tuple(sizes[l] for l in out)
+    y = DTensor.from_local(y, mesh, out_pl, run_check=False,
+                           shape=torch.Size(shape), stride=_contiguous_stride(shape))
+    if partial:
+        y = y.redistribute(mesh, y_to)
+    return y.to(dtype)
+
+
 def matmul(x, w):
-    """``x @ w``.  Where a low-precision product contracts a dim split
-    across ranks, it runs in float32 and its partial blocks are summed in
-    float32 before one rounding to ``x``'s dtype, as a one-rank product
-    accumulates in float32 and rounds once (DTensor's own partial sums
-    would round every block to bf16 first).  Every other product — float32,
-    or a contraction each rank holds whole — is ``torch.matmul`` as it is,
-    placed by DTensor."""
-    if not isinstance(x, DTensor) or x.dtype == torch.float32:
+    """``x @ w``: on a DTensor ``x``, ``local_einsum`` of ``x``'s dims and
+    the weight's (partial sums reduced, in float32 for a low-precision
+    product); otherwise ``torch.matmul``."""
+    if not isinstance(x, DTensor):
         return torch.matmul(x, w)
-    if not splits_contraction(x, w):
-        y = torch.matmul(x, w)
-        if not any(p.is_partial() for p in y.placements):
-            return y
-        del y  # DTensor split the contraction itself: redo it in float32
-    y = torch.matmul(x.float(), w.float())
-    whole = [Replicate() if p.is_partial() else p for p in y.placements]
-    if whole != list(y.placements):  # sum the partial blocks in float32
-        y = y.redistribute(y.device_mesh, whole)
-    return y.to(x.dtype)
+    lab = "bcdefg"[:x.ndim - 1]
+    return local_einsum(f"{lab}k,kn->{lab}n", x, w)
 
 
 def run_local(fn: Callable, args: Sequence, specs: Sequence[tuple],
@@ -253,14 +354,15 @@ def run_local(fn: Callable, args: Sequence, specs: Sequence[tuple],
     return wrap_block(out, mesh, out_spec)
 
 
-def wrap_block(block: torch.Tensor, mesh, spec) -> DTensor:
+def wrap_block(block: torch.Tensor, mesh, spec,
+               partial: Sequence[tuple[str, str]] = ()) -> DTensor:
     """``wrap`` with the global shape read off the block and the spec."""
     shape = list(block.shape)
     sizes = mesh_sizes(mesh)
     for d, entry in enumerate(spec):
         for a in entry_axes(entry):
             shape[d] *= sizes[a]
-    return wrap(block, mesh, spec, shape)
+    return wrap(block, mesh, spec, shape, partial)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,16 @@ the forward attention, the ring step, matmul and gmm), ``"ffma"`` (float32
 through cp.async and register-tiled f32 FMAs: the forward attention and the
 ring step at head dim 64 and 128, matmul and gmm) and ``"template"`` (the
 first designs, which take any strides).
+
+The rule reads no memory: an abstract tensor (a fake or a meta tensor, as
+the dry run's blocks are, which have none) is placed at its storage offset
+from a base the caching allocator aligns to 512 bytes, so it takes the
+design a real tensor of the same layout takes.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 DESIGNS = ("wgmma", "ffma", "template")
 
@@ -38,5 +44,14 @@ def addressable(shape, strides, itemsize: int, ptr: int, inner: int) -> bool:
     return True
 
 
+def base_address(t: torch.Tensor) -> int:
+    """``t.data_ptr()``; for a fake or meta tensor, which has no memory,
+    its byte offset into its storage (the allocator aligns a storage's
+    base)."""
+    if isinstance(t, FakeTensor) or t.device.type == "meta":
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def tensor_addressable(t: torch.Tensor, inner: int) -> bool:
-    return addressable(t.shape, t.stride(), t.element_size(), t.data_ptr(), inner)
+    return addressable(t.shape, t.stride(), t.element_size(), base_address(t), inner)

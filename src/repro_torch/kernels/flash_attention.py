@@ -34,6 +34,13 @@ successful launches, so a run can show that its main path went through
 the kernels; ``flash_attention.designs`` and
 ``flash_attention_step.designs`` split them by design.
 
+The forward is the operator ``repro_torch::flash_attention`` (see
+:func:`flash_attention`), so that abstract tensors pass through it: the dry
+run (``launch/dryrun.py``) runs a step on them, and
+``flash_attention.fake_designs`` counts those calls by design, apart from
+the launches.  The ring step stays a plain wrapper: it writes its carry in
+place, and no abstract path reaches it.
+
 Gradients: :func:`attention` is what ``kernels/ops.py`` calls.  Where grad
 mode is on and an input requires grad it goes through
 :class:`FlashAttention`, whose forward launches the kernel and whose
@@ -46,6 +53,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, _tma, ref
 
@@ -97,9 +105,16 @@ def build_info() -> _build.BuiltKernel:
     return _build.build("flash_attention")
 
 
-def _check(q, k, v):
+#: what the op's abstract implementation takes: a meta tensor stands for
+#: one on a card
+_ABSTRACT_OK = ("cuda", "meta")
+
+
+def _check(q, k, v, devices=("cuda",)):
+    """Raise unless q, k and v lie on one device of ``devices`` and
+    :func:`check_args` takes them."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+        if t.device.type not in devices:
             raise ValueError(f"flash_attention kernel: {name} lies on "
                              f"{t.device}; the kernel takes CUDA tensors only")
     if not (q.device == k.device == v.device):
@@ -161,7 +176,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_offset: int = 0) -> torch.Tensor:
     """q (b, hq, sq, d), k/v (b, hkv, sk, d) CUDA tensors -> (b, hq, sq, d)
     in q's dtype.  Any strides whose last dim is contiguous are taken as
-    they are (the model's (b, s, h, d) projections arrive transposed)."""
+    they are (the model's (b, s, h, d) projections arrive transposed).
+
+    One call of the operator ``repro_torch::flash_attention``: on real
+    tensors it launches the kernel (:func:`launch`); on abstract ones (meta
+    tensors, the dry run's blocks, which stand for blocks on a card, and a
+    ``FakeTensorMode``'s) it gives the output's shape, dtype and device,
+    builds nothing and touches no CUDA API, and counts the call by design
+    in ``flash_attention.fake_designs``.  Its FLOP formula for
+    ``FlopCounterMode`` is SDPA's convention: 4 b hq sq sk d, the two
+    products in full, no discount for the causal or window mask."""
+    return _OP(q, k, v, bool(causal), int(window), None if scale is None else float(scale),
+               int(q_offset), int(kv_offset))
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int, scale: float | None, q_offset: int,
+           kv_offset: int) -> torch.Tensor:
+    """The operator's implementation on real tensors: check, allocate the
+    output, launch (``chip_smoke.py`` times a call of it beside a call of
+    the operator)."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -194,8 +228,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
+def _abstract(q, k, v, causal, window, scale, q_offset, kv_offset):
+    _check(q, k, v, devices=_ABSTRACT_OK)
+    if q.shape[2]:
+        which = design(*(_last_dim_contiguous(t) for t in (q, k, v)))
+        flash_attention.fake_designs[which] += 1
+    return q.new_empty(q.shape)
+
+
+_OP = _build.define_op("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+                       "int window, float? scale, int q_offset, int kv_offset) -> Tensor",
+                       launch, _abstract)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * sq * k_shape[2] * d
+
+
 flash_attention.launches = 0
 flash_attention.designs = dict.fromkeys(DESIGNS, 0)
+flash_attention.fake_designs = dict.fromkeys(DESIGNS, 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -19,7 +19,9 @@ before they reach this module), and a refused launch raises without trying
 the other design.
 
 ``matmul.launches`` counts successful launches and ``matmul.designs``
-splits them by design.
+splits them by design.  The launch is the operator ``repro_torch::matmul``
+(see :func:`matmul`), which abstract tensors pass through;
+``matmul.fake_designs`` counts those calls apart.
 
 Gradients: :func:`product` is what ``kernels/ops.py`` calls.  Where grad
 mode is on and an operand requires grad it goes through :class:`MatMul`,
@@ -32,6 +34,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, _tma, ref
 
@@ -111,14 +114,39 @@ def design(x: torch.Tensor, w: torch.Tensor) -> str:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (m, k) @ w (k, n) for CUDA tensors -> (m, n) in x's dtype."""
+    """x (m, k) @ w (k, n) for CUDA tensors -> (m, n) in x's dtype.
+
+    One call of the operator ``repro_torch::matmul``: on real tensors it
+    launches the kernel (:func:`launch`); on abstract ones (meta tensors,
+    the dry run's blocks, which stand for blocks on a card, and a
+    ``FakeTensorMode``'s) it gives the output's shape, dtype and device
+    and counts the call by design in ``matmul.fake_designs``, building
+    nothing.  Its FLOP formula is 2 m k n."""
+    return _OP(x, w)
+
+
+#: what the op's abstract implementation takes: a meta tensor stands for
+#: one on a card
+_ABSTRACT_OK = ("cuda", "meta")
+
+
+def _check(x, w, devices=("cuda",)) -> None:
+    """Raise unless x and w lie on one device of ``devices`` and
+    :func:`check_args` takes them."""
     for name, t in (("x", x), ("w", w)):
-        if t.device.type != "cuda":
+        if t.device.type not in devices:
             raise ValueError(f"matmul kernel: {name} lies on {t.device}; "
                              "the kernel takes CUDA tensors only")
     if x.device != w.device:
         raise ValueError("matmul kernel: x and w on different devices")
     check_args(x, w)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The operator's implementation on real tensors: check, allocate the
+    output, launch (``chip_smoke.py`` times a call of it beside a call of
+    the operator)."""
+    _check(x, w)
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
@@ -147,8 +175,25 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _abstract(x, w):
+    _check(x, w, devices=_ABSTRACT_OK)
+    (m, k), n = x.shape, w.shape[1]
+    if m and n and k:
+        matmul.fake_designs[design(x, w)] += 1
+    return x.new_empty((m, n))
+
+
+_OP = _build.define_op("matmul(Tensor x, Tensor w) -> Tensor", launch, _abstract)
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul)
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
 matmul.launches = 0
 matmul.designs = dict.fromkeys(_tma.DESIGNS, 0)
+matmul.fake_designs = dict.fromkeys(_tma.DESIGNS, 0)
 
 
 class MatMul(torch.autograd.Function):

@@ -17,7 +17,9 @@ raises if the launch was refused.  It never falls back: a CPU tensor is an
 error here (``kernels/ops.py`` routes CPU tensors to the plain version).
 
 ``gmm.launches`` counts successful launches and ``gmm.designs`` splits
-them by design.
+them by design.  The launch is the operator ``repro_torch::gmm`` (see
+:func:`gmm`), which abstract tensors pass through; ``gmm.fake_designs`` counts
+those calls apart.
 
 Gradients: :func:`grouped` is what ``kernels/ops.py`` calls.  Where grad
 mode is on and an operand requires grad it goes through :class:`GroupedMatMul`,
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, _tma, ref
 from repro_torch.kernels.matmul import _RULED, layouts
@@ -83,14 +86,39 @@ def check_args(x, w) -> None:
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (e, c, k) @ w (e, k, n) for CUDA tensors -> (e, c, n) in x's
-    dtype."""
+    dtype.
+
+    One call of the operator ``repro_torch::gmm``: on real tensors it
+    launches the kernel (:func:`launch`); on abstract ones (meta tensors,
+    the dry run's blocks, which stand for blocks on a card, and a
+    ``FakeTensorMode``'s) it gives the output's shape, dtype and device
+    and counts the call by design in ``gmm.fake_designs``, building
+    nothing.  Its FLOP formula is 2 e c k n."""
+    return _OP(x, w)
+
+
+#: what the op's abstract implementation takes: a meta tensor stands for
+#: one on a card
+_ABSTRACT_OK = ("cuda", "meta")
+
+
+def _check(x, w, devices=("cuda",)) -> None:
+    """Raise unless x and w lie on one device of ``devices`` and
+    :func:`check_args` takes them."""
     for name, t in (("x", x), ("w", w)):
-        if t.device.type != "cuda":
+        if t.device.type not in devices:
             raise ValueError(f"gmm kernel: {name} lies on {t.device}; "
                              "the kernel takes CUDA tensors only")
     if x.device != w.device:
         raise ValueError("gmm kernel: x and w on different devices")
     check_args(x, w)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The operator's implementation on real tensors: check, allocate the
+    output, launch (``chip_smoke.py`` times a call of it beside a call of
+    the operator)."""
+    _check(x, w)
     (e, c, k), n = x.shape, w.shape[2]
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or n == 0:
@@ -119,8 +147,27 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _abstract(x, w):
+    _check(x, w, devices=_ABSTRACT_OK)
+    (e, c, k), n = x.shape, w.shape[2]
+    if e and c and n and k:
+        which = "template" if layouts(x, w) is None else _RULED[x.dtype]
+        gmm.fake_designs[which] += 1
+    return x.new_empty((e, c, n))
+
+
+_OP = _build.define_op("gmm(Tensor x, Tensor w) -> Tensor", launch, _abstract)
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm)
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    e, c, k = x_shape
+    return 2 * e * c * k * w_shape[2]
+
+
 gmm.launches = 0
 gmm.designs = dict.fromkeys(_tma.DESIGNS, 0)
+gmm.fake_designs = dict.fromkeys(_tma.DESIGNS, 0)
 
 
 class GroupedMatMul(torch.autograd.Function):

@@ -4,7 +4,9 @@
   * "auto"   — the CUDA kernel for a CUDA tensor, the plain torch version
                (``kernels/ref.py``) for a CPU tensor.  This is what the
                model stack calls.  A tensor on any other device reaches the
-               kernel wrapper, which raises: nothing falls back silently.
+               kernel wrapper, which raises: nothing falls back silently —
+               but for a meta tensor, which stands for one on a card in the
+               dry run: the kernel's operator gives its output's shape.
   * "kernel" — the CUDA kernel; raises on a tensor that is not on a card.
   * "ref"    — the plain torch version, on whatever device the tensor is.
 
@@ -20,6 +22,14 @@ served them (``"wgmma"``, ``"ffma"`` or ``"template"`` for every kernel:
 the forward attention, the ring step, matmul and gmm; picked by each
 wrapper's shape rule), and ``reset_launch_counts()``
 sets them all to 0.
+
+The forward attention, matmul and gmm launch through operators
+(``repro_torch::flash_attention``, ``::matmul``, ``::gmm``), so that
+abstract tensors — fake CUDA tensors (``FakeTensorMode``) and the meta
+tensors the dry run (``launch/dryrun.py``) runs on — pass through them
+without building or launching anything.  Those calls count apart, in
+``fake_design_counts()``: the launches a rank would make, by design.
+``launch_counts()`` and ``design_counts()`` count real launches only.
 """
 from __future__ import annotations
 
@@ -122,8 +132,20 @@ def design_counts() -> dict[str, dict[str, int]]:
             "matmul": dict(_mm.matmul.designs), "gmm": dict(_gmm.gmm.designs)}
 
 
+def fake_design_counts() -> dict[str, dict[str, int]]:
+    """Calls on fake tensors since the last reset, by kernel and design:
+    the launches an abstract run would have made (the ring step takes no
+    fake tensors)."""
+    return {"flash_attention": dict(_fa.flash_attention.fake_designs),
+            "matmul": dict(_mm.matmul.fake_designs),
+            "gmm": dict(_gmm.gmm.fake_designs)}
+
+
 def reset_launch_counts() -> None:
+    """Every launch counter, and every count of fake calls, to 0."""
     for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul,
                _gmm.gmm):
         fn.launches = 0
         fn.designs = dict.fromkeys(fn.designs, 0)
+        if hasattr(fn, "fake_designs"):
+            fn.fake_designs = dict.fromkeys(fn.fake_designs, 0)

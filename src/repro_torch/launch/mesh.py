@@ -25,6 +25,16 @@ tensors complete.
 ``make_mesh``, ``make_host_mesh`` and ``make_production_mesh`` are the
 reference's constructors over an initialised process group.
 
+An abstract mesh (``Mesh(..., abstract=True)``) is the production mesh in
+one process, for the dry run (``launch/dryrun.py``): this process is rank
+0 of a process group on torch's ``"fake"`` backend
+(``init_fake_process_group``, the counterpart of the reference's
+``launch/hostdev.py``), whose collectives move nothing.  Its blocks are
+abstract: ``"meta"`` tensors by default, which stand for blocks on the
+ranks' cards (the ``DeviceMesh`` is of type ``"cuda"``), or fake tensors
+(``FakeTensorMode``) of the device it is given.  It touches no card: no
+``torch.cuda.set_device``, no CUDA initialisation.
+
 ``spawn`` starts N ranks as processes with a ``file://`` rendezvous in a
 directory of the caller's (a per-test tmp path), runs a function in each
 and returns what each returned.
@@ -52,9 +62,12 @@ class Mesh:
     ``axes`` is ``{name: size}`` (major→minor).  ``device`` is where this
     rank's blocks live: the card of this rank by default (``cuda:<local
     rank>``), raising where there is none, or whatever is passed
-    (``"cpu"`` for gloo ranks on the CPU)."""
+    (``"cpu"`` for gloo ranks on the CPU).  ``abstract=True`` builds the
+    mesh for abstract blocks (the module docstring): ``device`` (default
+    ``"meta"``) is never resolved against a card."""
 
-    def __init__(self, axes: dict[str, int], *, device=None):
+    def __init__(self, axes: dict[str, int], *, device=None,
+                 abstract: bool = False):
         import torch.distributed as dist
 
         self.sizes = {str(a): int(s) for a, s in axes.items()}
@@ -74,13 +87,17 @@ class Mesh:
         else:
             self.rank = 0
         self.coord = self.coord_of(self.rank)
-        if device is None and torch.cuda.is_available():
-            device = f"cuda:{self.rank % torch.cuda.device_count()}"
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            if self.device.index is None:
-                self.device = torch.device("cuda", torch.cuda.current_device())
-            torch.cuda.set_device(self.device)  # NCCL works on the current card
+        self.abstract = abstract
+        if abstract:
+            self.device = torch.device(device or "meta")
+        else:
+            if device is None and torch.cuda.is_available():
+                device = f"cuda:{self.rank % torch.cuda.device_count()}"
+            self.device = resolve_device(device)
+            if self.device.type == "cuda":
+                if self.device.index is None:
+                    self.device = torch.device("cuda", torch.cuda.current_device())
+                torch.cuda.set_device(self.device)  # NCCL works on the current card
         self._groups: dict[frozenset, Any] = {}
         self.dmesh = None
         if self.world_size > 1:
@@ -167,8 +184,9 @@ class Mesh:
 
         ranks = torch.arange(self.world_size).reshape(
             tuple(self.sizes.values()))
-        self.dmesh = DeviceMesh(self.device.type, ranks,
-                                mesh_dim_names=self.axis_names)
+        # meta blocks stand for blocks on the ranks' cards
+        kind = "cuda" if self.device.type == "meta" else self.device.type
+        self.dmesh = DeviceMesh(kind, ranks, mesh_dim_names=self.axis_names)
         if self.device.type == "cuda" and dist.get_backend() == "gloo":
             stage_all_gather("CUDA")
 
@@ -239,13 +257,13 @@ def stage_all_gather(dispatch_key: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def make_mesh(shape, axes, *, device=None) -> Mesh:
+def make_mesh(shape, axes, *, device=None, abstract: bool = False) -> Mesh:
     """A ``Mesh`` of ``shape`` over ``axes`` (major→minor)."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"make_mesh: shape {shape} and axes {axes} differ "
                          "in length")
-    return Mesh(dict(zip(axes, shape)), device=device)
+    return Mesh(dict(zip(axes, shape)), device=device, abstract=abstract)
 
 
 def world_size() -> int:
@@ -266,18 +284,42 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model"), *,
     return make_mesh(shape, axes, device=device)
 
 
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The production mesh: (16, 16) over ``("data", "model")``, or
     (2, 16, 16) over ``("pod", "data", "model")``, over an initialised
-    process group of exactly that many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    process group of exactly that many ranks (the dry run builds it on a
+    fake one: ``launch.dryrun.production_mesh``)."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
     if world_size() != math.prod(shape):
         raise RuntimeError(
             f"make_production_mesh: {dict(zip(axes, shape))} needs an "
             f"initialised process group of {math.prod(shape)} ranks; this "
             f"process has {world_size()}")
     return make_mesh(shape, axes, device=device)
+
+
+def init_fake_process_group(world: int) -> None:
+    """Make this process rank 0 of a process group of ``world`` ranks on
+    torch's ``"fake"`` backend (``FakeStore``: no rendezvous, and
+    collectives that return at once and move nothing) — what an abstract
+    mesh runs over.  A fake group of another size is destroyed first; a
+    real one raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("init_fake_process_group: a real process group "
+                               f"({dist.get_backend()}) is initialised")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 # ---------------------------------------------------------------------------

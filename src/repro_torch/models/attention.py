@@ -52,21 +52,18 @@ def init_attention(pf: ParamFactory, cfg) -> dict:
 
 
 def _proj_in(x, w):
-    """x (b, s, a) @ w (a, h, d) -> (b, s, h, d).  On DTensors one
-    ``gspmd.matmul`` over (h, d) flattened head-major: torch.einsum may
-    flatten them in (d, h) order, which torch 2.11's DTensor cannot do with
-    heads split."""
+    """x (b, s, a) @ w (a, h, d) -> (b, s, h, d).  On DTensors the product
+    of local blocks (``gspmd.local_einsum``), which flattens no split
+    dims."""
     if isinstance(x, DTensor):
-        a, h, d = w.shape
-        return gspmd.matmul(x, w.reshape(a, h * d)).reshape(*x.shape[:2], h, d)
+        return gspmd.local_einsum("bsa,ahd->bshd", x, w)
     return torch.einsum("bsa,ahd->bshd", x, w)
 
 
 def _proj_out(o, w):
     """o (b, s, h, d) @ w (h, d, a) -> (b, s, a), as ``_proj_in``."""
     if isinstance(o, DTensor):
-        b, s, h, d = o.shape
-        return gspmd.matmul(o.reshape(b, s, h * d), w.reshape(h * d, w.shape[-1]))
+        return gspmd.local_einsum("bshd,hda->bsa", o, w)
     return torch.einsum("bshd,hda->bsa", o, w)
 
 
@@ -186,29 +183,66 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
         return o.transpose(1, 2)
 
     if mesh is not None and mesh.world_size > 1:
-        o = _decode_placed(core, q, k_new, v_new, cache, mesh)
+        o = _decode_placed(core, q, k_new, v_new, cache, mesh, slot, valid)
     else:
         o = core(q, k_new, v_new, cache.k, cache.v)
     out = _proj_out(o, p["wo"])
     return out, cache
 
 
-def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh):
+def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh, slot: int,
+                   valid):
     """``core`` on each rank's (batch, kv-head) blocks of the DTensor
     cache, written in place: q and this step's K/V are placed as the cache
     is (q heads on the cache's kv-head axes).  A cache split along its
-    time dim raises."""
+    time dim takes ``_decode_time_split``; one split along its head dim
+    raises."""
     from repro_torch.core import gspmd
 
     be, te, ke, de = gspmd.spec_of_placements(cache.k.placements, 4, mesh)
-    if te is not None or de is not None:
+    if de is not None:
         raise NotImplementedError(
-            f"attention_decode: a KV cache split along time or head dim "
+            f"attention_decode: a KV cache split along its head dim "
             f"({(be, te, ke, de)}) has no local decode step")
     spec = (be, None, ke, None)
+    if te is not None:
+        return _decode_time_split(q, k_new, v_new, cache, mesh, spec, te, slot,
+                                  valid)
     return gspmd.run_local(
         lambda q, k, v: core(q, k, v, cache.k.to_local(), cache.v.to_local()),
         (q, k_new, v_new), (spec, spec, spec), spec, mesh)
+
+
+def _decode_time_split(q, k_new, v_new, cache: KVCache, mesh, spec, te, slot,
+                       valid):
+    """The decode step on a cache split along its time dim over the axes of
+    ``te``: the rank whose time block holds ``slot`` writes this step's K/V
+    there; every rank attends over its own block, and the blocks' softmax
+    partials combine across those axes — the running max by an all-reduce
+    of max, the sums rescaled to it and all-reduced — as ``_decode_attend``
+    over the whole cache, up to float32 sums in another order."""
+    from repro_torch.core import gspmd
+
+    be, _, ke, _ = spec
+    ql, kl, vl = (gspmd.constrain(t, mesh, spec).to_local() for t in (q, k_new, v_new))
+    ck, cv = cache.k.to_local(), cache.v.to_local()
+    axes = gspmd.entry_axes(te)
+    span = ck.shape[1]
+    lo = mesh.linear_index(axes) * span
+    if lo <= slot < lo + span:
+        ck[:, slot - lo] = kl[:, 0]
+        cv[:, slot - lo] = vl[:, 0]
+    m, l, o = _decode_partial(ql.transpose(1, 2), ck.transpose(1, 2),
+                              cv.transpose(1, 2), valid[lo:lo + span])
+    pspec = (be, ke, None, None)  # (b, h, 1, ·)
+
+    def combined(t, op):
+        part = gspmd.wrap_block(t, mesh, pspec, partial=[(a, op) for a in axes])
+        return gspmd.constrain(part, mesh, pspec).to_local()
+
+    scale = torch.exp(m - combined(m, "max"))
+    out = combined(o * scale, "sum") / combined(l * scale, "sum")
+    return gspmd.wrap_block(out.to(q.dtype).transpose(1, 2), mesh, spec)
 
 
 class PagedKVCache(NamedTuple):
@@ -291,3 +325,22 @@ def _decode_attend(q, k, v, valid):
     l = torch.sum(pr, dim=-1, keepdim=True)
     o = torch.einsum("bhgqk,bhkd->bhgqd", pr / l, v.to(f32))
     return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _decode_partial(q, k, v, valid):
+    """One time block's softmax partials of a single query: the block's
+    max score ``m`` (b, hq, 1, 1), its sum of ``exp(s - m)`` ``l`` (b, hq,
+    1, 1) and the unnormalised output ``o`` (b, hq, 1, d), in float32, with
+    ``_decode_attend``'s masking (``valid`` (S,) over the block)."""
+    hq, hkv = q.shape[1], k.shape[1]
+    g = hq // hkv
+    b, _, S, d = k.shape
+    f32 = torch.float32
+    qs = q.reshape(b, hkv, g, 1, d).to(f32) * (d ** -0.5)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(f32))
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    pr = torch.exp(s - m)
+    l = torch.sum(pr, dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.to(f32))
+    return m.reshape(b, hq, 1, 1), l.reshape(b, hq, 1, 1), o.reshape(b, hq, 1, d)

@@ -77,13 +77,15 @@ class ShardingPolicy:
         """DTensor placements (one per mesh axis) for a tensor with
         ``labels`` on ``mesh`` (a ``launch.mesh.Mesh`` or ``{axis: size}``):
         the parameter spec with ``param``, else the activation spec, made
-        safe for ``shape`` where it is given."""
-        from repro_torch.core.gspmd import placements
+        safe for ``shape`` where it is given, an entry on several axes
+        nested in mesh order (``gspmd.nested``), as the model stack places
+        its tensors."""
+        from repro_torch.core.gspmd import nested, placements
 
         spec = self.param_spec(labels) if param else self.act_spec(labels)
         if shape is not None:
             spec = safe_spec(spec, shape, mesh)
-        return placements(spec, mesh)
+        return placements(nested(spec, mesh), mesh)
 
 
 def _entry(ax: tuple[str, ...]):

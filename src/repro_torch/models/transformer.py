@@ -323,11 +323,8 @@ def param_shardings(cfg, policy, mesh) -> dict:
     """DTensor placements of every parameter on ``mesh`` (a
     ``launch.mesh.Mesh`` or ``{axis: size}``), mirroring ``init_params``:
     the reference's NamedShardings (leaves are tuples of placements)."""
-    from repro_torch.core.gspmd import placements
-
-    return _zip_map(lambda _, spec: placements(spec, mesh),
-                    init_params(cfg, device="meta"),
-                    param_specs(cfg, policy, mesh))
+    return _zip_map(lambda t, lab: policy.sharding(mesh, lab, t.shape, param=True),
+                    init_params(cfg, device="meta"), param_labels(cfg))
 
 
 def cache_specs(cfg, batch: int, kv_len: int, policy, mesh) -> list:
@@ -344,11 +341,9 @@ def cache_specs(cfg, batch: int, kv_len: int, policy, mesh) -> list:
 def cache_shardings(cfg, batch: int, kv_len: int, policy, mesh) -> list:
     """DTensor placements of every decode-cache leaf, mirroring
     ``init_caches``."""
-    from repro_torch.core.gspmd import placements
-
-    return _zip_map(lambda _, spec: placements(spec, mesh),
+    return _zip_map(lambda t, lab: policy.sharding(mesh, lab, t.shape),
                     init_caches(cfg, batch, kv_len, device="meta"),
-                    cache_specs(cfg, batch, kv_len, policy, mesh))
+                    cache_labels(cfg))
 
 
 def place_params(params, cfg, policy, mesh):

@@ -175,15 +175,19 @@ def test_kernel_impl_on_cpu_raises():
     ({"dtype": torch.float16}, "dtype"), ({"sk": 0}, "no keys"),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
-    """Checked before any build; meta tensors stand in for CUDA ones."""
+    """Checked before any build; meta tensors stand in for CUDA ones (the
+    wrapper takes them, as the dry run's abstract blocks, and refuses the
+    shape), CPU tensors are refused as such."""
     d, hkv, sk = bad.get("d", 64), bad.get("hkv", 2), bad.get("sk", 8)
     dt = bad.get("dtype", torch.float32)
     q = torch.empty(1, 4, 8, d, dtype=dt, device="meta")
     k = torch.empty(1, hkv, sk, d, dtype=dt, device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors only"):
+    with pytest.raises(ValueError, match=match):
         fa.flash_attention(q, k, k)
     with pytest.raises(ValueError, match=match):
         fa.check_args(q, k, k)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention(*(torch.empty(t.shape, dtype=t.dtype) for t in (q, k, k)))
 
 
 @pytest.mark.parametrize("dt,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
@@ -304,12 +308,16 @@ def test_matmul_and_step_kernel_impl_on_cpu_raises():
     (((3, 4), (4, 6)), torch.float16, "dtype"),
 ])
 def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match):
-    """Checked before any build; meta tensors stand in for CUDA ones."""
+    """Checked before any build; meta tensors stand in for CUDA ones (the
+    wrapper takes them and refuses the shape), CPU tensors are refused as
+    such."""
     x, w = (torch.empty(s, dtype=dt, device="meta") for s in shapes)
-    with pytest.raises(ValueError, match="CUDA tensors only"):
+    with pytest.raises(ValueError, match=match):
         mm.matmul(x, w)
     with pytest.raises(ValueError, match=match):
         mm.check_args(x, w)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mm.matmul(*(torch.empty(s, dtype=dt) for s in shapes))
 
 
 # ---------------------------------------------------------------------------
@@ -650,13 +658,16 @@ def test_step_design_rule(name, want):
 ])
 def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(shapes, dt, match):
     """Checked before any build or design choice; meta tensors stand in for
-    CUDA ones."""
+    CUDA ones (the wrapper takes them and refuses the shape), CPU tensors
+    are refused as such."""
     from repro_torch.kernels import moe_gmm
     x, w = (torch.empty(s, dtype=dt, device="meta") for s in shapes)
-    with pytest.raises(ValueError, match="CUDA tensors only"):
+    with pytest.raises(ValueError, match=match):
         moe_gmm.gmm(x, w)
     with pytest.raises(ValueError, match=match):
         moe_gmm.check_args(x, w)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        moe_gmm.gmm(*(torch.empty(s, dtype=dt) for s in shapes))
 
 
 def test_design_counts_start_at_zero_and_reset():

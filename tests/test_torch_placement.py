@@ -241,14 +241,15 @@ def test_out_of_order_multi_axis_entry_raises_naming_it():
     """``policy_from_plan`` sorts a vote's axes: on ("pod", "data",
     "model") the entry ("data", "pod") is out of mesh order.  The port
     does not place it (no ``_StridedShard``): it raises, naming it — the
-    placements, the policy's ``sharding`` and the gspmd executor's static
-    program alike."""
+    placements and the gspmd executor's static program alike.  The
+    policy's ``sharding``, which places the model stack's tensors, nests
+    the entry in mesh order instead."""
     sizes = {"pod": 2, "data": 2, "model": 2}
     with pytest.raises(NotImplementedError, match=r"\('data', 'pod'\)"):
         gspmd.placements((("data", "pod"), None), sizes)
     pol = policy_mod.manual_policy({"b": ("data", "pod")})
-    with pytest.raises(NotImplementedError, match=r"\('data', 'pod'\)"):
-        pol.sharding(sizes, "b s", (8, 4))
+    assert pol.sharding(sizes, "b s", (8, 4)) == gspmd.placements(
+        (("pod", "data"), None), sizes) == (Shard(0), Shard(0), Replicate())
     from repro_torch.core.decomp import Plan
     from repro_torch.core.einsum import EinGraph
 
