@@ -224,7 +224,8 @@
    every gradient against the one-rank step on the card (1e-4), the
    parameters after AdamW (within 1e-4 x lr and one float32 ulp where the
    gradient clears 30 x its tolerance, within 2 x lr, one step either way,
-   below that); (c) llama-7b at full size (bf16, 32 layers)
+   below that); (c) llama-7b at full width, 8 of its 32 layers (bf16; cut
+   from 32 in PR 25, for the run's time limit)
    served on 4 ranks, mesh (1, 4), b=4, prompt 512, 16 new, after the
    one-rank reference ran alone: each rank's weight bytes, peak memory;
    the serve loop fed the one-rank tokens, every step's logits against the
@@ -236,11 +237,13 @@
    divergence must sit on a top-2 margin under 2e-2 of max|logit|, and is
    printed), the prefill and decode walls.  The
    kernels line gives the flash and matmul launches a rank on the gspmd
-   path (``gspmd_launches_per_rank``).  (b)'s step is timed alone; a
+   path (``gspmd_launches_per_rank``).  Since PR 25 (b) and (c) run side
+   by side, for the run's time limit.  (b)'s step is timed alone; a
    second, untimed step on the same weights made again runs under a
    ``launch.hlo_analysis.CollectiveRecorder``, which phase 32(c) reads;
 32. the dry run (``repro_torch.launch.dryrun``): (a) the CLI in a
-   subprocess per cell, all started together, with ``CUDA_VISIBLE_DEVICES``
+   subprocess per cell, all started together before phase 29 (they need
+   no card), with ``CUDA_VISIBLE_DEVICES``
    empty, for llama-7b train_4k, prefill_32k and decode_32k on (16, 16)
    and decode_32k on (2, 16, 16): each record's memory a card,
    ``t_compute_s``, ``t_memory_s``, ``t_collective_s``, bottleneck, fit in
@@ -257,7 +260,38 @@
    ranks on the card, on {data: 2} and {model: 2}: each collective kind's
    count and bytes equal to what the ranks issued, the abstract peak within
    5% of each rank's allocator peak of the step.  The kernels line gives the
-   dry run's flash calls a rank by design (``dryrun_calls_per_rank``).
+   dry run's flash calls a rank by design (``dryrun_calls_per_rank``);
+33. the MoE, hymba and xLSTM blocks on meshes of gloo ranks sharing the
+   card: (a) qwen2-moe-a2.7b at full size (bf16, 60 experts padded to 64)
+   served on 4 ranks, mesh (1, 4), the experts on ``model``, b=4, prompt
+   512, 16 new, as 31(c) serves llama-7b (the one-rank run first, alone;
+   its float32 witness upcast leaf by leaf; each rank's weight bytes read
+   off ``param_specs`` before placing, and the weights made in turns with
+   each rank's blocks held on the host meanwhile): the generations and
+   every step's logits against one rank, where bf16 at full depth is
+   chaotic (BLOCK_SERVES: the bf16 run on the mesh no farther from the
+   float32 run, over all steps, than twice the one-rank bf16 run), a
+   4-layer float32 slice against one rank within 1e-4 at every step, 72
+   gmm launches a rank a step on (16, C, ·) blocks (wgmma); then
+   ``serve(mesh=)`` under its own plan, at full depth where its blocks fit;
+   (b) hymba-1.5b at full size on (2, 2), prompt 2048, and (c)
+   xlstm-125m on {data: 2}, prompt 512, the same checks; (d) 2-layer
+   float32 train steps at full width on 2 ranks (b=2, s=128): qwen2-moe
+   on {data: 2} (its plan) and on {model: 2} with the experts on
+   ``model``, hymba and xlstm on {data: 2}, each held as 31(b) holds
+   llama's, gmm launches a rank (ffma); (e) qwen2-moe's prefill graph
+   (one block period, b=4, s=512) through ``executor="gspmd"`` on (1, 4)
+   with the experts on ``model`` in its expert half, the ``a2a`` nodes
+   lowered through their rule, float32 and bf16: logits against the dense
+   and shard_map runs (phase 10's limits), the rule's collectives equal
+   to the static trace's node by node, DTensor's all-gathers ring-priced
+   equal to the rest of it, matmul launches a rank; (f) the dry run's CLI
+   for qwen2-moe decode_32k, hymba prefill_32k and xlstm train_4k (trip
+   counted) on (16, 16) with no card visible, started before phase 29
+   (they need no card) and read here, and (d)'s MoE step on {model: 2} on
+   a fake 2-rank group against its gloo ranks, as 32(c).  (d) runs beside
+   (b) and (c), for the run's time limit.  The kernels line gives
+   phase 33's launches a rank by design (``mesh_blocks_launches_per_rank``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -279,9 +313,12 @@ to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -437,8 +474,19 @@ def _mm_template(mm, x, w):
     return launch, out
 
 
+T0 = time.perf_counter()
+LOG = ROOT / "chiprun_out" / "chip_smoke.log"
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the run, with the seconds since it started; also appended
+    to ``chiprun_out/chip_smoke.log``, which keeps what the end of the
+    output drops."""
+    line = f"[{phase} +{time.perf_counter() - T0:.0f}s] {msg}"
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with open(LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def _inputs(case, seed=0, device="cuda"):
@@ -536,6 +584,7 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    LOG.unlink(missing_ok=True)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -759,6 +808,10 @@ def main() -> int:
     # every flash launch of the zoo takes wgmma (bf16) or ffma (float32), none the template
     assert zoo_designs["flash_attention"]["template"] == 0, zoo_designs["flash_attention"]
 
+    # the dry run's CLI cells (32(a), 33(f)) need no card: they run beside phases 29-33
+    dry_llama = _dryrun_start(DRYRUN_CELLS)
+    dry_blocks = _dryrun_start(DRYRUN_BLOCK_CELLS)
+
     # 29. the pipelined path: llama-7b's prefill graph on 1, 2 and 4 gloo ranks of a pp axis
     results["pipeline"] = _pipeline_path(cfg)
 
@@ -771,8 +824,13 @@ def main() -> int:
     gx = results["mesh"]["gspmd"]
 
     # 32. the dry run: the production mesh with no card; abstract against real
-    results["dryrun"] = _dryrun_phase(ops, results)
+    results["dryrun"] = _dryrun_phase(ops, results, dry_llama)
     dry = results["dryrun"]
+
+    # 33. the MoE, hymba and xLSTM blocks on meshes of gloo ranks sharing the card
+    results["blocks"] = _block_mesh_phase(ops)
+    results["blocks"]["dryrun"] = _dryrun_blocks(dry_blocks, results["blocks"]["train"])
+    mb = _mesh_blocks_launches(results["blocks"])
 
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
@@ -840,7 +898,8 @@ def main() -> int:
          "dryrun_calls_per_rank": {cell: r["kernel_calls"]["flash_attention"]
                                    for cell, r in dry["cli"].items() if cell != "hbm_bytes"},
          "dryrun_one_rank_designs": {c: r["flash_designs"]
-                                     for c, r in dry["one_rank"].items()}},
+                                     for c, r in dry["one_rank"].items()},
+         "mesh_blocks_launches_per_rank": mb["flash_attention"]},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -880,6 +939,7 @@ def main() -> int:
          "pipeline_design": pipe_designs["matmul"],
          "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
              "matmul"] for m in gx for dt in RING_DTYPES},
+         "mesh_blocks_launches_per_rank": mb["matmul"],
          "op_host_us": mt["host"]["op_us"], "direct_host_us": mt["host"]["direct_us"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -900,7 +960,8 @@ def main() -> int:
          "decode_library_ms": gdec["library_ms"],
          "engine_launches": results["engine_moe"]["launches"]["gmm"],
          "engine_design": _path_design(results["engine_moe"]["designs"]["gmm"]),
-         "zoo_launches_by_design": zoo_designs["gmm"]},
+         "zoo_launches_by_design": zoo_designs["gmm"],
+         "mesh_blocks_launches_per_rank": mb["gmm"]},
     ]}
     kernels["kernels"][1]["zoo_launches_by_design"] = zoo_designs["flash_attention_step"]
     results.update(kernels)
@@ -3524,30 +3585,48 @@ def _gspmd_executor(ops) -> dict:
     return res
 
 
-# each mesh with the plan its policy comes from: data2 under reduced
-# llama's plan at the same cell (the batch on "data": data parallel, the
-# weights' feature dims stored on it, Partial gradients reduce-scattered
-# into their shards), model2 under llama-7b's (heads, d_model, ffn and
-# vocab split)
-MESH_TRAIN_MESHES = {"data2": ({"data": 2}, "reduced"), "model2": ({"model": 2}, "llama-7b")}
+# each cell: (arch, mesh, the plan its policy comes from); the llama cells
+# of phase 31(b): data2 under reduced llama's plan at the same cell (the
+# batch on "data": data parallel, the weights' feature dims stored on it,
+# Partial gradients reduce-scattered into their shards), model2 under
+# llama-7b's own (heads, d_model, ffn and vocab split)
+MESH_TRAIN_CELLS = {"data2": ("llama-7b", {"data": 2}, "reduced"),
+                    "model2": ("llama-7b", {"model": 2}, "own")}
+# phase 33(d): the MoE, hymba and xLSTM blocks' steps; a dict is a manual
+# policy: qwen2-moe data parallel (its own plan at this cell splits d_model
+# and the experts on "data" instead), and its experts on "model".  The
+# qwen2-moe cells (44 and 58 GB of the card for their two ranks) go last:
+# phase 33 runs these steps beside hymba's and xlstm's serves (23 GB)
+BLOCK_TRAIN_CELLS = {"hymba/data2": ("hymba-1.5b", {"data": 2}, "own"),
+                     "xlstm/data2": ("xlstm-125m", {"data": 2}, "own"),
+                     "qwen2-moe/data2": ("qwen2-moe-a2.7b", {"data": 2}, {"b": "data"}),
+                     "qwen2-moe/model2": ("qwen2-moe-a2.7b", {"model": 2}, {"e": "model"})}
+# the cells whose collectives a CollectiveRecorder reads, for the dry run's
+# comparison (phase 32(c), 33(f)): phase 31(b)'s in a second, untimed step
+# on the same weights made again ("spare"); 33(d)'s MoE cell in its one
+# step, whose wall no phase compares (a second step's weights and moments
+# do not fit beside its neighbours on the card)
+RECORDED_CELLS = {"data2": "spare", "model2": "spare", "qwen2-moe/model2": "step"}
 MESH_TRAIN_LR = 1e-3
 # a weight's AdamW step is held tight where its gradient clears this many
 # times the gradients' tolerance (see mesh_train_rank)
 ADAM_CLEAR = 30
 
 
-def mesh_train_rank(rank: int, world: int) -> dict:
-    """One gloo rank of phase 31(b): llama-7b width, 2 layers, float32, b=2,
-    s=128.  Rank 0 first runs the one-rank step on the card alone (the
-    others wait at a barrier), then every rank runs the sharded step on
-    each mesh of ``MESH_TRAIN_MESHES``; rank 0 holds the loss, every
-    gradient and every parameter after AdamW against the one-rank step."""
+def mesh_train_rank(rank: int, world: int, cells: dict) -> dict:
+    """One gloo rank of phase 31(b) or 33(d): each cell's architecture at
+    full width, 2 layers, float32, b=2, s=128.  Rank 0 first runs each
+    architecture's one-rank step on the card alone (the others wait at a
+    barrier), then every rank runs the sharded step of every cell; rank 0
+    holds the loss, every gradient and every parameter after AdamW against
+    the one-rank step."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
     from repro_torch.core.gspmd import full
     from repro_torch.data.synthetic import place_batch
+    from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.launch.hlo_analysis import CollectiveRecorder
     from repro_torch.launch.mesh import Mesh
@@ -3556,20 +3635,23 @@ def mesh_train_rank(rank: int, world: int) -> dict:
     from repro_torch.optim import adamw_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _mesh_train_cfg()
-    toks = np.random.default_rng(31).integers(0, cfg.vocab, size=(2, 128)).astype(np.int32)
-    host = {"tokens": toks, "labels": toks}
 
-    def value_grads_step(mesh, policy):
+    def value_grads_step(cfg, mesh, policy, record):
+        """The loss, its gradients and the parameters after one step, all
+        whole on the host (the card then holds one step's state at a
+        time), the metrics, wall, peaks, collectives and launches."""
+        toks = np.random.default_rng(31).integers(0, cfg.vocab, size=(2, 128)).astype(np.int32)
         params = tf.init_placed_params(cfg, policy, mesh, seed=2)
-        batch = place_batch(host, policy, mesh)
+        batch = place_batch({"tokens": toks, "labels": toks}, policy, mesh)
         leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
         loss, _ = tf.loss_fn(params, batch, cfg, policy=policy, mesh=mesh)
         grads = torch.autograd.grad(loss, leaves)
         if mesh.world_size > 1:
             grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
+        grads = [full(g).detach().cpu() for g in grads]
         for p in leaves:
             p.requires_grad_(False)
+        del leaves  # the parameters go when the step's result is on the host
         loss = float(full(loss).detach())
         step = steps.make_train_step(cfg, policy=policy, mesh=mesh,
                                      lr_fn=lambda s: MESH_TRAIN_LR)
@@ -3580,36 +3662,45 @@ def mesh_train_rank(rank: int, world: int) -> dict:
         held = torch.cuda.memory_allocated() - args_bytes
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rec = CollectiveRecorder()  # what the step issues: phase 32(c) reads it
         t0 = time.perf_counter()
-        params, _, met = step(params, adamw_init(params), batch)
+        with rec if record == "step" else contextlib.nullcontext():
+            params, _, met = step(params, adamw_init(params), batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {"launches": ops.launch_counts(), "designs": ops.design_counts()}
         step_peak = torch.cuda.max_memory_allocated() - held
         peak = max(peak, torch.cuda.max_memory_allocated())
-        # a second step, untimed (the recorder's dispatch costs time), on the
-        # same weights made again: the first updated its own in place
-        spare = tf.init_placed_params(cfg, policy, mesh, seed=2)
-        rec = CollectiveRecorder()  # what the step issues: phase 32(c) reads it
-        with rec:
-            step(spare, adamw_init(spare), batch)
-        del spare
-        return loss, grads, params, met, wall, (peak, step_peak), rec.log.summary()
+        after = [full(p).cpu() for p in tree.leaves(params)]
+        del params
+        torch.cuda.empty_cache()
+        if record == "spare":
+            # a second step, untimed (the recorder's dispatch costs time), on
+            # the same weights made again: the first updated its own in place
+            spare = tf.init_placed_params(cfg, policy, mesh, seed=2)
+            with rec:
+                step(spare, adamw_init(spare), batch)
+            del spare
+            torch.cuda.empty_cache()
+        return (loss, grads, after, met, wall, (peak, step_peak), rec.log.summary(),
+                launches)
 
-    ref = None
+    refs = {}
     if rank == 0:
         one = Mesh({"data": 1}, device="cuda:0")
-        pol1 = program_for(cfg, ShapeConfig("t", "train", 128, 2)).compile(
-            mesh_axes={"data": 1}, device="cuda:0").policy()
-        loss, grads, params, met, _, _, _ = value_grads_step(one, pol1)
-        ref = {"loss": loss, "grads": [g.detach().cpu() for g in grads],
-               "params": [p.cpu() for p in tree.leaves(params)],
-               "grad_norm": float(met["grad_norm"])}
-        del grads, params
-        torch.cuda.empty_cache()
+        for arch in sorted({arch for arch, _, _ in cells.values()}):
+            cfg = _mesh_train_cfg(arch)
+            pol1 = program_for(cfg, ShapeConfig("t", "train", 128, 2)).compile(
+                mesh_axes={"data": 1}, device="cuda:0").policy()
+            loss, grads, params, met, _, _, _, _ = value_grads_step(cfg, one, pol1, None)
+            refs[arch] = {"loss": loss, "grads": grads, "params": params,
+                          "grad_norm": float(met["grad_norm"])}
     dist.barrier()
-    return {mesh_id: _sharded_step(rank, Mesh(sizes, device="cuda:0"), plan_of, cfg, ref,
-                                   value_grads_step)
-            for mesh_id, (sizes, plan_of) in MESH_TRAIN_MESHES.items()}
+    return {cell: _sharded_step(rank, Mesh(sizes, device="cuda:0"), plan_of,
+                                _mesh_train_cfg(arch), refs.get(arch),
+                                lambda *a: value_grads_step(*a, RECORDED_CELLS.get(cell)))
+            for cell, (arch, sizes, plan_of) in cells.items()}
 
 
 def _block_bytes(t) -> int:
@@ -3618,133 +3709,171 @@ def _block_bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def _mesh_train_cfg():
-    """Phase 31(b)'s cell: llama-7b width, 2 layers, float32 (b=2, s=128)."""
+def _mesh_train_cfg(arch: str = "llama-7b"):
+    """Phase 31(b)'s and 33(d)'s cell: full width, 2 layers (xlstm: one
+    mLSTM and one sLSTM block), float32 (b=2, s=128)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config("llama-7b"), n_layers=2, dtype="float32")
+    return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
 
 
-def _mesh_train_policy(cfg, axes: dict, plan_of: str):
-    """The policy phase 31(b) trains under on ``axes``: the plan of reduced
-    llama or of llama-7b at that cell, the weights stored on the data
-    axes."""
+def _mesh_train_policy(cfg, axes: dict, plan_of):
+    """The policy a train cell runs under on ``axes``: the plan of the
+    reduced config (``"reduced"``) or of the cell's own (``"own"``), or a
+    manual one (a dict); the weights stored on the data axes."""
     from repro_torch.configs import reduced
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.eingraphs import fsdp_axes_for, program_for
+    from repro_torch.models.policy import manual_policy
 
+    if isinstance(plan_of, dict):
+        return manual_policy(plan_of, fsdp_axes=fsdp_axes_for(axes))
     planned = reduced(cfg) if plan_of == "reduced" else cfg
     return program_for(planned, ShapeConfig("t", "train", 128, 2)).compile(
         mesh_axes=axes).policy(fsdp_axes=fsdp_axes_for(axes))
 
 
-def _sharded_step(rank, mesh, plan_of: str, cfg, ref, value_grads_step) -> dict:
-    from repro_torch.core import tree
-    from repro_torch.core.gspmd import full
-
+def _sharded_step(rank, mesh, plan_of, cfg, ref, value_grads_step) -> dict:
     policy = _mesh_train_policy(cfg, dict(mesh.sizes), plan_of)
     torch.cuda.reset_peak_memory_stats()
-    loss, grads, params, met, wall, (peak, step_peak), issued = value_grads_step(mesh, policy)
+    loss, grads, params, met, wall, (peak, step_peak), issued, launches = \
+        value_grads_step(cfg, mesh, policy)
     res = {"policy": {l: list(a) for l, a in policy.label_axes.items()},
            "fsdp": list(policy.fsdp_axes), "collectives": issued,
            "loss": loss, "grad_norm": float(met["grad_norm"]),
            "step_loss": float(met["loss"]), "step_wall_s": wall, "peak_bytes": peak,
-           "step_peak_bytes": step_peak}
-    grad_errs, param_errs = [], []
-    for i, g in enumerate(grads):
-        g = full(g)
-        if rank == 0:
-            w = ref["grads"][i]
-            grad_errs.append((float((g.cpu() - w).abs().max()), float(w.abs().max())))
-        del g
-    for i, p in enumerate(tree.leaves(params)):
-        p = full(p)
-        if rank == 0:
-            # Adam's first step moves a weight by lr g/(|g| + 1e-8); a
-            # gradient error dg moves that by lr 1e-8 dg / g^2, so where |g|
-            # clears 30 x the gradients' tolerance the step agrees within
-            # about 1e-5 lr, and below that its size and sign are rounding
-            # (beyond one float32 ulp of the weight itself)
-            g = ref["grads"][i].abs()
-            sure = g >= ADAM_CLEAR * TRAIN_TOL * float(g.max())
-            w = ref["params"][i]
-            d = (p.cpu() - w).abs() - torch.finfo(torch.float32).eps * w.abs()
+           "step_peak_bytes": step_peak, **launches}
+    if rank == 0:  # leaf by leaf on the card: a rank has one CPU thread
+        dev = mesh.device
+        grad_errs = []
+        for g, w in zip(grads, ref["grads"]):
+            g, w = g.to(dev), w.to(dev)
+            grad_errs.append((float((g - w).abs().max()), float(w.abs().max())))
+        param_errs = []
+        clip = min(1.0, 1.0 / ref["grad_norm"])  # the step clips the norm to 1
+        for p, w, g in zip(params, ref["params"], ref["grads"]):
+            p, w, g = p.to(dev), w.to(dev), g.to(dev)
+            # Adam's first step moves a weight by lr g/(|g| + 1e-8), g the
+            # clipped gradient; a gradient error dg moves that by lr 1e-8 dg
+            # / g^2, so where |g| clears 30 x the gradients' tolerance and
+            # that move, dg the tolerance, stays under 1e-5 lr (not so for
+            # small gradients: qwen2-moe's shared expert, PR 25), the step
+            # agrees within 1e-4 lr; elsewhere its size and sign are
+            # rounding (beyond one float32 ulp of the weight itself)
+            gmax = float(g.abs().max())
+            sure = ((g.abs() >= ADAM_CLEAR * TRAIN_TOL * gmax)
+                    & (1e-8 * TRAIN_TOL * gmax <= 1e-5 * clip * g * g))
+            d = (p - w).abs() - torch.finfo(torch.float32).eps * w.abs()
             param_errs.append((float(d[sure].max()) if bool(sure.any()) else 0.0,
                                float(d.max()), float(sure.float().mean())))
-        del p
-    if rank == 0:
         res.update({"ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"],
                     "grad_errs": grad_errs, "param_errs": param_errs})
     return res
 
 
-def _mesh_train() -> dict:
+def _mesh_train(cells: dict = MESH_TRAIN_CELLS) -> dict:
     from repro_torch.launch.mesh import spawn
 
     res = {}
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:  # one spawn: both meshes
+    with tempfile.TemporaryDirectory() as tmp:  # one spawn: every cell
         t0 = time.perf_counter()
-        both = spawn(2, mesh_train_rank, tmpdir=tmp, backend="gloo", timeout=600)
+        every = spawn(2, mesh_train_rank, cells, tmpdir=tmp, backend="gloo", timeout=900)
         t_spawn = time.perf_counter() - t0
-    # two layouts, not one: the batch split on data2, whole on model2
-    assert both[0]["data2"]["policy"]["b"] == ["data"], both[0]["data2"]["policy"]
-    assert both[0]["data2"]["fsdp"] == ["data"], both[0]["data2"]
-    assert "b" not in both[0]["model2"]["policy"], both[0]["model2"]["policy"]
-    for mesh_id in MESH_TRAIN_MESHES:
-        ranks = [r[mesh_id] for r in both]
+    if cells is MESH_TRAIN_CELLS:  # two layouts: the batch split on data2, whole on model2
+        assert every[0]["data2"]["policy"]["b"] == ["data"], every[0]["data2"]["policy"]
+        assert every[0]["data2"]["fsdp"] == ["data"], every[0]["data2"]
+        assert "b" not in every[0]["model2"]["policy"], every[0]["model2"]["policy"]
+    for cell, (arch, sizes, plan_of) in cells.items():
+        ranks = [r[cell] for r in every]
         r0 = ranks[0]
-        assert r0["ref_grad_norm"] > 1.0  # the clip (max norm 1) is active
+        if arch == "llama-7b":
+            assert r0["ref_grad_norm"] > 1.0  # the clip (max norm 1) is active
+        if isinstance(plan_of, dict):
+            assert all(r0["policy"][l] == [a] for l, a in plan_of.items()), r0["policy"]
         for what, ref in (("loss", "ref_loss"), ("grad_norm", "ref_grad_norm"),
                           ("step_loss", "ref_loss")):
             err = abs(r0[what] - r0[ref]) / abs(r0[ref])
-            assert err <= TRAIN_TOL, (mesh_id, what, r0[what], r0[ref])
+            assert err <= TRAIN_TOL, (cell, what, r0[what], r0[ref])
         assert ranks[1]["loss"] == r0["loss"], (ranks[1]["loss"], r0["loss"])
         worst_g = max(e / max(s, 1e-30) for e, s in r0["grad_errs"])
-        assert worst_g <= TRAIN_TOL, (mesh_id, r0["grad_errs"])
+        assert worst_g <= TRAIN_TOL, (cell, r0["grad_errs"])
         worst_sure = max(e[0] for e in r0["param_errs"])
         worst_p = max(e[1] for e in r0["param_errs"])
         worst_frac = min(e[2] for e in r0["param_errs"])
         assert worst_sure <= 1e-4 * MESH_TRAIN_LR and worst_p <= 2 * MESH_TRAIN_LR, \
             r0["param_errs"]
-        log("mesh-train", f"{mesh_id}: llama-7b width, 2 layers, f32, b=2, s=128 on 2 gloo "
-                          f"ranks sharing the card; policy {r0['policy']} (the "
-                          f"{MESH_TRAIN_MESHES[mesh_id][1]} plan's), fsdp {r0['fsdp']}; loss "
+        for r in ranks:  # float32: every gmm launch of the ffma design
+            assert r["designs"]["gmm"]["ffma"] == r["launches"]["gmm"], (cell, r["designs"])
+        kernels = {k: n for k, n in r0["launches"].items() if n}
+        log("mesh-train", f"{cell}: {arch} width, 2 layers, f32, b=2, s=128 on 2 gloo "
+                          f"ranks sharing the card; policy {r0['policy']} ({plan_of} plan's "
+                          f"if a word), fsdp {r0['fsdp']}; loss "
                           f"{r0['loss']:.7f} vs one rank {r0['ref_loss']:.7f}, grad norm "
                           f"{r0['grad_norm']:.6f} vs {r0['ref_grad_norm']:.6f} (clip at 1); "
                           f"worst gradient leaf {worst_g:.3e} of its max|g| (limit "
                           f"{TRAIN_TOL}); parameters after AdamW (lr {MESH_TRAIN_LR}): max "
                           f"|diff| beyond an ulp {worst_sure:.3e} where |g| clears {ADAM_CLEAR} x "
                           f"{TRAIN_TOL} x max|g| (limit 1e-4 x lr; at least {worst_frac:.4f} "
-                          f"of each leaf), {worst_p:.3e} over all (limit 2 x lr); step walls "
-                          f"{[round(r['step_wall_s'], 2) for r in ranks]} s (the collectives "
-                          f"recorded in a second, untimed step), peak "
+                          f"of each leaf), {worst_p:.3e} over all (limit 2 x lr); launches a "
+                          f"rank a step {kernels} by design {r0['designs']}; step walls "
+                          f"{[round(r['step_wall_s'], 2) for r in ranks]} s (collectives "
+                          f"recorded: {RECORDED_CELLS.get(cell, 'no')}), peak "
                           f"{[r['peak_bytes'] for r in ranks]} B a rank, the step's own "
-                          f"{[r['step_peak_bytes'] for r in ranks]} B; both meshes in one spawn "
+                          f"{[r['step_peak_bytes'] for r in ranks]} B; every cell in one spawn "
                           f"of {t_spawn:.1f} s")
-        res[mesh_id] = {"policy": r0["policy"], "fsdp": r0["fsdp"],
-                        "plan_of": MESH_TRAIN_MESHES[mesh_id][1],
-                        "loss": r0["loss"], "ref_loss": r0["ref_loss"],
-                        "grad_norm": r0["grad_norm"], "ref_grad_norm": r0["ref_grad_norm"],
-                        "worst_grad_rel": worst_g, "worst_param_abs": worst_p,
-                        "worst_param_abs_clear": worst_sure,
-                        "min_share_clear": worst_frac,
-                        "step_wall_s": [r["step_wall_s"] for r in ranks],
-                        "peak_bytes": [r["peak_bytes"] for r in ranks],
-                        "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
-                        "spawn_s": t_spawn,
-                        "collectives": r0["collectives"]}
+        res[cell] = {"arch": arch, "policy": r0["policy"], "fsdp": r0["fsdp"],
+                     "plan_of": plan_of,
+                     "loss": r0["loss"], "ref_loss": r0["ref_loss"],
+                     "grad_norm": r0["grad_norm"], "ref_grad_norm": r0["ref_grad_norm"],
+                     "worst_grad_rel": worst_g, "worst_param_abs": worst_p,
+                     "worst_param_abs_clear": worst_sure,
+                     "min_share_clear": worst_frac,
+                     "launches_per_rank": [r["launches"] for r in ranks],
+                     "designs_per_rank": [r["designs"] for r in ranks],
+                     "step_wall_s": [r["step_wall_s"] for r in ranks],
+                     "peak_bytes": [r["peak_bytes"] for r in ranks],
+                     "step_peak_bytes": [r["step_peak_bytes"] for r in ranks],
+                     "spawn_s": t_spawn,
+                     "collectives": r0["collectives"]}
     return res
 
 
-MESH_SERVE = {"mesh": {"data": 1, "model": 4}, "b": 4, "prompt_len": 512, "max_new": 16}
-
-
-# a float32 slice of llama-7b (full width, the first layers) served on the
-# same mesh and held at every step to phase 10's float32 limit: at float32
-# a misplaced block shows where bf16's rounding would hide it
-MESH_SLICE_LAYERS = 4
+# what a serve cell runs: the architecture at full size (bf16) on a mesh
+# of gloo ranks sharing the card, under the plan's policy (None) or a
+# manual one; a float32 slice of its first layers on the same mesh
+# llama-7b at 8 of its 32 layers since PR 25 (the run's time limit: phase
+# 33 serves three more models this way)
+MESH_SERVE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
+              "policy": None, "b": 4, "prompt_len": 512, "max_new": 16,
+              "slice_layers": 4, "max_share": 0.3, "floor_first": False}
+# phase 33(a)-(c): qwen2-moe's experts on "model" (then serve(mesh=)'s own
+# plan too), hymba at phase 24's prompt, xlstm data parallel
+# At full depth in bf16 these three are chaotic: the one-rank bf16 run's
+# logits differ from the same weights in float32 by 0.07 (xlstm) to 1.0
+# (qwen2-moe, its top-4 routing flipping) of max|logit| from the first
+# step on, and two bf16 runs as far apart as that at one step can be three
+# times farther at another (chip_smoke, PR 25).  So these cells hold the
+# bf16 run on the mesh to the float32 run: over all steps, no farther from
+# it than twice the one-rank bf16 run is (``floor_first``), and a token
+# flip to a top-2 margin under twice that; their float32 slices hold the
+# blocks to 1e-4 at every step.
+BLOCK_SERVES = {
+    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=None,
+                      policy={"e": "model"}, own_policy=True, floor_first=True),
+    "hymba": dict(MESH_SERVE, arch="hymba-1.5b", layers=None,
+                  mesh={"data": 2, "model": 2}, prompt_len=2048, max_share=None,
+                  floor_first=True),
+    "xlstm": dict(MESH_SERVE, arch="xlstm-125m", layers=None, mesh={"data": 2},
+                  max_share=None, floor_first=True),
+}
+# a float32 slice held at every step to phase 10's float32 limit: at
+# float32 a misplaced block shows where bf16's rounding would hide it
 MESH_F32_TOL = 1e-4
+# the card's memory the ranks' blocks of the weights may take (of 80 GB):
+# the rest is for their activations (``init_placed_params`` holds each
+# rank's blocks on the host while another makes the whole tree)
+MESH_BUDGET_BYTES = 60e9
 
 
 def _greedy(cfg, params, toks, max_new: int):
@@ -3794,26 +3923,41 @@ def _forced(cfg, params, toks, gen: np.ndarray, *, policy=None, mesh=None):
     return torch.stack(kept, 1)
 
 
-def _one_rank_serve(cfg, prompts, max_new: int) -> dict:
+def _upcast_(tree):
+    """``tree``'s leaves in float32, each replaced in its container as it is
+    made, so the card holds one bf16 leaf beside the float32 tree at most
+    (qwen2-moe: 30.3 GB in bf16 and 60.6 GB in float32 do not fit
+    together)."""
+    if isinstance(tree, dict):
+        for k in tree:
+            tree[k] = _upcast_(tree[k])
+        return tree
+    if isinstance(tree, list):
+        for i, t in enumerate(tree):
+            tree[i] = _upcast_(t)
+        return tree
+    return tree.float()
+
+
+def _one_rank_serve(cfg, prompts, max_new: int, slice_layers: int) -> dict:
     """The one-rank serve on the card (seed-0 weights) in bf16: the
     generations, every step's logits and top-2 margins; the same weights
     upcast to float32 and fed the bf16 generations — the witness of how far
     bf16's own rounding moves the logits; and the float32 slice's greedy
     generations and logits."""
-    from repro_torch.core import tree
     from repro_torch.models import transformer as tf
 
     toks = torch.as_tensor(prompts, device="cuda")
     params = tf.init_params(cfg, seed=0, device="cuda")
     out = {}
     out["gen"], out["bfloat16"] = _greedy(cfg, params, toks, max_new)
-    params = tree.map(lambda t: t.float(), params)
+    params = _upcast_(params)
     torch.cuda.empty_cache()
     out["float32"] = _forced(dataclasses.replace(cfg, dtype="float32"), params, toks,
                              out["gen"])
     del params
     torch.cuda.empty_cache()
-    sl = _f32_slice(cfg)
+    sl = _f32_slice(cfg, slice_layers)
     out["slice_gen"], out["slice"] = _greedy(sl, tf.init_params(sl, seed=0, device="cuda"),
                                              toks, max_new)
     torch.cuda.empty_cache()
@@ -3822,50 +3966,131 @@ def _one_rank_serve(cfg, prompts, max_new: int) -> dict:
     return out
 
 
-def _f32_slice(cfg):
-    return dataclasses.replace(cfg, n_layers=MESH_SLICE_LAYERS, dtype="float32")
+def _f32_slice(cfg, layers: int):
+    return dataclasses.replace(cfg, n_layers=layers * len(cfg.block_pattern), dtype="float32")
 
 
-def mesh_serve_rank(rank: int, world: int, one: dict) -> dict:
-    """One gloo rank of phase 31(c): llama-7b at full size (bf16) served on
-    ``MESH_SERVE["mesh"]``: the weights placed by ``param_shardings`` (the
-    ranks take turns making them); the serve loop fed the one-rank
-    generations, every step's logits held against the one-rank bf16 and
-    float32 runs (``one``, from ``_one_rank_serve``); ``serve(mesh=)``;
-    then the float32 slice fed its one-rank generations."""
+def _serve_cfg(spec: dict):
+    """The cell's config: its architecture, at ``layers`` where given."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    return cfg if spec["layers"] is None else dataclasses.replace(cfg, n_layers=spec["layers"])
+
+
+def _serve_policy(cfg, spec: dict, mesh):
+    """The cell's policy on ``mesh``: manual where the cell says, else the
+    plan of its prefill (what ``serve(mesh=)`` plans)."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.models.policy import manual_policy
+
+    if spec["policy"] is not None:
+        return manual_policy(spec["policy"])
+    return program_for(cfg, ShapeConfig("serve", "prefill", spec["prompt_len"], spec["b"])
+                       ).compile(mesh_axes=dict(mesh.sizes), device=str(mesh.device)).policy()
+
+
+def _rank_bytes(cfg, policy, mesh) -> int:
+    """Bytes of one rank's blocks of the weights under ``policy``, from
+    ``param_specs`` alone (nothing allocated)."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tf
+
+    sizes = dict(mesh.sizes)
+    total = 0
+    for t, spec in zip(tree.leaves(tf.init_params(cfg, device="meta")),
+                       _spec_leaves(tf.param_specs(cfg, policy, mesh))):
+        n = t.numel() * t.element_size()
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n //= sizes[a]
+        total += n
+    return total
+
+
+def _spec_leaves(tree) -> list:
+    """The leaves of a tree whose leaves are spec tuples, in ``tree.leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, list) or (isinstance(tree, tuple) and hasattr(tree, "_fields")):
+        return [x for t in tree for x in _spec_leaves(t)]
+    return [tree]
+
+
+def mesh_serve_rank(rank: int, world: int, spec: dict, one: dict) -> dict:
+    """One gloo rank of a serve cell (phase 31(c), 33(a)-(c)): the cell's
+    architecture at full size (bf16) on its mesh: the weights placed by
+    ``param_shardings`` (the ranks take turns making them, after the
+    per-rank bytes were read off ``param_specs``); the serve loop fed the
+    one-rank generations, every step's logits held against the one-rank
+    bf16 and float32 runs (``one``, from ``_one_rank_serve``);
+    ``serve(mesh=)``; then the float32 slice fed its one-rank generations;
+    with ``own_policy``, ``serve(mesh=)`` under its own plan too."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as tf
-    from repro_torch.models.eingraphs import program_for
 
-    cfg = get_config("llama-7b")
-    b, plen, new = MESH_SERVE["b"], MESH_SERVE["prompt_len"], MESH_SERVE["max_new"]
+    cfg = _serve_cfg(spec)
+    b, plen, new = spec["b"], spec["prompt_len"], spec["max_new"]
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(b, plen)).astype(np.int32)
     toks = torch.as_tensor(prompts, device="cuda:0")
-    mesh = Mesh(MESH_SERVE["mesh"], device="cuda:0")
-    policy = program_for(cfg, ShapeConfig("serve", "prefill", plen, b)).compile(
-        mesh_axes=dict(mesh.sizes), device="cuda:0").policy()
+    mesh = Mesh(spec["mesh"], device="cuda:0")
+    policy = _serve_policy(cfg, spec, mesh)
+    rank_bytes = _rank_bytes(cfg, policy, mesh)
+    assert world * rank_bytes <= MESH_BUDGET_BYTES, (spec["arch"], rank_bytes)
     params = tf.init_placed_params(cfg, policy, mesh, seed=0)
     torch.cuda.reset_peak_memory_stats()
+    gmm_shapes = set()
+    kernel_gmm = ops.gmm
+
+    def gmm(x, w, **kw):  # the blocks each expert product runs on
+        gmm_shapes.add((tuple(x.shape), tuple(w.shape)))
+        return kernel_gmm(x, w, **kw)
+
+    ops.gmm = gmm
     ops.reset_launch_counts()
-    got = _forced(cfg, params, toks, one["gen"], policy=policy, mesh=mesh)
-    forced_launches = ops.launch_counts()
+    try:
+        got = _forced(cfg, params, toks, one["gen"], policy=policy, mesh=mesh)
+    finally:
+        ops.gmm = kernel_gmm
+    forced_launches, forced_designs = ops.launch_counts(), ops.design_counts()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     free, stats = serve_mod.serve(cfg, prompts, max_new=new, mesh=mesh, params=params)
-    res = {"gen": free, "param_bytes": stats["param_bytes"],
+    res = {"gen": free, "param_bytes": stats["param_bytes"], "rank_bytes_static": rank_bytes,
            "t_prefill_s": stats["t_prefill_s"], "t_decode_s": stats["t_decode_s"],
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "forced_launches": forced_launches, "serve_launches": ops.launch_counts(),
-           "designs": ops.design_counts(), "policy": dict(stats["policy"])}
+           "forced_launches": forced_launches, "forced_designs": forced_designs,
+           "gmm_shapes": sorted(gmm_shapes), "serve_launches": ops.launch_counts(),
+           "designs": ops.design_counts(),
+           "policy": {l: list(a) for l, a in policy.label_axes.items()},
+           "serve_policy": dict(stats["policy"])}
     del params
     torch.cuda.empty_cache()
-    sl = _f32_slice(cfg)
+    sl = _f32_slice(cfg, spec["slice_layers"])
     got_sl = _forced(sl, tf.init_placed_params(sl, policy, mesh, seed=0), toks,
                      one["slice_gen"], policy=policy, mesh=mesh)
+    torch.cuda.empty_cache()
+    if spec.get("own_policy"):
+        # serve(mesh=)'s own plan: at full depth where its blocks fit
+        own = _serve_policy(cfg, dict(spec, policy=None), mesh)
+        own_bytes = _rank_bytes(cfg, own, mesh)
+        layers = cfg.n_layers
+        while layers > 1 and world * own_bytes * layers / cfg.n_layers > MESH_BUDGET_BYTES:
+            layers -= 1
+        ocfg = dataclasses.replace(cfg, n_layers=layers)
+        ops.reset_launch_counts()
+        own_gen, own_stats = serve_mod.serve(ocfg, prompts, max_new=new, mesh=mesh)
+        res["own"] = {"gen": own_gen, "layers": layers, "rank_bytes_static": own_bytes,
+                      "param_bytes": own_stats["param_bytes"],
+                      "policy": {l: list(a) for l, a in own.label_axes.items()},
+                      "launches": ops.launch_counts(),
+                      "t_prefill_s": own_stats["t_prefill_s"],
+                      "t_decode_s": own_stats["t_decode_s"]}
+        torch.cuda.empty_cache()
 
     def per_step(got, want):
         return (got - want).abs().amax(dim=(0, 2)).tolist()
@@ -3880,22 +4105,35 @@ def mesh_serve_rank(rank: int, world: int, one: dict) -> dict:
 MESH_SERVE_TOL = 2e-2
 
 
-def _mesh_serve() -> dict:
-    from repro_torch.configs import get_config
+def _diverged(gen, want, margins) -> list:
+    """Each row's first token that differs from the one-rank run, with the
+    one-rank top-2 margin behind it (its step is that margin's column)."""
+    out = []
+    for row in range(gen.shape[0]):
+        cols = np.nonzero(gen[row] != want[row])[0]
+        if len(cols):
+            c = int(cols[0])
+            out.append({"row": row, "step": c, "margin": float(margins[row, c]),
+                        "got": int(gen[row, c]), "want": int(want[row, c])})
+    return out
+
+
+def _mesh_serve(spec: dict = MESH_SERVE) -> dict:
     from repro_torch.launch.mesh import spawn
 
-    cfg = get_config("llama-7b")
-    b, plen, new = MESH_SERVE["b"], MESH_SERVE["prompt_len"], MESH_SERVE["max_new"]
+    cfg = _serve_cfg(spec)
+    b, plen, new = spec["b"], spec["prompt_len"], spec["max_new"]
+    world = math.prod(spec["mesh"].values())
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(b, plen)).astype(np.int32)
     # the one-rank reference first, so it and the ranks never hold the card at once
     t0 = time.perf_counter()
-    one = _one_rank_serve(cfg, prompts, new)
+    one = _one_rank_serve(cfg, prompts, new, spec["slice_layers"])
     t_one = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ranks = spawn(4, mesh_serve_rank, {k: one[k] for k in (
+        ranks = spawn(world, mesh_serve_rank, spec, {k: one[k] for k in (
             "gen", "bfloat16", "float32", "slice_gen", "slice")},
             tmpdir=tmp, backend="gloo", timeout=900)
         t_spawn = time.perf_counter() - t0
@@ -3908,79 +4146,310 @@ def _mesh_serve() -> dict:
     r0 = ranks[0]
     total = sum(r["param_bytes"] for r in ranks)
     gen, want = r0["gen"], one["gen"]
-    diverged = []
-    for row in range(b):
-        cols = np.nonzero(gen[row] != want[row])[0]
-        if len(cols):
-            c = int(cols[0])  # margin of the one-rank logits behind that token
-            diverged.append({"row": row, "step": c, "margin": float(one["margins"][row, c]),
-                             "got": int(gen[row, c]), "want": int(want[row, c])})
+    diverged = _diverged(gen, want, one["margins"])
     mesh_bf16 = rel(r0["diff_bf16"], one["bfloat16"])
     mesh_f32 = rel(r0["diff_f32"], one["float32"])
     mesh_slice = rel(r0["diff_slice"], one["slice"])
     scale = float(one["bfloat16"][:, 0].abs().max())
+    attn = sum(1 for blk in cfg.blocks() if blk in ("attn", "hymba"))
+    gmm_step = 3 * cfg.n_layers if cfg.moe else 0
+    flash = r0["forced_designs"]["flash_attention"]
     fmt = lambda xs: "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"  # noqa: E731
-    log("mesh-serve", f"llama-7b bf16, 32 layers, b={b}, prompt {plen}, {new} new on 4 gloo "
-                      f"ranks sharing the card, mesh {MESH_SERVE['mesh']}, policy "
-                      f"{r0['policy']}: weight bytes a rank "
-                      f"{[r['param_bytes'] for r in ranks]} (total {total}); peak "
-                      f"{[r['peak_bytes'] for r in ranks]} B a rank; fed the one-rank "
+    log("mesh-serve", f"{spec['arch']} bf16, {cfg.n_layers} layers, b={b}, prompt {plen}, "
+                      f"{new} new on {world} gloo ranks sharing the card, mesh "
+                      f"{spec['mesh']}, policy {r0['policy']}: weight bytes a rank "
+                      f"{[r['param_bytes'] for r in ranks]} (total {total}; "
+                      f"{r0['rank_bytes_static']} a rank from param_specs before placing); "
+                      f"peak {[r['peak_bytes'] for r in ranks]} B a rank; fed the one-rank "
                       f"tokens, each of the {new} steps' max|diff| / max|logit|: mesh - one "
                       f"rank {fmt(mesh_bf16)} (first step limit {MESH_SERVE_TOL}); the noise "
                       f"floor, one rank bf16 - the same weights in f32 {fmt(floor)}; mesh - "
-                      f"f32 {fmt(mesh_f32)}; the f32 slice ({MESH_SLICE_LAYERS} layers), "
-                      f"mesh - one rank {fmt(mesh_slice)} (limit {MESH_F32_TOL}); "
+                      f"f32 {fmt(mesh_f32)}; the f32 slice ({spec['slice_layers']} pattern "
+                      f"periods), mesh - one rank {fmt(mesh_slice)} (limit {MESH_F32_TOL}); "
                       f"serve(mesh=) tokens equal {int((gen == want).sum())} of {gen.size}, "
                       f"first divergences {diverged or 'none'}; prefill walls "
                       f"{[round(r['t_prefill_s'], 2) for r in ranks]} s, decode walls "
                       f"{[round(r['t_decode_s'], 2) for r in ranks]} s ({new - 1} steps; "
-                      f"host-staged gloo, not a speed path); flash launches a rank "
-                      f"{r0['serve_launches']['flash_attention']} by design "
-                      f"{r0['designs']['flash_attention']}; one-rank runs "
-                      f"{t_one:.1f} s, ranks {t_spawn:.1f} s")
+                      f"host-staged gloo, not a speed path); the forced run's launches a "
+                      f"rank {r0['forced_launches']} (flash by design {flash}; gmm blocks "
+                      f"{r0['gmm_shapes']}); one-rank runs {t_one:.1f} s, ranks "
+                      f"{t_spawn:.1f} s")
     for rank, r in enumerate(ranks):
         for what in ("diff_bf16", "diff_f32", "diff_slice"):  # every rank the same logits
             assert r[what] == r0[what], (rank, what)
         assert (r["gen"] == r0["gen"]).all(), rank  # every rank the same tokens
-        assert r["forced_launches"]["flash_attention"] == cfg.n_layers, r["forced_launches"]
-        assert r["designs"]["flash_attention"]["template"] == 0, r["designs"]
-        assert r["param_bytes"] < 0.3 * total, (rank, r["param_bytes"], total)
-    if not r0["diff_bf16"][0] <= MESH_SERVE_TOL * scale:
-        raise AssertionError(f"mesh serve: first-step logits differ by "
-                             f"{r0['diff_bf16'][0]:.3e} > {MESH_SERVE_TOL} x max|logit| "
-                             f"{scale:.3f}")
-    # later steps: the mesh may differ from the one-rank bf16 run by as much
-    # as two bf16 runs each as far from the float32 run as the one-rank is
+        fl = r["forced_launches"]
+        assert fl["flash_attention"] == attn, fl  # one a layer, in the prefill
+        assert fl["gmm"] == gmm_step * new, fl  # the prefill and every decode step
+        for kernel in ("flash_attention", "gmm"):  # bf16: all of the wgmma design
+            assert r["forced_designs"][kernel]["wgmma"] == fl[kernel], r["forced_designs"]
+        assert r["param_bytes"] == r["rank_bytes_static"], (rank, r["param_bytes"])
+        if spec["max_share"] is not None:  # each rank holds a share of the weights
+            assert r["param_bytes"] < spec["max_share"] * total, (rank, r["param_bytes"], total)
+    if cfg.moe:  # each rank's expert block: E/r experts
+        e_axes = ([r0["policy"]["e"]] if isinstance(r0["policy"].get("e"), str)
+                  else r0["policy"].get("e", []))
+        r_e = math.prod(spec["mesh"][a] for a in e_axes)
+        assert r0["gmm_shapes"] and all(x[0] == w[0] == cfg.n_e // r_e
+                                        for x, w in r0["gmm_shapes"]), r0["gmm_shapes"]
     floor_abs = (one["bfloat16"] - one["float32"]).abs().amax(dim=(0, 2)).tolist()
     scales = one["bfloat16"].abs().amax(dim=(0, 2)).tolist()
-    for i, (d, f, sc) in enumerate(zip(r0["diff_bf16"], floor_abs, scales)):
-        if not d <= max(MESH_SERVE_TOL * sc, 2 * f):
-            raise AssertionError(f"mesh serve: step {i}'s logits differ by {d:.3e}, over "
-                                 f"{MESH_SERVE_TOL} x max|logit| {sc:.3f} and twice the "
-                                 f"bf16 noise floor {f:.3e}")
+    if spec["floor_first"]:  # against the float32 run, over all steps
+        flip = max(MESH_SERVE_TOL * scale, 2 * max(floor_abs))
+        if not max(r0["diff_f32"]) <= 2 * max(floor_abs):
+            raise AssertionError(f"mesh serve: max|mesh - f32| {max(r0['diff_f32']):.3e} over "
+                                 f"twice the one-rank bf16 run's {max(floor_abs):.3e}")
+    else:
+        flip = MESH_SERVE_TOL * scale
+        if not r0["diff_bf16"][0] <= MESH_SERVE_TOL * scale:
+            raise AssertionError(f"mesh serve: first-step logits differ by "
+                                 f"{r0['diff_bf16'][0]:.3e} > {MESH_SERVE_TOL} x max|logit| "
+                                 f"{scale:.3f}")
+        # later steps: the mesh may differ from the one-rank bf16 run by as
+        # much as two bf16 runs each as far from the float32 run as the
+        # one-rank is
+        for i, (d, f, sc) in enumerate(zip(r0["diff_bf16"], floor_abs, scales)):
+            if not d <= max(MESH_SERVE_TOL * sc, 2 * f):
+                raise AssertionError(f"mesh serve: step {i}'s logits differ by {d:.3e}, "
+                                     f"over {MESH_SERVE_TOL} x max|logit| {sc:.3f} and "
+                                     f"twice the bf16 noise floor {f:.3e}")
     if not max(mesh_slice) <= MESH_F32_TOL:
         raise AssertionError(f"mesh serve: the f32 slice's logits differ by {fmt(mesh_slice)} "
                              f"x max|logit| > {MESH_F32_TOL}")
     for d in diverged:  # a flip is a bf16 near tie, or a fault
-        assert d["margin"] <= MESH_SERVE_TOL * scale, (d, scale)
-    return {"mesh": MESH_SERVE["mesh"], "policy": r0["policy"],
-            "param_bytes": [r["param_bytes"] for r in ranks], "param_bytes_total": total,
-            "peak_bytes": [r["peak_bytes"] for r in ranks], "max_abs_logit": scale,
-            "rel_mesh_one_rank": mesh_bf16, "rel_mesh_f32": mesh_f32,
-            "rel_noise_floor": floor, "rel_slice": mesh_slice, "tol_rel": MESH_SERVE_TOL,
-            "tol_slice": MESH_F32_TOL,
-            "tokens_equal": int((gen == want).sum()), "tokens": int(gen.size),
-            "diverged": diverged, "t_prefill_s": [r["t_prefill_s"] for r in ranks],
-            "t_decode_s": [r["t_decode_s"] for r in ranks],
-            "flash_launches": r0["serve_launches"]["flash_attention"],
-            "flash_designs": r0["designs"]["flash_attention"],
-            "t_one_rank_s": t_one, "spawn_s": t_spawn}
+        assert d["margin"] <= flip, (d, flip)
+    out = {"arch": spec["arch"], "mesh": spec["mesh"], "policy": r0["policy"],
+           "param_bytes": [r["param_bytes"] for r in ranks], "param_bytes_total": total,
+           "rank_bytes_static": r0["rank_bytes_static"],
+           "peak_bytes": [r["peak_bytes"] for r in ranks], "max_abs_logit": scale,
+           "rel_mesh_one_rank": mesh_bf16, "rel_mesh_f32": mesh_f32,
+           "rel_noise_floor": floor, "rel_slice": mesh_slice, "tol_rel": MESH_SERVE_TOL,
+           "tol_slice": MESH_F32_TOL,
+           "tokens_equal": int((gen == want).sum()), "tokens": int(gen.size),
+           "diverged": diverged, "t_prefill_s": [r["t_prefill_s"] for r in ranks],
+           "t_decode_s": [r["t_decode_s"] for r in ranks],
+           "flash_launches": r0["serve_launches"]["flash_attention"],
+           "flash_designs": r0["designs"]["flash_attention"],
+           "forced_launches": r0["forced_launches"], "forced_designs": r0["forced_designs"],
+           "gmm_shapes": r0["gmm_shapes"],
+           "t_one_rank_s": t_one, "spawn_s": t_spawn}
+    if "own" in r0:
+        own = r0["own"]
+        assert all((r["own"]["gen"] == own["gen"]).all() for r in ranks)
+        out["own"] = {k: v for k, v in own.items() if k != "gen"}
+        msg = f"{own['layers']} of {cfg.n_layers} layers"
+        if own["layers"] == cfg.n_layers:  # the same model: held as above
+            own_div = _diverged(own["gen"], want, one["margins"])
+            for d in own_div:
+                assert d["margin"] <= flip, (d, flip)
+            out["own"].update(tokens_equal=int((own["gen"] == want).sum()), diverged=own_div)
+            msg += (f"; tokens equal {out['own']['tokens_equal']} of {gen.size}, first "
+                    f"divergences {own_div or 'none'}")
+        else:
+            msg += (f" (cut: {cfg.n_layers} would need "
+                    f"{world * own['rank_bytes_static']} B of blocks, over "
+                    f"{MESH_BUDGET_BYTES:.0f}); finite generations only")
+        log("mesh-serve", f"{spec['arch']} under serve(mesh=)'s own plan {own['policy']}: "
+                          f"{msg}; weight bytes a rank {own['param_bytes']} "
+                          f"({own['rank_bytes_static']} from param_specs); launches a rank "
+                          f"{own['launches']}; prefill {own['t_prefill_s']:.2f} s, decode "
+                          f"{own['t_decode_s']:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 33. the MoE, hymba and xLSTM blocks on a mesh
+# ---------------------------------------------------------------------------
+
+
+def gspmd_a2a_rank(rank: int, world: int) -> dict:
+    """One gloo rank of phase 33(e): qwen2-moe's prefill graph (one block
+    period, b=4, s=512) with the MoE stubs, the experts on the 4-way
+    ``model`` axis in the expert half (phase 16's plan), through
+    ``executor="gspmd"`` — the a2a nodes lowered through their rule — in
+    both dtypes, against the shard_map run of the same plan and the dense
+    run; the collectives DTensor and the rule issued beside shard_map's
+    static trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import spmd
+    from repro_torch.core.gspmd import comm_summary
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+    from repro_torch.models.opaque_stubs import capacity_of, make_stub_opaques
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-moe-a2.7b")
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    g = prog.graph
+    make_stub_opaques(capacity_of(g))
+    mesh = Mesh({"data": 1, "model": world}, device="cuda:0")
+    plan = _expert_parallel_plan(g, "model", world)
+    run = prog.compile(mesh=mesh, executor="gspmd", plan=plan)
+    sm = prog.compile(mesh=mesh, executor="shard_map", plan=plan)
+    dense = prog.compile(device="cuda:0")
+    a2a = {n.nid for n in g.nodes if n.kind == "opaque"
+           and n.op in ("moe_dispatch", "moe_combine")}
+    events = sm._fn.schedule.trace.events
+    res = {"n_mm": sum(1 for n in g.nodes if n.kind == "einsum" and spmd._as_matmul(n.spec)),
+           "a2a_nodes": sorted(a2a),
+           "static_rule": sorted((e.nid, e.kind, e.elems) for e in events
+                                 if e.nid in a2a and e.rule == "a2a"),
+           "static_other": sorted((e.kind, e.elems) for e in events
+                                  if not (e.nid in a2a and e.rule == "a2a"))}
+    for name in RING_DTYPES:
+        feeds = _graph_feeds(g, cfg, getattr(torch, name), seed=7)
+        with torch.no_grad():
+            run(feeds)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            run._fn.log_comms = True
+            t0 = time.perf_counter()
+            got = run(feeds)["logits"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run._fn.log_comms = False
+            out = {"launches": ops.launch_counts(), "designs": ops.design_counts(),
+                   "wall_s": wall, "comms": comm_summary(run._fn.comms),
+                   "issued": sorted((e[0], e[1], e[3]) for e in run._fn.issued),
+                   "shape": list(got.shape), "finite": bool(torch.isfinite(got).all())}
+            got = got.float()
+            want = dense(feeds)["logits"].float()
+            out["max_abs_logit"] = float(want.abs().max())
+            out["diff_dense"] = float((got - want).abs().max())
+            del want
+            out["diff_shard_map"] = float((got - sm(feeds)["logits"].float()).abs().max())
+        res[name] = out
+        del feeds, got
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gspmd_a2a() -> dict:
+    """Phase 33(e): the a2a rule under the DTensor executor on 4 ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(A2A_RANKS, gspmd_a2a_rank, tmpdir=tmp, backend="gloo", timeout=600)
+        t_spawn = time.perf_counter() - t0
+    r0, out = ranks[0], {"spawn_s": t_spawn}
+    for name in RING_DTYPES:
+        design = "wgmma" if name == "bfloat16" else "ffma"
+        per_rank = [r[name] for r in ranks]
+        for rank, r in enumerate(per_rank):
+            assert r["launches"] == {"flash_attention": 1, "flash_attention_step": 0,
+                                     "matmul": r0["n_mm"], "gmm": 0}, (rank, r["launches"])
+            for kernel in ("flash_attention", "matmul"):
+                assert r["designs"][kernel][design] == r["launches"][kernel], r["designs"]
+            assert r["finite"] and r["shape"][:2] == [4, 512], r
+            tol = GSPMD_TOL[name] * r["max_abs_logit"]
+            for what in ("diff_dense", "diff_shard_map"):
+                if not r[what] <= tol:
+                    raise AssertionError(f"gspmd a2a {name} rank {rank}: {what} {r[what]:.3e} "
+                                         f"> {GSPMD_TOL[name]} x max|logit| "
+                                         f"{r['max_abs_logit']:.3f}")
+            # the rule's collectives: the static trace's, node by node
+            assert r["issued"] == ranks[rank]["static_rule"], (rank, r["issued"])
+            for nid in r0["a2a_nodes"]:
+                kinds = [k for n, k, _ in r["issued"] if n == nid]
+                assert kinds == ["all_gather", "all_to_all", "all_to_all"], (nid, kinds)
+            # DTensor's: all-gathers whose blocks, ring-priced over the 4-way
+            # axis (n_dev x (k - 1) x a block), are the static trace's elements
+            # (the trace prices the graph's float32 nodes; bf16 runs half the bytes)
+            ag = r["comms"].get("all_gather", {"count": 0, "bytes": 0})
+            item = torch.finfo(getattr(torch, name)).bits // 8
+            assert set(r["comms"]) <= {"all_gather"}, r["comms"]
+            assert {k for k, _ in r0["static_other"]} <= {"all_gather"}, r0["static_other"]
+            assert ag["count"] == len(r0["static_other"]), (ag, r0["static_other"])
+            assert ag["bytes"] // item * A2A_RANKS * (A2A_RANKS - 1) == sum(
+                n for _, n in r0["static_other"]), (ag, r0["static_other"])
+        r = per_rank[0]
+        log("gspmd-a2a", f"{name}: qwen2-moe prefill graph (b=4, s=512, one block period, "
+                         f"MoE stubs) on {A2A_RANKS} gloo ranks sharing the card, the "
+                         f"experts on the 4-way model axis (phase 16's plan), "
+                         f"executor='gspmd': launches per rank {r['launches']} by design "
+                         f"{r['designs']['matmul']} (matmul); max|gspmd - dense| "
+                         f"{max(x['diff_dense'] for x in per_rank):.3e}, max|gspmd - "
+                         f"shard_map| {max(x['diff_shard_map'] for x in per_rank):.3e} "
+                         f"(max|logit| {r['max_abs_logit']:.3f}, tol {GSPMD_TOL[name]} x "
+                         f"that); the a2a rule issued {len(r['issued'])} collectives on "
+                         f"{len(r0['a2a_nodes'])} nodes, equal to the static trace's "
+                         f"{r0['static_rule']}; DTensor issued {r['comms']} (ring-priced "
+                         f"equal to the static trace's elements {r0['static_other']}); rank "
+                         f"walls "
+                         f"{[round(x['wall_s'], 3) for x in per_rank]} s (host-staged gloo, "
+                         f"not a speed path)")
+        out[name] = {"launches_per_rank": [x["launches"] for x in per_rank],
+                     "designs_per_rank": [x["designs"] for x in per_rank],
+                     "comms_per_rank": r["comms"], "issued": r["issued"],
+                     "static_rule": r0["static_rule"], "static_other": r0["static_other"],
+                     "max_abs_logit": r["max_abs_logit"],
+                     "max_diff_dense": max(x["diff_dense"] for x in per_rank),
+                     "max_diff_shard_map": max(x["diff_shard_map"] for x in per_rank),
+                     "tol_rel": GSPMD_TOL[name], "wall_s": [x["wall_s"] for x in per_rank]}
+    return out
+
+
+def _mesh_blocks_launches(blocks: dict) -> dict:
+    """Per kernel, phase 33's launches a rank by design: each serve cell's
+    forced run (the prefill and every decode step), each train cell's step,
+    the gspmd a2a call in each dtype."""
+    out = {k: {} for k in ("flash_attention", "matmul", "gmm")}
+    for name, r in blocks["serve"].items():
+        for k in ("flash_attention", "gmm"):
+            if r["forced_launches"][k]:
+                out[k][f"serve/{name}"] = {"launches": r["forced_launches"][k],
+                                           "design": r["forced_designs"][k]}
+    for cell, r in blocks["train"].items():
+        for k in out:
+            if r["launches_per_rank"][0][k]:
+                out[k][f"train/{cell}"] = {"launches": r["launches_per_rank"][0][k],
+                                           "design": r["designs_per_rank"][0][k]}
+    for dt in RING_DTYPES:
+        r = blocks["gspmd_a2a"][dt]
+        out["matmul"][f"gspmd_a2a/{dt}"] = {"launches": r["launches_per_rank"][0]["matmul"],
+                                            "design": r["designs_per_rank"][0]["matmul"]}
+    return out
+
+
+def _block_mesh_phase(ops) -> dict:
+    """Phase 33 (a)-(e): qwen2-moe, hymba and xlstm served at full size on
+    meshes of gloo ranks sharing the card, their 2-layer float32 train
+    steps on 2 ranks, and the a2a rule under the gspmd executor.  qwen2-moe
+    is served alone (its float32 witness takes 61 GB of the card); the
+    train steps' ranks then run beside hymba's and xlstm's serves (for the
+    run's time limit; the qwen2-moe steps, the largest, last), and the
+    executor after them."""
+    out = {"serve": {}}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        train = None
+        for name, spec in BLOCK_SERVES.items():
+            t0 = time.perf_counter()
+            out["serve"][name] = _mesh_serve(spec)
+            out["serve"][name]["phase_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            if train is None:
+                train = pool.submit(_mesh_train, BLOCK_TRAIN_CELLS)
+        out["train"] = train.result()
+    out["gspmd_a2a"] = _gspmd_a2a()  # alone: its ranks beside qwen2-moe's cells do not fit
+    return out
 
 
 def _mesh_phase(ops) -> dict:
     """Phase 31: (a) the gspmd executor, (b) the sharded train step, (c)
-    llama-7b served on a mesh — gloo ranks sharing the card."""
-    return {"gspmd": _gspmd_executor(ops), "train": _mesh_train(), "serve": _mesh_serve()}
+    llama-7b served on a mesh — gloo ranks sharing the card; (b) and (c)
+    side by side since PR 25 (for the run's time limit; 50 GB at most
+    between them), so their walls are taken beside each other's."""
+    out = {"gspmd": _gspmd_executor(ops)}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        train = pool.submit(_mesh_train)
+        out["serve"] = _mesh_serve()
+        out["train"] = train.result()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3988,57 +4457,19 @@ def _mesh_phase(ops) -> dict:
 # ---------------------------------------------------------------------------
 
 # llama-7b's cells run by the CLI with no card visible: (shape, multi_pod)
-DRYRUN_CELLS = [("train_4k", False), ("prefill_32k", False), ("decode_32k", False),
-                ("decode_32k", True)]
+DRYRUN_CELLS = [("llama-7b", "train_4k", False), ("llama-7b", "prefill_32k", False),
+                ("llama-7b", "decode_32k", False), ("llama-7b", "decode_32k", True)]
 DRYRUN_PEAK_TOL = 0.05  # abstract peak against the allocator's, relative
 
 
-def _dryrun_cli() -> dict:
+def _dryrun_cli(started: list) -> dict:
     """Phase 32(a): ``python -m repro_torch.launch.dryrun`` for llama-7b's
-    cells, one subprocess each, all started together, with
-    ``CUDA_VISIBLE_DEVICES`` empty; every record says CUDA was never
-    initialised."""
+    cells, one subprocess each, all started together before phase 29 (they
+    need no card), with ``CUDA_VISIBLE_DEVICES`` empty; every record says
+    CUDA was never initialised."""
     from repro_torch.launch import dryrun
 
-    out = ROOT / "chiprun_out" / "dryrun_torch"
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
-
-    def run(cell):
-        shape, multi_pod = cell
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama-7b",
-               "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"dryrun {cell}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
-        return proc.stdout, time.perf_counter() - t0
-
-    with ThreadPoolExecutor(max_workers=len(DRYRUN_CELLS)) as pool:
-        runs = list(pool.map(run, DRYRUN_CELLS))
-    res = {}
-    for (shape, multi_pod), (stdout, wall) in zip(DRYRUN_CELLS, runs):
-        mesh = "2x16x16" if multi_pod else "16x16"
-        rec = json.loads((out / f"llama-7b__{shape}__{mesh}.json").read_text())
-        assert stdout.startswith("OK") and rec["ok"], stdout
-        assert rec["cuda_initialized"] is False, rec
-        r = rec["roofline"]
-        calls = {k: {d: n for d, n in v.items() if n} for k, v in rec["kernel_calls"].items()
-                 if sum(v.values())}
-        log("dryrun", f"llama-7b {shape} on {mesh} ({rec['chips']} fake ranks, no card "
-                      f"visible, CUDA never initialised): {rec['memory']['per_device_gb']:.3f} "
-                      f"GB a card (fits 80 GB: {rec['fits_80gb']}), t_compute "
-                      f"{r['t_compute_s']:.4e} s, t_memory {r['t_memory_s']:.4e} s, "
-                      f"t_collective {r['t_collective_s']:.4e} s, bottleneck "
-                      f"{rec['bottleneck']}; kernel calls a rank by design {calls}; the "
-                      f"run {rec['total_s']} s, the subprocess {wall:.1f} s")
-        res[f"{shape}/{mesh}"] = {
-            "per_device_gb": rec["memory"]["per_device_gb"], "fits_80gb": rec["fits_80gb"],
-            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
-            "t_collective_s": r["t_collective_s"], "bottleneck": rec["bottleneck"],
-            "kernel_calls": rec["kernel_calls"], "run_s": rec["total_s"], "wall_s": wall,
-            "collective_counts": r["collective_counts"]}
+    res = _dryrun_collect(started)
     total = torch.cuda.get_device_properties(0).total_memory
     log("dryrun", f"the card's memory: {total} B (dryrun.HBM_BYTES {dryrun.HBM_BYTES})")
     assert total == dryrun.HBM_BYTES, (total, dryrun.HBM_BYTES)
@@ -4129,40 +4560,40 @@ def _dryrun_against_real(ops) -> dict:
     return res
 
 
-def _dryrun_collectives(mesh_train: dict) -> dict:
-    """Phase 32(c): phase 31(b)'s train step on a fake 2-rank group (meta
-    blocks) against its 2 gloo ranks on the card, on {data: 2} and on
-    {model: 2}: each collective kind's count and bytes equal to what the
-    ranks issued, and the abstract peak within DRYRUN_PEAK_TOL of each
-    rank's allocator peak of the step."""
+def _dryrun_collectives(mesh_train: dict, cells: dict = MESH_TRAIN_CELLS) -> dict:
+    """Phase 32(c) (and 33(f)): a train cell of phase 31(b) (33(d)) on a
+    fake 2-rank group (meta blocks) against its 2 gloo ranks on the card:
+    each collective kind's count and bytes equal to what the ranks issued,
+    and the abstract peak within DRYRUN_PEAK_TOL of each rank's allocator
+    peak of the step."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
 
-    cfg = _mesh_train_cfg()
     res = {}
     try:
-        for mesh_id, (sizes, plan_of) in MESH_TRAIN_MESHES.items():
+        for cell, (arch, sizes, plan_of) in cells.items():
+            cfg = _mesh_train_cfg(arch)
             mesh = dryrun.abstract_mesh(tuple(sizes.values()), tuple(sizes))
             policy = _mesh_train_policy(cfg, dict(sizes), plan_of)
             costs, _, _ = dryrun.run_abstract(cfg, ShapeConfig("t", "train", 128, 2), mesh,
                                               policy_override=policy)
             got = costs["collectives"].summary()
-            want = mesh_train[mesh_id]["collectives"]
-            peak, real = costs["memory"]["peak"], mesh_train[mesh_id]["step_peak_bytes"]
+            want = mesh_train[cell]["collectives"]
+            peak, real = costs["memory"]["peak"], mesh_train[cell]["step_peak_bytes"]
             ratios = [peak / r for r in real]
-            log("dryrun", f"{mesh_id}: phase 31(b)'s train step on a fake 2-rank group "
-                          f"issues {got}; its gloo ranks on the card issued {want}; peak "
-                          f"abstract {peak} B, the ranks' allocator {real} B (ratios "
-                          f"{[round(x, 5) for x in ratios]}, limit {DRYRUN_PEAK_TOL})")
+            log("dryrun", f"{cell}: the {arch} train step of phase 31(b)/33(d) on a fake "
+                          f"2-rank group issues {got}; its gloo ranks on the card issued "
+                          f"{want}; peak abstract {peak} B, the ranks' allocator {real} B "
+                          f"(ratios {[round(x, 5) for x in ratios]}, limit {DRYRUN_PEAK_TOL})")
             for kind in set(got) | set(want):
                 for key in ("count", "bytes"):
-                    assert got[kind][key] == want[kind][key], (mesh_id, kind, got, want)
-            assert got, mesh_id
-            assert all(abs(x - 1) <= DRYRUN_PEAK_TOL for x in ratios), (mesh_id, peak, real)
-            res[mesh_id] = {"abstract": got, "real": want, "abstract_peak": peak,
-                            "allocator_peak": real, "ratios": ratios}
+                    assert got[kind][key] == want[kind][key], (cell, kind, got, want)
+            assert got, cell
+            assert all(abs(x - 1) <= DRYRUN_PEAK_TOL for x in ratios), (cell, peak, real)
+            res[cell] = {"abstract": got, "real": want, "abstract_peak": peak,
+                         "allocator_peak": real, "ratios": ratios}
     finally:
         dryrun._MESHES.clear()
         if dist.is_initialized():
@@ -4170,11 +4601,99 @@ def _dryrun_collectives(mesh_train: dict) -> dict:
     return res
 
 
-def _dryrun_phase(ops, results: dict) -> dict:
-    """Phase 32: (a) the CLI on the production mesh with no card visible,
-    (b) abstract against real on one rank, (c) the collectives against
-    phase 31(b)'s gloo ranks."""
-    return {"cli": _dryrun_cli(), "one_rank": _dryrun_against_real(ops),
+# phase 33(f): the new blocks' cells run by the CLI with no card visible,
+# started with phase 32(a)'s before phase 29 and read in phase 33
+DRYRUN_BLOCK_CELLS = [("qwen2-moe-a2.7b", "decode_32k", False),
+                      ("hymba-1.5b", "prefill_32k", False), ("xlstm-125m", "train_4k", False)]
+
+
+def _dryrun_env() -> dict:
+    return dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"),
+                OMP_NUM_THREADS="1")
+
+
+def _dryrun_record(arch: str, shape: str, mesh: str, stdout: str, wall: float) -> dict:
+    """Phase 32(a)'s checks and line for one CLI run's record."""
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+    assert stdout.startswith("OK") and rec["ok"], stdout
+    assert rec["cuda_initialized"] is False, rec
+    r = rec["roofline"]
+    calls = {k: {d: n for d, n in v.items() if n} for k, v in rec["kernel_calls"].items()
+             if sum(v.values())}
+    trips = (f"; trip counted at lengths {rec['trip_counted']['lengths']}"
+             if "trip_counted" in rec else "")
+    log("dryrun", f"{arch} {shape} on {mesh} ({rec['chips']} fake ranks, no card "
+                  f"visible, CUDA never initialised): {rec['memory']['per_device_gb']:.3f} "
+                  f"GB a card (fits 80 GB: {rec['fits_80gb']}), t_compute "
+                  f"{r['t_compute_s']:.4e} s, t_memory {r['t_memory_s']:.4e} s, "
+                  f"t_collective {r['t_collective_s']:.4e} s, bottleneck "
+                  f"{rec['bottleneck']}; kernel calls a rank by design {calls}{trips}; the "
+                  f"run {rec['total_s']} s, the subprocess {wall:.1f} s")
+    return {"per_device_gb": rec["memory"]["per_device_gb"], "fits_80gb": rec["fits_80gb"],
+            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+            "t_collective_s": r["t_collective_s"], "bottleneck": rec["bottleneck"],
+            "kernel_calls": rec["kernel_calls"], "run_s": rec["total_s"], "wall_s": wall,
+            "collective_counts": r["collective_counts"],
+            "trip_counted": rec.get("trip_counted")}
+
+
+def _dryrun_start(cells: list) -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for each (arch, shape,
+    multi_pod), with no card visible: [(cell, process, start, log path)]."""
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, multi_pod in cells:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        path = out / f"{arch}__{shape}__{mesh}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+        with open(path, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                    env=_dryrun_env(), cwd=ROOT)
+        atexit.register(lambda p=proc: p.poll() is None and (p.kill(), p.wait()))
+        procs.append(((arch, shape, mesh), proc, time.perf_counter(), path))
+    return procs
+
+
+def _dryrun_collect(started: list) -> dict:
+    """Wait for each started cell, check and log its record (32(a)):
+    {"arch/shape/mesh": summary}.  A cell still running after 900 s, or any
+    left when one fails, is killed."""
+    res = {}
+    try:
+        for (arch, shape, mesh), proc, t0, path in started:
+            rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
+            text = path.read_text()
+            if rc != 0:
+                raise AssertionError(f"dryrun {arch} {shape} {mesh}: exit {rc}\n{text[-4000:]}")
+            line = [ln for ln in text.splitlines() if ln.startswith("OK")][-1]
+            res[f"{arch}/{shape}/{mesh}"] = _dryrun_record(arch, shape, mesh, line,
+                                                           time.perf_counter() - t0)
+    finally:
+        for _, proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+def _dryrun_blocks(started: list, mesh_train: dict) -> dict:
+    """Phase 33(f): the new blocks' CLI cells (started before phase 29),
+    and 33(d)'s MoE step on {model: 2} on a fake 2-rank group against its
+    gloo ranks."""
+    res = _dryrun_collect(started)
+    moe = {"qwen2-moe/model2": BLOCK_TRAIN_CELLS["qwen2-moe/model2"]}
+    res["collectives"] = _dryrun_collectives(mesh_train, moe)
+    return res
+
+
+def _dryrun_phase(ops, results: dict, started: list) -> dict:
+    """Phase 32: (a) the CLI on the production mesh with no card visible
+    (``started`` before phase 29), (b) abstract against real on one rank,
+    (c) the collectives against phase 31(b)'s gloo ranks."""
+    return {"cli": _dryrun_cli(started), "one_rank": _dryrun_against_real(ops),
             "collectives": _dryrun_collectives(results["mesh"]["train"])}
 
 

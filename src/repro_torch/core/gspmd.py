@@ -30,10 +30,15 @@ not hand a whole contraction to ``torch.einsum`` on DTensors: a plan may
 put one label on two mesh axes (llama-7b's ``f`` and ``v`` on ``("data",
 "model")``), and DTensor cannot take such a layout through the views
 ``torch.einsum`` decomposes into.  So every collective the executor issues
-is a redistribution between two placements, chosen by DTensor.  Opaque
-nodes run their kernels on local blocks placed as their shard rule keeps
-them local (flash attention: batch and heads, whole sequence), and an op
-that cannot be placed raises.
+is a redistribution between two placements, chosen by DTensor, but for
+the ``a2a`` rule's.  Opaque nodes run their kernels on local blocks placed
+as their shard rule keeps them local (flash attention: batch and heads,
+whole sequence); the ``a2a`` rule (expert-parallel MoE dispatch and
+combine) runs its own program on its blocks — the sequence split over its
+axes in, the experts out — and issues its collectives (an all-gather of
+the per-expert counts, the all-to-alls of slots and payloads) through an
+``spmd.StepContext`` on the mesh's process group over those axes, as the
+``shard_map`` executor does.  An op that cannot be placed raises.
 """
 from __future__ import annotations
 
@@ -338,6 +343,23 @@ def matmul(x, w):
     return local_einsum(f"{lab}k,kn->{lab}n", x, w)
 
 
+def local_param(w, mesh, spec: Sequence, over: Sequence[str] = ()):
+    """This rank's block of a weight ``w`` (a DTensor; a plain tensor is
+    returned as it is) redistributed to ``spec``, for a computation whose
+    blocks are split over the mesh axes ``over`` (the batch rows of a
+    recurrent scan, or the expert blocks of a MoE layer): each rank's
+    gradient of the block is then one share of the whole gradient, and it
+    is declared a partial sum over ``over`` (whole along the other axes),
+    which the redistribution back to ``w``'s placements reduces."""
+    if not isinstance(w, DTensor):
+        return w
+    spec = nested(spec, mesh)
+    w = constrain(w, mesh, spec)
+    held = {a for e in spec for a in entry_axes(e)}
+    return w.to_local(grad_placements=placements(
+        spec, mesh, [(a, "sum") for a in over if a not in held]))
+
+
 def run_local(fn: Callable, args: Sequence, specs: Sequence[tuple],
               out_spec, mesh):
     """``fn`` on this rank's blocks: each DTensor argument redistributed to
@@ -352,6 +374,31 @@ def run_local(fn: Callable, args: Sequence, specs: Sequence[tuple],
     if isinstance(out, (tuple, list)):
         return tuple(wrap_block(o, mesh, s) for o, s in zip(out, out_spec))
     return wrap_block(out, mesh, out_spec)
+
+
+def run_rows(fn: Callable, params, x, state, mesh, rows):
+    """``fn(params, x, state) -> (out, new state)`` of a block whose rows
+    are independent (a recurrent scan runs along the sequence of each batch
+    row) on this rank's batch rows: ``rows`` is the spec entry splitting
+    dim 0 of ``x``, ``state`` (a tree, or None) and the results.  ``x``
+    and ``state`` (DTensors) are redistributed to rows split and the rest
+    whole; the parameters (a tree) are whole on every rank, each rank's
+    gradient a share summed over the rows' axes (``local_param``); ``fn``
+    runs on plain local tensors — no DTensor dispatch inside, which a
+    per-position Python loop could not afford — and its output and new
+    state come back as DTensors of row blocks."""
+    from repro_torch.core import tree
+
+    def spec(t):
+        return (rows,) + (None,) * (t.ndim - 1)
+
+    axes = entry_axes(rows)
+    xl = constrain(x, mesh, spec(x)).to_local()
+    pl = tree.map(lambda w: local_param(w, mesh, (None,) * w.ndim, axes), params)
+    sl = tree.map(lambda t: constrain(t, mesh, spec(t)).to_local(), state)
+    out, new = fn(pl, xl, sl)
+    return (wrap_block(out, mesh, spec(out)),
+            tree.map(lambda t: wrap_block(t, mesh, spec(t)), new))
 
 
 def wrap_block(block: torch.Tensor, mesh, spec,
@@ -459,13 +506,17 @@ def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
         low = opaque_rules.RULES["ring"].lower(g, n, ax_local, sizes)
     elif rule_name in _LOCAL_RULES:
         low = opaque_rules.RULES[rule_name].lower(g, n, ax_n, sizes)
+    elif rule_name == "a2a":
+        # its program issues its own collectives through the runner's
+        # ``spmd.StepContext``; its axes are in mesh order (every spec here
+        # is), so its blocks nest as DTensor's, and its collectives run over
+        # the mesh's one group spanning them
+        low = opaque_rules.RULES[rule_name].lower(g, n, ax_n, sizes)
     else:
         raise NotImplementedError(
             f"gspmd: opaque node {n.name!r} ({n.op}) declares the "
-            f"{rule_name!r} shard rule, whose collectives the DTensor "
-            "executor does not issue — MoE under a mesh of more than one "
-            "rank waits for ROADMAP Queue 1 item 4 (the blocks under a "
-            "mesh); use executor='shard_map'")
+            f"{rule_name!r} shard rule, which the DTensor executor does not "
+            "lower; use executor='shard_map'")
     if low is None:
         raise NotImplementedError(
             f"gspmd: opaque node {n.name!r} ({n.op}) cannot be placed "
@@ -473,7 +524,13 @@ def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
             f"{rule_name!r}); use executor='shard_map', whose rule falls "
             "back to replicating it")
     step.arg_specs = [_layout_spec(lay) for lay in low.arg_layouts]
-    step.local_spec = _layout_spec(low.out_layout)
+    # the block the rule's program returns: its output layout before the
+    # local slices of its post steps, which the constraint to the planned
+    # spec takes instead
+    sliced = {(st[2], st[1]) for st in low.post_steps if st[0] == "slice"}
+    step.local_spec = tuple(
+        entry_of([a for a in axes if (d, a) not in sliced])
+        for d, axes in enumerate(low.out_layout))
     step.run = low.run
     return step
 
@@ -531,7 +588,9 @@ class GspmdRunner:
     (``distribute``); every node computes on local blocks and is
     constrained to its planned placements; the outputs come back whole on
     every rank, as the reference returns global arrays.  With
-    ``log_comms`` set, ``comms`` is the ``CommLog`` of the last call."""
+    ``log_comms`` set, ``comms`` is the ``CommLog`` of the last call;
+    ``issued`` lists the collectives the shard rules' own programs issued
+    in it (the ``a2a`` rule's), as ``spmd.StepContext.issued`` does."""
 
     def __init__(self, g: EinGraph, plan, mesh, out_ids: Sequence[int]):
         from repro_torch.core.engine import mesh_axes_dict
@@ -543,6 +602,7 @@ class GspmdRunner:
         self.program = build_program(g, plan, mesh_axes_dict(mesh))
         self.log_comms = False
         self.comms: CommLog | None = None
+        self.issued: list[tuple] = []
 
     def __call__(self, *arrays):
         if not self.log_comms:
@@ -556,11 +616,12 @@ class GspmdRunner:
         """Every node ``keep`` depends on, placed; returns ``keep``'s values
         as DTensors (the others are dropped after their last reader)."""
         from repro_torch.core import spmd
-        from repro_torch.core.engine import MAP_FNS, live_nodes
+        from repro_torch.core.engine import MAP_FNS, live_nodes, mesh_axes_dict
 
         g, mesh = self.graph, self.mesh
         live = live_nodes(g, keep)
         frees = spmd._last_uses(g, live)
+        ctx = spmd.StepContext(mesh, mesh_axes_dict(mesh))
         vals: dict[int, Any] = {}
         for nid in g.topo_order():
             if nid not in live:
@@ -576,13 +637,15 @@ class GspmdRunner:
             elif n.kind == "map":
                 v = MAP_FNS[n.op](args[0], **n.params)
             else:
-                v = st.run(args, None)
+                ctx.nid = nid
+                v = st.run(args, ctx)
             del args
             v = wrap(v, mesh, st.local_spec, n.shape, st.partial)
             vals[nid] = constrain(v, mesh, st.out_spec)
             for a in frees.get(nid, ()):
                 if a not in keep:
                     vals.pop(a, None)
+        self.issued = ctx.issued
         return {k: vals[k] for k in keep}
 
     def _run(self, arrays):

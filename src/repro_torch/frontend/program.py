@@ -183,7 +183,7 @@ class Program:
         Not ported yet, and raising ``NotImplementedError``: ``donate=``
         (buffer donation: PyTorch has no jit to donate to; the eager runner
         already frees each value after its last reader; ROADMAP Queue 1
-        item 4).
+        item 4(d)).
         """
         from repro_torch.core.decomp import eindecomp
         from repro_torch.core.engine import EXECUTORS, mesh_axes_dict
@@ -228,7 +228,7 @@ class Program:
                 "compile: donate= is not ported — PyTorch has no jit "
                 "donation; the eager runner frees each intermediate after "
                 "its last reader, and donating the feeds themselves waits "
-                "for ROADMAP Queue 1 item 4")
+                "for ROADMAP Queue 1 item 4(d)")
         if plan is not None:
             pass  # caller-supplied plan
         elif mesh_axes is not None or p is not None:

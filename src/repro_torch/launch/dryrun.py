@@ -28,6 +28,21 @@ Where the port differs from the reference:
     step, so one abstract run counts the whole depth, inner time loops
     included: ``inner_scan_flops_corr_per_dev`` is 0 (``inner_scan_correction``
     is kept verbatim, and tested).
+  * Trip counting, for the train and prefill cells of an all-recurrent
+    model (xLSTM: every block an mLSTM or an sLSTM, no attention).  Its
+    sLSTM loop is a Python loop over positions, and at about 1 ms an op on
+    meta blocks 4,096 positions of it would take half an hour; but every
+    trip of it, and every 256-position chunk of the mLSTM, is the same
+    fixed-shape body, and nothing else in such a step depends on the
+    length but linearly.  So the step's FLOPs, bytes, collectives and live
+    memory are affine in the length over whole chunks — from two chunks on
+    for a train step, whose first and last chunks' backward differ from the
+    middle ones' (the first reads a state with no gradient, the last's
+    state feeds nothing).  ``run_abstract`` runs such a cell at two short
+    lengths (``TRIP_LENGTHS``) and extends each count along the line
+    through them; the record says so (``trip_counted``), and
+    ``tests/test_torch_dryrun.py`` holds the extension equal to a full run
+    at a longer length.
   * The constants are an H100's (NVIDIA H100 80GB HBM3, SXM, at its 700 W
     power limit; NVIDIA's data sheet): ``PEAK_FLOPS`` 989e12 (bf16 dense),
     ``HBM_BW`` 3.35e12 B/s, and ``NVLINK_BW`` 450e9 B/s — NVLink 4, each
@@ -43,11 +58,11 @@ Where the port differs from the reference:
     output aliases an argument.  ``temp_gb`` is what the peak of live
     bytes held beyond the arguments and the outputs.
   * ``compile_s`` is the wall of the abstract run.
-  * ``--all`` covers ``ARCH_IDS`` and llama-7b, the port's first model.  A
-    cell whose blocks do not run on a mesh yet raises ``check_mesh``'s
-    ``NotImplementedError`` (ROADMAP Queue 1 item 4(b): the MoE, hymba and
-    xLSTM blocks); ``main`` prints it as ``WAIT`` and counts it apart from
-    failures.
+  * ``--all`` covers ``ARCH_IDS`` and llama-7b, the port's first model,
+    every block kind included: the MoE cells route the global batch on
+    every rank and run the expert products on each rank's expert block;
+    the hymba and xLSTM cells run their recurrences on each rank's batch
+    rows (the xLSTM's train and prefill cells trip counted, above).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama-7b --shape train_4k
@@ -159,8 +174,7 @@ def build_cell(cfg, shape, mesh, *, fsdp: bool | None = None,
     placements), on ``mesh.device``: meta blocks on an abstract mesh of the
     default device; with ``abstract`` on another device, fake tensors of a
     ``FakeTensorMode`` of their own (``measure_step`` runs the step under
-    it); else real tensors.  A cell whose blocks do not run on the mesh
-    raises ``check_mesh``'s ``NotImplementedError``."""
+    it); else real tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.data.synthetic import batch_shardings
@@ -169,7 +183,6 @@ def build_cell(cfg, shape, mesh, *, fsdp: bool | None = None,
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw_init
 
-    tf.check_mesh(cfg, mesh)
     axes = mesh_axes_dict(mesh)
     if fsdp is None:
         fsdp = shape.kind == "train"
@@ -243,9 +256,62 @@ def measure_step(step, args) -> dict:
             "kernel_calls": calls, "wall_s": wall}
 
 
-def run_abstract(cfg, shape, mesh, *, fsdp=None, policy_override=None) -> tuple:
+#: the lengths an all-recurrent cell is run at (module docstring), by kind:
+#: whole mLSTM chunks, two of them at least for a train step
+TRIP_LENGTHS = {"prefill": (256, 512), "train": (512, 768)}
+
+
+def trip_lengths(cfg, shape) -> tuple[int, int] | None:
+    """The two lengths ``run_abstract`` runs ``shape`` at, where it counts
+    trips (module docstring): an all-recurrent model's train or prefill
+    cell longer than the second, on whole chunks of the first's step."""
+    if any(b not in ("mlstm", "slstm") for b in cfg.block_pattern):
+        return None
+    lengths = TRIP_LENGTHS.get(shape.kind)
+    if lengths is None or shape.seq <= lengths[1] or shape.seq % (lengths[1] - lengths[0]):
+        return None
+    return lengths
+
+
+def _extend(a, b, t: float):
+    """``a + (b - a) * t`` through every count of a ``measure_step`` result
+    (ints stay ints: ``t`` is whole)."""
+    from repro_torch.launch.hlo_analysis import CollectiveLog
+
+    if isinstance(a, dict):
+        return {k: _extend(a.get(k, 0), b.get(k, 0), t) for k in set(a) | set(b)}
+    if isinstance(a, CollectiveLog):
+        out = CollectiveLog()
+        for name in ("counts", "result_bytes", "wire"):
+            got = _extend(dict(getattr(a, name)), dict(getattr(b, name)), t)
+            getattr(out, name).update({k: v for k, v in got.items() if v})
+        return out
+    return type(a)(a + (b - a) * t)
+
+
+def run_abstract(cfg, shape, mesh, *, fsdp=None, policy_override=None,
+                 trips: bool = True) -> tuple:
     """``build_cell`` abstractly on ``mesh`` and ``measure_step`` of its
-    step -> (costs, plan, policy)."""
+    step -> (costs, plan, policy).  With ``trips`` a cell of
+    ``trip_lengths`` is run at those two lengths and its counts extended
+    to the cell's (``costs["trip_counted"]`` names the lengths)."""
+    lengths = trip_lengths(cfg, shape) if trips else None
+    if lengths is not None:  # under the cell's own plan, at both lengths
+        import dataclasses
+
+        from repro_torch.launch.mesh import mesh_axes_dict
+
+        plan, policy = None, policy_override
+        if policy is None:
+            plan, policy = _plan_cell(cfg, shape, mesh_axes_dict(mesh),
+                                      shape.kind == "train" if fsdp is None else fsdp)
+        a, b = (run_abstract(cfg, dataclasses.replace(shape, seq=s), mesh,
+                             policy_override=policy, trips=False)[0] for s in lengths)
+        t = (shape.seq - lengths[0]) // (lengths[1] - lengths[0])
+        costs = {k: _extend(a[k], b[k], t) for k in ("flops", "bytes", "collectives",
+                                                      "memory", "kernel_calls")}
+        costs.update(wall_s=a["wall_s"] + b["wall_s"], trip_counted=list(lengths))
+        return costs, plan, policy
     step, args, _, plan, policy = build_cell(cfg, shape, mesh, fsdp=fsdp,
                                              policy_override=policy_override)
     costs = measure_step(step, args)
@@ -329,6 +395,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         rec["memory_bytes"] = m
         rec["fits_80gb"] = m["peak"] <= HBM_BYTES
         rec["kernel_calls"] = costs["kernel_calls"]
+        if "trip_counted" in costs:
+            rec["trip_counted"] = {
+                "lengths": costs["trip_counted"],
+                "rule": "counts affine in the length: run at these two lengths and "
+                        "extended to the cell's (launch/dryrun.py)"}
     else:
         plan, policy = _plan_only(cfg, shape, mesh, fsdp, policy_override)
     rec["compile_s"] = round(time.time() - t0, 1)
@@ -451,7 +522,7 @@ def main() -> None:
         assert args.arch and args.shape, "--arch/--shape or --all"
         cells.append((args.arch, args.shape))
 
-    failures = waits = 0
+    failures = 0
     for arch, shape in cells:
         try:
             rec = run_cell(arch, shape, multi_pod=args.multi_pod,
@@ -468,22 +539,12 @@ def main() -> None:
                   f"t_x={r['t_collective_s']:.2e} {rec['bottleneck']:10s} "
                   f"frac={rec['roofline_fraction']:.2f} "
                   f"calls=[{_calls(rec)}] [{rec['total_s']}s]", flush=True)
-        except NotImplementedError as e:
-            if "Queue 1 item 4" not in str(e):  # not a block that waits
-                failures += 1
-                print(f"FAIL {arch:18s} {shape:12s}", flush=True)
-                traceback.print_exc()
-                continue
-            waits += 1
-            print(f"WAIT {arch:18s} {shape:12s} {e}", flush=True)
         except Exception:
             failures += 1
             print(f"FAIL {arch:18s} {shape:12s}", flush=True)
             traceback.print_exc()
         finally:
             gc.collect()
-    if waits:
-        print(f"{waits} cells wait for ROADMAP Queue 1 item 4(b)", flush=True)
     if failures:
         raise SystemExit(f"{failures} cells failed")
 

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import tree
 from repro_torch.core.gspmd import full, run_local
 from repro_torch.core.plancache import PlanCache
 from repro_torch.launch import steps
@@ -113,18 +114,30 @@ def prepare_decode_caches(cfg, prefill_caches, prompt_len: int, kv_len: int,
 
 def _placed_decode_caches(cfg, prefill_caches, prompt_len, kv_len, policy,
                           mesh):
-    tf.check_mesh(cfg, mesh)  # attn blocks only
-    batch = prefill_caches[0][0].shape[1]
+    """``prepare_decode_caches`` on DTensors: each attn or hymba block's
+    decode buffers are made on each rank's (batch, kv-head) blocks of the
+    prefill K/V, the time dim whole, then placed by ``cache_specs`` (a
+    split time dim is a local slice); the recurrent states are placed
+    there as they are."""
+    from repro_torch.core.gspmd import constrain
+
+    batch = tree.leaves(prefill_caches)[0].shape[1]  # (L, b, ...) leaves
     specs = tf.cache_specs(cfg, batch, kv_len, policy, mesh)
     out = []
-    for (k, v), spec in zip(prefill_caches, specs):
-        if spec.k[2] is not None:
-            raise NotImplementedError(
-                f"serve: a decode cache split along time ({spec.k}) has no "
-                "local prefill copy")
-        out.append(KVCache(*run_local(
+    for blk, cache, spec in zip(cfg.block_pattern, prefill_caches, specs):
+        if blk not in ("attn", "hymba"):
+            out.append(type(cache)(*(constrain(t, mesh, sp)
+                                     for t, sp in zip(cache, spec))))
+            continue
+        (k, v), kv_spec = (cache[0], spec[0]) if blk == "hymba" else (cache, spec)
+        whole = kv_spec.k[:2] + (None,) + kv_spec.k[3:]  # (L, b, t, k, d)
+        kv = KVCache(*(constrain(t, mesh, kv_spec.k) for t in run_local(
             lambda k, v: tuple(_decode_kv(cfg, k, v, prompt_len, kv_len)),
-            (k, v), (spec.k, spec.v), (spec.k, spec.v), mesh)))
+            (k, v), (whole, whole), (whole, whole), mesh)))
+        if blk == "hymba":
+            kv = (kv, type(cache[1])(*(constrain(t, mesh, sp)
+                                       for t, sp in zip(cache[1], spec[1]))))
+        out.append(kv)
     return out
 
 
@@ -184,7 +197,6 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
     kv_len = kv_len or (cfg.kv_len(ShapeConfig("serve", "decode",
                                                prompt_len + max_new, b)))
     shape = ShapeConfig("serve", "prefill", prompt_len, b)
-    tf.check_mesh(cfg, mesh)
     # declare -> trace -> decompose (through the plan cache) -> project
     t0 = time.perf_counter()
     if mesh is None and executor == "shard_map":
@@ -244,8 +256,6 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
 def _local_bytes(params) -> int:
     """Bytes of this rank's blocks of the weights."""
     from torch.distributed.tensor import DTensor
-
-    from repro_torch.core import tree
 
     return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
                for t in tree.leaves(params))

@@ -85,10 +85,10 @@ def head_spec(policy, mesh, batch: int, heads: int, kv_heads: int) -> tuple:
     ``policy``: the batch on the policy's batch axes, q and kv heads on the
     union of its ``h`` and ``k`` axes (as the ring rule co-shards them);
     axes that do not divide the batch, or both head counts, are dropped."""
-    from repro_torch.models.policy import safe_spec
+    from repro_torch.models.policy import batch_entry
 
     sizes = gspmd.mesh_sizes(mesh)
-    b_entry = safe_spec((policy.act_spec("b")[0],), (batch,), mesh)[0]
+    b_entry = batch_entry(policy, mesh, batch)
     used = set() if b_entry is None else set(
         (b_entry,) if isinstance(b_entry, str) else b_entry)
     head_axes, n = [], 1

@@ -173,6 +173,16 @@ def _xent_terms(logits, labels, vocab_real):
     return lse - gold
 
 
+def on_rows(fn, p, x, state, policy, mesh):
+    """``fn(p, x, state) -> (out, new state)`` of a recurrent block on this
+    rank's batch rows, split as ``policy`` splits ``b`` on ``mesh``
+    (``gspmd.run_rows``)."""
+    from repro_torch.core.gspmd import run_rows
+    from repro_torch.models.policy import batch_entry
+
+    return run_rows(fn, p, x, state, mesh, batch_entry(policy, mesh, x.shape[0]))
+
+
 def activation(name: str):
     return {
         "silu": F.silu,

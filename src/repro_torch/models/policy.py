@@ -117,6 +117,12 @@ def safe_spec(spec: tuple, shape, mesh) -> tuple:
     return tuple(out)
 
 
+def batch_entry(policy, mesh, batch: int):
+    """The spec entry of the batch dim of a ``batch``-row activation under
+    ``policy`` on ``mesh`` (its ``b`` axes that divide ``batch``)."""
+    return safe_spec((policy.act_spec("b")[0],), (batch,), mesh)[0]
+
+
 # ---------------------------------------------------------------------------
 # Plan -> policy
 # ---------------------------------------------------------------------------

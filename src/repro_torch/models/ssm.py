@@ -21,6 +21,15 @@ state agrees with the reference to float32 rounding, not bit for bit.
 Simplifications vs. Mamba (the reference's): dt is a scalar per position
 (x_proj emits 2n+1 features: B, C, dt) and the inner width equals
 d_model.
+
+Under a mesh of more than one rank (``x`` a DTensor) both paths run on
+each rank's batch rows (``gspmd.run_rows``, the rows split as the policy
+splits ``b``) with the inner width whole: the conv and the scan are per
+(row, channel), but ``x_proj``'s B, C and dt features contract over the
+channels, so a split inner width would need a sum there; the reference
+leaves that choice to XLA, and the port keeps the channels whole.  The
+parameters are gathered whole on every rank, their gradients summed over
+the rows' axes.
 """
 from __future__ import annotations
 
@@ -28,8 +37,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import ParamFactory
+from repro_torch.models.common import ParamFactory, on_rows
 
 
 class SSMState(NamedTuple):
@@ -89,9 +99,13 @@ def _prefix_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def ssm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256
-                ) -> tuple[torch.Tensor, SSMState]:
-    """Full-sequence path.  x: (b, s, D) -> (y, final state)."""
+def ssm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256,
+                policy=None, mesh=None) -> tuple[torch.Tensor, SSMState]:
+    """Full-sequence path.  x: (b, s, D) -> (y, final state); on DTensors
+    on each rank's batch rows (module docstring)."""
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, _: ssm_forward(p, x, cfg, chunk=chunk),
+                       p, x, None, policy, mesh)
     b, s, D = x.shape
     n = cfg.ssm_state
     di = D
@@ -104,8 +118,8 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256
 
     h = torch.zeros((b, di, n), dtype=f32, device=x.device)
     ys = []
-    for start in range(0, s, chunk):
-        decay, drive, C = _ssm_features(p, xin[:, start:start + chunk], n)
+    for xc in xin.split(chunk, 1):  # split: one slice's backward is sequence-long
+        decay, drive, C = _ssm_features(p, xc, n)
         A, Bd = _prefix_scan(decay, drive)                  # (b, L, di, n)
         hs = A * h[:, None] + Bd
         ys.append(torch.einsum("bcdn,bcn->bcd", hs, C))     # contract state
@@ -124,10 +138,13 @@ def init_ssm_state(cfg, batch: int, dtype, device=None) -> SSMState:
         torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device))
 
 
-def ssm_decode(p: dict, x: torch.Tensor, state: SSMState, cfg
-               ) -> tuple[torch.Tensor, SSMState]:
+def ssm_decode(p: dict, x: torch.Tensor, state: SSMState, cfg, *,
+               policy=None, mesh=None) -> tuple[torch.Tensor, SSMState]:
     """One-token step.  x: (b, 1, D).  Returns a new state; the one given
-    is not written."""
+    is not written.  On DTensors on each rank's batch rows."""
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, st: ssm_decode(p, x, st, cfg), p, x,
+                       state, policy, mesh)
     n = cfg.ssm_state
     f32 = torch.float32
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])

@@ -28,8 +28,13 @@ parameters, caches and batch are DTensors (``param_shardings``,
 on them under DTensor's sharding propagation, and the activations are
 constrained where the reference constrains them (``_cst``: ``"b s a"``
 after the embedding and each residual, ``"b s k d"`` on k/v, ``"b s v"``
-on the logits, ``"b t k d"`` on the caches).  Dense attention + FFN blocks
-run under a mesh; the MoE, hymba and xLSTM blocks raise there.
+on the logits, ``"b t k d"`` on the caches).  Every block runs under a
+mesh: the MoE FFN routes the global batch on every rank and runs its
+experts on each rank's expert block (``models/moe.py``); the recurrent
+blocks — hymba's SSM, the mLSTM and the sLSTM — run on each rank's batch
+rows (``common.on_rows``), their states placed as ``cache_labels`` says;
+hymba's attention runs as the attn block's does.  The serving tier's paged
+decode (``decode_step_paged``) raises on a mesh.
 """
 from __future__ import annotations
 
@@ -60,21 +65,6 @@ def _check_supported(cfg) -> None:
 
 def _placed(mesh) -> bool:
     return mesh is not None and mesh.world_size > 1
-
-
-def check_mesh(cfg, mesh) -> None:
-    """Raise for a block the model stack does not place on a mesh of more
-    than one rank: only dense attention + FFN blocks run there."""
-    if not _placed(mesh):
-        return
-    other = sorted({b for b in cfg.block_pattern if b != "attn"}
-                   | ({"moe"} if cfg.moe else set()))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: the {', '.join(other)} blocks do not run on a mesh "
-            f"of {mesh.world_size} ranks yet (ROADMAP Queue 1 item 4: the "
-            "MoE, hymba and xLSTM blocks under a mesh); dense attention + "
-            "FFN blocks do")
 
 
 # ---------------------------------------------------------------------------
@@ -213,9 +203,16 @@ def _stack(trees: list):
 
 
 def _write_state(buf, new) -> None:
-    """Copy a block's new recurrent state into its cache buffers in place."""
+    """Copy a block's new recurrent state into its cache buffers in place;
+    on a mesh each new leaf is redistributed to its buffer's placements
+    first, and each rank copies its block."""
+    from torch.distributed.tensor import DTensor
+
     for b, n in zip(tree_mod.leaves(buf), tree_mod.leaves(new)):
-        b.copy_(n)
+        if isinstance(b, DTensor):
+            b.to_local().copy_(n.redistribute(b.device_mesh, b.placements).to_local())
+        else:
+            b.copy_(n)
 
 
 def _n_units(cfg) -> int:
@@ -279,19 +276,22 @@ def param_labels(cfg) -> dict:
     return labels
 
 
+#: label strings of one unit's recurrent state, per block kind
+_STATE_LABELS = {"hymba": ssm_mod.SSMState("b a n", "b z a"),
+                 "mlstm": xlstm_mod.MLSTMState("b h d d", "b h d", "b h"),
+                 "slstm": xlstm_mod.SLSTMState("b a", "b a", "b a", "b a")}
+
+
 def cache_labels(cfg) -> list:
     """Label strings mirroring ``init_caches``' structure."""
     def one(blk):
         kv = attn_mod.KVCache("L b t k d", "L b t k d")
         if blk == "attn":
             return kv
-        if blk == "hymba":
-            return (kv, ssm_mod.SSMState("L b a n", "L b z a"))
-        if blk == "mlstm":
-            return xlstm_mod.MLSTMState("L b h d d", "L b h d", "L b h")
-        if blk == "slstm":
-            return xlstm_mod.SLSTMState("L b a", "L b a", "L b a", "L b a")
-        raise ValueError(blk)
+        if blk not in _STATE_LABELS:
+            raise ValueError(blk)
+        st = type(_STATE_LABELS[blk])(*("L " + l for l in _STATE_LABELS[blk]))
+        return (kv, st) if blk == "hymba" else st
 
     return [one(blk) for blk in cfg.block_pattern]
 
@@ -365,24 +365,30 @@ def place_params(params, cfg, policy, mesh):
 def init_placed_params(cfg, policy, mesh, *, seed: int = 0) -> dict:
     """Seeded parameters on ``mesh`` (``mesh.device``): every rank makes the
     whole tree from the seed — the weights of ``init_params`` — and keeps
-    its blocks.  Ranks that share a card take turns, a barrier apart, so
-    the card holds one whole copy at a time."""
+    its blocks.  Ranks that share a card take turns, a barrier apart, and
+    each keeps its blocks on the host until every turn is done, so the card
+    holds one whole tree at a time and no other rank's blocks beside it
+    (qwen2-moe: a 30 GB tree whose making peaks near 47 GB, beside 4 x 10
+    GB of blocks, would not fit)."""
     if not _placed(mesh):
         return init_params(cfg, seed=seed, device=mesh.device)
     import torch.distributed as dist
 
+    from repro_torch.core.gspmd import nested, wrap_block
+
     dev = mesh.device
-    shared = dev.type == "cuda" and torch.cuda.device_count() < mesh.world_size
-    placed = None
-    for r in range(mesh.world_size if shared else 1):
-        if not shared or r == mesh.rank:
-            placed = place_params(init_params(cfg, seed=seed, device=dev),
-                                  cfg, policy, mesh)
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        if shared:
-            dist.barrier()
-    return placed
+    if not (dev.type == "cuda" and torch.cuda.device_count() < mesh.world_size):
+        return place_params(init_params(cfg, seed=seed, device=dev), cfg, policy, mesh)
+    held = None
+    for r in range(mesh.world_size):
+        if r == mesh.rank:
+            placed = place_params(init_params(cfg, seed=seed, device=dev), cfg, policy, mesh)
+            held = tree_mod.map(lambda t: t.to_local().cpu(), placed)
+            del placed
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return _zip_map(lambda t, spec: wrap_block(t.to(dev), mesh, nested(spec, mesh)),
+                    held, param_specs(cfg, policy, mesh))
 
 
 class InputSpec(NamedTuple):
@@ -481,11 +487,18 @@ def _place_tokens(tokens, policy, mesh):
 # ---------------------------------------------------------------------------
 
 
-def _ffn_or_moe(p: dict, h, cfg):
+def _ffn_or_moe(p: dict, h, cfg, policy=None, mesh=None):
     """The block's FFN: (out, MoE aux loss or None)."""
     if cfg.moe:
-        return moe_mod.moe_ffn(p["moe"], h, cfg)
+        return moe_mod.moe_ffn(p["moe"], h, cfg, policy=policy, mesh=mesh)
     return ffn_mod.ffn(p["ffn"], h, cfg), None
+
+
+def _placed_state(blk: str, st, policy, mesh):
+    """A recurrent block's new state placed as its decode cache is
+    (``cache_labels`` without the unit axis)."""
+    return type(st)(*(_cst(t, lab, policy, mesh)
+                      for t, lab in zip(st, _STATE_LABELS[blk])))
 
 
 def _hymba_mix(p: dict, a_out, s_out, cfg):
@@ -504,20 +517,28 @@ def _block_forward(blk: str, p: dict, x, cfg, policy=None, mesh=None):
         cache = (_cst(kv[0], "b s k d", policy, mesh),
                  _cst(kv[1], "b s k d", policy, mesh))
         x = x + _cst(a_out, "b s a", policy, mesh)
-        m_out, aux = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+        m_out, aux = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg,
+                                 policy, mesh)
         x = x + _cst(m_out, "b s a", policy, mesh)
     elif blk == "hymba":
-        a_out, kv = attn_mod.attention_full(p["attn"], h, cfg)
-        s_out, st = ssm_mod.ssm_forward(p["ssm"], h, cfg)
-        x = x + _hymba_mix(p, a_out, s_out, cfg)
-        x = x + ffn_mod.ffn(p["ffn"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
-        cache = (kv, st)
-    elif blk == "mlstm":
-        out, cache = xlstm_mod.mlstm_forward(p["mlstm"], h, cfg)
-        x = x + out
-    elif blk == "slstm":
-        out, cache = xlstm_mod.slstm_forward(p["slstm"], h, cfg)
-        x = x + out
+        a_out, kv = attn_mod.attention_full(p["attn"], h, cfg, policy=policy,
+                                            mesh=mesh)
+        kv = (_cst(kv[0], "b s k d", policy, mesh),
+              _cst(kv[1], "b s k d", policy, mesh))
+        s_out, st = ssm_mod.ssm_forward(p["ssm"], h, cfg, policy=policy,
+                                        mesh=mesh)
+        a_out = _cst(a_out, "b s a", policy, mesh)
+        s_out = _cst(s_out, "b s a", policy, mesh)
+        x = x + _cst(_hymba_mix(p, a_out, s_out, cfg), "b s a", policy, mesh)
+        f_out = ffn_mod.ffn(p["ffn"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+        x = x + _cst(f_out, "b s a", policy, mesh)
+        cache = (kv, _placed_state(blk, st, policy, mesh))
+    elif blk in ("mlstm", "slstm"):
+        fwd = (xlstm_mod.mlstm_forward if blk == "mlstm"
+               else xlstm_mod.slstm_forward)
+        out, st = fwd(p[blk], h, cfg, policy=policy, mesh=mesh)
+        x = x + _cst(out, "b s a", policy, mesh)
+        cache = _placed_state(blk, st, policy, mesh)
     else:
         raise ValueError(blk)
     return x, cache, aux
@@ -596,7 +617,6 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, policy=None,
     activations are constrained at the reference's points; the logits and
     caches come back as DTensors."""
     _check_supported(cfg)
-    check_mesh(cfg, mesh)
     x = _embed_tokens(params, tokens, prefix_embeds, cfg, policy, mesh)
     pattern = cfg.block_pattern
     per_pos: list[list] = [[] for _ in pattern]
@@ -696,26 +716,33 @@ def init_caches(cfg, batch: int, kv_len: int, *, device=None):
     return _stacked_caches(cfg, one)
 
 
-def _block_decode(blk: str, p: dict, x, cache, cfg, attend):
+def _block_decode(blk: str, p: dict, x, cache, cfg, attend, policy=None,
+                  mesh=None):
     """One decode step of one block.  ``attend(p_attn, h, kv)`` is the
     attention call (dense or paged), which writes its K/V in place; the
     recurrent state is copied into ``cache`` in place."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if blk == "attn":
         x = x + attend(p["attn"], h, cache)
-        m_out, _ = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+        m_out, _ = _ffn_or_moe(p, rmsnorm(x, p["norm2"], cfg.norm_eps), cfg,
+                               policy, mesh)
         return x + m_out
     if blk == "hymba":
         kv, st = cache
         a_out = attend(p["attn"], h, kv)
-        s_out, st2 = ssm_mod.ssm_decode(p["ssm"], h, st, cfg)
+        s_out, st2 = ssm_mod.ssm_decode(p["ssm"], h, st, cfg, policy=policy,
+                                        mesh=mesh)
         _write_state(st, st2)
+        a_out = _cst(a_out, "b s a", policy, mesh)
+        s_out = _cst(s_out, "b s a", policy, mesh)
         x = x + _hymba_mix(p, a_out, s_out, cfg)
         return x + ffn_mod.ffn(p["ffn"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
     if blk == "mlstm":
-        out, st2 = xlstm_mod.mlstm_decode(p["mlstm"], h, cache, cfg)
+        out, st2 = xlstm_mod.mlstm_decode(p["mlstm"], h, cache, cfg,
+                                          policy=policy, mesh=mesh)
     elif blk == "slstm":
-        out, st2 = xlstm_mod.slstm_decode(p["slstm"], h, cache, cfg)
+        out, st2 = xlstm_mod.slstm_decode(p["slstm"], h, cache, cfg,
+                                          policy=policy, mesh=mesh)
     else:
         raise ValueError(blk)
     _write_state(cache, st2)
@@ -729,7 +756,8 @@ def _decode_layers(params, tokens, caches, cfg, attend, policy=None,
     for u in range(_n_units(cfg)):
         for ppos, blk in enumerate(pattern):
             x = _block_decode(blk, _unit(params["layers"][ppos], u), x,
-                              _unit(caches[ppos], u), cfg, attend)
+                              _unit(caches[ppos], u), cfg, attend, policy,
+                              mesh)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _cst(lm_logits(x, _head(params)), "b s v", policy, mesh)
 
@@ -742,8 +770,6 @@ def decode_step(params, tokens, caches, pos: int, cfg, *, policy=None,
     than one rank the parameters and caches are DTensors
     (``place_caches``), each rank writes its cache blocks, and the logits
     come back as a DTensor."""
-    check_mesh(cfg, mesh)
-
     def attend(p, h, kv):
         return attn_mod.attention_decode(p, h, kv, pos, cfg, mesh=mesh)[0]
 
@@ -798,12 +824,12 @@ def decode_step_paged(params, tokens, caches, tables, pos, cfg, *,
     table rows at the scratch block 0 with pos 0, so their writes land
     there; their recurrent rows run on and are overwritten at admission.
     A mesh of more than one rank raises (the engine's paged decode on a
-    mesh is ROADMAP Queue 1 item 4)."""
+    mesh is ROADMAP Queue 1 item 4(c))."""
     if _placed(mesh):
         raise NotImplementedError(
             f"decode_step_paged: the paged decode on a mesh of "
-            f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 item 4: "
-            "the engine's paged decode on a mesh)")
+            f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 item "
+            "4(c): the engine's paged decode on a mesh)")
     tables, pos = tables.long(), pos.long()  # once a step, not once a layer
 
     def attend(p, h, pool):

@@ -22,6 +22,14 @@ atol 1e-5).
 Plain torch, as the reference is plain ``jnp``: no kernel.  Gating follows
 the paper's stabilized exponential form: i and f in log space, a running
 max m subtracted before exponentiation.
+
+Under a mesh of more than one rank (``x`` a DTensor) every path runs on
+each rank's batch rows (``gspmd.run_rows``: the rows split as the policy
+splits ``b``, the sequence whole, as the reference notes it is never
+sharded), with the parameters gathered whole and their gradients summed
+over the rows' axes.  The sLSTM's per-position loop then runs on plain
+local tensors: at DTensor's dispatch cost an op, 32k positions of it
+would take hours.
 """
 from __future__ import annotations
 
@@ -29,8 +37,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import ParamFactory, rmsnorm
+from repro_torch.models.common import ParamFactory, on_rows, rmsnorm
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -101,8 +110,11 @@ def _mlstm_chunk(carry: MLSTMState, qq, kk, vv, ii, ff):
     return MLSTMState(C_new, N_new, m_new), h_out
 
 
-def mlstm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256
-                  ) -> tuple[torch.Tensor, MLSTMState]:
+def mlstm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256,
+                  policy=None, mesh=None) -> tuple[torch.Tensor, MLSTMState]:
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, _: mlstm_forward(p, x, cfg, chunk=chunk),
+                       p, x, None, policy, mesh)
     b, s, D = x.shape
     H = cfg.n_heads
     dh = D // H
@@ -118,10 +130,11 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256
 
     carry = init_mlstm_state(cfg, b, device=x.device)
     hs = []
-    for t0 in range(0, s, chunk):
-        sl = slice(t0, t0 + chunk)
-        carry, h = _mlstm_chunk(carry, q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                i_pre[..., sl], logf[..., sl])
+    # split, not a slice per chunk: the backward of each slice would make a
+    # zero gradient of the whole sequence, quadratic work in the chunks
+    for qq, kk, vv, ii, ff in zip(q.split(chunk, 2), k.split(chunk, 2), v.split(chunk, 2),
+                                  i_pre.split(chunk, -1), logf.split(chunk, -1)):
+        carry, h = _mlstm_chunk(carry, qq, kk, vv, ii, ff)
         hs.append(h)
     h = torch.cat(hs, dim=2)                                # (b,h,s,dh)
     h = h.transpose(1, 2).reshape(b, s, D).to(x.dtype)
@@ -139,10 +152,13 @@ def init_mlstm_state(cfg, batch: int, device=None) -> MLSTMState:
         torch.full((batch, H), float("-inf"), dtype=f32, device=device))
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, state: MLSTMState, cfg
-                 ) -> tuple[torch.Tensor, MLSTMState]:
+def mlstm_decode(p: dict, x: torch.Tensor, state: MLSTMState, cfg, *,
+                 policy=None, mesh=None) -> tuple[torch.Tensor, MLSTMState]:
     """One-token recurrent step (exact xLSTM eqs. 19-27).  Returns a new
     state; the one given is not written."""
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, st: mlstm_decode(p, x, st, cfg), p, x,
+                       state, policy, mesh)
     b, _, D = x.shape
     H = cfg.n_heads
     dh = D // H
@@ -219,8 +235,11 @@ def init_slstm_state(cfg, batch: int, device=None) -> SLSTMState:
                                           dtype=torch.float32, device=device))
 
 
-def slstm_forward(p: dict, x: torch.Tensor, cfg
+def slstm_forward(p: dict, x: torch.Tensor, cfg, *, policy=None, mesh=None
                   ) -> tuple[torch.Tensor, SLSTMState]:
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, _: slstm_forward(p, x, cfg), p, x, None,
+                       policy, mesh)
     b, s, D = x.shape
     f32 = torch.float32
     # x_t @ w_in for every t in one product; h @ r stays in the loop
@@ -228,17 +247,22 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg
     r = p["r"].to(f32)
     st = init_slstm_state(cfg, b, device=x.device)
     hs = []
-    for t in range(s):
-        st = _slstm_gates(px[:, t] + st.h @ r, st)
+    # unbind, not px[:, t]: the backward of one select per position would
+    # make a zero (b, s, 4D) gradient each, s^2 work in all
+    for px_t in px.unbind(1):
+        st = _slstm_gates(px_t + st.h @ r, st)
         hs.append(st.h)
     h = torch.stack(hs, dim=1).to(x.dtype)
     h = rmsnorm(h, p["norm"])
     return torch.einsum("bsd,de->bse", h, p["w_down"]), st
 
 
-def slstm_decode(p: dict, x: torch.Tensor, state: SLSTMState, cfg
-                 ) -> tuple[torch.Tensor, SLSTMState]:
+def slstm_decode(p: dict, x: torch.Tensor, state: SLSTMState, cfg, *,
+                 policy=None, mesh=None) -> tuple[torch.Tensor, SLSTMState]:
     """One-token step.  Returns a new state; the one given is not written."""
+    if isinstance(x, DTensor):
+        return on_rows(lambda p, x, st: slstm_decode(p, x, st, cfg), p, x,
+                       state, policy, mesh)
     st = _slstm_cell(p, x[:, 0].to(torch.float32), state)
     h = st.h[:, None].to(x.dtype)
     h = rmsnorm(h, p["norm"])

@@ -21,7 +21,7 @@ by default.  Given a mesh of more than one rank it plans on that mesh's
 axes: a dict of axis sizes plans, projects policies and ``analyze()``s
 without a device; a ``launch.mesh.Mesh`` also runs each bucket's prefill
 step under the policy on DTensors.  The paged decode step raises on such
-a mesh (ROADMAP Queue 1 item 4: the engine's paged decode on a mesh).
+a mesh (ROADMAP Queue 1 item 4(c): the engine's paged decode on a mesh).
 """
 from __future__ import annotations
 

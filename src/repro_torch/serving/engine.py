@@ -151,7 +151,7 @@ class ServingEngine:
             raise NotImplementedError(
                 f"ServingEngine: the paged decode on a mesh of "
                 f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 "
-                "item 4: the engine's paged decode on a mesh); serve(mesh=) "
+                "item 4(c): the engine's paged decode on a mesh); serve(mesh=) "
                 "runs the dense-cache decode on a mesh")
         self.device = resolve_device(device)
         self.cfg = cfg

@@ -280,6 +280,8 @@ REAL_CELLS = [  # (arch, shape, a manual policy or None for the cell's plan)
     ("llama-7b", ("decode", 32, 4), {"b": "data", "s": "model"}),
     ("paligemma-3b", ("prefill", 32, 4), None),
     ("paligemma-3b", ("train", 32, 4), None),
+    ("qwen2-moe-a2.7b", ("train", 32, 4), {"e": "model", "b": "data"}),
+    ("xlstm-125m", ("prefill", 32, 4), None),
 ]
 
 
@@ -489,17 +491,62 @@ def _placement_leaves(shardings) -> list:
 
 
 def test_waiting_blocks_and_skipped_shapes(monkeypatch, capsys):
-    """A MoE cell raises check_mesh's error, naming Queue 1 item 4; main()
-    prints it as WAIT, long_500k of a full-attention model as SKIP, and
-    exits 0."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dryrun.run_cell("mixtral-8x7b", "decode_32k", out_dir="")
-    for arch, shape, word in (("mixtral-8x7b", "decode_32k", "WAIT"),
+    """The MoE cells, which waited for their blocks' mesh path, run: main()
+    prints mixtral's decode_32k as OK, long_500k of a full-attention model
+    as SKIP, and exits 0."""
+    for arch, shape, word in (("mixtral-8x7b", "decode_32k", "OK"),
                               ("llama-7b", "long_500k", "SKIP")):
         monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", arch, "--shape", shape,
                                           "--out", ""])
         dryrun.main()
         assert capsys.readouterr().out.startswith(word)
+
+
+def _counts(costs: dict) -> tuple:
+    return (costs["flops"], costs["bytes"], costs["memory"], costs["collectives"].summary(),
+            costs["kernel_calls"])
+
+
+@pytest.mark.parametrize("block,lengths", [("mlstm", None), ("slstm", (128, 256))])
+def test_trip_counting_equals_the_full_loop(block, lengths, monkeypatch):
+    """An all-recurrent cell's counts, run at two lengths and extended along
+    the line through them (``run_abstract``'s trip counting), equal a full
+    run at a longer length: FLOPs, bytes, live memory, collectives and
+    kernel calls, for a train step and a prefill, on a fake 4-rank group.
+    Each block kind alone (reduced xlstm's, one layer): a step is the sum
+    of its blocks' costs and the embedding's and head's, each affine in the
+    length.  The mLSTM at the cells' own lengths (whole 256-position
+    chunks; two at least for a train step); the sLSTM's per-position loop
+    at shorter ones, where its full run is affordable."""
+    import dataclasses
+
+    if lengths is not None:
+        monkeypatch.setattr(dryrun, "TRIP_LENGTHS", {"prefill": lengths, "train": lengths})
+    cfg = dataclasses.replace(reduced(get_config("xlstm-125m")), block_pattern=(block,),
+                              n_layers=1)
+    mesh = dryrun.abstract_mesh((2, 2))
+    for kind, short in dryrun.TRIP_LENGTHS.items():
+        shape = ShapeConfig("t", kind, short[1] + (short[1] - short[0]), 4)
+        assert dryrun.trip_lengths(cfg, shape) == short
+        ext = dryrun.run_abstract(cfg, shape, mesh)[0]
+        assert ext["trip_counted"] == list(short)
+        assert _counts(ext) == _counts(dryrun.run_abstract(cfg, shape, mesh, trips=False)[0])
+    assert dryrun.trip_lengths(reduced(get_config("hymba-1.5b")), shape) is None
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-125m"])
+def test_moe_hymba_and_xlstm_cells_run_on_the_production_mesh(arch):
+    """decode_32k of a MoE, a hymba and an xLSTM config on (16, 16) runs
+    through ``run_cell`` without initialising CUDA: a record of a batch
+    split over the mesh (the recurrent blocks run on local rows), the MoE
+    cell's expert products one ``gmm`` call a product a layer."""
+    cfg = get_config(arch)
+    rec = dryrun.run_cell(arch, "decode_32k", out_dir="")
+    assert rec["ok"] and not rec["cuda_initialized"], rec
+    assert rec["memory_bytes"]["argument"] > 0 and rec["roofline"]["hlo_flops_per_dev"] > 0
+    calls = {k: sum(v.values()) for k, v in rec["kernel_calls"].items()}
+    assert calls.get("gmm", 0) == (3 * cfg.n_layers if cfg.moe else 0), calls
+    assert rec["policy"].get("b"), rec["policy"]  # the rows (and states) split
 
 
 # ---------------------------------------------------------------------------

@@ -189,9 +189,12 @@ def test_batch_placement_and_train_step_raise_past_one_rank(capsys):
     placements are the reference's specs (``"b s"``, ``pos`` unplaced) as
     DTensor placements, and ``make_train_step`` builds on a mesh of two
     ranks (tests/test_torch_gspmd.py runs it against the one-rank step).
-    The blocks that still wait — MoE, hymba, xLSTM — raise on such a mesh,
-    naming ROADMAP Queue 1 item 4.  ``pp=2`` prints the reference's static
-    pipeline summary, then trains on the unpipelined plan."""
+    The MoE, hymba and xLSTM configs, which raised on such a mesh before,
+    build theirs too, and every one of their parameters and decode-cache
+    leaves (the recurrent states included) has placements on it
+    (tests/test_torch_blocks_mesh.py runs them against one rank).
+    ``pp=2`` prints the reference's static pipeline summary, then trains
+    on the unpipelined plan."""
     from repro.configs.base import ShapeConfig as RefShape
     from repro.launch.train import _print_pipeline_summary as ref_summary
     from torch.distributed.tensor import Replicate, Shard
@@ -209,8 +212,13 @@ def test_batch_placement_and_train_step_raise_past_one_rank(capsys):
     ref_cfg, cfg = _cfgs()
     assert callable(steps.make_train_step(cfg, mesh=_Mesh(2)))
     for arch in ("mixtral-8x7b", "hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            tf.forward(None, None, reduced(get_config(arch)), mesh=_Mesh(2))
+        acfg = reduced(get_config(arch))
+        assert callable(steps.make_train_step(acfg, policy=pol, mesh=_Mesh(2)))
+        for tree_of in (tf.param_shardings(acfg, pol, _Mesh(2).sizes),
+                        tf.cache_shardings(acfg, 8, 16, pol, _Mesh(2).sizes)):
+            leaves = tree.leaves(tree_of)
+            assert leaves and all(isinstance(p, (Shard, Replicate)) for p in leaves)
+            assert Shard(1) in leaves  # "L b ..." and "L a ...": the batch, d_model
     capsys.readouterr()
     out = train_mod.train(cfg, ShapeConfig("t", "train", 16, 2), steps_total=1,
                           pp=2, microbatches=2, device="cpu")
