@@ -262,8 +262,8 @@
    5% of each rank's allocator peak of the step.  The kernels line gives the
    dry run's flash calls a rank by design (``dryrun_calls_per_rank``);
 33. the MoE, hymba and xLSTM blocks on meshes of gloo ranks sharing the
-   card: (a) qwen2-moe-a2.7b at full size (bf16, 60 experts padded to 64)
-   served on 4 ranks, mesh (1, 4), the experts on ``model``, b=4, prompt
+   card: (a) qwen2-moe-a2.7b at full width (bf16, 60 experts padded to
+   64), 6 of its 24 layers, served on 4 ranks, mesh (1, 4), the experts on ``model``, b=4, prompt
    512, 16 new, as 31(c) serves llama-7b (the one-rank run first, alone;
    its float32 witness upcast leaf by leaf; each rank's weight bytes read
    off ``param_specs`` before placing, and the weights made in turns with
@@ -271,9 +271,9 @@
    every step's logits against one rank, where bf16 at full depth is
    chaotic (BLOCK_SERVES: the bf16 run on the mesh no farther from the
    float32 run, over all steps, than twice the one-rank bf16 run), a
-   4-layer float32 slice against one rank within 1e-4 at every step, 72
+   4-layer float32 slice against one rank within 1e-4 at every step, 18
    gmm launches a rank a step on (16, C, ·) blocks (wgmma); then
-   ``serve(mesh=)`` under its own plan, at full depth where its blocks fit;
+   ``serve(mesh=)`` under its own plan, at that depth where its blocks fit;
    (b) hymba-1.5b at full size on (2, 2), prompt 2048, and (c)
    xlstm-125m on {data: 2}, prompt 512, the same checks; (d) 2-layer
    float32 train steps at full width on 2 ranks (b=2, s=128): qwen2-moe
@@ -291,7 +291,33 @@
    (they need no card) and read here, and (d)'s MoE step on {model: 2} on
    a fake 2-rank group against its gloo ranks, as 32(c).  (d) runs beside
    (b) and (c), for the run's time limit.  The kernels line gives
-   phase 33's launches a rank by design (``mesh_blocks_launches_per_rank``).
+   phase 33's launches a rank by design (``mesh_blocks_launches_per_rank``);
+34. the serving engine's paged decode on a mesh, and buffer donation:
+   (a) llama-7b's ``ServingEngine`` at full width, 8 of its 32 layers
+   (bf16, as 31(c)), 4 slots, KV block 16, on 4 gloo ranks sharing the
+   card, mesh (1, 4): 6 requests of 96-320 tokens drawn from the seed, 8
+   new each (two queue behind the first four); the one-rank engine first,
+   alone, then the same weights upcast to float32 fed its tokens, then a
+   4-layer float32 slice; on the ranks the bf16 engine teacher-forced on
+   the one-rank engine's tokens (every admission and decode step hands it
+   those tokens; its own argmax is kept), then the slice free.  Printed:
+   weight and pool bytes a rank, flash launches a rank by design (8 a
+   request, all wgmma), each decode step's wall (host-staged gloo, not a
+   speed path), TTFT per request, the tokens the mesh would take that equal
+   the one-rank engine's.  Held: every rank the same logits and tokens;
+   the bf16 mesh no farther from the float32 run, over every prefill and
+   decode step, than twice the one-rank bf16 run, a token it would take
+   otherwise only on a top-2 margin under the larger of 2e-2 of max|logit|
+   and that; the slice's tokens equal to one rank's and its first decode
+   step within 1e-4 of max|logit|.  (b) phase 30(b)'s program (llama-7b's
+   prefill graph, b=4, s=512, one rank) compiled with ``donate=True``, in
+   float32 and bf16: one warmed donated call's allocator peak
+   (``max_memory_allocated`` less what was allocated before the call and
+   is not its feeds) against the memory pass's per-device peak with that
+   donation set, within 1e-3; its logits bit for bit the undonated call's;
+   every feed raising afterwards.  The kernels line gives phase 34's
+   launches a rank by design (``mesh_engine_launches_per_rank``,
+   ``donated_executor``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -832,6 +858,10 @@ def main() -> int:
     results["blocks"]["dryrun"] = _dryrun_blocks(dry_blocks, results["blocks"]["train"])
     mb = _mesh_blocks_launches(results["blocks"])
 
+    # 34. the engine's paged decode on (1, 4) gloo ranks sharing the card; compile(donate=)
+    results["engine_mesh"] = _engine_mesh_phase(cfg, ops)
+    em = results["engine_mesh"]
+
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
@@ -899,7 +929,12 @@ def main() -> int:
                                    for cell, r in dry["cli"].items() if cell != "hbm_bytes"},
          "dryrun_one_rank_designs": {c: r["flash_designs"]
                                      for c, r in dry["one_rank"].items()},
-         "mesh_blocks_launches_per_rank": mb["flash_attention"]},
+         "mesh_blocks_launches_per_rank": mb["flash_attention"],
+         "mesh_engine_launches_per_rank": {"launches": em["engine"]["flash_launches"],
+                                           "design": em["engine"]["flash_designs"]},
+         "donated_executor": {dt: {"launches": r["launches"]["flash_attention"],
+                                   "design": r["designs"]["flash_attention"]}
+                              for dt, r in em["donate"].items()}},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -940,6 +975,9 @@ def main() -> int:
          "gspmd_launches_per_rank": {f"{m}/{dt}": gx[m][dt]["launches_per_rank"][0][
              "matmul"] for m in gx for dt in RING_DTYPES},
          "mesh_blocks_launches_per_rank": mb["matmul"],
+         "donated_executor": {dt: {"launches": r["launches"]["matmul"],
+                                   "design": r["designs"]["matmul"]}
+                              for dt, r in em["donate"].items()},
          "op_host_us": mt["host"]["op_us"], "direct_host_us": mt["host"]["direct_us"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3858,8 +3896,12 @@ MESH_SERVE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
 # it than twice the one-rank bf16 run is (``floor_first``), and a token
 # flip to a top-2 margin under twice that; their float32 slices hold the
 # blocks to 1e-4 at every step.
+# qwen2-moe at 6 of its 24 layers, for the run's time limit: on one H100
+# at 700 W the whole run took 1,276 s of its 1,200 at 24 layers, and up
+# to 1,111 s at 12 (PERF.md).  hymba's and xlstm's serves run beside
+# (d)'s train steps, which take longer, so their depth costs no time.
 BLOCK_SERVES = {
-    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=None,
+    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=6,
                       policy={"e": "model"}, own_policy=True, floor_first=True),
     "hymba": dict(MESH_SERVE, arch="hymba-1.5b", layers=None,
                   mesh={"data": 2, "model": 2}, prompt_len=2048, max_share=None,
@@ -4075,7 +4117,7 @@ def mesh_serve_rank(rank: int, world: int, spec: dict, one: dict) -> dict:
                      one["slice_gen"], policy=policy, mesh=mesh)
     torch.cuda.empty_cache()
     if spec.get("own_policy"):
-        # serve(mesh=)'s own plan: at full depth where its blocks fit
+        # serve(mesh=)'s own plan: at the cell's depth where its blocks fit
         own = _serve_policy(cfg, dict(spec, policy=None), mesh)
         own_bytes = _rank_bytes(cfg, own, mesh)
         layers = cfg.n_layers
@@ -4416,7 +4458,7 @@ def _mesh_blocks_launches(blocks: dict) -> dict:
 
 
 def _block_mesh_phase(ops) -> dict:
-    """Phase 33 (a)-(e): qwen2-moe, hymba and xlstm served at full size on
+    """Phase 33 (a)-(e): qwen2-moe, hymba and xlstm served at full width on
     meshes of gloo ranks sharing the card, their 2-layer float32 train
     steps on 2 ranks, and the a2a rule under the gspmd executor.  qwen2-moe
     is served alone (its float32 witness takes 61 GB of the card); the
@@ -4695,6 +4737,345 @@ def _dryrun_phase(ops, results: dict, started: list) -> dict:
     (c) the collectives against phase 31(b)'s gloo ranks."""
     return {"cli": _dryrun_cli(started), "one_rank": _dryrun_against_real(ops),
             "collectives": _dryrun_collectives(results["mesh"]["train"])}
+
+
+
+# ---------------------------------------------------------------------------
+# 34. the serving engine's paged decode on a mesh; compile(donate=)
+# ---------------------------------------------------------------------------
+
+# llama-7b's engine at full width, 8 of its 32 layers (as phase 31(c)), on
+# (1, 4) gloo ranks sharing the card; 6 requests of 96-320 tokens drawn
+# from the seed, 8 new each, through 4 slots (two queue behind the first
+# four); a 4-layer float32 slice beside it
+MESH_ENGINE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
+               "slots": 4, "block": 16, "requests": 6, "lens": (96, 320), "max_new": 8,
+               "slice_layers": 4}
+# the float32 slice's first decode step on the mesh against one rank's,
+# relative to max|logit|: phase 10's float32 limit
+MESH_ENGINE_F32_TOL = 1e-4
+# the donated call's allocator peak against the memory pass's
+DONATE_BAND = 1e-3
+
+
+def _mesh_engine_prompts(cfg, spec: dict) -> list:
+    rng = np.random.default_rng(34)
+    lens = rng.integers(spec["lens"][0], spec["lens"][1] + 1, size=spec["requests"])
+    return [rng.integers(0, cfg.vocab, size=(int(n),)).astype(np.int32) for n in lens]
+
+
+def _tapped_engine(cfg, spec: dict, *, mesh=None, params=None,
+                   force: dict | None = None) -> dict:
+    """A ``ServingEngine`` on the card (on ``mesh`` where given; weights
+    from seed 0 unless ``params``) over the cell's requests, tapped: the
+    whole last-position logits of every prefill and decode step (float32,
+    on the host) per request and generation index, the tokens the engine
+    took itself
+    (its prefill argmax, then its decode steps'), each decode step's wall,
+    its launches by design (counts set to 0 just before ``run``).  With
+    ``force`` ({rid: tokens}) every admission and decode step hands the
+    engine those tokens instead of its own (teacher forcing), so its
+    logits condition on the same prefixes as the run that made them."""
+    from repro_torch.core import tree
+    from repro_torch.core.gspmd import full
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import _local_bytes
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    prompts = _mesh_engine_prompts(cfg, spec)
+    max_seq = spec["lens"][1] + spec["max_new"]
+    eng = ServingEngine(cfg, batch=spec["slots"], max_seq=max_seq, block=spec["block"],
+                        params=params, mesh=mesh, device="cuda")
+    for p in prompts:
+        eng.submit(p, spec["max_new"])
+    rec: dict = {}
+    own: dict = {}
+    walls: list = []
+    pending: list = []
+    order = iter(range(len(prompts)))  # admissions come in request order
+    admit, decode, paged = eng._admit, eng._decode, tf.decode_step_paged
+    get_prefill = eng.registry.prefill
+
+    def prefill_tapped(prompt_len, batch=1):
+        ent = get_prefill(prompt_len, batch)
+        base = getattr(ent, "untapped_step", ent.step)
+        ent.untapped_step = base
+
+        def step(params, batch, last_index):
+            logits, caches = base(params, batch, last_index)
+            pending.append(full(logits)[0, -1].float().cpu())
+            return logits, caches
+
+        ent.step = step
+        return ent
+
+    def admit_tapped(caches, pre, blocks, slot, tok0, tokens):
+        rid = next(order)
+        own[rid] = [int(tok0[0])]
+        rec[rid] = {0: pending.pop()}
+        if force is not None:
+            tok0 = torch.full_like(tok0, int(force[rid][0]))
+        return admit(caches, pre, blocks, slot, tok0, tokens)
+
+    def paged_tapped(*a, **kw):
+        logits, caches = paged(*a, **kw)
+        whole = full(logits)[:, -1].float().cpu()
+        for i, req in enumerate(eng.slots):
+            if req is not None:
+                rec[req.rid][1 + req.n_dec] = whole[i]
+        return logits, caches
+
+    def decode_tapped(params, tokens, caches, tables, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = decode(params, tokens, caches, tables, pos)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mine = tok[:, 0].tolist()
+        live = [(i, req) for i, req in enumerate(eng.slots) if req is not None]
+        for i, req in live:
+            own[req.rid].append(mine[i])
+        if force is None:
+            return tok, caches
+        tok = tok.clone()
+        for i, req in live:
+            tok[i, 0] = int(force[req.rid][1 + req.n_dec])
+        return tok, caches
+
+    eng._admit, eng._decode, tf.decode_step_paged = admit_tapped, decode_tapped, paged_tapped
+    eng.registry.prefill = prefill_tapped
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        _, metrics = eng.run()
+    finally:
+        tf.decode_step_paged = paged
+    launches, designs = ops.launch_counts(), ops.design_counts()
+    pools = [t for c in eng.caches for t in tree.leaves(c)]
+    return {"own": {rid: np.asarray(t, np.int32) for rid, t in own.items()},
+            "logits": rec, "walls": walls, "ttft_s": dict(metrics.ttft_s),
+            "decode_steps": metrics.decode_steps, "prefills": metrics.prefills,
+            "launches": launches, "designs": designs,
+            "weight_bytes": _local_bytes(eng.params), "pool_bytes": _local_bytes(pools),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "policy": {l: list(a) for l, a in eng.policy.label_axes.items()}}
+
+
+def mesh_engine_rank(rank: int, world: int, spec: dict, forced: dict) -> dict:
+    """One gloo rank of phase 34(a): the bf16 engine teacher-forced on the
+    one-rank engine's tokens, then the float32 slice's engine free.  Rank 0
+    returns the logits; every rank a digest of them (the sum of |logits|
+    per request and position), which must be rank 0's."""
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(spec["mesh"], device="cuda:0")
+    cfg = _serve_cfg(spec)
+    out = {}
+    for name, c, force in (("bf16", cfg, forced),
+                           ("slice", _f32_slice(cfg, spec["slice_layers"]), None)):
+        r = _tapped_engine(c, spec, mesh=mesh, force=force)
+        r["digest"] = {rid: {i: float(t.abs().sum()) for i, t in rows.items()}
+                       for rid, rows in r["logits"].items()}
+        if rank:
+            r["logits"] = None
+        out[name] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _max_rel(got: dict, want: dict, first_only: bool = False) -> tuple[float, float]:
+    """max|got - want| over every (request, position) of ``want``'s decode
+    logits (or the first decode step's), and that over max|want|."""
+    diff = scale = 0.0
+    for rid, rows in want.items():
+        for i, w in rows.items():
+            if first_only and i != 1:
+                continue
+            diff = max(diff, float((got[rid][i] - w).abs().max()))
+            scale = max(scale, float(w.abs().max()))
+    return diff, diff / scale
+
+
+def _mesh_engine() -> dict:
+    """Phase 34(a) (see the module doc): the one-rank runs first, alone on
+    the card, then the ranks."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import transformer as tf
+
+    spec = MESH_ENGINE
+    cfg = _serve_cfg(spec)
+    world = math.prod(spec["mesh"].values())
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    one = _tapped_engine(cfg, spec, params=params)
+    forced = {rid: t.tolist() for rid, t in one["own"].items()}
+    params = _upcast_(params)
+    torch.cuda.empty_cache()
+    f32 = _tapped_engine(dataclasses.replace(cfg, dtype="float32"), spec, params=params,
+                         force=forced)
+    del params
+    torch.cuda.empty_cache()
+    one_slice = _tapped_engine(_f32_slice(cfg, spec["slice_layers"]), spec)
+    t_one = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(world, mesh_engine_rank, spec, forced, tmpdir=tmp, backend="gloo",
+                      timeout=600)
+        t_spawn = time.perf_counter() - t0
+    r0, s0 = ranks[0]["bf16"], ranks[0]["slice"]
+    for rank, r in enumerate(ranks):  # every rank the same logits and tokens
+        for name in ("bf16", "slice"):
+            assert r[name]["digest"] == ranks[0][name]["digest"], (rank, name)
+            assert all((r[name]["own"][k] == ranks[0][name]["own"][k]).all()
+                       for k in ranks[0][name]["own"]), (rank, name)
+    attn = sum(1 for blk in cfg.blocks() if blk in ("attn", "hymba"))
+    fl = r0["launches"]["flash_attention"]
+    assert fl == attn * spec["requests"], r0["launches"]  # one a layer, each prefill
+    assert r0["designs"]["flash_attention"]["wgmma"] == fl, r0["designs"]
+    assert r0["launches"]["gmm"] == r0["launches"]["matmul"] == 0, r0["launches"]
+    assert r0["prefills"] == spec["requests"] and r0["decode_steps"] == one["decode_steps"]
+    # the float32 slice: the one-rank engine's tokens, its first decode step's logits
+    for rid, want in one_slice["own"].items():
+        np.testing.assert_array_equal(s0["own"][rid], want, err_msg=f"slice request {rid}")
+    sl_first, sl_first_rel = _max_rel(s0["logits"], one_slice["logits"], first_only=True)
+    sl_all, sl_all_rel = _max_rel(s0["logits"], one_slice["logits"])
+    if not sl_first_rel <= MESH_ENGINE_F32_TOL:
+        raise AssertionError(f"mesh engine: the f32 slice's first decode step differs by "
+                             f"{sl_first_rel:.3e} x max|logit| > {MESH_ENGINE_F32_TOL}")
+    # bf16: no farther from the float32 run, over every step, than twice the one rank
+    floor, floor_rel = _max_rel(one["logits"], f32["logits"])
+    mesh_f32, mesh_f32_rel = _max_rel(r0["logits"], f32["logits"])
+    mesh_one, mesh_one_rel = _max_rel(r0["logits"], one["logits"])
+    first, first_rel = _max_rel(r0["logits"], one["logits"], first_only=True)
+    if not mesh_f32 <= 2 * floor:
+        raise AssertionError(f"mesh engine: max|mesh - f32| {mesh_f32:.3e} over twice the "
+                             f"one-rank bf16 run's {floor:.3e}")
+    equal = sum(int((r0["own"][k] == one["own"][k]).sum()) for k in one["own"])
+    total = sum(len(t) for t in one["own"].values())
+    scale = max(float(w.abs().max()) for rows in one["logits"].values() for w in rows.values())
+    flip = max(MESH_SERVE_TOL * scale, 2 * floor)
+    flips = []
+    for rid, want in one["own"].items():  # a token the mesh would take otherwise
+        for i in np.nonzero(r0["own"][rid] != want)[0].tolist():
+            top2 = torch.topk(one["logits"][rid][i], 2).values
+            margin = float(top2[0] - top2[1])
+            flips.append({"request": rid, "position": i, "margin": margin})
+            assert margin <= flip, (rid, i, margin, flip)
+    walls = r0["walls"]
+    log("mesh-engine", f"llama-7b bf16, {cfg.n_layers} layers, engine of {spec['slots']} "
+                       f"slots, KV block {spec['block']}, {spec['requests']} requests of "
+                       f"{[len(p) for p in _mesh_engine_prompts(cfg, spec)]} tokens, "
+                       f"{spec['max_new']} new each, on {world} gloo ranks sharing the card, "
+                       f"mesh {spec['mesh']}, decode policy {r0['policy']}: weight bytes a "
+                       f"rank {[r['bf16']['weight_bytes'] for r in ranks]}, pool bytes a rank "
+                       f"{[r['bf16']['pool_bytes'] for r in ranks]} (one rank "
+                       f"{one['weight_bytes']} and {one['pool_bytes']}); peak a rank "
+                       f"{[r['bf16']['peak_bytes'] for r in ranks]} B; flash launches a rank "
+                       f"by design {r0['designs']['flash_attention']} ({fl} = {attn} layers x "
+                       f"{spec['requests']} prefills); {r0['decode_steps']} decode steps, their "
+                       f"walls {min(walls):.3f}-{max(walls):.3f} s (median "
+                       f"{float(np.median(walls)):.3f} s; host-staged gloo, not a speed path), "
+                       f"one rank's {float(np.median(one['walls'])):.4f} s; TTFT per request "
+                       f"{ {k: round(v, 3) for k, v in r0['ttft_s'].items()} } s (one rank "
+                       f"{ {k: round(v, 3) for k, v in one['ttft_s'].items()} }); teacher-forced "
+                       f"on the one-rank engine's tokens, the mesh's own tokens equal "
+                       f"{equal} of {total}, flips {flips or 'none'} (limit {flip:.3e}); "
+                       f"max|mesh - one rank| {mesh_one:.3e} ({mesh_one_rel:.2e} of max|logit|, "
+                       f"the first step {first_rel:.2e}), max|mesh - f32| {mesh_f32:.3e} "
+                       f"against the one-rank bf16 run's {floor:.3e} ({floor_rel:.2e}; limit "
+                       f"twice that); the f32 slice ({spec['slice_layers']} layers): tokens "
+                       f"equal to one rank's, its first decode step {sl_first_rel:.2e} of "
+                       f"max|logit| (limit {MESH_ENGINE_F32_TOL}), every step {sl_all_rel:.2e}, "
+                       f"flash by design {s0['designs']['flash_attention']}; one-rank runs "
+                       f"{t_one:.1f} s, ranks {t_spawn:.1f} s")
+    return {"mesh": spec["mesh"], "layers": cfg.n_layers, "policy": r0["policy"],
+            "weight_bytes": [r["bf16"]["weight_bytes"] for r in ranks],
+            "pool_bytes": [r["bf16"]["pool_bytes"] for r in ranks],
+            "one_rank_bytes": {"weights": one["weight_bytes"], "pool": one["pool_bytes"]},
+            "peak_bytes": [r["bf16"]["peak_bytes"] for r in ranks],
+            "flash_launches": fl, "flash_designs": r0["designs"]["flash_attention"],
+            "slice_flash_designs": s0["designs"]["flash_attention"],
+            "decode_walls_s": walls, "one_rank_decode_walls_s": one["walls"],
+            "ttft_s": r0["ttft_s"], "one_rank_ttft_s": one["ttft_s"],
+            "tokens_equal": equal, "tokens": total, "flips": flips,
+            "max_abs_mesh_one_rank": mesh_one, "rel_mesh_one_rank": mesh_one_rel,
+            "rel_first_step": first_rel, "max_abs_mesh_f32": mesh_f32,
+            "max_abs_noise_floor": floor, "rel_noise_floor": floor_rel,
+            "slice_rel_first_step": sl_first_rel, "slice_rel_every_step": sl_all_rel,
+            "t_one_rank_s": t_one, "spawn_s": t_spawn}
+
+
+def _donation(cfg, ops) -> dict:
+    """Phase 34(b): phase 30(b)'s program compiled with ``donate=True``, in
+    float32 and bf16: one warmed donated call (fresh feeds; the warm-up's
+    were freed) against the memory pass's per-device peak with that
+    donation set, its logits bit for bit the undonated call's, every feed
+    raising afterwards."""
+    from repro_torch.analysis import analyze_compiled
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.engine import DonatedTensor
+    from repro_torch.frontend import Program
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    prog = program_for(cfg, ShapeConfig("serve", "prefill", 512, 4))
+    mesh = Mesh({"data": 1, "model": 1}, device="cuda")
+    res = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        p = prog if dt == torch.float32 else Program.from_graph(_retyped(prog.graph, dt),
+                                                                prog._out)
+        plain = p.compile(mesh=mesh, executor="shard_map")
+        run = p.compile(mesh=mesh, executor="shard_map", donate=True)
+        static = analyze_compiled(run).memory
+        kept = analyze_compiled(plain).memory
+        with torch.inference_mode():
+            want = plain(_graph_feeds(prog.graph, cfg, dt, seed=7))["logits"]
+            run(_graph_feeds(prog.graph, cfg, dt, seed=7))  # warm-up
+            torch.cuda.synchronize()
+            gc.collect()
+            feeds = _graph_feeds(prog.graph, cfg, dt, seed=7)
+            ops.reset_launch_counts()
+            out, measured = _allocator_peak(lambda: run(feeds), feeds)
+            launches, designs = ops.launch_counts(), ops.design_counts()
+        assert torch.equal(out["logits"], want), name
+        assert all(type(t) is DonatedTensor for t in feeds.values()), name
+        ratio = static["peak_bytes"] / measured["measured_bytes"]
+        log("donate", f"llama-7b prefill graph, one rank, {name}, donate=True: memory pass "
+                      f"peak {static['peak_bytes']} B at node {static['peak_pos']} (undonated "
+                      f"{kept['peak_bytes']} B); allocator {measured['measured_bytes']} B "
+                      f"(max_memory_allocated {measured['max_memory_allocated']} less "
+                      f"{measured['allocated_before'] - measured['feed_bytes']} B held before "
+                      f"the call that are not its feeds); static / measured {ratio:.6f}; "
+                      f"logits bit for bit the undonated call's; all {len(feeds)} feeds "
+                      f"raise afterwards; launches {launches} by design "
+                      f"{ {k: designs[k] for k in ('matmul', 'flash_attention')} }")
+        assert abs(ratio - 1.0) <= DONATE_BAND, (name, ratio, static["peak_bytes"], measured)
+        res[name] = {"static_peak_bytes": static["peak_bytes"],
+                     "static_peak_pos": static["peak_pos"],
+                     "undonated_static_peak_bytes": kept["peak_bytes"], **measured,
+                     "ratio": ratio, "launches": launches,
+                     "designs": {k: designs[k] for k in ("matmul", "flash_attention")}}
+        del feeds, out, want, run, plain
+        torch.cuda.empty_cache()
+    return res
+
+
+def _engine_mesh_phase(cfg, ops) -> dict:
+    """Phase 34: (a) the engine on a mesh, (b) donation."""
+    t0 = time.perf_counter()
+    out = {"engine": _mesh_engine()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["donate"] = _donation(cfg, ops)
+    out["phase_s"] = time.perf_counter() - t0
+    log("mesh-engine", f"phase 34 in {out['phase_s']:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ prefetches, whose landed shards additionally stay live until the consumer
 reads them.
 
 This is what the port's eager runner holds: the caller's feeds stay alive
-for the whole call (the runner only reads them), the outputs are kept
-until it returns, and ``spmd.run_schedule_body`` drops every other value
-after its last reader, so its memory goes back to the allocator.  A
+for the whole call (the runner only reads them) but for the donated ones,
+which it frees after their last reader (``core/engine.release``); the
+outputs are kept until it returns, and ``spmd.run_schedule_body`` drops
+every other value after its last reader, so its memory goes back to the
+allocator.  A
 repartition chain's steps run one after another on the consumer's
 argument, each a fresh tensor.  The pass counts none of the allocator's
 rounding or workspace, nor a copy a kernel wrapper makes of an operand.

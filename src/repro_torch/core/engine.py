@@ -16,6 +16,13 @@ Two executors realize a plan (``EXECUTORS``):
     ``torch.distributed`` collectives between the ranks of a
     ``launch.mesh.Mesh``, every clean contraction through the matmul kernel,
     opaque nodes through the shard-rule registry.
+
+Every runner drops a value after its last reader.  A feed compiled as
+donated (``Program.compile(donate=)``) goes further: after its last
+reader the runner frees its storage — the caller's tensor, and the
+runner's copy or block of it — and the caller's tensor raises on any
+later use (``DonatedTensor``), as XLA invalidates a donated buffer
+(``donatable``, ``release``).
 """
 from __future__ import annotations
 
@@ -149,6 +156,88 @@ def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+class DonatedTensor(torch.Tensor):
+    """What a donated feed becomes once a call has freed its storage:
+    every torch operation on it raises, as JAX raises on a deleted
+    array."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(
+            f"{getattr(func, '__name__', func)}: this tensor was donated to "
+            "a compiled program's call (compile(donate=)), which freed its "
+            "storage after its last read")
+
+
+def _storage_of(t):
+    """The data pointer of ``t``'s storage (a DTensor's local block's), or
+    None for what is not a tensor holding memory."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t._local_tensor
+    if not torch.is_tensor(t) or t.device.type == "meta":
+        return None
+    return t.untyped_storage().data_ptr()
+
+
+def _owns_storage(t: torch.Tensor) -> bool:
+    """Whether ``t`` is the whole of its storage: not a view of a tensor
+    the caller may still hold (a slice, one piece of ``split``), whose
+    memory a donation of ``t`` alone must not take."""
+    return (t._base is None and t.storage_offset() == 0
+            and t.untyped_storage().nbytes() == t.nbytes)
+
+
+def donatable(feeds: dict[int, Any], donate: Sequence[int],
+              keep: set[int]) -> dict[int, torch.Tensor]:
+    """``{input id: the caller's tensor}`` of the donated feeds a call may
+    free after their last reader: plain tensors that own their whole
+    storage, that are not outputs (``keep``) and share their storage with
+    no other feed — the static verifier's rules: a donation also returned
+    (RA202) or aliasing another feed is not freed, one nobody reads
+    (RA207) frees nothing, having no last reader.  A view of a larger
+    tensor is kept whole, as an aliased feed is.  Numpy feeds are not the
+    caller's memory on a card (the runner's copy goes with its last
+    reader) and are never freed."""
+    from collections import Counter
+
+    shared = Counter(_storage_of(x) for x in feeds.values())
+    return {nid: feeds[nid] for nid in donate
+            if nid not in keep
+            and type(feeds[nid]) in (torch.Tensor, torch.nn.Parameter)
+            and feeds[nid].device.type != "meta"
+            and shared[_storage_of(feeds[nid])] == 1
+            and _owns_storage(feeds[nid])
+            and feeds[nid].untyped_storage().resizable()}
+
+
+def release(fed: torch.Tensor, value, vals: dict[int, Any]) -> None:
+    """Free a donated feed after its last reader: the storage of the
+    caller's tensor ``fed`` and of the runner's ``value`` of it (a copy, or
+    a DTensor whose local block is a slice), unless a value still held
+    (``vals``, without this feed) shares either — a view of the feed that
+    outlives it keeps the feed whole.  ``fed`` then raises on any use."""
+    from torch.distributed.tensor import DTensor
+
+    mine = {_storage_of(fed), _storage_of(value)} - {None}
+    if any(_storage_of(v) in mine for v in vals.values()):
+        return
+    local = value._local_tensor if isinstance(value, DTensor) else value
+    for t in (local, fed):
+        if torch.is_tensor(t) and t.untyped_storage().resizable():
+            t.untyped_storage().resize_(0)
+    fed.__class__ = DonatedTensor
+
+
+def drop(vals: dict[int, Any], a: int, donated: dict[int, Any]) -> None:
+    """Drop node ``a``'s value after its last reader, and free it if it is
+    a donated feed (``donatable``, ``release``)."""
+    v = vals.pop(a, None)
+    if a in donated:
+        release(donated[a], v, vals)
+
+
 def live_nodes(g: EinGraph, keep) -> set[int]:
     """The nodes ``keep`` depends on, ``keep`` included: what a run that
     returns only ``keep`` must compute.  A gradient graph holds adjoints
@@ -166,8 +255,8 @@ def live_nodes(g: EinGraph, keep) -> set[int]:
 
 
 def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
-        keep: set[int] | None = None, plan=None,
-        mesh=None) -> dict[int, torch.Tensor]:
+        keep: set[int] | None = None, plan=None, mesh=None,
+        donate: Sequence[int] = ()) -> dict[int, torch.Tensor]:
     """Evaluate the graph densely with torch on ``device`` (default: where
     the feeds are).  ``feeds`` may be keyed by input *name* or node id
     (``resolve_feeds``).  Returns every node's value, or with ``keep``
@@ -178,13 +267,16 @@ def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
     rank runs the ``gspmd`` executor (``core/gspmd.py``): each rank keeps
     its blocks of the feeds, every node computes on local blocks and is
     redistributed to its planned placements, and the values come back
-    whole on every rank, as the reference returns global arrays."""
+    whole on every rank, as the reference returns global arrays.
+
+    ``donate`` (input ids; with ``keep``) frees those feeds after their
+    last reader (``donatable``, ``release``)."""
     feeds = resolve_feeds(g, feeds)
     if _multi_rank(mesh):
         from repro_torch.core.gspmd import GspmdRunner, full
 
         ids = sorted(keep) if keep is not None else [n.nid for n in g.nodes]
-        runner = GspmdRunner(g, plan, mesh, ids)
+        runner = GspmdRunner(g, plan, mesh, ids, donate=donate)
         vals = runner.run_nodes(feeds, set(ids))
         return {k: full(v) for k, v in vals.items()}
     last: dict[int, int] = {}
@@ -195,6 +287,7 @@ def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
             if n.nid in live:
                 for a in n.inputs:
                     last[a] = max(last.get(a, -1), n.nid)
+    donated = donatable(feeds, donate, keep) if keep is not None else {}
     vals: dict[int, torch.Tensor] = {}
     for nid in g.topo_order():
         n = g.nodes[nid]
@@ -212,7 +305,7 @@ def run(g: EinGraph, feeds: dict[Any, Any], *, device=None,
         if keep is not None:
             for a in set(n.inputs):
                 if last[a] == nid and a not in keep:
-                    vals.pop(a, None)
+                    drop(vals, a, donated)
     return vals
 
 

@@ -592,13 +592,15 @@ class GspmdRunner:
     ``issued`` lists the collectives the shard rules' own programs issued
     in it (the ``a2a`` rule's), as ``spmd.StepContext.issued`` does."""
 
-    def __init__(self, g: EinGraph, plan, mesh, out_ids: Sequence[int]):
+    def __init__(self, g: EinGraph, plan, mesh, out_ids: Sequence[int],
+                 donate: Sequence[int] = ()):
         from repro_torch.core.engine import mesh_axes_dict
 
         self.graph = g
         self.plan = plan
         self.mesh = mesh
         self.out_ids = list(out_ids)
+        self.donate = tuple(donate)
         self.program = build_program(g, plan, mesh_axes_dict(mesh))
         self.log_comms = False
         self.comms: CommLog | None = None
@@ -614,11 +616,14 @@ class GspmdRunner:
 
     def run_nodes(self, feeds: dict[int, Any], keep: set[int]) -> dict[int, Any]:
         """Every node ``keep`` depends on, placed; returns ``keep``'s values
-        as DTensors (the others are dropped after their last reader)."""
+        as DTensors (the others are dropped after their last reader, the
+        donated feeds' storage freed: ``engine.drop``)."""
         from repro_torch.core import spmd
-        from repro_torch.core.engine import MAP_FNS, live_nodes, mesh_axes_dict
+        from repro_torch.core.engine import (MAP_FNS, donatable, drop,
+                                             live_nodes, mesh_axes_dict)
 
         g, mesh = self.graph, self.mesh
+        donated = donatable(feeds, self.donate, keep)
         live = live_nodes(g, keep)
         frees = spmd._last_uses(g, live)
         ctx = spmd.StepContext(mesh, mesh_axes_dict(mesh))
@@ -644,7 +649,7 @@ class GspmdRunner:
             vals[nid] = constrain(v, mesh, st.out_spec)
             for a in frees.get(nid, ()):
                 if a not in keep:
-                    vals.pop(a, None)
+                    drop(vals, a, donated)
         self.issued = ctx.issued
         return {k: vals[k] for k in keep}
 

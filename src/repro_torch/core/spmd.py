@@ -1385,21 +1385,27 @@ class SpmdRunner:
     the last call (``StepContext.issued``)."""
 
     def __init__(self, g: EinGraph, sched: Schedule, out_ids: list[int],
-                 mesh):
+                 mesh, donate: Sequence[int] = ()):
         self.graph = g
         self.schedule = sched
         self.out_ids = out_ids
         self.mesh = mesh
+        self.donate = tuple(donate)
         self.issued: list[tuple] = []
 
     def __call__(self, *arrays):
+        from repro_torch.core.engine import donatable
+
         g, sched, dev = self.graph, self.schedule, self.mesh.device
         ctx = StepContext(self.mesh, sched.sizes)
+        keep = set(self.out_ids)
+        feeds = dict(zip(g.input_ids(), arrays))
         vals: dict[int, Any] = {}
-        for i, arr in zip(g.input_ids(), arrays):
+        for i, arr in feeds.items():
             x = ctx.shard(torch.as_tensor(arr), sched.layouts[i])
             vals[i] = x.to(dev)
-        run_schedule_body(g, sched, vals, ctx, keep=set(self.out_ids))
+        run_schedule_body(g, sched, vals, ctx, keep=keep,
+                          donated=donatable(feeds, self.donate, keep))
         self.issued = ctx.issued
         return tuple(ctx.assemble(vals[o], sched.layouts[o])
                      for o in self.out_ids)
@@ -1414,6 +1420,7 @@ def make_spmd_runner(
     trace: CollectiveTrace | None = None,
     fuse: bool = True,
     lookahead: int = 1,
+    donate: Sequence[int] = (),
 ) -> SpmdRunner:
     """Build the per-rank runner executing the planned graph with explicit
     collectives over ``mesh`` (a ``launch.mesh.Mesh``).
@@ -1426,7 +1433,8 @@ def make_spmd_runner(
     are issued (``async_op=True``) before an earlier node's compute block
     and waited on by the consumer — the same values flow through the same
     collectives in a different issue order, so outputs are bit-identical
-    to ``lookahead=0``.
+    to ``lookahead=0``.  ``donate`` (input ids) frees those feeds after
+    their last reader (``engine.donatable``).
     """
     from repro_torch.core import engine
 
@@ -1442,7 +1450,7 @@ def make_spmd_runner(
                            fuse=fuse, lookahead=lookahead)
     if trace is not None:
         trace.extend(sched.trace)
-    return SpmdRunner(g, sched, out_ids, mesh)
+    return SpmdRunner(g, sched, out_ids, mesh, donate)
 
 
 def _last_uses(g: EinGraph, live: set[int]) -> dict[int, list[int]]:
@@ -1461,7 +1469,8 @@ def _last_uses(g: EinGraph, live: set[int]) -> dict[int, list[int]]:
 
 def run_schedule_body(g: EinGraph, sched: Schedule, vals: dict[int, Any],
                       ctx: StepContext,
-                      keep: set[int] | None = None) -> dict[int, Any]:
+                      keep: set[int] | None = None,
+                      donated: dict[int, Any] | None = None) -> dict[int, Any]:
     """Execute a built ``Schedule``'s per-node programs on this rank.
     ``vals`` maps every input node id to its local block on entry; on
     return it additionally holds the computed nodes' local values — all of
@@ -1473,7 +1482,9 @@ def run_schedule_body(g: EinGraph, sched: Schedule, vals: dict[int, Any],
     collectives — every rank skips the same nodes).
 
     Hoisted repartition chains (``prog.prefetch``) are started before the
-    issuing node's compute block and waited on by their consumer."""
+    issuing node's compute block and waited on by their consumer.
+    ``donated`` (``{input id: the caller's tensor}``, with ``keep``) are
+    freed after their last reader (``engine.drop``)."""
     from repro_torch.core import engine
 
     progs = {p.nid: p for p in sched.programs}
@@ -1512,5 +1523,5 @@ def run_schedule_body(g: EinGraph, sched: Schedule, vals: dict[int, Any],
         vals[nid] = v
         for a in frees.get(nid, ()):
             if a not in keep:
-                vals.pop(a, None)
+                engine.drop(vals, a, donated or {})
     return vals

@@ -25,9 +25,11 @@ backward jointly (the paper's Experiment 2).
 Runners run on the card unless the caller asks for another device
 (``device="cpu"``, or a mesh on the CPU); with no card and no device asked
 for, calling a compiled program raises.  The runner is eager: there is no
-jit, and no buffer donation — a value's memory goes back to the allocator
-when its last reference goes, and the runner drops every intermediate
-after its last reader.
+jit — a value's memory goes back to the allocator when its last reference
+goes, and the runner drops every intermediate after its last reader.  A
+feed donated with ``compile(donate=)`` is freed after its last reader too,
+its storage taken from the caller's tensor (``engine.donatable``,
+``engine.drop``).
 """
 from __future__ import annotations
 
@@ -176,14 +178,23 @@ class Program:
         traces, bubble fraction).  Requires ``executor='shard_map'``;
         donation is not supported.
 
+        ``donate=True`` donates **every** input; a sequence of input names
+        donates just those (an unknown name raises ``KeyError``);
+        ``.donate_argnums`` are their positions, as the reference's jit
+        donates them.  PyTorch has no jit to donate to: every runner
+        (dense, gspmd on DTensor, shard_map) frees a donated feed's storage
+        after its last reader — the caller's tensor and the runner's copy
+        or block of it — and the caller's tensor raises on any later use,
+        as JAX's deleted array does (``engine.donatable``,
+        ``engine.release``).  A donated feed that is also an output, or
+        shares its storage with another feed, or is a view of a larger
+        tensor, or that a value still held views, is not freed; numpy
+        feeds never are.  The static verifier
+        prices the same liveness (``analysis/memory_pass.py``).
+
         ``plan=`` short-circuits planning with a caller-supplied mesh-mode
         plan (e.g. the pipeline tier's stitched plan, to compile the exact
         bit-identity baseline) — mutually exclusive with ``pipeline=``.
-
-        Not ported yet, and raising ``NotImplementedError``: ``donate=``
-        (buffer donation: PyTorch has no jit to donate to; the eager runner
-        already frees each value after its last reader; ROADMAP Queue 1
-        item 4(d)).
         """
         from repro_torch.core.decomp import eindecomp
         from repro_torch.core.engine import EXECUTORS, mesh_axes_dict
@@ -223,12 +234,6 @@ class Program:
                                    executor="shard_map", fuse=fuse,
                                    lookahead=lookahead,
                                    pipeline_schedule=psched)
-        if donate:
-            raise NotImplementedError(
-                "compile: donate= is not ported — PyTorch has no jit "
-                "donation; the eager runner frees each intermediate after "
-                "its last reader, and donating the feeds themselves waits "
-                "for ROADMAP Queue 1 item 4(d)")
         if plan is not None:
             pass  # caller-supplied plan
         elif mesh_axes is not None or p is not None:
@@ -241,7 +246,8 @@ class Program:
             raise ValueError("compile: cache given but nothing to plan "
                              "with — pass mesh, mesh_axes or p")
         return CompiledProgram(self, plan=plan, mesh=mesh, executor=executor,
-                               fuse=fuse, lookahead=lookahead, device=device)
+                               fuse=fuse, lookahead=lookahead, device=device,
+                               donate=donate)
 
 
 class CompiledProgram:
@@ -257,8 +263,9 @@ class CompiledProgram:
     per-shard-rule view, and ``.lookahead`` the overlap window.  A
     pipelined compile carries ``.pipeline_schedule`` (None otherwise), and
     its ``.collectives`` is that schedule's combined, (stage,
-    microbatch)-tagged trace.  ``.donate_argnums`` is always ``()``: the
-    port donates no feed.
+    microbatch)-tagged trace.  ``.donate_argnums`` records which
+    positional inputs a call frees after their last reader (empty unless
+    compiled with ``donate``).
 
     Under gspmd on a mesh of more than one rank every rank runs the
     DTensor executor (``core/gspmd.GspmdRunner``) on ``mesh.device``, and
@@ -269,7 +276,8 @@ class CompiledProgram:
 
     def __init__(self, program: Program, *, plan=None, mesh=None,
                  executor: str = "gspmd", fuse: bool = True,
-                 lookahead: int = 1, device=None, pipeline_schedule=None):
+                 lookahead: int = 1, device=None, pipeline_schedule=None,
+                 donate: bool | Sequence[str] = False):
         self.program = program
         self.plan = plan
         self.mesh = mesh
@@ -279,11 +287,12 @@ class CompiledProgram:
         self.device = device
         self.collectives = None
         self.pipeline_schedule = pipeline_schedule
-        self.donate_argnums: tuple[int, ...] = ()
         g = program.graph
         self._in_names = tuple(g.nodes[i].name for i in g.input_ids())
         self._out_names = tuple(program._out)
         self._out_ids = [program._out[k] for k in self._out_names]
+        self.donate_argnums = self._donate_argnums(donate)
+        self._donate_ids = tuple(g.input_ids()[i] for i in self.donate_argnums)
         self._fn = None
         if pipeline_schedule is not None:
             from repro_torch.pipeline.exec import make_pipeline_runner
@@ -298,11 +307,25 @@ class CompiledProgram:
             self.collectives = spmd.CollectiveTrace()
             self._fn = spmd.make_spmd_runner(
                 g, self._out_ids, plan=plan, mesh=mesh,
-                trace=self.collectives, fuse=fuse, lookahead=lookahead)
+                trace=self.collectives, fuse=fuse, lookahead=lookahead,
+                donate=self._donate_ids)
         elif mesh is not None and math.prod(mesh.sizes.values()) > 1:
             from repro_torch.core.gspmd import GspmdRunner
 
-            self._fn = GspmdRunner(g, plan, mesh, self._out_ids)
+            self._fn = GspmdRunner(g, plan, mesh, self._out_ids,
+                                   donate=self._donate_ids)
+
+    def _donate_argnums(self, donate) -> tuple[int, ...]:
+        if donate is False or donate is None:
+            return ()
+        if donate is True:
+            return tuple(range(len(self._in_names)))
+        names = list(donate)
+        unknown = sorted(set(names) - set(self._in_names))
+        if unknown:
+            raise KeyError(f"donate: unknown inputs {unknown}; "
+                           f"program inputs are {sorted(self._in_names)}")
+        return tuple(i for i, n in enumerate(self._in_names) if n in names)
 
     @property
     def graph(self) -> EinGraph:
@@ -338,7 +361,7 @@ class CompiledProgram:
 
             def dense(*arrays):
                 vals = engine.run(g, dict(zip(in_ids, arrays)), device=dev,
-                                  keep=keep)
+                                  keep=keep, donate=self._donate_ids)
                 return tuple(vals[o] for o in out_ids)
 
             self._fn = dense

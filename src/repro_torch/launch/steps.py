@@ -116,13 +116,16 @@ def make_bucket_prefill_step(cfg, *, policy=None, mesh=None) -> Callable:
     return bucket_prefill_step
 
 
-def make_paged_serve_step(cfg, *, mesh=None) -> Callable:
+def make_paged_serve_step(cfg, *, policy=None, mesh=None) -> Callable:
     """Continuous-batching decode step: per-slot positions and block tables
-    into the paged KV pools (``kv_block_gather``); a mesh of more than one
-    rank raises (``transformer.decode_step_paged``)."""
+    into the paged KV pools (``kv_block_gather``).  On a mesh of more than
+    one rank the parameters and caches are DTensors
+    (``transformer.place_params``, ``place_paged_caches``), placed by
+    ``policy``, and the logits come back as a DTensor
+    (``transformer.decode_step_paged``)."""
 
     def paged_serve_step(params, tokens, caches, tables, pos):
         return tf.decode_step_paged(params, tokens, caches, tables, pos, cfg,
-                                    mesh=mesh)
+                                    policy=policy, mesh=mesh)
 
     return paged_serve_step

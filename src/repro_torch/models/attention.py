@@ -22,7 +22,9 @@ the flash kernel in prefill, the masked cache softmax and the in-place
 cache write in decode — runs on each rank's (batch, head) blocks, as the
 ``ring`` shard rule keeps flash attention local: q heads and kv heads
 split on the same axes, so GQA groups stay whole; the sequence, the cache
-time and the head dim unsplit.
+time and the head dim unsplit.  The paged decode's pool has no batch dim:
+each rank holds its kv-head block of every pool block, writes every slot's
+new row into it and attends its own slots (``_paged_placed``).
 """
 from __future__ import annotations
 
@@ -266,7 +268,8 @@ def init_paged_kv_cache(cfg, n_blocks: int, block: int, dtype,
 
 def attention_decode_paged(p: dict, x: torch.Tensor, pool: PagedKVCache,
                            tables: torch.Tensor, pos: torch.Tensor,
-                           cfg) -> tuple[torch.Tensor, PagedKVCache]:
+                           cfg, *, policy=None,
+                           mesh=None) -> tuple[torch.Tensor, PagedKVCache]:
     """One decode step against a paged block pool.
 
     x: (b, 1, d_model); tables: (b, W) int block tables; pos: (b,) int
@@ -282,30 +285,74 @@ def attention_decode_paged(p: dict, x: torch.Tensor, pool: PagedKVCache,
     pad rows a bucketed prefill left at row ``pos`` are overwritten before
     the mask admits them.  Idle slots (table rows of 0, pos 0) all write
     row 0 of the scratch block; which of them lands there does not matter.
+
+    On a mesh of more than one rank (``policy`` and ``mesh`` given; the
+    pool a DTensor placed by ``transformer.paged_cache_specs``) the step
+    runs on each rank's (batch block x kv-head block): ``_paged_placed``.
     """
     blk = pool.k.shape[1]
     W = tables.shape[1]
     pos = pos.long()
     tables = tables.long()
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
-    blk_ids = torch.gather(tables, 1, (pos // blk)[:, None])[:, 0]
-    off = pos % blk
-    pool.k[blk_ids, off] = k_new[:, 0]
-    pool.v[blk_ids, off] = v_new[:, 0]
-
-    kh = ops.kv_block_gather(pool.k, tables, W * blk)   # (b, kv, t, d)
-    vh = ops.kv_block_gather(pool.v, tables, W * blk)
-    qh = q.transpose(1, 2)                              # (b, h, 1, hd)
-
-    idx = torch.arange(W * blk, device=x.device)
+    idx = torch.arange(W * blk, device=pos.device)
     valid = idx[None, :] <= pos[:, None]
     if cfg.window:
         valid &= idx[None, :] > (pos[:, None] - cfg.window)
 
-    o = _decode_attend(qh, kh, vh, valid)
-    o = o.transpose(1, 2)
+    def write(k_new, v_new, pk, pv):
+        blk_ids = torch.gather(tables, 1, (pos // blk)[:, None])[:, 0]
+        off = pos % blk
+        pk[blk_ids, off] = k_new[:, 0]
+        pv[blk_ids, off] = v_new[:, 0]
+
+    def attend(q, pk, pv, rows):
+        kh = ops.kv_block_gather(pk, tables[rows], W * blk)   # (b, kv, t, d)
+        vh = ops.kv_block_gather(pv, tables[rows], W * blk)
+        o = _decode_attend(q.transpose(1, 2), kh, vh, valid[rows])
+        return o.transpose(1, 2)
+
+    if mesh is not None and mesh.world_size > 1:
+        o = _paged_placed(write, attend, q, k_new, v_new, pool, policy, mesh)
+    else:
+        write(k_new, v_new, pool.k, pool.v)
+        o = attend(q, pool.k, pool.v, slice(None))
     out = _proj_out(o, p["wo"])
     return out, pool
+
+
+def _paged_placed(write, attend, q, k_new, v_new, pool: PagedKVCache,
+                  policy, mesh):
+    """The paged step on each rank's (batch block x kv-head block): q on
+    the policy's batch axes (``policy.batch_entry``) and the pool's
+    kv-head axes.  The pool has no batch dim — any slot may own any block
+    — so it is whole along the batch axes, and each rank holds its kv-head
+    block of every block.  So a rank writes *every* slot's new K/V row
+    into that block (this step's K/V gathered over the batch axes first):
+    the ranks that hold one head block then hold equal pools, as the
+    reference's replicated pool is one array.  It then gathers and attends
+    its own slots (``write(k, v, pool k, pool v)``, ``attend(q, pool k,
+    pool v, rows)``).  A pool split along its block, row or head dim
+    raises."""
+    from repro_torch.models.policy import batch_entry
+
+    nb, br, ke, de = gspmd.spec_of_placements(pool.k.placements, 4, mesh)
+    if nb is not None or br is not None or de is not None:
+        raise NotImplementedError(
+            f"attention_decode_paged: a pool split along its block, row or "
+            f"head dim ({(nb, br, ke, de)}) has no local decode step (ROADMAP "
+            "Queue 3 item 4)")
+    heads = set(gspmd.entry_axes(ke))
+    be = gspmd.entry_of([a for a in gspmd.entry_axes(
+        batch_entry(policy, mesh, q.shape[0])) if a not in heads])
+    spec, every = (be, None, ke, None), (None, None, ke, None)
+    ql = gspmd.constrain(q, mesh, spec).to_local()
+    kl, vl = (gspmd.constrain(t, mesh, every).to_local() for t in (k_new, v_new))
+    pk, pv = pool.k.to_local(), pool.v.to_local()
+    write(kl, vl, pk, pv)
+    rows = gspmd.local_block(torch.arange(q.shape[0], device=pk.device), (be,),
+                             mesh)
+    return gspmd.wrap_block(attend(ql, pk, pv, rows), mesh, spec)
 
 
 def _decode_attend(q, k, v, valid):

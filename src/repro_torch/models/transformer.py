@@ -34,7 +34,9 @@ experts on each rank's expert block (``models/moe.py``); the recurrent
 blocks — hymba's SSM, the mLSTM and the sLSTM — run on each rank's batch
 rows (``common.on_rows``), their states placed as ``cache_labels`` says;
 hymba's attention runs as the attn block's does.  The serving tier's paged
-decode (``decode_step_paged``) raises on a mesh.
+decode (``decode_step_paged``) runs there too: its pools are placed by
+``paged_cache_specs`` (the kv-head dim as the policy splits ``k``, the
+block dims never), its states as ``cache_labels`` says.
 """
 from __future__ import annotations
 
@@ -815,24 +817,80 @@ def init_paged_caches(cfg, batch: int, n_blocks: int, block: int, *,
     return _stacked_caches(cfg, one)
 
 
+#: labels of a paged pool leaf (units, n_blocks, block, kv_heads, hd):
+#: ``-`` is a label no policy assigns, so the block and row dims are never
+#: split — any slot may own any block (``serving.BlockAllocator``)
+PAGED_POOL_LABELS = "L - - k d"
+
+
+def paged_cache_labels(cfg) -> list:
+    """Label strings mirroring ``init_paged_caches``' structure: the pools
+    ``PAGED_POOL_LABELS``, the per-slot recurrent states as
+    ``cache_labels`` gives them."""
+    pool = attn_mod.PagedKVCache(PAGED_POOL_LABELS, PAGED_POOL_LABELS)
+
+    def one(blk, dense):
+        if blk == "attn":
+            return pool
+        return (pool, dense[1]) if blk == "hymba" else dense
+
+    return [one(blk, dense) for blk, dense in zip(cfg.block_pattern,
+                                                  cache_labels(cfg))]
+
+
+def paged_cache_specs(cfg, batch: int, n_blocks: int, block: int, policy,
+                      mesh) -> list:
+    """Per-dim mesh axes of every paged-cache leaf, mirroring
+    ``init_paged_caches``: a pool's kv-head dim split as the policy splits
+    ``k`` (its head dim as it splits ``d``), made safe for the shape as
+    ``cache_specs`` does, its other dims whole; the states as
+    ``cache_specs`` places them."""
+    from repro_torch.models.policy import safe_spec
+
+    return _zip_map(lambda t, lab: safe_spec(policy.act_spec(lab), t.shape,
+                                             mesh),
+                    init_paged_caches(cfg, batch, n_blocks, block,
+                                      device="meta"),
+                    paged_cache_labels(cfg))
+
+
+def place_paged_caches(caches, cfg, batch: int, n_blocks: int, block: int,
+                       policy, mesh):
+    """Paged caches (whole on every rank) on ``mesh``: each leaf becomes a
+    DTensor of its ``paged_cache_specs`` placements, each rank keeping its
+    block; one rank: unchanged."""
+    if not _placed(mesh):
+        return caches
+    from repro_torch.core.gspmd import distribute
+
+    return _zip_map(lambda t, spec: distribute(t, mesh, spec), caches,
+                    paged_cache_specs(cfg, batch, n_blocks, block, policy,
+                                      mesh))
+
+
 def decode_step_paged(params, tokens, caches, tables, pos, cfg, *,
-                      mesh=None):
+                      policy=None, mesh=None):
     """One continuous-batching decode step.  tokens (b, 1); tables (b, W)
     int block tables; pos (b,) int per-slot positions.  Writes this step's
     K/V into the pools of ``caches`` and every slot's recurrent state in
     place, and returns (logits (b, 1, v), caches).  Idle slots point their
     table rows at the scratch block 0 with pos 0, so their writes land
     there; their recurrent rows run on and are overwritten at admission.
-    A mesh of more than one rank raises (the engine's paged decode on a
-    mesh is ROADMAP Queue 1 item 4(c))."""
-    if _placed(mesh):
-        raise NotImplementedError(
-            f"decode_step_paged: the paged decode on a mesh of "
-            f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 item "
-            "4(c): the engine's paged decode on a mesh)")
+
+    On a mesh of more than one rank (``policy`` and ``mesh`` given) the
+    parameters and caches are DTensors (``place_params``,
+    ``place_paged_caches``), the tokens, tables and positions whole on
+    every rank; the embeddings are constrained as ``"b s a"`` and the
+    logits as ``"b s v"`` (a DTensor), as in the reference; attention runs
+    on each rank's (batch block x kv-head block), every rank writing every
+    slot's K/V row into its head block of the pool
+    (``attention_decode_paged``); the MoE FFN and the recurrent blocks run
+    as in ``decode_step``."""
     tables, pos = tables.long(), pos.long()  # once a step, not once a layer
 
     def attend(p, h, pool):
-        return attn_mod.attention_decode_paged(p, h, pool, tables, pos, cfg)[0]
+        return attn_mod.attention_decode_paged(p, h, pool, tables, pos, cfg,
+                                               policy=policy, mesh=mesh)[0]
 
-    return _decode_layers(params, tokens, caches, cfg, attend), caches
+    return _decode_layers(params, tokens, caches, cfg, attend, policy,
+                          mesh), caches

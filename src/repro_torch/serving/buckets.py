@@ -19,9 +19,11 @@ outputs, not just waste FLOPs.
 The registry plans on the one-device mesh (``launch.serve.ONE_DEVICE_MESH``)
 by default.  Given a mesh of more than one rank it plans on that mesh's
 axes: a dict of axis sizes plans, projects policies and ``analyze()``s
-without a device; a ``launch.mesh.Mesh`` also runs each bucket's prefill
-step under the policy on DTensors.  The paged decode step raises on such
-a mesh (ROADMAP Queue 1 item 4(c): the engine's paged decode on a mesh).
+without a device (its steps run on one device under the bucket's
+policy); a ``launch.mesh.Mesh`` also runs each bucket's steps under the
+policy on DTensors — the prefill, and the paged decode with its pools
+placed by ``transformer.paged_cache_specs`` — and the decode step's argmax
+reads the whole logits, so every rank holds every slot's token.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.gspmd import full
 from repro_torch.core.plancache import PlanCache
 from repro_torch.launch import steps
 from repro_torch.launch.serve import ONE_DEVICE_MESH
@@ -195,11 +198,12 @@ class BucketRegistry:
         if kind == "prefill":
             return steps.make_bucket_prefill_step(self.cfg, policy=policy,
                                                   mesh=self.mesh)
-        base = steps.make_paged_serve_step(self.cfg, mesh=self.mesh)
+        base = steps.make_paged_serve_step(self.cfg, policy=policy,
+                                           mesh=self.mesh)
 
         def decode_step(params, tokens, caches, tables, pos):
             logits, caches = base(params, tokens, caches, tables, pos)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-            return tok, caches
+            tok = torch.argmax(full(logits)[:, -1], dim=-1)[:, None]
+            return tok.to(torch.int32), caches
 
         return decode_step

@@ -22,6 +22,15 @@ The block tables and positions live on the host as numpy arrays that the
 loop mutates after every step; each step takes a fresh device copy of
 them (through a new pinned buffer on a card), so an asynchronous copy
 never reads an array the host has already changed.
+
+On a ``launch.mesh.Mesh`` of more than one rank every rank of the process
+group builds the engine with the same arguments, submits the same
+requests and runs the same scheduler: admission, eviction, the block
+tables and positions are decided on the host from nothing that depends
+on the rank, and the tokens are whole on every rank.  The weights and
+caches are DTensors placed by the decode bucket's policy
+(``transformer.place_params``, ``place_paged_caches``); each step runs on
+each rank's blocks, and every rank returns the whole generations.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree
+from repro_torch.core.gspmd import full
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import resolve_device
 from repro_torch.serving.buckets import BucketRegistry
@@ -124,8 +134,10 @@ class ServingEngine:
         Pool capacity.  Default sizes for all slots at full length plus
         the scratch block.
     params:
-        The model's parameters (moved to ``device``); default seeded
-        random weights made there (``tf.init_params(seed=seed)``).
+        The model's parameters, whole (moved to ``device``, and placed by
+        the decode policy on a mesh); default seeded random weights made
+        there (``tf.init_params(seed=seed)``, or
+        ``tf.init_placed_params`` on a mesh).
     plan_cache:
         A ``PlanCache`` or the path of its JSON store, for the registry.
     bucket:
@@ -137,23 +149,20 @@ class ServingEngine:
         eviction only.
     device:
         Where the engine runs; default the card, raising where there is
-        none.
+        none (the mesh's device where a mesh is given).
     mesh:
-        A ``launch.mesh.Mesh``; one of more than one rank raises (the
-        paged decode on a mesh is not ported).
+        A ``launch.mesh.Mesh`` (default: the one-device mesh).  On more
+        than one rank the registry plans on its axes and the engine runs
+        on DTensors, as the module docstring says.
     """
 
     def __init__(self, cfg, *, batch: int = 4, max_seq: int = 128,
                  block: int = 16, n_blocks: int | None = None, params=None,
                  seed: int = 0, plan_cache=None, bucket: str = "auto",
                  eos_id: int | None = None, device=None, mesh=None):
-        if mesh is not None and mesh.world_size > 1:
-            raise NotImplementedError(
-                f"ServingEngine: the paged decode on a mesh of "
-                f"{mesh.world_size} ranks is not ported (ROADMAP Queue 1 "
-                "item 4(c): the engine's paged decode on a mesh); serve(mesh=) "
-                "runs the dense-cache decode on a mesh")
-        self.device = resolve_device(device)
+        placed = mesh is not None and mesh.world_size > 1
+        self.mesh = mesh if placed else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.batch = batch
         self.block = block
@@ -164,18 +173,24 @@ class ServingEngine:
             n_blocks = 1 + batch * self.W
         self.alloc = BlockAllocator(n_blocks, block)
         self._admit = make_admit_fn(cfg)
-        self.registry = BucketRegistry(cfg, plan_cache=plan_cache,
+        self.registry = BucketRegistry(cfg, mesh, plan_cache=plan_cache,
                                        bucket=bucket, device=self.device)
 
         dent = self.registry.decode(self.seq, batch, block)
         self.policy = dent.policy
         self._decode = dent.step
         if params is None:
-            params = tf.init_params(cfg, seed=seed, device=self.device)
-        self.params = tree.map(lambda t: t.to(self.device), params)
+            params = (tf.init_placed_params(cfg, self.policy, mesh, seed=seed)
+                      if placed else
+                      tf.init_params(cfg, seed=seed, device=self.device))
+        else:
+            params = tree.map(lambda t: t.to(self.device), params)
+        self.params = tf.place_params(params, cfg, self.policy, self.mesh)
 
-        self.caches = tf.init_paged_caches(cfg, batch, n_blocks, block,
-                                           device=self.device)
+        self.caches = tf.place_paged_caches(
+            tf.init_paged_caches(cfg, batch, n_blocks, block,
+                                 device=self.device),
+            cfg, batch, n_blocks, block, self.policy, self.mesh)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=self.device)
         self.tables = np.zeros((batch, self.W), np.int32)
@@ -207,7 +222,8 @@ class ServingEngine:
     def run(self) -> tuple[dict[int, np.ndarray], ServeMetrics]:
         """Drain the queue; returns ({rid: (n_tokens,) int32}, metrics)."""
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        # DTensor views cannot be made of inference tensors: no_grad on a mesh
+        with torch.no_grad() if self.mesh is not None else torch.inference_mode():
             while self._queue or any(s is not None for s in self.slots):
                 admitted = self._admit_phase()
                 active = [s for s in self.slots if s is not None]
@@ -248,7 +264,7 @@ class ServingEngine:
         padded[0, :plen] = req.prompt
         logits, pre_caches = ent.step(
             self.params, {"tokens": _fresh(padded, self.device)}, plen - 1)
-        tok0 = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)  # (1,)
+        tok0 = torch.argmax(full(logits)[:, -1], dim=-1).to(torch.int32)  # (1,)
         # TTFT is defined at the first token's availability: sync here (one
         # per request, not per step)
         req.first_tok = int(tok0[0])

@@ -67,7 +67,15 @@ def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
     rows past the prompt land either in the slot's own not-yet-reached
     blocks (decode overwrites row ``pos`` before any mask admits it) or —
     where the table row is 0-padded — in the scratch block.
+
+    On a mesh the pool is a DTensor whose kv-head dim may be split
+    (``transformer.paged_cache_specs``): the prefill's K/V, placed by the
+    prefill's policy, are redistributed to the pool's head placement
+    (every other dim whole), and each rank copies its head block into its
+    block of the pool.
     """
+    from torch.distributed.tensor import DTensor
+
     blk = pool.k.shape[2]
     rows = blocks.shape[0] * blk
 
@@ -81,17 +89,48 @@ def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
         return x.reshape(L, -1, blk, kh, hd)
 
     blocks = blocks.long()
-    pool.k[:, blocks] = prep(k)
-    pool.v[:, blocks] = prep(v)
+    for dst, src in ((pool.k, k), (pool.v, v)):
+        if isinstance(dst, DTensor):
+            src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+            dst = dst.to_local()
+        dst[:, blocks] = prep(src)
     return pool
 
 
 def _set_slot(state, src, slot: int):
     """Copy a batch-1 prefill state tree into row ``slot`` of the stacked
-    decode state tree in place (leaves (L, b, ...) <- (L, 1, ...))."""
+    decode state tree in place (leaves (L, b, ...) <- (L, 1, ...)).
+
+    On a mesh a state leaf is a DTensor whose batch dim (1) may be split:
+    the prefill's row is redistributed to the leaf's placements with that
+    dim whole, and only the ranks whose batch block holds ``slot`` write
+    it, at its index in their block (DTensor has no write of one row of a
+    split dim)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     for d, x in zip(tree.leaves(state), tree.leaves(src)):
-        d[:, slot] = x[:, 0]
+        if not isinstance(d, DTensor):
+            d[:, slot] = x[:, 0]
+            continue
+        pl = [Replicate() if p.is_shard(1) else p for p in d.placements]
+        x = x.redistribute(d.device_mesh, pl).to_local()
+        block = d.to_local()
+        lo = _row_offset(d, block)
+        if lo <= slot < lo + block.shape[1]:
+            block[:, slot - lo] = x[:, 0]
     return state
+
+
+def _row_offset(d, block) -> int:
+    """The global index of the first batch row (dim 1) of this rank's
+    ``block`` of DTensor ``d``: the mesh dims that split dim 1 nest its
+    blocks in mesh order, major to minor."""
+    mesh = d.device_mesh
+    idx = 0
+    for i, p in enumerate(d.placements):
+        if p.is_shard(1):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx * block.shape[1]
 
 
 def make_admit_fn(cfg):
@@ -100,10 +139,12 @@ def make_admit_fn(cfg):
 
     Signature: ``admit(caches, pre_caches, blocks, slot, tok0, tokens) ->
     (caches, tokens)`` with ``blocks`` the (W,) int table row, ``slot`` an
-    int, ``tok0`` the prefill argmax (1,) int32.  Per pattern position,
-    an ``attn`` block's KV goes into the pool under the table row; a
-    ``hymba`` block's KV likewise, and its SSM state into the slot's row;
-    ``mlstm`` and ``slstm`` states into the slot's rows.  The pools and
+    int, ``tok0`` the prefill argmax (1,) int32.  The pools and states may
+    be DTensors (an engine on a mesh); the tokens are whole on every rank.
+    Per pattern position, an ``attn`` block's KV goes into the pool under
+    the table row; a ``hymba`` block's KV likewise, and its SSM state into
+    the slot's row; ``mlstm`` and ``slstm`` states into the slot's rows.
+    The pools and
     states are written in place (where the reference donates them).  The
     token buffer is not: the engine's step log holds the last decode step's
     token tensor, which is the buffer passed in, so the new token goes into

@@ -5,8 +5,9 @@ matmul, gmm) against their plain torch versions, in every design of each
 serving path on
 the card against the CPU (the serve loop and the continuous-batching
 engine), a reduced llama program through the
-explicit-collective executor on the one-card mesh, and the ring on two
-gloo ranks that share the card.
+explicit-collective executor on the one-card mesh, the ring on two
+gloo ranks that share the card, and a donated executor call's allocator
+peak against the memory pass.
 
 Imports torch and the port only, so it runs on a machine without jax:
 
@@ -18,6 +19,7 @@ float32, 2e-2 in bfloat16 for attention; 1e-4 and 3e-2 (atol x8) for
 matmul and gmm.
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -1119,3 +1121,64 @@ def test_reduced_zoo_serve_on_card_equals_cpu(arch, cuda):
     g_cpu, _ = port_serve.serve(cfg, prompts, max_new=5, params=params, device="cpu")
     np.testing.assert_array_equal(g_gpu, g_cpu)
 
+
+
+def _peak_of_call(run, feeds) -> tuple:
+    """``run(feeds)``'s outputs, and the allocator's peak over the call less
+    what was allocated before it that is not one of ``feeds``: what the
+    memory pass counts (the feeds, what the call adds to them)."""
+    feed_bytes = sum(t.nbytes for t in feeds.values())
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run(feeds)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - (before - feed_bytes)
+
+
+@pytest.mark.gpu
+def test_donated_executor_call_peak_equals_memory_pass(cuda):
+    """``compile(donate=True)``: llama-7b's prefill graph at full width
+    (b=1, s=128, float32) through the explicit-collective executor on the
+    one-card mesh.  A warmed donated call's allocator peak equals the
+    memory pass's per-device peak with that donation set (within 1e-3), as
+    the undonated call's equals the pass without it; the logits are the
+    undonated call's bit for bit, every feed raises afterwards, and the
+    donation lowers the peak."""
+    from repro_torch.analysis import analyze_compiled
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.engine import DonatedTensor
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.eingraphs import program_for
+
+    cfg = get_config("llama-7b")
+    prog = program_for(cfg, ShapeConfig("donate", "prefill", 128, 1))
+    mesh = Mesh({"data": 1, "model": 1}, device=cuda)
+
+    def feeds(seed=3):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return {n.name: (torch.randint(0, cfg.vocab, n.shape, generator=gen, device=cuda,
+                                       dtype=torch.int32)
+                         if str(np.dtype(n.dtype)) == "int32"
+                         else torch.randn(n.shape, generator=gen, device=cuda) * 0.02)
+                for n in prog.graph.nodes if n.kind == "input"}
+
+    peaks, outs = {}, {}
+    for donate in (False, True):
+        # the allocator hands out a whole cached block where the rest of it
+        # would be small, so what earlier tests left cached would count
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = prog.compile(mesh=mesh, executor="shard_map", donate=donate)
+        static = analyze_compiled(run).memory["peak_bytes"]
+        with torch.inference_mode():
+            run(feeds())  # warm-up
+            torch.cuda.synchronize()
+            fed = feeds()
+            outs[donate], measured = _peak_of_call(run, fed)
+        assert abs(static / measured - 1.0) <= 1e-3, (donate, static, measured)
+        assert all((type(t) is DonatedTensor) == donate for t in fed.values())
+        peaks[donate] = measured
+        del run, fed
+        torch.cuda.empty_cache()
+    assert torch.equal(outs[True]["logits"], outs[False]["logits"])
+    assert peaks[True] < peaks[False], peaks

@@ -275,8 +275,10 @@ def test_builtin_map_impl_matches_reference(kind):
 
 def test_unported_lowering_and_vjp_raise():
     """What runs now (the ring and a2a rules lower; a program runs; the
-    derived VJPs build and execute, since the autodiff slice) and what
-    still raises, naming its slice: pipeline= and donate=."""
+    derived VJPs build and execute, since the autodiff slice; donate=
+    compiles, since the engine-on-a-mesh slice, with the reference's
+    ``donate_argnums``) and what still raises: pipeline= without its
+    executor and mesh, and a donation of an unknown input."""
     g = program_for(get_config("llama-7b"), ShapeConfig("s", "prefill", 64, 1)).graph
     attn = next(n for n in g.nodes if n.op == "flash_attention")
     assert opaque_rules.resolve_rule_name(attn) == "ring"
@@ -310,8 +312,15 @@ def test_unported_lowering_and_vjp_raise():
         prog.compile(p=1, executor="shard_map")
     with pytest.raises(ValueError, match="executor='shard_map' and a mesh"):
         prog.compile(p=1, pipeline=object())  # the reference's guard
-    with pytest.raises(NotImplementedError, match="donat"):
-        prog.compile(p=1, donate=True)
+    ref_prog = ref_program_for(ref_get_config("llama-7b"), RefShape("s", "prefill", 64, 1))
+    names = sorted(n.name for n in g.nodes if n.kind == "input")
+    for donate in (True, names[:2], [names[-1]], False):
+        got = prog.compile(p=1, donate=donate).donate_argnums
+        assert got == ref_prog.compile(p=1, donate=donate).donate_argnums, donate
+        assert len(got) == (len(names) if donate is True else len(donate or ()))
+    for compile_ in (prog.compile, ref_prog.compile):
+        with pytest.raises(KeyError, match="unknown inputs"):
+            compile_(p=1, donate=["tokens", "no_such_input"])
 
 
 def test_eval_graph_dense_matches_reference():

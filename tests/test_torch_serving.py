@@ -165,14 +165,33 @@ def test_bucket_registry_keys_and_paged_plan_equal_reference(tmp_path):
     assert ent.compiled.plan.to_json() == ref_dec.compiled.plan.to_json()
 
 
-def test_bucket_registry_raises_for_what_is_not_ported():
+def _two_rank_engine(rank, world, sizes, params_np, prompts, max_new):
+    """One gloo rank of an engine on ``sizes``: its generations."""
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = reduced(get_config("llama-7b"))
+    eng = ServingEngine(cfg, batch=2, max_seq=32, block=8, mesh=Mesh(sizes, device="cpu"),
+                        params=tf.from_reference_params(cfg, params_np, device="cpu"))
+    for p, n in zip(prompts, max_new):
+        eng.submit(p, n)
+    return eng.run()[0]
+
+
+def test_bucket_registry_raises_for_what_is_not_ported(tmp_path):
     """``analyze()`` is ported (the static verifier): every live bucket
     comes back as a clean report.  A mesh of two ranks given as axis sizes
-    now plans, projects policies and analyzes as the reference's registry
-    does on that mesh; what still raises (ROADMAP Queue 1 item 4) is the
-    paged decode on such a mesh — the registry's decode step and the
-    engine.  (Prefill on a mesh of ranks: tests/test_torch_gspmd.py.)"""
+    plans, projects policies and analyzes as the reference's registry does
+    on that mesh, and its steps run on one device under the two-rank
+    plan's policy: the decode step gives the one-rank registry's tokens
+    and caches, bit for bit.  The paged decode on two gloo ranks of that
+    mesh (ROADMAP Queue 1 item 4(c), which raised until the
+    engine-on-a-mesh slice) runs the engine: its generations are the
+    one-rank engine's.  (Prefill on a mesh of ranks:
+    tests/test_torch_gspmd.py; the engine on meshes of 2 and 4 ranks
+    against the reference: tests/test_torch_engine_mesh.py.)"""
     import types
+
+    from repro_torch.launch.mesh import spawn
 
     cfg = reduced(get_config("llama-7b"))
     reg = BucketRegistry(cfg, device="cpu")
@@ -193,13 +212,39 @@ def test_bucket_registry_raises_for_what_is_not_ported():
     assert dec.compiled.plan.to_json() == ref_reg.decode(32, 2, 8).compiled.plan.to_json()
     assert pre.policy.label_axes == ref_reg.prefill(13).policy.label_axes
     assert set(reg2.analyze()) == {pre.key, dec.key}
-    fake = types.SimpleNamespace(sizes=two, world_size=2,
-                                 device=torch.device("cpu"))
-    step = BucketRegistry(cfg, fake).decode(32, 2, 8).step
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        step(None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ServingEngine(cfg, device="cpu", mesh=fake)
+    assert dec.policy.label_axes
+    ref_params = ref_tf.init_params(ref_reduced(ref_get_config("llama-7b")),
+                                    jax.random.PRNGKey(1))
+    params_np = jax.tree.map(np.asarray, ref_params)
+    params = tf.from_reference_params(cfg, params_np, device="cpu")
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1)).astype(np.int32))
+    tables = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0]], dtype=torch.int32)
+    pos = torch.tensor([9, 20], dtype=torch.int32)
+    outs = []
+    for r in (BucketRegistry(cfg, device="cpu"), reg2):
+        caches = tf.init_paged_caches(cfg, 2, 9, 8, device="cpu")
+        for leaf in tree.leaves(caches):
+            leaf.copy_(torch.from_numpy(np.random.default_rng(3).normal(
+                size=tuple(leaf.shape)).astype(np.float32)))
+        with torch.inference_mode():
+            outs.append(r.decode(32, 2, 8).step(params, tok, caches, tables, pos))
+    (tok1, caches1), (tok2, caches2) = outs
+    assert torch.equal(tok1, tok2) and tok1.shape == (2, 1) and tok1.dtype == torch.int32
+    for a, b in zip(tree.leaves(caches1), tree.leaves(caches2)):
+        assert torch.equal(a, b)
+    prompts = _prompts(cfg, (7, 13, 4), seed=4)
+    max_new = (5, 3, 6)
+    one = ServingEngine(cfg, batch=2, max_seq=32, block=8, params=params, device="cpu")
+    for p, n in zip(prompts, max_new):
+        one.submit(p, n)
+    want, _ = one.run()
+    ranks = spawn(2, _two_rank_engine, two, params_np, prompts, max_new, tmpdir=tmp_path,
+                  timeout=300)
+    for rank, got in enumerate(ranks):
+        assert sorted(got) == sorted(want) == [0, 1, 2]
+        for rid in want:
+            np.testing.assert_array_equal(got[rid], want[rid], err_msg=f"rank {rank} rid {rid}")
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
