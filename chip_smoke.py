@@ -224,8 +224,8 @@
    every gradient against the one-rank step on the card (1e-4), the
    parameters after AdamW (within 1e-4 x lr and one float32 ulp where the
    gradient clears 30 x its tolerance, within 2 x lr, one step either way,
-   below that); (c) llama-7b at full width, 8 of its 32 layers (bf16; cut
-   from 32 in PR 25, for the run's time limit)
+   below that); (c) llama-7b at full width, 4 of its 32 layers (bf16; cut
+   from 32 to 8, then to 4, for the run's time limit)
    served on 4 ranks, mesh (1, 4), b=4, prompt 512, 16 new, after the
    one-rank reference ran alone: each rank's weight bytes, peak memory;
    the serve loop fed the one-rank tokens, every step's logits against the
@@ -263,7 +263,9 @@
    dry run's flash calls a rank by design (``dryrun_calls_per_rank``);
 33. the MoE, hymba and xLSTM blocks on meshes of gloo ranks sharing the
    card: (a) qwen2-moe-a2.7b at full width (bf16, 60 experts padded to
-   64), 6 of its 24 layers, served on 4 ranks, mesh (1, 4), the experts on ``model``, b=4, prompt
+   64), 3 of its 24 layers (cut from 24 to 6, then to 3, for the run's
+   time limit), served on 4 ranks, mesh (1, 4),
+   the experts on ``model``, b=4, prompt
    512, 16 new, as 31(c) serves llama-7b (the one-rank run first, alone;
    its float32 witness upcast leaf by leaf; each rank's weight bytes read
    off ``param_specs`` before placing, and the weights made in turns with
@@ -276,7 +278,8 @@
    ``serve(mesh=)`` under its own plan, at that depth where its blocks fit;
    (b) hymba-1.5b at full size on (2, 2), prompt 2048, and (c)
    xlstm-125m on {data: 2}, prompt 512, the same checks; (d) 2-layer
-   float32 train steps at full width on 2 ranks (b=2, s=128): qwen2-moe
+   float32 train steps at full width on 2 ranks (b=2, s=128; qwen2-moe's
+   1 layer, for the run's time limit): qwen2-moe
    on {data: 2} (its plan) and on {model: 2} with the experts on
    ``model``, hymba and xlstm on {data: 2}, each held as 31(b) holds
    llama's, gmm launches a rank (ffma); (e) qwen2-moe's prefill graph
@@ -290,18 +293,21 @@
    counted) on (16, 16) with no card visible, started before phase 29
    (they need no card) and read here, and (d)'s MoE step on {model: 2} on
    a fake 2-rank group against its gloo ranks, as 32(c).  (d) runs beside
-   (b) and (c), for the run's time limit.  The kernels line gives
+   (b) and (c), and (e) beside (a), for the run's time
+   limit.  The kernels line gives
    phase 33's launches a rank by design (``mesh_blocks_launches_per_rank``);
 34. the serving engine's paged decode on a mesh, and buffer donation:
-   (a) llama-7b's ``ServingEngine`` at full width, 8 of its 32 layers
-   (bf16, as 31(c)), 4 slots, KV block 16, on 4 gloo ranks sharing the
-   card, mesh (1, 4): 6 requests of 96-320 tokens drawn from the seed, 8
-   new each (two queue behind the first four); the one-rank engine first,
-   alone, then the same weights upcast to float32 fed its tokens, then a
+   (a) llama-7b's ``ServingEngine`` at full width, 4 of its 32 layers
+   (bf16, as 31(c); cut from 8 for the run's time limit), 4 slots, KV
+   block 16, on 4 gloo ranks
+   sharing the card, mesh (1, 4): 6 requests of 96-320 tokens drawn from
+   the seed, 8 new each (two queue behind the first four); the one-rank
+   engine first (beside phase 35's ranks, not alone), then
+   the same weights upcast to float32 fed its tokens, then a
    4-layer float32 slice; on the ranks the bf16 engine teacher-forced on
    the one-rank engine's tokens (every admission and decode step hands it
    those tokens; its own argmax is kept), then the slice free.  Printed:
-   weight and pool bytes a rank, flash launches a rank by design (8 a
+   weight and pool bytes a rank, flash launches a rank by design (4 a
    request, all wgmma), each decode step's wall (host-staged gloo, not a
    speed path), TTFT per request, the tokens the mesh would take that equal
    the one-rank engine's.  Held: every rank the same logits and tokens;
@@ -317,7 +323,39 @@
    donation set, within 1e-3; its logits bit for bit the undonated call's;
    every feed raising afterwards.  The kernels line gives phase 34's
    launches a rank by design (``mesh_engine_launches_per_rank``,
-   ``donated_executor``).
+   ``donated_executor``);
+35. checkpoints of a run on a mesh, and the gspmd executor's repairs:
+   Its ranks start before phase 34 and run beside it, for the run's time
+   limit; what this process runs of it follows phase 34.
+   (a) phase 31(b)'s cell (llama-7b at full width, 2 layers, float32, b=2,
+   s=128) through ``launch.train.train(mesh=, ckpt_dir=)`` on 2 gloo ranks
+   sharing the card: 3 steps on {data: 2} under ``train``'s own plan with
+   a checkpoint at step 2 (rank 0 writes, from leaves gathered one at a
+   time), then the run restarted from step 2 onto {data: 2}, onto {model:
+   2} (whose ranks first run (b)'s slice below) and onto one rank (the
+   run's rank 0, with no mesh).  Printed: the checkpoint's bytes
+   on disk, each save's gather wall a rank and rank 0's write wall, each
+   rank's peak during save, each restore's wall, flash launches a rank by
+   design (ffma), each restarted step's loss and grad norm beside the
+   uninterrupted run's (the restarts start beside the uninterrupted run
+   and wait for its step-2 checkpoint, for the run's time limit).  Held: every restored leaf's block on every rank
+   bit-equal to the block of its file that the port's placement rule cuts
+   (``gspmd.local_block``; so its ``full_tensor()`` equals the file); the
+   restart on {data: 2} within 1e-6 relative
+   (bit-equal expected), the others within 1e-4; the manifest's keys
+   ``{step, extra, leaves}``; only rank 0 wrote.  The checkpoints go under
+   ``ckpt_mesh`` beside the run's log and are deleted.  (b) on 4 gloo ranks, mesh
+   (pod, data, model) = (2, 2, 1), under hand-written plans: a ``prod``
+   aggregation over a split label, an opaque node of a rule registered
+   here with no local lowering (run whole, the ``replicate`` rule), and
+   entries out of mesh order (``("data", "pod")``) on a kept and on a
+   contracted label, each against the dense one-card run (phase 10's
+   limit); on 2 ranks, llama-7b's width, 4 layers, float32,
+   under ``{d: model}`` on (1, 2): a prefill (b=2, prompt 128) and 8
+   decode steps fed fixed tokens through the dense cache and through a
+   paged pool (KV block 16), every step within 1e-4 of max|logit| of one
+   rank's.  The kernels line gives phase 35's launches a rank
+   (``ckpt_mesh_launches_per_rank``, ``gspmd_repairs_launches_per_rank``).
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -347,12 +385,15 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -858,9 +899,16 @@ def main() -> int:
     results["blocks"]["dryrun"] = _dryrun_blocks(dry_blocks, results["blocks"]["train"])
     mb = _mesh_blocks_launches(results["blocks"])
 
+    # 35's ranks start here and run beside phase 34 (the run's time limit)
+    ckpt_started = _mesh_ckpt_start()
+
     # 34. the engine's paged decode on (1, 4) gloo ranks sharing the card; compile(donate=)
     results["engine_mesh"] = _engine_mesh_phase(cfg, ops)
     em = results["engine_mesh"]
+
+    # 35. checkpoints of a run on a mesh; the gspmd executor's repairs (gloo ranks on the card)
+    results["mesh_ckpt"] = _mesh_ckpt_phase(ckpt_started)
+    mc = results["mesh_ckpt"]
 
     mt, st = results["matmul_timing"]["bfloat16"], results["step_timing"]
     m32 = results["matmul_timing"]["float32"]
@@ -934,7 +982,13 @@ def main() -> int:
                                            "design": em["engine"]["flash_designs"]},
          "donated_executor": {dt: {"launches": r["launches"]["flash_attention"],
                                    "design": r["designs"]["flash_attention"]}
-                              for dt, r in em["donate"].items()}},
+                              for dt, r in em["donate"].items()},
+         "ckpt_mesh_launches_per_rank": {
+             "run": mc["ckpt"]["launches_per_rank"], "design": mc["ckpt"]["design"],
+             **{name: row["launches"] for name, row in mc["ckpt"]["restarts"].items()}},
+         "gspmd_repairs_launches_per_rank": {
+             "dsplit": mc["repairs"]["dsplit"]["launches_per_rank"][0],
+             "design": mc["repairs"]["dsplit"]["design"]}},
         {"name": "flash_attention_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:274",
@@ -978,6 +1032,9 @@ def main() -> int:
          "donated_executor": {dt: {"launches": r["launches"]["matmul"],
                                    "design": r["designs"]["matmul"]}
                               for dt, r in em["donate"].items()},
+         "gspmd_repairs_launches_per_rank": {
+             name: {"launches": g["launches"]["matmul"], "design": g["designs"]["matmul"]}
+             for name, g in mc["repairs"]["graphs"].items()},
          "op_host_us": mt["host"]["op_us"], "direct_host_us": mt["host"]["direct_us"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3567,15 +3624,21 @@ def gspmd_rank(rank: int, world: int, sizes: dict) -> dict:
 
 
 def _gspmd_executor(ops) -> dict:
+    """Phase 31(a): both meshes' spawns side by side (for the
+    run's time limit), so their rank walls are taken beside each other's."""
     from repro_torch.launch.mesh import spawn
 
+    def run(sizes, tmp):
+        t0 = time.perf_counter()
+        ranks = spawn(4, gspmd_rank, sizes, tmpdir=tmp, backend="gloo", timeout=600)
+        return ranks, time.perf_counter() - t0
+
     res = {}
-    for mesh_id, sizes in GSPMD_MESHES.items():
-        torch.cuda.empty_cache()  # the ranks share this card
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            ranks = spawn(4, gspmd_rank, sizes, tmpdir=tmp, backend="gloo", timeout=600)
-            t_spawn = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the ranks share this card
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(GSPMD_MESHES)) as pool:
+        started = {m: pool.submit(run, sizes, Path(tmp) / m) for m, sizes in GSPMD_MESHES.items()}
+        spawned = {m: f.result() for m, f in started.items()}
+    for mesh_id, (ranks, t_spawn) in spawned.items():
         r0 = ranks[0]
         assert r0["collectives"] is None  # the reference's gspmd has no static trace
         if mesh_id == "2x2":  # llama-7b's plan: f and v on both axes
@@ -3686,7 +3749,7 @@ def mesh_train_rank(rank: int, world: int, cells: dict) -> dict:
         grads = torch.autograd.grad(loss, leaves)
         if mesh.world_size > 1:
             grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
-        grads = [full(g).detach().cpu() for g in grads]
+        grads = [_rank0_host(g) for g in grads]
         for p in leaves:
             p.requires_grad_(False)
         del leaves  # the parameters go when the step's result is on the host
@@ -3710,7 +3773,7 @@ def mesh_train_rank(rank: int, world: int, cells: dict) -> dict:
         launches = {"launches": ops.launch_counts(), "designs": ops.design_counts()}
         step_peak = torch.cuda.max_memory_allocated() - held
         peak = max(peak, torch.cuda.max_memory_allocated())
-        after = [full(p).cpu() for p in tree.leaves(params)]
+        after = [_rank0_host(p) for p in tree.leaves(params)]
         del params
         torch.cuda.empty_cache()
         if record == "spare":
@@ -3741,18 +3804,40 @@ def mesh_train_rank(rank: int, world: int, cells: dict) -> dict:
             for cell, (arch, sizes, plan_of) in cells.items()}
 
 
+def _rank0_host(t):
+    """``t`` whole on rank 0's host, None on the other ranks: a DTensor's
+    blocks gathered to rank 0 as a checkpoint save gathers them (a copy to
+    the host and ``dist.gather``; no rank holds the whole on its card), a
+    tensor copied."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import _gather_leaf
+
+    if hasattr(t, "device_mesh"):
+        return _gather_leaf(t.detach(), dist.get_rank() == 0)
+    return t.detach().cpu()
+
+
 def _block_bytes(t) -> int:
     """Bytes of this rank's block of ``t`` (a DTensor or a tensor)."""
     t = t.to_local() if hasattr(t, "to_local") else t
     return t.numel() * t.element_size()
 
 
+# layers of a train cell (phase 31(b), 33(d), 35(a)): 2 (xlstm: one mLSTM
+# and one sLSTM block); qwen2-moe 1, for the run's time limit
+# (its cells were the longest part of phase 33)
+TRAIN_CELL_LAYERS = {"qwen2-moe-a2.7b": 1}
+
+
 def _mesh_train_cfg(arch: str = "llama-7b"):
-    """Phase 31(b)'s and 33(d)'s cell: full width, 2 layers (xlstm: one
-    mLSTM and one sLSTM block), float32 (b=2, s=128)."""
+    """Phase 31(b)'s, 33(d)'s and 35(a)'s cell: full width,
+    ``TRAIN_CELL_LAYERS`` layers (2 where it names none), float32 (b=2,
+    s=128)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    return dataclasses.replace(get_config(arch), n_layers=TRAIN_CELL_LAYERS.get(arch, 2),
+                               dtype="float32")
 
 
 def _mesh_train_policy(cfg, axes: dict, plan_of):
@@ -3880,9 +3965,9 @@ def _mesh_train(cells: dict = MESH_TRAIN_CELLS) -> dict:
 # what a serve cell runs: the architecture at full size (bf16) on a mesh
 # of gloo ranks sharing the card, under the plan's policy (None) or a
 # manual one; a float32 slice of its first layers on the same mesh
-# llama-7b at 8 of its 32 layers since PR 25 (the run's time limit: phase
-# 33 serves three more models this way)
-MESH_SERVE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
+# llama-7b at 4 of its 32 layers, cut from 32 to 8, then to 4 (the run's
+# time limit: phase 33 serves three more models this way, phase 35 came)
+MESH_SERVE = {"arch": "llama-7b", "layers": 4, "mesh": {"data": 1, "model": 4},
               "policy": None, "b": 4, "prompt_len": 512, "max_new": 16,
               "slice_layers": 4, "max_share": 0.3, "floor_first": False}
 # phase 33(a)-(c): qwen2-moe's experts on "model" (then serve(mesh=)'s own
@@ -3896,12 +3981,13 @@ MESH_SERVE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
 # it than twice the one-rank bf16 run is (``floor_first``), and a token
 # flip to a top-2 margin under twice that; their float32 slices hold the
 # blocks to 1e-4 at every step.
-# qwen2-moe at 6 of its 24 layers, for the run's time limit: on one H100
+# qwen2-moe at 3 of its 24 layers, for the run's time limit: on one H100
 # at 700 W the whole run took 1,276 s of its 1,200 at 24 layers, and up
-# to 1,111 s at 12 (PERF.md).  hymba's and xlstm's serves run beside
+# to 1,111 s at 12; at 6 with phase 35 added, 1,238-1,268 s (PERF.md).
+# hymba's and xlstm's serves run beside
 # (d)'s train steps, which take longer, so their depth costs no time.
 BLOCK_SERVES = {
-    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=6,
+    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=3,
                       policy={"e": "model"}, own_policy=True, floor_first=True),
     "hymba": dict(MESH_SERVE, arch="hymba-1.5b", layers=None,
                   mesh={"data": 2, "model": 2}, prompt_len=2048, max_share=None,
@@ -4459,14 +4545,18 @@ def _mesh_blocks_launches(blocks: dict) -> dict:
 
 def _block_mesh_phase(ops) -> dict:
     """Phase 33 (a)-(e): qwen2-moe, hymba and xlstm served at full width on
-    meshes of gloo ranks sharing the card, their 2-layer float32 train
-    steps on 2 ranks, and the a2a rule under the gspmd executor.  qwen2-moe
-    is served alone (its float32 witness takes 61 GB of the card); the
-    train steps' ranks then run beside hymba's and xlstm's serves (for the
-    run's time limit; the qwen2-moe steps, the largest, last), and the
-    executor after them."""
+    meshes of gloo ranks sharing the card, their float32 train steps on 2
+    ranks (``TRAIN_CELL_LAYERS``), and the a2a rule under the gspmd
+    executor.  qwen2-moe is served beside the executor's ranks (at 24
+    layers its float32 witness alone took 61 GB of the card); the train
+    steps' ranks then run beside hymba's and xlstm's serves (for the run's
+    time limit; the qwen2-moe steps, the largest, last)."""
     out = {"serve": {}}
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        # (e)'s ranks beside qwen2-moe's serve (for the run's time
+        # limit; at 3 layers the serve holds under 20 GB of the card); done
+        # before (d)'s ranks start: beside qwen2-moe's cells they do not fit
+        a2a = pool.submit(_gspmd_a2a)
         train = None
         for name, spec in BLOCK_SERVES.items():
             t0 = time.perf_counter()
@@ -4475,9 +4565,9 @@ def _block_mesh_phase(ops) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             if train is None:
+                out["gspmd_a2a"] = a2a.result()
                 train = pool.submit(_mesh_train, BLOCK_TRAIN_CELLS)
         out["train"] = train.result()
-    out["gspmd_a2a"] = _gspmd_a2a()  # alone: its ranks beside qwen2-moe's cells do not fit
     return out
 
 
@@ -4744,11 +4834,12 @@ def _dryrun_phase(ops, results: dict, started: list) -> dict:
 # 34. the serving engine's paged decode on a mesh; compile(donate=)
 # ---------------------------------------------------------------------------
 
-# llama-7b's engine at full width, 8 of its 32 layers (as phase 31(c)), on
-# (1, 4) gloo ranks sharing the card; 6 requests of 96-320 tokens drawn
-# from the seed, 8 new each, through 4 slots (two queue behind the first
-# four); a 4-layer float32 slice beside it
-MESH_ENGINE = {"arch": "llama-7b", "layers": 8, "mesh": {"data": 1, "model": 4},
+# llama-7b's engine at full width, 4 of its 32 layers (cut from 8
+# for the run's time limit; as phase 31(c)), on (1, 4) gloo ranks sharing
+# the card; 6 requests of 96-320 tokens drawn from the seed, 8 new each,
+# through 4 slots (two queue behind the first four); a 4-layer float32
+# slice beside it
+MESH_ENGINE = {"arch": "llama-7b", "layers": 4, "mesh": {"data": 1, "model": 4},
                "slots": 4, "block": 16, "requests": 6, "lens": (96, 320), "max_new": 8,
                "slice_layers": 4}
 # the float32 slice's first decode step on the mesh against one rank's,
@@ -4900,8 +4991,8 @@ def _max_rel(got: dict, want: dict, first_only: bool = False) -> tuple[float, fl
 
 
 def _mesh_engine() -> dict:
-    """Phase 34(a) (see the module doc): the one-rank runs first, alone on
-    the card, then the ranks."""
+    """Phase 34(a) (see the module doc): the one-rank runs first (beside
+    phase 35's ranks, none of this phase's), then the ranks."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import transformer as tf
 
@@ -5076,6 +5167,563 @@ def _engine_mesh_phase(cfg, ops) -> dict:
     out["phase_s"] = time.perf_counter() - t0
     log("mesh-engine", f"phase 34 in {out['phase_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 35: checkpoints of a run on a mesh; the gspmd executor's repairs
+# ---------------------------------------------------------------------------
+
+# 35(a): phase 31(b)'s cell (llama-7b at full width, 2 layers, float32,
+# b=2, s=128) through train(mesh=, ckpt_dir=): 3 steps on {data: 2} with a
+# checkpoint at step 2, then the run restarted from step 2 on each mesh
+# here (ranks of their own) and on one rank (the main process)
+CKPT_MESH = {"steps": 3, "every": 2, "b": 2, "s": 128, "run": {"data": 2},
+             "restarts": {"data2": {"data": 2}, "model2": {"model": 2}}}
+CKPT_STEP = "step_00000002"
+CKPT_SAME_TOL = 1e-6   # the restart on the mesh that saved (bit-equal expected)
+CKPT_OTHER_TOL = 1e-4  # onto another mesh: 31(b)'s limit for the card
+# 35(b): graphs the gspmd executor once refused, on (pod, data, model) =
+# (2, 2, 1), each planned over its split label: a prod aggregation, an
+# opaque node of a rule registered here with no local lowering, and plan
+# entries out of mesh order on a kept and on a contracted label
+REPAIR_MESH = {"pod": 2, "data": 2, "model": 1}
+REPAIR_PLANS = {"prod": {"i": ("data",), "j": ("pod",)},
+                "custom": {"i": ("data",), "j": ("pod",)},
+                "order": {"b": ("data", "pod")},
+                "order-contracted": {"a": ("data", "pod")}}
+REPAIR_OP, REPAIR_RULE = "chip_smoke_affine", "chip_smoke_nolocal"
+# ... and llama-7b's width, 4 layers, float32, with the head dim split on
+# "model" of (1, 2): one prefill (b=2, prompt 128) and 8 decode steps fed
+# fixed tokens, through the dense cache and through a paged pool (KV block
+# 16, admission by make_admit_fn), every step within 1e-4 of max|logit| of
+# one rank's
+DSPLIT = {"layers": 4, "mesh": {"data": 1, "model": 2}, "policy": {"d": "model"},
+          "b": 2, "prompt": 128, "steps": 8, "block": 16}
+DSPLIT_TOL = 1e-4
+
+
+def _file_block(path: Path, i: int, t) -> np.ndarray:
+    """This rank's block of leaf ``i``'s file, for ``t`` (a DTensor, or a
+    whole tensor): the file memory-mapped and cut by the port's own
+    placement rule (``gspmd.local_block``: each spec entry's axes split
+    its dim in mesh order), not by the offsets restore read it with."""
+    import types
+
+    from repro_torch.core import gspmd
+
+    arr = np.load(path / f"leaf{i:05d}.npy", mmap_mode="r")
+    if not isinstance(t, gspmd.DTensor):
+        return np.array(arr)
+    dm = t.device_mesh
+    names = dm.mesh_dim_names
+    mesh = types.SimpleNamespace(axis_names=names, sizes=dict(zip(names, dm.shape)),
+                                 coord=dict(zip(names, dm.get_coordinate())))
+    spec = gspmd.spec_of_placements(t.placements, t.ndim, mesh)
+    with warnings.catch_warnings():  # a read-only map: only the block is copied
+        warnings.simplefilter("ignore", UserWarning)
+        whole = torch.from_numpy(arr)
+    return np.array(gspmd.local_block(whole, spec, mesh).numpy())
+
+
+def _ckpt_taps() -> tuple[dict, Callable]:
+    """Wrap the checkpoint module's gather, write and load in this process:
+    each gather's wall and the card's peak during it (a save's share on this
+    rank; ``held`` is what lay on the card before it), each write's wall and
+    bytes (rank 0's background thread), each load's wall, and after each
+    load every restored leaf's block on this rank against the same block of
+    its file, bit for bit (every rank's block equal: the leaf's
+    ``full_tensor()`` equals the file).  Returns the record and a function
+    that undoes the wrapping."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import tree
+
+    rec = {"gather": [], "write": [], "load": [], "restored": []}
+    gather, write, load = ckpt._gather, ckpt._write, ckpt.load_checkpoint
+
+    def gather_t(t):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = gather(t)
+        torch.cuda.synchronize()
+        rec["gather"].append({"wall_s": time.perf_counter() - t0, "held_bytes": held,
+                              "peak_bytes": torch.cuda.max_memory_allocated()})
+        return out
+
+    def write_t(path, step, host, extra):
+        t0 = time.perf_counter()
+        write(path, step, host, extra)
+        rec["write"].append({"step": step, "wall_s": time.perf_counter() - t0,
+                             "bytes": sum(f.stat().st_size for f in Path(path).iterdir())})
+
+    def load_t(path, like, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(path, like, **kw)
+        torch.cuda.synchronize()
+        rec["load"].append({"wall_s": time.perf_counter() - t0})
+        equal = []
+        for i, leaf in enumerate(tree.leaves(out[1])):
+            mine = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+            want = torch.from_numpy(_file_block(Path(path), i, leaf)).to(mine.device)
+            equal.append(bool(mine.dtype == want.dtype and torch.equal(mine, want)))
+            del want
+        rec["restored"].append({"leaves": len(tree.leaves(out[1])),
+                                "equal": sum(equal), "checked": len(equal)})
+        return out
+
+    ckpt._gather, ckpt._write, ckpt.load_checkpoint = gather_t, write_t, load_t
+
+    def undo():
+        ckpt._gather, ckpt._write, ckpt.load_checkpoint = gather, write, load
+
+    return rec, undo
+
+
+def _ckpt_train(mesh, ckpt_dir, device=None) -> dict:
+    """train() of 35(a)'s cell: per step (step, loss, grad norm, wall), the
+    launches by design (counts set to 0 just before)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    spec = CKPT_MESH
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(_mesh_train_cfg(), ShapeConfig("ckpt", "train", spec["s"], spec["b"]),
+                steps_total=spec["steps"], mesh=mesh, ckpt_dir=str(ckpt_dir),
+                ckpt_every=spec["every"], log_every=1, device=device)
+    wall = time.perf_counter() - t0
+    launches = {"launches": ops.launch_counts(), "designs": ops.design_counts()}
+    steps = [(s["step"], s["loss"], s["grad_norm"], s["wall_s"]) for s in out["steps"]]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "wall_s": wall, **launches}
+
+
+def _dsplit_cfg():
+    from repro_torch.configs import get_config
+
+    return _f32_slice(get_config("llama-7b"), DSPLIT["layers"])
+
+
+def _dsplit_tokens(cfg):
+    rng = np.random.default_rng(35)
+    return (rng.integers(0, cfg.vocab, size=(DSPLIT["b"], DSPLIT["prompt"])).astype(np.int32),
+            rng.integers(0, cfg.vocab, size=(DSPLIT["steps"], DSPLIT["b"], 1)).astype(np.int32))
+
+
+def _dsplit_run(policy=None, mesh=None) -> dict:
+    """35(b)'s slice under ``policy`` on ``mesh`` (None: one rank, on the
+    card alone): the dense cache's prefill and decode logits, then the
+    paged pool's (two admissions, then the decode steps), all whole on the
+    host in float32, the caches' specs, and the flash launches by design
+    (counts set to 0 just before)."""
+    from repro_torch.core import gspmd, tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import prepare_decode_caches
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.paged_kv import make_admit_fn
+
+    cfg, spec = _dsplit_cfg(), DSPLIT
+    placed = mesh is not None
+    params = (tf.init_placed_params(cfg, policy, mesh, seed=35) if placed
+              else tf.init_params(cfg, seed=35, device="cuda"))
+    prompts, fed = _dsplit_tokens(cfg)
+    b, n = prompts.shape
+    out = {"dense": [], "paged": []}
+
+    def spec_of(t):
+        return gspmd.spec_of_placements(t.placements, t.ndim, mesh) if placed else None
+
+    def whole(logits):
+        return gspmd.full(logits)[:, -1].float().cpu()
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, caches = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)(
+            params, {"tokens": torch.as_tensor(prompts, device="cuda")})
+        out["dense"].append(whole(logits))
+        caches = prepare_decode_caches(cfg, caches, n, n + spec["steps"], policy=policy,
+                                       mesh=mesh)
+        out["dense_cache_spec"] = spec_of(caches[0].k)
+        for i in range(spec["steps"]):
+            logits, caches = tf.decode_step(params, torch.as_tensor(fed[i], device="cuda"),
+                                            caches, n + i, cfg, policy=policy, mesh=mesh)
+            out["dense"].append(whole(logits))
+        del caches
+        width = -(-(n + spec["steps"]) // spec["block"])  # blocks a slot
+        tables = torch.arange(1, 1 + b * width, device="cuda", dtype=torch.int32).reshape(b, width)
+        pool = tf.init_paged_caches(cfg, b, 1 + b * width, spec["block"], device="cuda")
+        pool = tf.place_paged_caches(pool, cfg, b, 1 + b * width, spec["block"], policy, mesh)
+        out["paged_pool_spec"] = spec_of(pool[0].k)
+        admit = make_admit_fn(cfg)
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+        for slot in range(b):
+            logits, pre, _ = tf.forward(params, torch.as_tensor(prompts[slot:slot + 1],
+                                                                device="cuda"),
+                                        cfg, policy=policy, mesh=mesh, collect_cache=True,
+                                        last_logit_only=True)
+            out["paged"].append(whole(logits))
+            tok0 = torch.argmax(gspmd.full(logits)[:, -1], dim=-1).to(torch.int32)
+            pool, tokens = admit(pool, pre, tables[slot], slot, tok0, tokens)
+        pos = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        for i in range(spec["steps"]):
+            logits, pool = tf.decode_step_paged(
+                params, torch.as_tensor(fed[i], device="cuda"), pool, tables, pos + i, cfg,
+                policy=policy, mesh=mesh)
+            out["paged"].append(whole(logits))
+    torch.cuda.synchronize()
+    out.update({"launches": ops.launch_counts(), "designs": ops.design_counts(),
+                "weight_bytes": sum(_block_bytes(t) for t in tree.leaves(params))})
+    del params, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _link_step(root: Path, name: str, timeout: float = 600.0) -> None:
+    """Once the uninterrupted run's step-2 checkpoint is complete (its
+    directory appears by a rename), hard-link its files alone into
+    ``root/name``, the directory of one restart."""
+    src, dst = root / "run" / CKPT_STEP, root / name / CKPT_STEP
+    deadline = time.monotonic() + timeout
+    while not src.is_dir():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {src} after {timeout} s")
+        time.sleep(0.5)
+    dst.mkdir(parents=True)
+    for f in src.iterdir():
+        os.link(f, dst / f.name)
+
+
+def ckpt_run_rank(rank: int, world: int, root: str) -> dict:
+    """One gloo rank of 35(a)'s uninterrupted run on ``CKPT_MESH["run"]``;
+    rank 0 then restarts it from step 2 on one rank (``train`` with no
+    mesh), the other rank waiting at a barrier."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(root)
+    rec, undo = _ckpt_taps()
+    out = {"run": dict(_ckpt_train(Mesh(CKPT_MESH["run"], device="cuda:0"), root / "run"),
+                       taps=rec)}
+    undo()
+    if rank == 0:
+        _link_step(root, "one")
+        rec, undo = _ckpt_taps()
+        out["one"] = dict(_ckpt_train(None, root / "one", device="cuda:0"), taps=rec)
+        undo()
+    dist.barrier()
+    return out
+
+
+def ckpt_restart_rank(rank: int, world: int, root: str, name: str) -> dict:
+    """One gloo rank of 35(a)'s restart from step 2 onto the mesh ``name``
+    of ``CKPT_MESH["restarts"]``; it starts beside the uninterrupted run
+    and waits for its step-2 checkpoint (rank 0 links it).  The {model: 2}
+    restart's ranks first run (b)'s head-dim-split slice on
+    ``DSPLIT["mesh"]`` meanwhile (rank 0 returns its logits)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.policy import manual_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    if name == "model2":
+        out["dsplit"] = _dsplit_run(manual_policy(DSPLIT["policy"]),
+                                    Mesh(DSPLIT["mesh"], device="cuda:0"))
+        if rank:
+            out["dsplit"]["dense"] = out["dsplit"]["paged"] = None
+    mesh = Mesh(CKPT_MESH["restarts"][name], device="cuda:0")
+    if rank == 0:
+        _link_step(Path(root), name)
+    dist.barrier()
+    rec, undo = _ckpt_taps()
+    out[name] = dict(_ckpt_train(mesh, Path(root) / name), taps=rec)
+    undo()
+    return out
+
+
+class _NoLocalRule:
+    """A shard rule with no lowering the DTensor executor may call."""
+
+    name = REPAIR_RULE
+
+    def lower(self, g, node, ax_n, sizes):
+        raise AssertionError("the gspmd executor lowers this rule's nodes as replicated")
+
+
+def _repair_graph(name: str):
+    """(graph, {output: node id}, feeds) of a 35(b) graph."""
+    from repro_torch.core import opaque_rules, opdef
+    from repro_torch.core.einsum import EinGraph
+
+    g = EinGraph(name)
+    rng = np.random.default_rng(len(name))
+    if name in ("prod", "custom"):
+        x = g.input("x", "i j", (512, 64))
+        if name == "custom":
+            if REPAIR_RULE not in opaque_rules.RULES:
+                opaque_rules.register_rule(_NoLocalRule())
+                opdef.defop(REPAIR_OP, "i j -> i j", fn=lambda x: torch.as_tensor(x) * 2 + 1,
+                            shard_rule=REPAIR_RULE)
+            x = g.opaque(REPAIR_OP, [x], "i j", (512, 64), in_labels=[("i", "j")])
+        agg = "prod" if name == "prod" else "sum"
+        outs = {"y": g.einsum("i j -> i", x, combine="id", agg=agg)}
+        feeds = {"x": (1 + 0.01 * rng.normal(size=(512, 64))).astype(np.float32)}
+        return g, outs, feeds
+    x = g.input("x", "b a", (512, 1024))
+    w = g.input("w", "a f", (1024, 512))
+    feeds = {"x": rng.normal(size=(512, 1024)).astype(np.float32),
+             "w": (rng.normal(size=(1024, 512)) * 0.03).astype(np.float32)}
+    return g, {"y": g.einsum("b a, a f -> b f", x, w)}, feeds
+
+
+def repair_rank(rank: int, world: int) -> dict:
+    """One gloo rank of 35(b)'s graphs through ``executor="gspmd"`` on
+    ``REPAIR_MESH``: each output (whole; rank 0 returns it, every rank its
+    sum of |y|), the opaque nodes' rules, the partial placements, and the
+    launches a graph (counts set to 0 just before its call)."""
+    from repro_torch.core.decomp import Plan
+    from repro_torch.frontend import Program
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh(REPAIR_MESH, device="cuda:0")
+    out = {}
+    for name, axes in REPAIR_PLANS.items():
+        g, outs, feeds = _repair_graph(name)
+        plan = Plan(p=world, mode="mesh")
+        plan.axes_by_node = {n.nid: dict(axes) for n in g.nodes}
+        comp = Program.from_graph(g, outs).compile(mesh=mesh, executor="gspmd", plan=plan)
+        ops.reset_launch_counts()
+        y = comp(feeds)["y"].float().cpu()
+        out[name] = {"y": y if rank == 0 else None, "digest": float(y.abs().sum()),
+                     "rules": [st.rule for st in comp._fn.program if st.rule],
+                     "partial": [st.partial for st in comp._fn.program if st.partial],
+                     "launches": ops.launch_counts(), "designs": ops.design_counts()}
+    return out
+
+
+def _ckpt_walls(taps: dict) -> dict:
+    return {"gather_s": [round(x["wall_s"], 3) for x in taps["gather"]],
+            "write_s": [round(x["wall_s"], 3) for x in taps["write"]],
+            "load_s": [round(x["wall_s"], 3) for x in taps["load"]]}
+
+
+def _mesh_ckpt_start() -> dict:
+    """Phase 35's spawns, started before phase 34 so that they run beside
+    it (for the run's time limit; phase 34's ranks and its one-rank engine
+    hold under 15 GB of the card): (a)'s uninterrupted run,
+    its restarts onto {data: 2} and {model: 2}, which wait for the run's
+    step-2 checkpoint (the latter's ranks run (b)'s head-dim-split slice
+    meanwhile); (b)'s graphs.  Returns what ``_mesh_ckpt_phase``
+    finishes."""
+    from repro_torch.launch.mesh import spawn
+
+    root = LOG.parent / "ckpt_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tmp = Path(tempfile.mkdtemp())
+    pool = ThreadPoolExecutor(4)
+    walls: dict = {}
+
+    def cleanup():  # also where phase 34 fails: no 8 GB step left behind
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(cleanup)
+
+    def start(name, world, fn, *args):
+        def run():
+            t0 = time.perf_counter()
+            out = spawn(world, fn, *args, tmpdir=tmp / name, backend="gloo", timeout=900)
+            walls[name] = time.perf_counter() - t0
+            return out
+        return pool.submit(run)
+
+    return {"t0": time.perf_counter(), "root": root, "cleanup": cleanup, "walls": walls,
+            "run": start("run", 2, ckpt_run_rank, str(root)),
+            "restarts": {name: start(name, 2, ckpt_restart_rank, str(root), name)
+                         for name in CKPT_MESH["restarts"]},
+            "graphs": start("graphs", 4, repair_rank)}
+
+
+def _mesh_ckpt_phase(started: dict) -> dict:
+    """Phase 35 (see the module doc), after phase 34: (b)'s one-card
+    references here, then every check once the spawns are done.  The
+    checkpoints are deleted at the end."""
+    from repro_torch.frontend import Program
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    root, walls = started["root"], started["walls"]
+    try:
+        dense = {}
+        for name in REPAIR_PLANS:
+            g, outs, feeds = _repair_graph(name)
+            dense[name] = Program.from_graph(g, outs).compile(p=1)(feeds)["y"].float().cpu()
+        one = _dsplit_run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_ranks = started["run"].result()
+        restart_ranks = {name: f.result() for name, f in started["restarts"].items()}
+        graph_ranks = started["graphs"].result()
+        step_dir = root / "run" / CKPT_STEP
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+    finally:
+        started["cleanup"]()  # 8 GB a step: 4 bytes a parameter, 3 times
+    dsplit_ranks = [r["dsplit"] for r in restart_ranks["model2"]]
+    restarts = {name: [r[name] for r in ranks] for name, ranks in restart_ranks.items()}
+    one_restart = run_ranks[0]["one"]
+    run_ranks = [r["run"] for r in run_ranks]
+
+    # (a) held
+    r0 = run_ranks[0]
+    full = r0["steps"]
+    assert [s[0] for s in full] == [0, 1, 2], full
+    assert set(manifest) == {"step", "extra", "leaves"} and manifest["step"] == 2, manifest.keys()
+    n_leaves = len(manifest["leaves"])
+    rows = {}
+    for name in list(CKPT_MESH["restarts"]) + ["one"]:
+        ranks = [one_restart] if name == "one" else restarts[name]
+        got, taps = ranks[0], ranks[0]["taps"]
+        assert all([x[:3] for x in r["steps"]] == [x[:3] for x in got["steps"]]
+                   for r in ranks), name  # every rank the same losses
+        assert [s[0] for s in got["steps"]] == [2], (name, got["steps"])
+        (_, loss, gnorm, wall), (_, want_loss, want_gnorm, _) = got["steps"][0], full[2]
+        tol = CKPT_SAME_TOL if name == "data2" else CKPT_OTHER_TOL
+        rel = (abs(loss - want_loss) / abs(want_loss), abs(gnorm - want_gnorm) / abs(want_gnorm))
+        if not max(rel) <= tol:
+            raise AssertionError(f"checkpoint restart {name}: step 2 loss {loss!r} grad norm "
+                                 f"{gnorm!r} against the uninterrupted run's {want_loss!r} "
+                                 f"{want_gnorm!r}: {rel} > {tol}")
+        for r in ranks:  # every leaf's block on every rank
+            (restored,) = r["taps"]["restored"]
+            assert restored == {"leaves": n_leaves, "equal": n_leaves, "checked": n_leaves}, \
+                (name, restored)
+        assert [len(r["taps"]["write"]) for r in ranks] == [1] + [0] * (len(ranks) - 1), name
+        rows[name] = {"loss": loss, "grad_norm": gnorm, "rel": rel, "step_wall_s": wall,
+                      "train_wall_s": [r["wall_s"] for r in ranks],
+                      "restore_s": [r["taps"]["load"][0]["wall_s"] for r in ranks],
+                      "save_gather_s": [r["taps"]["gather"][0]["wall_s"] for r in ranks],
+                      "save_write_s": taps["write"][0]["wall_s"],
+                      "bit_equal": rel == (0.0, 0.0),
+                      "launches": got["launches"]["flash_attention"],
+                      "design": got["designs"]["flash_attention"]}
+    for rank, r in enumerate(run_ranks):  # every rank the same losses
+        assert [s[:3] for s in r["steps"]] == [s[:3] for s in full], rank
+    run_taps = [r["taps"] for r in run_ranks]
+    writes = [len(t["write"]) for t in run_taps]
+    assert writes == [2, 0], writes  # rank 0 alone wrote steps 2 and 3
+    fl = r0["launches"]["flash_attention"]
+    assert r0["designs"]["flash_attention"]["ffma"] == fl > 0, r0["designs"]
+    save_peaks = [max(x["peak_bytes"] for x in t["gather"]) for t in run_taps]
+    log("mesh-ckpt", f"35(a) llama-7b width, 2 layers, f32, b=2, s=128 through train(mesh=, "
+                     f"ckpt_dir=) on 2 gloo ranks sharing the card: uninterrupted on "
+                     f"{CKPT_MESH['run']}, steps {[(s[0], s[1], s[2]) for s in full]} "
+                     f"(walls {[round(s[3], 3) for s in full]} s); checkpoint of step 2: "
+                     f"{n_leaves} leaves, {ckpt_bytes} bytes on disk, manifest keys "
+                     f"{sorted(manifest)}; saves: gather walls a rank "
+                     f"{[_ckpt_walls(t)['gather_s'] for t in run_taps]} s, rank 0's writes "
+                     f"{_ckpt_walls(run_taps[0])['write_s']} s (background); peak a rank "
+                     f"during save {save_peaks} B (held before it "
+                     f"{[t['gather'][0]['held_bytes'] for t in run_taps]} B); train() "
+                     f"{[round(r['wall_s'], 1) for r in run_ranks]} s; flash launches a rank "
+                     f"{fl} by design {r0['designs']['flash_attention']}")
+    for name, row in rows.items():
+        log("mesh-ckpt", f"35(a) restart from step 2 onto {name}: step 2 loss "
+                         f"{row['loss']!r} grad norm {row['grad_norm']!r} against "
+                         f"{full[2][1]!r} {full[2][2]!r} (relative {row['rel'][0]:.3e}, "
+                         f"{row['rel'][1]:.3e}; bit-equal {row['bit_equal']}; limit "
+                         f"{CKPT_SAME_TOL if name == 'data2' else CKPT_OTHER_TOL}); every "
+                         f"restored leaf's block on every rank bit-equal to its file's; "
+                         f"restore walls {[round(x, 2) for x in row['restore_s']]} s, its "
+                         f"save's gathers {[round(x, 2) for x in row['save_gather_s']]} s and "
+                         f"write {row['save_write_s']:.2f} s, train() "
+                         f"{[round(x, 1) for x in row['train_wall_s']]} s; flash launches "
+                         f"{row['launches']} by design {row['design']}")
+    res["ckpt"] = {"steps": full, "bytes": ckpt_bytes, "leaves": n_leaves,
+                   "manifest_keys": sorted(manifest), "restarts": rows,
+                   "save": {"gather_s": [_ckpt_walls(t)["gather_s"] for t in run_taps],
+                            "write_s": _ckpt_walls(run_taps[0])["write_s"],
+                            "write_bytes": [x["bytes"] for x in run_taps[0]["write"]],
+                            "peak_bytes": save_peaks,
+                            "held_bytes": [t["gather"][0]["held_bytes"] for t in run_taps]},
+                   "train_wall_s": [r["wall_s"] for r in run_ranks],
+                   "launches_per_rank": fl,
+                   "design": r0["designs"]["flash_attention"]}
+
+    # (b) the graphs
+    g0 = graph_ranks[0]
+    graphs_out = {}
+    for name in REPAIR_PLANS:
+        want = dense[name]
+        for rank, r in enumerate(graph_ranks):
+            assert r[name]["digest"] == g0[name]["digest"], (name, rank)
+        err = float((g0[name]["y"] - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= GSPMD_TOL["float32"] * scale:
+            raise AssertionError(f"gspmd {name}: max|mesh - one card| {err:.3e} over "
+                                 f"{GSPMD_TOL['float32']} x {scale:.3e}")
+        graphs_out[name] = {"max_abs_err": err, "scale": scale, "rules": g0[name]["rules"],
+                            "partial": [list(map(list, p)) for p in g0[name]["partial"]],
+                            "launches": g0[name]["launches"], "designs": g0[name]["designs"]}
+        log("mesh-repairs", f"35(b) {name} on {REPAIR_MESH} (4 gloo ranks sharing the card) "
+                            f"under {REPAIR_PLANS[name]}: max|mesh - one card| {err:.3e} of "
+                            f"max {scale:.3e} (limit {GSPMD_TOL['float32']} relative); rules "
+                            f"{g0[name]['rules']}, partials {g0[name]['partial']}; launches "
+                            f"a rank {g0[name]['launches']}")
+    assert graphs_out["custom"]["rules"] == ["replicate"], graphs_out["custom"]
+    assert graphs_out["prod"]["partial"] == [[["pod", "product"]]], graphs_out["prod"]
+    # (b) the head dim split
+    d0 = dsplit_ranks[0]
+    assert d0["dense_cache_spec"][-1] == "model" and d0["paged_pool_spec"][-1] == "model", \
+        (d0["dense_cache_spec"], d0["paged_pool_spec"])
+    worst = {}
+    for kind in ("dense", "paged"):
+        rels = []
+        for i, (g, w) in enumerate(zip(d0[kind], one[kind])):
+            rels.append(float((g - w).abs().max()) / float(w.abs().max()))
+        assert len(rels) == len(one[kind]) > DSPLIT["steps"], (kind, len(rels))
+        if not max(rels) <= DSPLIT_TOL:
+            raise AssertionError(f"head dim split, {kind}: steps {rels} over {DSPLIT_TOL}")
+        worst[kind] = rels
+    dl = [r["launches"]["flash_attention"] for r in dsplit_ranks]
+    n_flash = DSPLIT["layers"] * (1 + DSPLIT["b"])  # the dense prefill and one a slot
+    assert dl == [n_flash] * 2 == [one["launches"]["flash_attention"]] * 2, (dl, one["launches"])
+    assert d0["designs"]["flash_attention"]["ffma"] == n_flash, d0["designs"]
+    log("mesh-repairs", f"35(b) llama-7b width, {DSPLIT['layers']} layers, f32, policy "
+                        f"{DSPLIT['policy']} on {DSPLIT['mesh']}: dense cache "
+                        f"{d0['dense_cache_spec']}, paged pool {d0['paged_pool_spec']} (KV "
+                        f"block {DSPLIT['block']}); prefill and {DSPLIT['steps']} decode steps, "
+                        f"max|mesh - one rank| / max|logit| per step: dense "
+                        f"{[f'{x:.2e}' for x in worst['dense']]}, paged "
+                        f"{[f'{x:.2e}' for x in worst['paged']]} (limit {DSPLIT_TOL}); weight "
+                        f"bytes a rank {[r['weight_bytes'] for r in dsplit_ranks]} (one "
+                        f"rank {one['weight_bytes']}); flash launches a rank {dl} by design "
+                        f"{d0['designs']['flash_attention']}")
+    res["repairs"] = {"graphs": graphs_out, "dsplit": {
+        "rel": worst, "launches_per_rank": dl, "design": d0["designs"]["flash_attention"],
+        "dense_cache_spec": d0["dense_cache_spec"], "paged_pool_spec": d0["paged_pool_spec"],
+        "weight_bytes": [r["weight_bytes"] for r in dsplit_ranks]}}
+    res["spawn_s"] = walls
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["since_start_s"] = time.perf_counter() - started["t0"]
+    log("mesh-ckpt", f"phase 35 in {res['phase_s']:.1f} s after phase 34, "
+                     f"{res['since_start_s']:.1f} s since its spawns started beside phase 34 "
+                     f"(each spawn's wall: {({k: round(v, 1) for k, v in walls.items()})} s)")
+    return res
 
 
 if __name__ == "__main__":

@@ -10,8 +10,13 @@ port's counterpart of GSPMD is DTensor (``torch.distributed.tensor``):
     placement per mesh dim (``placements``): ``Shard(d)`` where the axis
     splits dim ``d``, ``Replicate()`` elsewhere.  An entry naming several
     axes becomes ``[Shard(d), Shard(d)]``, which nests the blocks in mesh
-    order, as JAX's ``P(("data", "model"))`` does; an entry whose axes are
-    out of mesh order would need ``_StridedShard`` and raises instead;
+    order, as JAX's ``P(("data", "model"))`` does.  ``placements`` refuses
+    an entry whose axes are out of mesh order (it would need
+    ``_StridedShard``); its callers here — ``wrap``, ``distribute``,
+    ``constrain`` and the executor's program — nest such an entry in mesh
+    order first (``nested``): every rank holds a block of the same shape
+    and the global tensor is the same, only which rank holds which block
+    differs from the reference;
   * ``with_sharding_constraint`` becomes ``redistribute`` to those
     placements (``constrain``), and DTensor's redistribution planner picks
     the collectives (all-gather, all-to-all, all-reduce, reduce-scatter);
@@ -38,7 +43,14 @@ combine) runs its own program on its blocks — the sequence split over its
 axes in, the experts out — and issues its collectives (an all-gather of
 the per-expert counts, the all-to-alls of slots and payloads) through an
 ``spmd.StepContext`` on the mesh's process group over those axes, as the
-``shard_map`` executor does.  An op that cannot be placed raises.
+``shard_map`` executor does.  An opaque node whose rule has no local
+lowering under its plan assignment, or whose rule is none of the built-in
+ones, is lowered through the ``replicate`` rule — its inputs gathered
+whole, the op run whole on every rank, each rank keeping its block of the
+output — as the ``shard_map`` executor falls back, and as XLA partitions
+a custom call that has no partitioning rule.  A ``prod`` aggregation over
+a split label is a ``Partial("product")``: each rank's product over its
+block, the blocks' products multiplied across the label's axes.
 """
 from __future__ import annotations
 
@@ -90,7 +102,8 @@ def mesh_sizes(mesh) -> dict[str, int]:
 def placements(spec: Sequence, mesh, partial: Sequence[tuple[str, str]] = ()
                ) -> tuple:
     """DTensor placements (one per mesh axis, in mesh order) for ``spec``,
-    with ``partial`` — ``(axis, "sum" | "max" | "min")`` pairs — marking
+    with ``partial`` — ``(axis, "sum" | "max" | "min" | "product")``
+    pairs — marking
     axes that hold partial results.  Size-1 axes shard nothing and are
     dropped.  Raises ``NotImplementedError`` for an entry whose axes are
     out of mesh order, ``ValueError`` for an axis the mesh lacks or one
@@ -465,8 +478,8 @@ class NodeStep:
     rule: str = ""
 
 
-#: aggregations a DTensor ``Partial`` can hold
-_PARTIAL_AGGS = ("sum", "max", "min")
+#: the DTensor ``Partial`` reduction of each aggregation
+_PARTIAL_AGGS = {"sum": "sum", "max": "max", "min": "min", "prod": "product"}
 
 #: opaque shard rules whose local program issues no collective of its own
 _LOCAL_RULES = ("local", "paged")
@@ -480,20 +493,6 @@ def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
     from repro_torch.core import opaque_rules
 
     rule_name = opaque_rules.resolve_rule_name(n)
-    step = NodeStep(nid=n.nid, rule=rule_name)
-    if rule_name == "replicate":
-        # the op declares no shard rule: it runs whole, as declared
-        step.arg_specs = [tuple(None for _ in g.nodes[a].shape)
-                          for a in n.inputs]
-        step.local_spec = tuple(None for _ in n.shape)
-
-        def run(args, ctx, _n=n):
-            from repro_torch.core.engine import OPAQUE_FNS
-
-            return OPAQUE_FNS[_n.op](*args, **_n.call_params)
-
-        step.run = run
-        return step
     low = None
     if rule_name == "ring":
         # the ring label unsharded: one local flash call per rank on its
@@ -504,25 +503,19 @@ def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
                 if c.get("kind") == "ring"}
         ax_local = {l: a for l, a in ax_n.items() if l not in ring}
         low = opaque_rules.RULES["ring"].lower(g, n, ax_local, sizes)
-    elif rule_name in _LOCAL_RULES:
+    elif rule_name in _LOCAL_RULES or rule_name == "a2a":
+        # the a2a rule's program issues its own collectives through the
+        # runner's ``spmd.StepContext``; its axes are in mesh order (every
+        # spec here is), so its blocks nest as DTensor's, and its
+        # collectives run over the mesh's one group spanning them
         low = opaque_rules.RULES[rule_name].lower(g, n, ax_n, sizes)
-    elif rule_name == "a2a":
-        # its program issues its own collectives through the runner's
-        # ``spmd.StepContext``; its axes are in mesh order (every spec here
-        # is), so its blocks nest as DTensor's, and its collectives run over
-        # the mesh's one group spanning them
-        low = opaque_rules.RULES[rule_name].lower(g, n, ax_n, sizes)
-    else:
-        raise NotImplementedError(
-            f"gspmd: opaque node {n.name!r} ({n.op}) declares the "
-            f"{rule_name!r} shard rule, which the DTensor executor does not "
-            "lower; use executor='shard_map'")
     if low is None:
-        raise NotImplementedError(
-            f"gspmd: opaque node {n.name!r} ({n.op}) cannot be placed "
-            f"locally under its plan assignment {ax_n} (rule "
-            f"{rule_name!r}); use executor='shard_map', whose rule falls "
-            "back to replicating it")
+        # no local lowering: the op declares no rule, its rule's
+        # preconditions fail under this assignment, or the rule is not a
+        # built-in one — run it whole on every rank (``spmd``'s fallback)
+        rule_name = "replicate"
+        low = opaque_rules.RULES["replicate"].lower(g, n, ax_n, sizes)
+    step = NodeStep(nid=n.nid, rule=rule_name)
     step.arg_specs = [_layout_spec(lay) for lay in low.arg_layouts]
     # the block the rule's program returns: its output layout before the
     # local slices of its post steps, which the constraint to the planned
@@ -538,21 +531,28 @@ def _opaque_step(g: EinGraph, n: Node, ax_n: dict, sizes: dict) -> NodeStep:
 def build_program(g: EinGraph, plan, mesh_axes: dict[str, int]
                   ) -> list[NodeStep]:
     """The executor's static program for a mesh-mode plan, in node order:
-    pure Python over the graph, the plan and the mesh shape."""
+    pure Python over the graph, the plan and the mesh shape.  A plan entry
+    whose axes are out of mesh order is placed nested in mesh order
+    (``nested``)."""
     if plan is None or plan.mode != "mesh":
         raise ValueError("gspmd on a mesh of more than one rank needs a "
                          "mesh-mode plan (plan with mesh_axes)")
     sizes = {a: int(s) for a, s in mesh_axes.items()}
+    order = {a: i for i, a in enumerate(sizes)}
+
+    def axes_of(nid: int) -> dict:
+        return {l: tuple(sorted(axes, key=lambda a: order.get(a, len(order))))
+                for l, axes in plan.axes_by_node.get(nid, {}).items()}
+
     steps: list[NodeStep] = []
     for n in g.nodes:
-        ax_n = plan.axes_by_node.get(n.nid, {})
+        ax_n = axes_of(n.nid)
         out_spec = spec_of(n.labels, ax_n)
         if n.kind == "input":
             step = NodeStep(nid=n.nid, local_spec=out_spec)
         elif n.kind == "map":
             # elementwise on the local block: its input's planned spec
-            src = spec_of(g.nodes[n.inputs[0]].labels,
-                          plan.axes_by_node.get(n.inputs[0], {}))
+            src = spec_of(g.nodes[n.inputs[0]].labels, axes_of(n.inputs[0]))
             step = NodeStep(nid=n.nid, arg_specs=[src], local_spec=src)
         elif n.kind == "einsum":
             spec = n.spec
@@ -560,18 +560,9 @@ def build_program(g: EinGraph, plan, mesh_axes: dict[str, int]
                             arg_specs=[spec_of(ls, ax_n)
                                        for ls in spec.in_labels],
                             local_spec=out_spec)
-            partial = []
-            for l in spec.agg_labels:
-                for a in ax_n.get(l, ()):
-                    if sizes.get(a, 1) > 1:
-                        if spec.agg not in _PARTIAL_AGGS:
-                            raise NotImplementedError(
-                                f"gspmd: node {n.name!r} aggregates "
-                                f"{spec.agg!r} over mesh axis {a!r}; DTensor "
-                                "has no Partial for it — use "
-                                "executor='shard_map'")
-                        partial.append((a, spec.agg))
-            step.partial = tuple(partial)
+            step.partial = tuple(
+                (a, _PARTIAL_AGGS[spec.agg]) for l in spec.agg_labels
+                for a in ax_n.get(l, ()) if sizes.get(a, 1) > 1)
         else:
             step = _opaque_step(g, n, ax_n, sizes)
         step.out_spec = out_spec

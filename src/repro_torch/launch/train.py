@@ -18,17 +18,28 @@ vision tower) get float32 normal prefix embeddings drawn from
 ``default_rng(step)``, as in the reference; the model casts them.
 
 Fault tolerance, as in the reference: checkpoints carry {params,
-opt_state} and the step; the data pipeline is counter-based, so step N's
-batch is the same across restarts; checkpoint writes run on a background
-thread.  On a ``launch.mesh.Mesh`` of more than one rank (``train(mesh=)``
-in every rank of the process group) the weights and AdamW moments are
-placed by ``transformer.param_shardings``, the batch by
-``batch_shardings``, and the step pins each gradient to its parameter's
-placements (``steps.make_train_step``); under ``executor="gspmd"`` the
-cell's Program is compiled on that mesh.  Checkpoints of a sharded run are
-not ported (they raise).  ``--pp > 1`` prints the static pipeline summary of the
-forward program (stages, bubble, handoff wire); the step itself runs the
-unpipelined plan, as in the reference.
+opt_state} and the step; restore reshards onto whatever mesh the restarted
+job has (elastic: the planner plans for the new mesh); the data pipeline
+is counter-based, so step N's batch is the same across restarts;
+checkpoint writes run on a background thread.  On a ``launch.mesh.Mesh``
+of more than one rank (``train(mesh=)`` in every rank of the process
+group) the weights and AdamW moments are placed by
+``transformer.param_shardings``, the batch by ``batch_shardings``, and the
+step pins each gradient to its parameter's placements
+(``steps.make_train_step``); under ``executor="gspmd"`` the cell's Program
+is compiled on that mesh.  Its checkpoints are written by rank 0 from
+leaves gathered leaf by leaf, and each rank restores its own blocks
+(``checkpoint/ckpt.py``).  ``--mesh data=2`` runs the CLI on a mesh of
+gloo ranks it spawns, one process a rank (sharing the card, or on the CPU
+with ``--device cpu``); a checkpoint it writes restarts on any mesh:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-7b \\
+        --reduced --steps 4 --seq 32 --batch 2 --mesh data=2 \\
+        --ckpt /tmp/ckpt --device cpu
+
+``--pp > 1`` prints the static pipeline summary of the forward program
+(stages, bubble, handoff wire); the step itself runs the unpipelined plan,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -49,7 +60,7 @@ from repro_torch.launch.serve import ONE_DEVICE_MESH
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import resolve_device
 from repro_torch.models.eingraphs import fsdp_axes_for, program_for
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
 
 
@@ -73,15 +84,20 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     a mesh is given); the weights are seeded random ones made there.
     ``plan_cache`` is a ``PlanCache`` or a path to its JSON store.  With
     ``pp > 1`` the static pipeline summary over ``pp`` stages and
-    ``microbatches`` is printed first."""
+    ``microbatches`` is printed first.
+
+    With ``ckpt_dir`` the run saves {params, opt_state} every
+    ``ckpt_every`` steps and at its end, and starts from the latest
+    checkpoint there, on whatever mesh this run has: each rank reads its
+    blocks of the files onto this run's placements, and no weights are
+    made first.  The AdamW moments are restored under the parameters'
+    placements: the reference restores them unplaced and lets ``jit``
+    place them, but in the port a plain tensor cannot meet a DTensor in
+    the step."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     mesh = mesh or Mesh(ONE_DEVICE_MESH, device=dev)
     axes = dict(mesh.sizes)
     placed = mesh.world_size > 1
-    if placed and ckpt_dir:
-        raise NotImplementedError(
-            "train: checkpoints of a run on a mesh of more than one rank "
-            "(DTensor leaves) are not ported")
     if pp > 1:
         _print_pipeline_summary(cfg, shape, axes, pp, microbatches)
     # warm-start planning from the persistent cache: on restart the §8 DP
@@ -108,19 +124,27 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
                                    total=steps_total)
 
     step_fn = steps.make_train_step(cfg, policy=policy, mesh=mesh, lr_fn=lr_fn)
-    params = tf.init_placed_params(cfg, policy, mesh, seed=seed)
-    opt_state = adamw_init(params)
-
     data = SyntheticLM(cfg.vocab, shape.seq - cfg.prefix_len, shape.batch,
                        seed=seed)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    start = 0
+    start, restored = 0, None
     if mgr is not None:
-        restored = mgr.restore_latest((params, opt_state))
-        if restored is not None:
-            start, (params, opt_state), _ = restored
-            print(f"[train] restored step {start}")
+        # each rank reads its blocks straight onto this run's placements; the
+        # tree it restores into is a structure on the meta device, so no
+        # weights are made only to be replaced
+        pspecs = tf.param_specs(cfg, policy, mesh)
+        meta = tf.init_params(cfg, device="meta")
+        step0 = torch.zeros((), dtype=torch.int32, device=dev)
+        restored = mgr.restore_latest(
+            (meta, AdamWState(step0, meta, meta)),
+            shardings=(pspecs, AdamWState(None, pspecs, pspecs)), mesh=mesh)
+    if restored is not None:
+        start, (params, opt_state), _ = restored
+        print(f"[train] restored step {start} (elastic reshard onto {axes})")
+    else:
+        params = tf.init_placed_params(cfg, policy, mesh, seed=seed)
+        opt_state = adamw_init(params)
 
     history, per_step = [], []
     t0 = time.time()
@@ -208,16 +232,45 @@ def main(argv=None) -> None:
                          "(must divide --batch)")
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the card)")
+    ap.add_argument("--mesh", default=None,
+                    help="train on a mesh of gloo ranks spawned here, one "
+                         "process a rank, e.g. data=2 or data=1,model=2")
     args = ap.parse_args(argv)
+    if args.mesh:
+        import math
+        import tempfile
 
+        from repro_torch.launch.mesh import spawn
+
+        sizes = {a: int(n) for a, n in
+                 (kv.split("=") for kv in args.mesh.split(","))}
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn(math.prod(sizes.values()), _mesh_main, args, sizes,
+                  tmpdir=tmp, timeout=7 * 24 * 3600.0)
+        return
+    _run(args)
+
+
+def _run(args, mesh=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
-    train(cfg, shape, steps_total=args.steps, ckpt_dir=args.ckpt,
+    train(cfg, shape, steps_total=args.steps, mesh=mesh, ckpt_dir=args.ckpt,
           schedule=args.schedule, plan_cache=args.plan_cache,
           executor=args.executor, pp=args.pp,
           microbatches=args.microbatches, device=args.device)
+
+
+def _mesh_main(rank: int, world: int, args, sizes: dict) -> None:
+    """One rank of ``--mesh``: rank 0 prints, the others are quiet."""
+    import contextlib
+    import os
+    import sys
+
+    with open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(sys.stdout if rank == 0 else null):
+        _run(args, Mesh(sizes, device=args.device))
 
 
 if __name__ == "__main__":

@@ -21,10 +21,13 @@ Under a mesh of more than one rank (DTensor activations, ``policy`` and
 the flash kernel in prefill, the masked cache softmax and the in-place
 cache write in decode — runs on each rank's (batch, head) blocks, as the
 ``ring`` shard rule keeps flash attention local: q heads and kv heads
-split on the same axes, so GQA groups stay whole; the sequence, the cache
-time and the head dim unsplit.  The paged decode's pool has no batch dim:
-each rank holds its kv-head block of every pool block, writes every slot's
-new row into it and attends its own slots (``_paged_placed``).
+split on the same axes, so GQA groups stay whole; the sequence whole.  A
+head dim split by the policy is gathered for the flash kernel; in decode
+each rank keeps its block of it, and the partial scores are summed across
+its axes; a cache time split combines softmax partials across its axes.
+The paged decode's pool has no batch dim: each rank holds its kv-head
+(and head-dim) block of every pool block, writes every slot's new row
+into it and attends its own slots (``_paged_placed``).
 """
 from __future__ import annotations
 
@@ -105,13 +108,17 @@ def head_spec(policy, mesh, batch: int, heads: int, kv_heads: int) -> tuple:
 
 def _flash_placed(q, k, v, policy, mesh, **kw):
     """The flash kernel on each rank's (batch, head) blocks of DTensor
-    q (b, h, s, d) and k/v (b, kv, s, d)."""
-    from repro_torch.core.gspmd import run_local
+    q (b, h, s, d) and k/v (b, kv, s, d), the head dim whole: one the
+    policy splits is gathered first, and the output is constrained back to
+    it."""
+    from repro_torch.core.gspmd import constrain, run_local, spec_of_placements
 
     be, he = head_spec(policy, mesh, q.shape[0], q.shape[1], k.shape[1])
     spec = (be, he, None, None)
-    return run_local(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
-                     (q, k, v), (spec, spec, spec), spec, mesh)
+    o = run_local(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                  (q, k, v), (spec, spec, spec), spec, mesh)
+    de = spec_of_placements(q.placements, 4, mesh)[3]
+    return o if de is None else constrain(o, mesh, (be, he, None, de))
 
 
 def attention_full(p: dict, x: torch.Tensor, cfg, *, prefix_len: int = 0,
@@ -177,11 +184,11 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     else:
         valid = idx <= pos
 
-    def core(q, k_new, v_new, ck, cv):
+    def core(q, k_new, v_new, ck, cv, **kw):
         ck[:, slot] = k_new[:, 0]
         cv[:, slot] = v_new[:, 0]
         o = _decode_attend(q.transpose(1, 2), ck.transpose(1, 2),
-                           cv.transpose(1, 2), valid)
+                           cv.transpose(1, 2), valid, **kw)
         return o.transpose(1, 2)
 
     if mesh is not None and mesh.world_size > 1:
@@ -197,35 +204,55 @@ def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh, slot: int,
     """``core`` on each rank's (batch, kv-head) blocks of the DTensor
     cache, written in place: q and this step's K/V are placed as the cache
     is (q heads on the cache's kv-head axes).  A cache split along its
-    time dim takes ``_decode_time_split``; one split along its head dim
-    raises."""
+    time dim takes ``_decode_time_split``.  One split along its head dim
+    takes each rank's ``d`` block: the rank writes its block of the new
+    row, its float32 partial scores are summed across ``d``'s axes
+    (``_head_dim_split``), the softmax is taken locally, and P·V gives the
+    output on the rank's ``d`` block."""
     from repro_torch.core import gspmd
 
     be, te, ke, de = gspmd.spec_of_placements(cache.k.placements, 4, mesh)
-    if de is not None:
-        raise NotImplementedError(
-            f"attention_decode: a KV cache split along its head dim "
-            f"({(be, te, ke, de)}) has no local decode step")
-    spec = (be, None, ke, None)
+    spec = (be, None, ke, de)
+    kw = _head_dim_split(mesh, be, ke, de, q.shape[-1])
     if te is not None:
         return _decode_time_split(q, k_new, v_new, cache, mesh, spec, te, slot,
-                                  valid)
+                                  valid, **kw)
     return gspmd.run_local(
-        lambda q, k, v: core(q, k, v, cache.k.to_local(), cache.v.to_local()),
+        lambda q, k, v: core(q, k, v, cache.k.to_local(), cache.v.to_local(), **kw),
         (q, k_new, v_new), (spec, spec, spec), spec, mesh)
 
 
+def _head_dim_split(mesh, be, ke, de, hd: int) -> dict:
+    """``_decode_attend``'s keywords for q and a cache whose head dim (of
+    ``hd``) is split over the axes of ``de`` (none where ``de`` is None):
+    the scale of the whole head dim, and ``sum_scores``, which sums the
+    float32 partial scores (b, kv, g, 1, t) — each rank's over its block
+    of the head dim — across those axes (an all-reduce)."""
+    if de is None:
+        return {}
+    sspec = (be, ke, None, None, None)
+    partial = [(a, "sum") for a in gspmd.entry_axes(de)]
+
+    def sum_scores(s):
+        part = gspmd.wrap_block(s, mesh, sspec, partial=partial)
+        return gspmd.constrain(part, mesh, sspec).to_local()
+
+    return {"hd": hd, "sum_scores": sum_scores}
+
+
 def _decode_time_split(q, k_new, v_new, cache: KVCache, mesh, spec, te, slot,
-                       valid):
+                       valid, **kw):
     """The decode step on a cache split along its time dim over the axes of
     ``te``: the rank whose time block holds ``slot`` writes this step's K/V
     there; every rank attends over its own block, and the blocks' softmax
     partials combine across those axes — the running max by an all-reduce
     of max, the sums rescaled to it and all-reduced — as ``_decode_attend``
-    over the whole cache, up to float32 sums in another order."""
+    over the whole cache, up to float32 sums in another order.  ``kw``
+    (``hd``, ``sum_scores``) carries a head dim split as ``spec``'s last
+    entry says (``_decode_placed``)."""
     from repro_torch.core import gspmd
 
-    be, _, ke, _ = spec
+    be, _, ke, de = spec
     ql, kl, vl = (gspmd.constrain(t, mesh, spec).to_local() for t in (q, k_new, v_new))
     ck, cv = cache.k.to_local(), cache.v.to_local()
     axes = gspmd.entry_axes(te)
@@ -235,15 +262,15 @@ def _decode_time_split(q, k_new, v_new, cache: KVCache, mesh, spec, te, slot,
         ck[:, slot - lo] = kl[:, 0]
         cv[:, slot - lo] = vl[:, 0]
     m, l, o = _decode_partial(ql.transpose(1, 2), ck.transpose(1, 2),
-                              cv.transpose(1, 2), valid[lo:lo + span])
-    pspec = (be, ke, None, None)  # (b, h, 1, ·)
+                              cv.transpose(1, 2), valid[lo:lo + span], **kw)
 
-    def combined(t, op):
+    def combined(t, op, last=None):  # (b, h, 1, ·)
+        pspec = (be, ke, None, last)
         part = gspmd.wrap_block(t, mesh, pspec, partial=[(a, op) for a in axes])
         return gspmd.constrain(part, mesh, pspec).to_local()
 
     scale = torch.exp(m - combined(m, "max"))
-    out = combined(o * scale, "sum") / combined(l * scale, "sum")
+    out = combined(o * scale, "sum", de) / combined(l * scale, "sum")
     return gspmd.wrap_block(out.to(q.dtype).transpose(1, 2), mesh, spec)
 
 
@@ -306,10 +333,10 @@ def attention_decode_paged(p: dict, x: torch.Tensor, pool: PagedKVCache,
         pk[blk_ids, off] = k_new[:, 0]
         pv[blk_ids, off] = v_new[:, 0]
 
-    def attend(q, pk, pv, rows):
+    def attend(q, pk, pv, rows, **kw):
         kh = ops.kv_block_gather(pk, tables[rows], W * blk)   # (b, kv, t, d)
         vh = ops.kv_block_gather(pv, tables[rows], W * blk)
-        o = _decode_attend(q.transpose(1, 2), kh, vh, valid[rows])
+        o = _decode_attend(q.transpose(1, 2), kh, vh, valid[rows], **kw)
         return o.transpose(1, 2)
 
     if mesh is not None and mesh.world_size > 1:
@@ -332,39 +359,48 @@ def _paged_placed(write, attend, q, k_new, v_new, pool: PagedKVCache,
     the ranks that hold one head block then hold equal pools, as the
     reference's replicated pool is one array.  It then gathers and attends
     its own slots (``write(k, v, pool k, pool v)``, ``attend(q, pool k,
-    pool v, rows)``).  A pool split along its block, row or head dim
+    pool v, rows)``).  A pool split along its head dim is attended as the
+    dense decode attends such a cache (``_decode_placed``): each rank
+    writes and gathers its ``d`` block of the rows, and its partial scores
+    are summed across ``d``'s axes.  The pool's block and row dims carry
+    no label (``"-"``), so no policy splits them; a pool split there
     raises."""
     from repro_torch.models.policy import batch_entry
 
     nb, br, ke, de = gspmd.spec_of_placements(pool.k.placements, 4, mesh)
-    if nb is not None or br is not None or de is not None:
+    if nb is not None or br is not None:
         raise NotImplementedError(
-            f"attention_decode_paged: a pool split along its block, row or "
-            f"head dim ({(nb, br, ke, de)}) has no local decode step (ROADMAP "
-            "Queue 3 item 4)")
-    heads = set(gspmd.entry_axes(ke))
+            f"attention_decode_paged: a pool split along its block or row dim "
+            f"({(nb, br, ke, de)}): those dims carry no label "
+            "(transformer.PAGED_POOL_LABELS), so no policy places a pool so")
+    heads = set(gspmd.entry_axes(ke)) | set(gspmd.entry_axes(de))
     be = gspmd.entry_of([a for a in gspmd.entry_axes(
         batch_entry(policy, mesh, q.shape[0])) if a not in heads])
-    spec, every = (be, None, ke, None), (None, None, ke, None)
+    spec, every = (be, None, ke, de), (None, None, ke, de)
+    kw = _head_dim_split(mesh, be, ke, de, q.shape[-1])
     ql = gspmd.constrain(q, mesh, spec).to_local()
     kl, vl = (gspmd.constrain(t, mesh, every).to_local() for t in (k_new, v_new))
     pk, pv = pool.k.to_local(), pool.v.to_local()
     write(kl, vl, pk, pv)
     rows = gspmd.local_block(torch.arange(q.shape[0], device=pk.device), (be,),
                              mesh)
-    return gspmd.wrap_block(attend(ql, pk, pv, rows), mesh, spec)
+    return gspmd.wrap_block(attend(ql, pk, pv, rows, **kw), mesh, spec)
 
 
-def _decode_attend(q, k, v, valid):
+def _decode_attend(q, k, v, valid, *, hd: int | None = None, sum_scores=None):
     """Masked attention for a single query against the whole cache buffer.
     ``valid`` is (S,) shared across the batch, or (b, S) per row (the paged
-    decode path, where every slot sits at its own position)."""
+    decode path, where every slot sits at its own position).  On a block
+    of the head dim, ``hd`` is the whole head dim (the score scale) and
+    ``sum_scores`` sums the block's float32 partial scores across ranks."""
     hq, hkv = q.shape[1], k.shape[1]
     g = hq // hkv
     b, _, S, d = k.shape
     f32 = torch.float32
-    qs = q.reshape(b, hkv, g, 1, d).to(f32) * (d ** -0.5)
+    qs = q.reshape(b, hkv, g, 1, d).to(f32) * ((hd or d) ** -0.5)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(f32))
+    if sum_scores is not None:
+        s = sum_scores(s)
     mask = valid[:, None, None, None, :] if valid.dim() == 2 else valid
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     m = torch.amax(s, dim=-1, keepdim=True)
@@ -374,17 +410,20 @@ def _decode_attend(q, k, v, valid):
     return o.reshape(b, hq, 1, d).to(q.dtype)
 
 
-def _decode_partial(q, k, v, valid):
+def _decode_partial(q, k, v, valid, *, hd: int | None = None, sum_scores=None):
     """One time block's softmax partials of a single query: the block's
     max score ``m`` (b, hq, 1, 1), its sum of ``exp(s - m)`` ``l`` (b, hq,
     1, 1) and the unnormalised output ``o`` (b, hq, 1, d), in float32, with
-    ``_decode_attend``'s masking (``valid`` (S,) over the block)."""
+    ``_decode_attend``'s masking (``valid`` (S,) over the block) and its
+    ``hd`` and ``sum_scores`` for a block of the head dim."""
     hq, hkv = q.shape[1], k.shape[1]
     g = hq // hkv
     b, _, S, d = k.shape
     f32 = torch.float32
-    qs = q.reshape(b, hkv, g, 1, d).to(f32) * (d ** -0.5)
+    qs = q.reshape(b, hkv, g, 1, d).to(f32) * ((hd or d) ** -0.5)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(f32))
+    if sum_scores is not None:
+        s = sum_scores(s)
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     m = torch.amax(s, dim=-1, keepdim=True)
     pr = torch.exp(s - m)

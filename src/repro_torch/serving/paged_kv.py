@@ -68,11 +68,11 @@ def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
     blocks (decode overwrites row ``pos`` before any mask admits it) or —
     where the table row is 0-padded — in the scratch block.
 
-    On a mesh the pool is a DTensor whose kv-head dim may be split
-    (``transformer.paged_cache_specs``): the prefill's K/V, placed by the
-    prefill's policy, are redistributed to the pool's head placement
-    (every other dim whole), and each rank copies its head block into its
-    block of the pool.
+    On a mesh the pool is a DTensor whose kv-head and head dims may be
+    split (``transformer.paged_cache_specs``): the prefill's K/V, placed by
+    the prefill's policy, are redistributed to the pool's placements
+    (every other dim whole), and each rank copies its block into its block
+    of the pool.
     """
     from torch.distributed.tensor import DTensor
 

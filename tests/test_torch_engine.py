@@ -166,14 +166,14 @@ def test_make_runner_rejects_what_it_cannot_run():
     compiled = _mlp_program().compile(mesh=two_by_two)
     assert compiled.collectives is None and compiled.plan.mode == "mesh"
     assert type(compiled._fn).__name__ == "GspmdRunner"
-    # ...and raises for a plan it cannot place: an aggregation with no
-    # DTensor Partial (prod) over a mesh axis
+    # ...and places what it once rejected: a prod aggregation over a mesh
+    # axis is a DTensor Partial("product") there (tests/test_torch_gspmd.py
+    # runs it against the reference)
     pg = EinGraph("prod")
     x = pg.input("x", "i j", (4, 4))
     pg.einsum("i j -> i", x, combine="id", agg="prod")
-    with pytest.raises(NotImplementedError, match="prod"):
-        engine.make_runner(pg, mesh=two_by_two, plan=_hand_plan(
-            pg, {"j": ("model",)}))
+    f = engine.make_runner(pg, mesh=two_by_two, plan=_hand_plan(pg, {"j": ("model",)}))
+    assert f.runner.program[1].partial == (("model", "product"),)
 
 
 @pytest.mark.parametrize("executor", engine.EXECUTORS)

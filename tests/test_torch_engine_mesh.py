@@ -26,6 +26,14 @@ pytest tmp path), every case on every rank, all spawns started at once.
   steps — every step's logits within 1e-5 x max|logit| of one rank's, the
   pools equal across the two ranks of each head block and within 1e-5 of
   one rank's pools, every state leaf within 1e-5 of one rank's.
+* The head dim split (``{d: model}`` on ``{model: 2}``): reduced llama's
+  dense decode (prefill of two 9-token prompts, then 3 steps of
+  ``decode_step`` fed fixed tokens) within 1e-5 x max|logit| of one
+  rank's and of the reference's ``decode_step``, every step; the same
+  with the cache time split too (``{d: model, t: data}`` on (2, 2));
+  admission and 3 ``decode_step_paged`` steps (``paged_case``) within
+  1e-5 of one rank's, each rank's ``d`` block of every pool within 1e-5
+  of the same block of one rank's pools.
 """
 import dataclasses
 import math
@@ -37,9 +45,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402
+from repro.launch import steps as ref_steps  # noqa: E402
+from repro.launch.serve import prepare_decode_caches as ref_prepare  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro.serving import BucketRegistry as RefBucketRegistry  # noqa: E402
 from repro.serving import ServingEngine as RefServingEngine  # noqa: E402
@@ -198,6 +209,46 @@ def paged_case(arch, params_np, policy, mesh) -> dict:
     return out
 
 
+DENSE_LEN, DENSE_STEPS, DENSE_KV = 9, 3, 16
+D_SPLIT = {"d": "model"}
+DT_SPLIT = {"d": "model", "t": "data"}
+
+
+def _dense_tokens(cfg):
+    rng = np.random.default_rng(8)
+    return (rng.integers(0, cfg.vocab, size=(2, DENSE_LEN)).astype(np.int32),
+            rng.integers(0, cfg.vocab, size=(DENSE_STEPS, 2, 1)).astype(np.int32))
+
+
+def dense_case(arch, params_np, policy, mesh) -> dict:
+    """Prefill of two prompts and ``DENSE_STEPS`` dense decode steps
+    (``decode_step``, fed fixed tokens) under ``policy`` on ``mesh`` (None:
+    one rank): the prefill's and every step's whole logits, and the
+    cache's spec."""
+    from repro_torch.core import gspmd
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import prepare_decode_caches
+
+    cfg = _cfg(arch)
+    params = tf.place_params(tf.from_reference_params(cfg, params_np, device="cpu"),
+                             cfg, policy, mesh)
+    prompts, fed = _dense_tokens(cfg)
+    with torch.no_grad():
+        logits, caches = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)(
+            params, {"tokens": torch.as_tensor(prompts)})
+        out = {"logits": [full(logits)[:, -1].numpy().copy()]}
+        caches = prepare_decode_caches(cfg, caches, DENSE_LEN, DENSE_KV, policy=policy,
+                                       mesh=mesh)
+        k = caches[0].k
+        out["cache_spec"] = (gspmd.spec_of_placements(k.placements, k.ndim, mesh)
+                             if mesh is not None else None)
+        for i in range(DENSE_STEPS):
+            logits, caches = tf.decode_step(params, torch.as_tensor(fed[i]), caches,
+                                            DENSE_LEN + i, cfg, policy=policy, mesh=mesh)
+            out["logits"].append(full(logits)[:, -1].numpy().copy())
+    return out
+
+
 def rank_battery(rank, world, mesh_id, weights):
     from repro_torch.models.policy import manual_policy
 
@@ -206,6 +257,12 @@ def rank_battery(rank, world, mesh_id, weights):
     if mesh_id == "2x2":
         res["paged"] = {a: paged_case(a, weights[a], manual_policy(MANUAL), mesh)
                         for a in ("llama-7b", "hymba-1.5b")}
+        res["dense_dt"] = dense_case("llama-7b", weights["llama-7b"],
+                                     manual_policy(DT_SPLIT), mesh)
+    if mesh_id == "model2":
+        llama = weights["llama-7b"]
+        res["dense_d"] = dense_case("llama-7b", llama, manual_policy(D_SPLIT), mesh)
+        res["paged_d"] = paged_case("llama-7b", llama, manual_policy(D_SPLIT), mesh)
     return res
 
 
@@ -238,7 +295,25 @@ def ranks(weights, tmp_path_factory):
 def one_rank(weights, ranks):
     return {"engine": {a: engine_case(a, weights[a], None) for a in ARCHS},
             "paged": {a: paged_case(a, weights[a], None, None)
-                      for a in ("llama-7b", "hymba-1.5b")}}
+                      for a in ("llama-7b", "hymba-1.5b")},
+            "dense": dense_case("llama-7b", weights["llama-7b"], None, None)}
+
+
+@pytest.fixture(scope="module")
+def reference_dense(weights):
+    """``dense_case`` through the reference: its prefill step, decode
+    caches and ``decode_step`` on the same weights and tokens."""
+    cfg = _ref_cfg("llama-7b")
+    params = jax.tree.map(jnp.asarray, weights["llama-7b"])
+    prompts, fed = _dense_tokens(cfg)
+    logits, caches = ref_steps.make_prefill_step(cfg)(params, {"tokens": jnp.asarray(prompts)})
+    out = [np.asarray(logits)[:, -1]]
+    caches = ref_prepare(cfg, caches, DENSE_LEN, DENSE_KV)
+    for i in range(DENSE_STEPS):
+        logits, caches = ref_tf.decode_step(params, jnp.asarray(fed[i]), caches,
+                                            jnp.int32(DENSE_LEN + i), cfg)
+        out.append(np.asarray(logits)[:, -1])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -378,3 +453,36 @@ def test_paged_decode_with_the_batch_split_equals_one_rank(arch, one_rank, ranks
         assert len(coords) == 2 and all(len(b) == 2 for b in coords.values())
         for blocks in coords.values():  # the two data ranks of a head block
             np.testing.assert_array_equal(blocks[0], blocks[1])
+
+
+@pytest.mark.parametrize("case", ["dense_d", "dense_dt"])
+def test_decode_with_the_head_dim_split_equals_one_rank_and_reference(
+        case, one_rank, reference_dense, ranks):
+    """The dense decode with a cache split along its head dim (each rank's
+    partial scores summed across ``d``'s axes), and with its time dim split
+    too (the softmax partials combined across ``t``'s)."""
+    one = one_rank["dense"]["logits"]
+    for rank, r in enumerate(ranks("model2" if case == "dense_d" else "2x2")):
+        got = r[case]
+        b, t, k, d = got["cache_spec"][1:]  # (L, b, t, k, d)
+        assert d == "model" and k is None and b is None, got["cache_spec"]
+        assert t == ("data" if case == "dense_dt" else None), got["cache_spec"]
+        assert len(got["logits"]) == DENSE_STEPS + 1
+        for i, (g, w, ref) in enumerate(zip(got["logits"], one, reference_dense)):
+            _close(g, w, f"{case} rank {rank} step {i} vs one rank")
+            _close(g, ref, f"{case} rank {rank} step {i} vs the reference")
+
+
+def test_paged_decode_with_the_head_dim_split_equals_one_rank(one_rank, ranks):
+    one = one_rank["paged"]["llama-7b"]
+    for rank, r in enumerate(ranks("model2")):
+        got, what = r["paged_d"], f"rank {rank} {D_SPLIT}"
+        assert len(got["logits"]) == 3
+        for i, (g, w) in enumerate(zip(got["logits"], one["logits"])):
+            _close(g, w, f"{what} step {i}")
+        # each rank's head-dim block of every pool, against one rank's
+        for (coord, block), (_, whole) in zip(got["pools"], one["pools"]):
+            assert coord == (0, 0, 0, 0, rank), coord
+            kd = block.shape[4]                 # (units, blocks, rows, kv heads, hd)
+            want = whole[..., rank * kd:(rank + 1) * kd]
+            _close(block[:, 1:], want[:, 1:], f"{what} pool (scratch block 0 aside)")

@@ -50,6 +50,15 @@ rank computed:
    bucket prefill step under the bucket's policy to the one-rank
    registry's logit (1e-5 x max|logit|, float32).
 
+5. **What the executor once refused**, on a mesh of three axes, (pod,
+   data, model) = (2, 2, 1), under hand-written plans: a ``prod``
+   aggregation over a split label (a ``Partial("product")``), an opaque
+   node of a rule registered here with no local lowering (run whole on
+   every rank through the ``replicate`` rule), and plans with an entry
+   out of mesh order, ``("data", "pod")``, on a kept and on a contracted
+   label (placed nested in mesh order).  Every rank's outputs equal the
+   reference's dense run to 1e-5 x max|reference|.
+
 4. **The other blocks.**  MoE, hymba and xLSTM run under a mesh of two
    ranks, each under its plan's policy, and their logits equal one
    rank's to 1e-5 x max|logit| (tests/test_torch_blocks_mesh.py holds them
@@ -235,6 +244,100 @@ def test_gspmd_carries_llama_7b_plan_on_two_axes(gloo):
         np.testing.assert_array_equal(r["staged"][k], v)
     for mesh_id in ("1x4", "2x4"):
         assert gloo(mesh_id)[0]["llama-wide"]["two_axis"] == []
+
+
+# ---------------------------------------------------------------------------
+# 5. what the executor once refused
+# ---------------------------------------------------------------------------
+
+REPAIR_MESH = {"pod": 2, "data": 2, "model": 1}
+REPAIRS = {"prod": {"i": ("data",), "j": ("pod",)},
+           "custom": {"i": ("data",), "j": ("pod",)},
+           "order": {"b": ("data", "pod")},
+           "order-contracted": {"a": ("data", "pod")}}
+CUSTOM_OP, CUSTOM_RULE = "gspmd_test_affine", "gspmd_test_nolocal"
+
+
+class _NoLocalRule:
+    """A shard rule with no lowering the DTensor executor may call."""
+
+    name = CUSTOM_RULE
+
+    def lower(self, g, node, ax_n, sizes):
+        raise AssertionError("the gspmd executor lowers this rule's nodes as replicated")
+
+
+def _register_custom(pkg):
+    if pkg == "port":
+        from repro_torch.core import opaque_rules, opdef
+
+        opaque_rules.register_rule(_NoLocalRule())
+        opdef.defop(CUSTOM_OP, "i j -> i j", fn=lambda x: torch.as_tensor(x) * 2 + 1,
+                    shard_rule=CUSTOM_RULE, overwrite=True)
+    else:
+        from repro.core import opdef as ref_opdef
+
+        ref_opdef.defop(CUSTOM_OP, "i j -> i j", fn=lambda x: x * 2 + 1, overwrite=True)
+
+
+def build_repair(name, pkg):
+    """(graph, {output name: node id}) of a repair case."""
+    g = (EinGraph if pkg == "port" else RefGraph)(name)
+    if name in ("prod", "custom"):
+        x = g.input("x", "i j", (8, 8))
+        if name == "custom":
+            _register_custom(pkg)
+            x = g.opaque(CUSTOM_OP, [x], "i j", (8, 8), in_labels=[("i", "j")])
+        agg = "prod" if name == "prod" else "sum"
+        return g, {"y": g.einsum("i j -> i", x, combine="id", agg=agg)}
+    x = g.input("x", "b a", (8, 8))
+    w = g.input("w", "a f", (8, 8))
+    return g, {"y": g.einsum("b a, a f -> b f", x, w)}
+
+
+def _repair_feeds(g):
+    rng = np.random.default_rng(zlib.crc32(g.name.encode()))
+    return {n.name: (1 + 0.1 * rng.normal(size=n.shape)).astype(np.float32)
+            for n in g.nodes if n.kind == "input"}
+
+
+def repair_rank(rank, world):
+    """Every repair case through ``executor="gspmd"`` on this rank: its
+    outputs and the opaque nodes' rules."""
+    from repro_torch.core.decomp import Plan
+
+    mesh = Mesh(REPAIR_MESH, device="cpu")
+    res = {}
+    for name, axes in REPAIRS.items():
+        g, outs = build_repair(name, "port")
+        plan = Plan(p=4, mode="mesh")
+        plan.axes_by_node = {n.nid: dict(axes) for n in g.nodes}
+        comp = Program.from_graph(g, outs).compile(mesh=mesh, executor="gspmd", plan=plan)
+        res[name] = {"y": comp(_repair_feeds(g))["y"].numpy(),
+                     "rules": [st.rule for st in comp._fn.program if st.rule],
+                     "partial": [st.partial for st in comp._fn.program if st.partial]}
+    return res
+
+
+@pytest.fixture(scope="module")
+def repairs(tmp_path_factory):
+    return spawn(4, repair_rank, tmpdir=tmp_path_factory.mktemp("repairs"))
+
+
+@pytest.mark.parametrize("name", list(REPAIRS))
+def test_gspmd_runs_what_it_once_refused_equal_to_the_reference(name, repairs):
+    g, outs = build_repair(name, "ref")
+    want = np.asarray(ref_engine.run(g, _repair_feeds(g))[outs["y"]])
+    tol = TOL * float(np.abs(want).max())
+    for rank, r in enumerate(repairs):
+        np.testing.assert_allclose(r[name]["y"], want, rtol=0, atol=tol,
+                                   err_msg=f"{name} rank {rank}")
+        if name == "custom":
+            assert r[name]["rules"] == ["replicate"], r[name]
+        if name == "prod":
+            assert r[name]["partial"] == [(("pod", "product"),)], r[name]
+        if name == "order-contracted":  # the partial sums nested in mesh order
+            assert r[name]["partial"] == [(("pod", "sum"), ("data", "sum"))], r[name]
 
 
 # ---------------------------------------------------------------------------

@@ -240,10 +240,12 @@ def test_placements_nest_axes_in_mesh_order():
 def test_out_of_order_multi_axis_entry_raises_naming_it():
     """``policy_from_plan`` sorts a vote's axes: on ("pod", "data",
     "model") the entry ("data", "pod") is out of mesh order.  The port
-    does not place it (no ``_StridedShard``): it raises, naming it — the
-    placements and the gspmd executor's static program alike.  The
-    policy's ``sharding``, which places the model stack's tensors, nests
-    the entry in mesh order instead."""
+    does not place it as given (no ``_StridedShard``): ``placements``
+    raises, naming it.  Its callers nest the entry in mesh order first —
+    the policy's ``sharding``, which places the model stack's tensors, and
+    the gspmd executor's static program, which places such a plan as the
+    plan in mesh order (tests/test_torch_gspmd.py runs it against the
+    reference)."""
     sizes = {"pod": 2, "data": 2, "model": 2}
     with pytest.raises(NotImplementedError, match=r"\('data', 'pod'\)"):
         gspmd.placements((("data", "pod"), None), sizes)
@@ -260,11 +262,12 @@ def test_out_of_order_multi_axis_entry_raises_naming_it():
     plan = Plan(p=8, mode="mesh")
     for n in g.nodes:
         plan.axes_by_node[n.nid] = {"b": ("data", "pod")}
-    with pytest.raises(NotImplementedError, match=r"\('data', 'pod'\)"):
-        gspmd.build_program(g, plan, sizes)
+    nested = gspmd.build_program(g, plan, sizes)
     plan.axes_by_node = {n.nid: {"b": ("pod", "data")} for n in g.nodes}
     prog = gspmd.build_program(g, plan, sizes)  # mesh order: placed
     assert prog[2].local_spec == (("pod", "data"), None)
+    assert [(st.arg_specs, st.local_spec, st.out_spec) for st in nested] == [
+        (st.arg_specs, st.local_spec, st.out_spec) for st in prog]
 
 
 def test_mesh_constructors_without_a_process_group():
