@@ -425,6 +425,56 @@ def wrap_block(block: torch.Tensor, mesh, spec,
     return wrap(block, mesh, spec, shape, partial)
 
 
+def psum(block: torch.Tensor, mesh, axes: Sequence[str], spec: Sequence = ()):
+    """The sum of this rank's ``block`` over the ranks along ``axes``, on
+    each of them (one all-reduce; ``spec`` places the block's leading dims
+    along other axes).  Its gradient reaches each rank's block with weight
+    one."""
+    if not axes:
+        return block
+    spec = tuple(spec) + (None,) * (block.ndim - len(spec))
+    part = wrap_block(block.unsqueeze(0), mesh, (entry_of(axes),) + spec)
+    return constrain(torch.sum(part, dim=0), mesh, spec).to_local()
+
+
+def _exchange(x, out_sizes, in_sizes, group: str, stage: bool):
+    fc = torch.ops._c10d_functional
+    dev = x.device
+    x = x.contiguous()
+    if stage:
+        x = x.cpu()
+    return fc.wait_tensor(fc.all_to_all_single(x, out_sizes, in_sizes, group)).to(dev)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, out_sizes, in_sizes, group, stage):
+        ctx.back = (in_sizes, out_sizes, group, stage)
+        return _exchange(x, out_sizes, in_sizes, group, stage)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g, *ctx.back),) + (None,) * 4
+
+
+def all_to_all(x: torch.Tensor, out_sizes: Sequence[int],
+               in_sizes: Sequence[int], mesh, axes: Sequence[str]):
+    """Rows of a local block exchanged over ``mesh``'s group on ``axes``
+    (mesh order): the ``in_sizes[i]`` rows after the first ``sum(in_sizes[:i])``
+    go to the rank at linear index ``i`` along ``axes``, and ``out_sizes[j]``
+    rows come back from the rank at index ``j``.  One functional
+    ``all_to_all_single`` (what ``CommLog`` and the dry run's recorder
+    count); its backward is the exchange the other way.  gloo ranks
+    holding CUDA blocks stage them through the host, as their all-gathers
+    are (``launch.mesh.stage_all_gather``)."""
+    import torch.distributed as dist
+
+    stage = x.device.type == "cuda" and dist.get_backend() == "gloo"
+    return _AllToAll.apply(x, [int(n) for n in out_sizes],
+                           [int(n) for n in in_sizes],
+                           mesh.group(axes).group_name, stage)
+
+
 # ---------------------------------------------------------------------------
 # What DTensor issued
 # ---------------------------------------------------------------------------

@@ -20,7 +20,11 @@ numbers, as the reference's SPMD-partitioned module gives them.
     the storages ``track`` was given (the step's arguments); its peak.  The
     result of a collective's wait, or of its async wrapper, is its input on
     a card: a storage those ops make joins their input's buffer, which
-    lives until the last of them dies.
+    lives until the last of them dies.  With ``tag_buffers`` each buffer is
+    also tagged with the op that made it and the innermost line of the
+    port's model code on the stack, and ``peak_buffers`` lists the buffers
+    live when the peak was last raised (``tools/dryrun_peak.py`` prints
+    them by tag).
 
 DTensor derives an op's output metadata by running the op once more on
 fake tensors of the global shape
@@ -29,6 +33,7 @@ no part of the rank's step, and the mode skips them.
 """
 from __future__ import annotations
 
+import traceback
 import weakref
 
 import torch
@@ -91,13 +96,23 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _model_line() -> str:
+    """The innermost frame of the port's model code (not this module's,
+    not DTensor's helpers) on the stack, as ``file:line function``."""
+    for fr in reversed(traceback.extract_stack()):
+        name = fr.filename.replace("\\", "/")
+        if "/repro_torch/" in name and not name.endswith(("launch/costs.py", "core/gspmd.py")):
+            return f"{name.rsplit('/', 1)[-1]}:{fr.lineno} {fr.name}"
+    return "?"
+
+
 class StepCosts(TorchDispatchMode):
     """Counts one rank's step (see the module docstring).  ``track(tree)``
     before the step registers its arguments' storages; ``output(tree)``
     after it splits the live bytes into argument, output and temporary
-    bytes (``memory()``)."""
+    bytes (``memory()``).  ``tag_buffers``: see the module docstring."""
 
-    def __init__(self):
+    def __init__(self, tag_buffers: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -114,15 +129,18 @@ class StepCosts(TorchDispatchMode):
         self._arguments: set[int] = set()      # buffers
         self.argument_bytes = 0
         self.output_bytes = 0
+        self._made: dict[int, tuple] | None = {} if tag_buffers else None
+        self.peak_buffers: list[tuple[tuple[str, str], int]] = []  # ((op, line), bytes)
 
     # -- storages ------------------------------------------------------------
 
-    def _add(self, t: torch.Tensor, alias_of: torch.Tensor | None = None) -> int:
+    def _add(self, t: torch.Tensor, alias_of: torch.Tensor | None = None,
+             op: str = "argument") -> int:
         """The buffer of ``t``'s storage, counted from now on where it is
-        new.  With ``alias_of``, a new storage joins that tensor's buffer
-        instead of adding bytes: the result of an op that hands its input
-        back (a collective's wait, its async wrapper), which on a card is
-        the same memory."""
+        new (made by ``op``).  With ``alias_of``, a new storage joins that
+        tensor's buffer instead of adding bytes: the result of an op that
+        hands its input back (a collective's wait, its async wrapper),
+        which on a card is the same memory."""
         st = t.untyped_storage()
         key = st._cdata
         if key in self._buffer_of:
@@ -135,6 +153,11 @@ class StepCosts(TorchDispatchMode):
             self._next += 1
             self._buffers[buf] = [st.nbytes(), 0]
             self.live += st.nbytes()
+            if self._made is not None:
+                self._made[buf] = (op, _model_line() if op != "argument" else "")
+                if self.live > self.peak:
+                    self.peak_buffers = [(self._made[b], e[0])
+                                         for b, e in self._buffers.items()]
             self.peak = max(self.peak, self.live)
         self._buffer_of[key] = buf
         self._buffers[buf][1] += 1
@@ -151,6 +174,8 @@ class StepCosts(TorchDispatchMode):
         if entry[1] == 0:
             self.live -= entry[0]
             del self._buffers[buf]
+            if self._made is not None:
+                del self._made[buf]
 
     def _local(self, t: torch.Tensor) -> torch.Tensor:
         from torch.distributed.tensor import DTensor
@@ -220,5 +245,5 @@ class StepCosts(TorchDispatchMode):
                            + sum(_nbytes(t) for t in outs))
         src = args[0] if packet.__name__ in _ALIASING else None
         for t in outs:
-            self._add(t, alias_of=src)
+            self._add(t, alias_of=src, op=packet.__name__)
         return out

@@ -59,8 +59,12 @@ Where the port differs from the reference:
     bytes held beyond the arguments and the outputs.
   * ``compile_s`` is the wall of the abstract run.
   * ``--all`` covers ``ARCH_IDS`` and llama-7b, the port's first model,
-    every block kind included: the MoE cells route the global batch on
-    every rank and run the expert products on each rank's expert block;
+    every block kind included: the MoE cells route each rank's own tokens,
+    move the kept rows to their experts' ranks by all-to-all where the
+    batch and the experts share mesh axes (an abstract run's counts have
+    no values, so its all-to-alls carry an even routing's rows:
+    ``models/moe._even_counts``), and run the expert products on each
+    rank's expert block;
     the hymba and xLSTM cells run their recurrences on each rank's batch
     rows (the xLSTM's train and prefill cells trip counted, above).
 
@@ -219,12 +223,13 @@ def build_cell(cfg, shape, mesh, *, fsdp: bool | None = None,
     return step, (params, batch["tokens"], caches, kv_len - 1), (2,), plan, policy
 
 
-def measure_step(step, args) -> dict:
+def measure_step(step, args, tag_buffers: bool = False) -> dict:
     """Run ``step(*args)`` once under ``launch.costs.StepCosts`` (under the
     fake mode of ``args``, where they are fake) and return this rank's
     ``flops``, ``bytes``, ``collectives`` (a ``CollectiveLog``),
     ``memory`` (``StepCosts.memory()``), ``kernel_calls`` (the kernels'
-    fake calls by design) and the ``wall_s`` of the run."""
+    fake calls by design) and the ``wall_s`` of the run; with
+    ``tag_buffers`` also ``peak_buffers`` (``StepCosts.peak_buffers``)."""
     from torch._guards import detect_fake_mode
     from torch.distributed.tensor import DTensor
 
@@ -236,7 +241,7 @@ def measure_step(step, args) -> dict:
         t.to_local() if isinstance(t, DTensor) else t
         for t in tree.leaves(args) if isinstance(t, torch.Tensor)))
     before = ops.fake_design_counts()
-    costs = StepCosts()
+    costs = StepCosts(tag_buffers)
     costs.track(args)
     gc.collect()
     gc.disable()  # storages held by reference cycles die when the step ends,
@@ -251,9 +256,12 @@ def measure_step(step, args) -> dict:
         gc.enable()
     after = ops.fake_design_counts()
     calls = {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
-    return {"flops": costs.flops, "bytes": costs.bytes,
-            "collectives": costs.collectives, "memory": costs.memory(),
-            "kernel_calls": calls, "wall_s": wall}
+    out = {"flops": costs.flops, "bytes": costs.bytes,
+           "collectives": costs.collectives, "memory": costs.memory(),
+           "kernel_calls": calls, "wall_s": wall}
+    if tag_buffers:
+        out["peak_buffers"] = costs.peak_buffers
+    return out
 
 
 #: the lengths an all-recurrent cell is run at (module docstring), by kind:

@@ -130,10 +130,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token cross-entropy, f32 logsumexp, padded ids masked.
 
     On DTensors (``mesh`` the ``launch.mesh.Mesh`` they live on) each rank
-    sums the token losses of its (batch, sequence) block with the whole
-    vocabulary gathered — a logsumexp DTensor cannot propagate on every
-    torch this runs on — and the sum over ranks, divided by the token
-    count, is the mean, replicated."""
+    keeps its (batch, sequence, vocabulary) block: the logsumexp and the
+    gold logit of its tokens combine across the vocabulary's axes (the
+    running max by an all-reduce of max, the sums of the shifted
+    exponentials and of the gold logits by all-reduces of their partial
+    sums; float32 sums in another order than one rank's), each rank sums
+    its block's token losses, and the sum over ranks, divided by the token
+    count, is the mean, replicated.  No rank holds a float32 copy of the
+    whole vocabulary's logits."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(logits, DTensor):
@@ -144,17 +148,32 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 def _xent_placed(logits, labels, vocab_real, mesh):
     from repro_torch.core import gspmd
 
-    # keep the batch and sequence shards; gather the vocabulary
     spec = gspmd.spec_of_placements(
-        [p if p.is_shard() and p.dim < 2 else gspmd.Replicate()
-         for p in logits.placements], logits.ndim, mesh)
-    lf = gspmd.constrain(logits, mesh, spec).to_local()
-    lb = gspmd.constrain(labels, mesh, spec[:2]).to_local()
+        [p if p.is_shard() else gspmd.Replicate() for p in logits.placements],
+        logits.ndim, mesh)
+    rows, v_axes = spec[:2], gspmd.entry_axes(spec[2])
+    lf = gspmd.constrain(logits, mesh, spec).to_local().to(torch.float32)
+    lb = gspmd.constrain(labels, mesh, rows).to_local().long()
+    vl = lf.shape[-1]
+    v0 = mesh.linear_index(v_axes) * vl
+    if vocab_real is not None and vocab_real < logits.shape[-1]:
+        cols = torch.arange(v0, v0 + vl, device=lf.device)
+        lf = lf + torch.where(cols < vocab_real, 0.0, -1e30)
+
+    m = torch.amax(lf.detach(), dim=-1)
+    if v_axes:
+        m = gspmd.constrain(gspmd.wrap_block(m, mesh, rows, [(a, "max") for a in v_axes]),
+                            mesh, rows).to_local()
+    se = torch.sum(torch.exp(lf - m[..., None]), dim=-1)
+    lse = m + torch.log(gspmd.psum(se, mesh, v_axes, rows))
+    inside = (lb >= v0) & (lb < v0 + vl)
+    gold = torch.gather(lf, -1, torch.where(inside, lb - v0, 0)[..., None])[..., 0]
+    gold = gspmd.psum(torch.where(inside, gold, 0.0), mesh, v_axes, rows)
     # each rank's sum as one entry of a (batch shards, sequence shards)
     # grid; the sum over the grid is the total, and its gradient reaches
     # every rank's sum with weight one
-    local = torch.sum(_xent_terms(lf, lb, vocab_real)).reshape(1, 1)
-    grid = gspmd.wrap_block(local, mesh, spec[:2])
+    local = torch.sum(lse - gold).reshape(1, 1)
+    grid = gspmd.wrap_block(local, mesh, rows)
     return gspmd.constrain(torch.sum(grid), mesh, ()) / labels.numel()
 
 

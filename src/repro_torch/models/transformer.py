@@ -29,8 +29,11 @@ on them under DTensor's sharding propagation, and the activations are
 constrained where the reference constrains them (``_cst``: ``"b s a"``
 after the embedding and each residual, ``"b s k d"`` on k/v, ``"b s v"``
 on the logits, ``"b t k d"`` on the caches).  Every block runs under a
-mesh: the MoE FFN routes the global batch on every rank and runs its
-experts on each rank's expert block (``models/moe.py``); the recurrent
+mesh: the MoE FFN routes each rank's own tokens, moves the kept rows to
+their experts' ranks by all-to-all where the batch and the experts share
+mesh axes, and runs its experts on each rank's expert block
+(``models/moe.py``); the loss keeps the vocabulary split
+(``common.softmax_xent``); the recurrent
 blocks — hymba's SSM, the mLSTM and the sLSTM — run on each rank's batch
 rows (``common.on_rows``), their states placed as ``cache_labels`` says;
 hymba's attention runs as the attn block's does.  The serving tier's paged
