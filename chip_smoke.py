@@ -29,8 +29,15 @@
    new tokens) through ``repro_torch.launch.serve.serve``, planned through
    a plan-cache file (the serve call's plan is a cache hit), with launch
    counters set to 0 just before and read just after, every launch of the
-   wgmma design; then one prefill and one decode step under torch.profiler
-   (device busy time, idle share, device time by kernel kind);
+   wgmma design, its decode steps one CUDA graph replayed per step (the
+   first step eager, its warm-up); then ``serve()``'s decode loop from two
+   copies of one prefill's caches, 15 steps graphed and 15 eager (tokens
+   equal, launches by design equal, the largest logit difference printed);
+   then one prefill, one eager decode step and one replay of the decode
+   graph, each counted (the replay's launches by design) and under
+   torch.profiler (device busy time, idle share, device time by kernel
+   kind; the replay's and the eager step's traces hold the counted
+   launches of this port's kernels);
 6. slice parity: full width, 2 layers, float32, the same weights on the
    card (kernel path) and on the CPU (plain path);
 7. matmul parity: the kernel against its plain version at the reference
@@ -80,7 +87,10 @@
    512, 16 new tokens, 60 experts padded to 64, top-4, shared expert),
    planned through a plan-cache file, counters set to 0 just before the
    serve call and read just after (24 flash launches, 72 gmm launches per
-   prefill and per decode step, all of the wgmma design), then profiled;
+   prefill and per decode step, all of the wgmma design, the decode steps'
+   counted from their graph's replays), then graphed against eager and
+   profiled as phase 5 (one replay of the decode graph: 72 gmm launches,
+   all wgmma, counted and read from the replay's trace);
 15. MoE slice parity: qwen2-moe width, 2 layers, float32, the same
    weights on the card (gmm kernel, its launches by design) and on the
    CPU (plain path);
@@ -88,7 +98,8 @@
    stubs on 4 gloo ranks sharing the card, the expert label on a 4-way
    axis, so dispatch and combine run the ``a2a`` rule's all_to_all
    program; the collectives each rank issued against the static trace,
-   the logits against the one-card dense run;
+   the logits against the one-card dense run (its ranks are phase 11's:
+   one spawn runs both, for the run's time limit);
 17. train parity: llama-7b at full width, 2 layers, float32, batch 1,
    seq 128, the same weights and batch on the card (the flash kernel's
    ffma design inside its autograd Function, whose backward is the
@@ -131,8 +142,11 @@
    runs' measured logit difference (near ties under 2e-2 of max|logit|
    and flips printed), the 5e-2 limit shown to tell another request's
    context apart; TTFT per request, tok/s, occupancy, peak memory and
-   pool bytes; one engine decode step with every slot live profiled
-   beside phase 5's;
+   pool bytes; the decode step one CUDA graph (replays = decode steps - 1
+   a run); one engine decode step with every slot live counted and
+   profiled, a replay and the same step eager (each trace's launches of
+   this port's kernels equal to the counted ones), beside phase 5's
+   graphed and eager steps;
 21. the same for qwen2-moe-a2.7b: 2 slots, exact-length buckets 384, 448
    and 512, 8 new tokens; 72 gmm launches per prefill and per decode step,
    all wgmma; each request compared up to the first position where a MoE
@@ -157,8 +171,9 @@
    runs) and paligemma-3b (prompt 512 from tokens, as the reference serves
    it; then one ``make_prefill_step`` call on 256 seeded prefix embeddings
    and 256 tokens) at full width and depth, bf16, batch 4, 16 new tokens,
-   as phase 5 serves llama-7b (every flash launch wgmma), each prefill and
-   decode step profiled;
+   as phase 5 serves llama-7b (every flash launch wgmma), each decode loop
+   graphed against eager, each prefill and decode step (eager and a
+   replay of its graph) profiled;
 27. zoo slice parity, float32, full width, 2 layers (xlstm: one mLSTM and
    one sLSTM block), batch 1, the same weights on the card and the CPU:
    logits (1e-4 x max|logit|), ``loss_fn`` (1e-4 relative) and every
@@ -404,7 +419,7 @@ import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -828,7 +843,7 @@ def main() -> int:
     results["executor"] = _executor_path(cfg, ops)
 
     # 11. the ring path: 4 gloo ranks on the card ---------------------------------------
-    results["ring"] = _ring_path()
+    results["ring"], a2a_ranks = _ring_path()
 
     # 12-13. gmm parity and timing -------------------------------------------------------
     moe_cfg = get_config("qwen2-moe-a2.7b")
@@ -842,7 +857,7 @@ def main() -> int:
     results["moe_slice_parity"] = _slice_parity(moe_cfg, ops)
 
     # 16. the a2a path: 4 gloo ranks on the card, experts sharded 4 ways ---------------------
-    results["a2a"] = _a2a_path()
+    results["a2a"] = _a2a_path(*a2a_ranks)
 
     # 17. train parity: the card (kernel forward, plain backward) against the CPU -----------
     results["train_parity"] = _train_parity(cfg, ops)
@@ -855,12 +870,12 @@ def main() -> int:
 
     # 20. the continuous-batching engine: llama-7b at full width and depth, bf16 -----------
     lens = np.random.default_rng(0).integers(192, 513, size=8).tolist()
-    results["engine"] = _engine_phase(cfg, ops, results["serve"]["profile"]["decode_step"],
+    results["engine"] = _engine_phase(cfg, ops, results["serve"]["profile"],
                                       slots=4, block=16, max_seq=528, lens=lens, max_new=16)
 
     # 21. the engine on qwen2-moe-a2.7b at full width and depth, bf16 ---------------------
     results["engine_moe"] = _engine_phase(
-        moe_cfg, ops, results["serve_moe"]["profile"]["decode_step"], slots=2, block=16,
+        moe_cfg, ops, results["serve_moe"]["profile"], slots=2, block=16,
         max_seq=520, lens=[384, 448, 512], max_new=8)
 
     # 22. engine parity: the card against the CPU, llama-7b and qwen2-moe width, 2 layers, f32
@@ -881,7 +896,7 @@ def main() -> int:
     hymba = get_config("hymba-1.5b")
     hymba_lens = np.random.default_rng(28).integers(1100, 1501, 3).tolist()
     results["engine_hymba"] = _engine_phase(
-        hymba, ops, results["zoo_serve"]["hymba-1.5b"]["profile"]["decode_step"], slots=2,
+        hymba, ops, results["zoo_serve"]["hymba-1.5b"]["profile"], slots=2,
         block=16, max_seq=1520, lens=hymba_lens, max_new=8, baseline=True)
     results["engine_hymba_f32"] = _engine_f32_full(hymba, ops, slots=2, block=16,
                                                    max_seq=1520, lens=hymba_lens, max_new=8)
@@ -1066,6 +1081,19 @@ def main() -> int:
          "decode_library_ms": gdec["library_ms"],
          "engine_launches": results["engine_moe"]["launches"]["gmm"],
          "engine_design": _path_design(results["engine_moe"]["designs"]["gmm"]),
+         # the decode steps replay one CUDA graph: one replay's launches
+         # counted (counters set to 0 around it) and read from its trace;
+         # ``launches`` and ``engine_launches`` count the serve call's and
+         # the engine run's replays with their eager steps
+         "decode_graph_launches_per_replay":
+             results["serve_moe"]["launches_per_graph_replay"]["gmm"],
+         "decode_graph_traced_per_replay":
+             results["serve_moe"]["traced_launches_per_graph_replay"]["gmm"],
+         "decode_graph_design": _path_design(
+             results["serve_moe"]["designs_per_graph_replay"]["gmm"]),
+         "engine_graph_traced_per_replay":
+             results["engine_moe"]["traced_decode_step_launches"]["gmm"],
+         "engine_graph_replays": results["engine_moe"]["replays"],
          "zoo_launches_by_design": zoo_designs["gmm"],
          "mesh_blocks_launches_per_rank": mb["gmm"]},
     ]}
@@ -1217,6 +1245,7 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
         designs = ops.design_counts()
         peak = torch.cuda.max_memory_allocated()
     assert warm.stats["hits"] == 1 and warm.stats["misses"] == 0, warm.stats
+    assert stats["graph"] is True, stats  # the decode step replays a CUDA graph
     # gmm: w1 (w3) and w2 per MoE layer, in prefill and in every decode step
     per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
     per_prefill = {"flash_attention": _attn_layers(cfg), "flash_attention_step": 0,
@@ -1232,7 +1261,8 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
             designs[kernel].values()), designs
     assert gen.shape == (b, max_new), gen.shape
     assert ((gen >= 0) & (gen < cfg.vocab_padded)).all()
-    # where the time goes: one prefill and one decode step, counted, then profiled
+    # where the time goes: one prefill and one decode step, counted, then
+    # profiled; the decode step eagerly and as the graph serve() replays
     prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device="cuda")
@@ -1243,15 +1273,30 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
         caches = serve_mod.prepare_decode_caches(cfg, caches, prompt_len,
                                                  prompt_len + max_new)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        against = _graph_against_eager(cfg, params, caches, tok, prompt_len, max_new, ops)
         ops.reset_launch_counts()
         decode(params, tok, caches, prompt_len)
         got_decode = ops.launch_counts()
         assert (got_prefill, got_decode) == (per_prefill, per_decode), (got_prefill,
                                                                          got_decode)
+        graphed = _graphed_step(cfg, params, caches, tok, prompt_len)
+        ops.reset_launch_counts()
+        graphed()
+        got_replay, replay_designs = ops.launch_counts(), ops.design_counts()
+        assert got_replay == per_decode and graphed.replays == 2, (got_replay, per_decode)
+        assert replay_designs["gmm"]["wgmma"] == per_decode["gmm"], replay_designs
         breakdown = {
             "prefill": _profile(lambda: prefill(params, {"tokens": tokens})),
             "decode_step": _profile(lambda: decode(params, tok, caches, prompt_len)),
+            "decode_step_graph": _profile(graphed),
         }
+        del graphed
+        # what the card ran in one replay, read from its trace (a graph's
+        # kernels show one by one), against the counters' per-replay
+        # launches (the capture's, added a replay) and the eager step's trace
+        traced = _traced_launches(breakdown["decode_step_graph"])
+        assert traced == _traced_launches(breakdown["decode_step"]) == got_replay, (
+            traced, got_replay)
         if cfg.prefix_len:  # the stubbed vision tower's patch embeddings, then tokens
             pe = torch.as_tensor(np.random.default_rng(1).normal(
                 size=(b, cfg.prefix_len, cfg.d_model)).astype(np.float32), device="cuda")
@@ -1277,17 +1322,89 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
                  f"max_memory_allocated={peak} launches={launches} by design {designs}; "
                  f"per prefill {got_prefill}, per decode step {got_decode}")
     log("serve", f"generations[0] = {gen[0].tolist()}")
+    log("serve", f"{cfg.name}: one replay of the decode graph launched {got_replay} by "
+                 f"design {replay_designs} (counted), {traced} (its trace); graphed against eager from one prefill's caches, "
+                 f"{against['steps']} steps: tokens equal, max|logit diff| "
+                 f"{against['max_abs_logit_diff']:.3e}; loop walls {against['graph_wall_s']:.4f}"
+                 f" s (graph, its first step eager and the capture included) and "
+                 f"{against['eager_wall_s']:.4f} s (eager)")
     res = {k: v for k, v in stats.items() if k != "policy"}
     res.update({"t_plan_cold_s": t_cold, "max_memory_allocated": peak,
                 "launches": launches, "designs": designs,
                 "launches_per_prefill": got_prefill,
-                "launches_per_decode_step": got_decode, "n_params": n_params,
+                "launches_per_decode_step": got_decode,
+                "launches_per_graph_replay": got_replay,
+                "designs_per_graph_replay": replay_designs,
+                "traced_launches_per_graph_replay": traced,
+                "graph_against_eager": against, "n_params": n_params,
                 "flash_design": flash_design,
                 "batch": b, "prompt_len": prompt_len, "max_new": max_new,
                 "profile": breakdown})
     del params, logits, caches, tokens, tok
     torch.cuda.empty_cache()
     return res
+
+
+def _graphed_step(cfg, params, caches, tok, pos: int):
+    """``serve()``'s compiled decode step (``launch.serve.greedy_step``) at
+    ``pos``, called twice: its eager warm-up, then its capture and first
+    replay."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+
+    run = serve_mod.greedy_step(steps.make_serve_step(cfg), params, caches, tok, pos,
+                                graph=True)
+    run()
+    run()
+    return run
+
+
+def _logit_tap(decode, logs, prompt_len: int):
+    """``decode`` that also writes each step's last-position logits into
+    row ``pos - prompt_len`` of ``logs`` (steps, b, v) float32 on the card,
+    indexed by the position tensor: a replayed graph writes every step's
+    row, as the eager step does."""
+    from repro_torch.core.gspmd import full
+
+    def tapped(params, tokens, caches, pos):
+        logits, caches = decode(params, tokens, caches, pos)
+        logs.index_copy_(0, (pos - prompt_len).view(1), full(logits)[:, -1].float()[None])
+        return logits, caches
+
+    return tapped
+
+
+def _graph_against_eager(cfg, params, caches, tok, prompt_len: int, max_new: int,
+                         ops) -> dict:
+    """``serve()``'s decode loop from two copies of one prefill's caches:
+    ``max_new - 1`` steps as one CUDA graph (its first step eager, then
+    captured and replayed) and as many eager.  The tokens must be equal,
+    and so must the launches by design; the logits' largest difference is
+    returned with each loop's wall (ending in the generations' host fetch)."""
+    from repro_torch.core import tree
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps
+
+    copy = tree.map(torch.clone, caches)
+    out = {}
+    for graph, cs in ((True, caches), (False, copy)):
+        logs = torch.full((max_new - 1, tok.shape[0], cfg.vocab_padded), float("nan"),
+                          device="cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, _, n = serve_mod.decode_loop(_logit_tap(steps.make_serve_step(cfg), logs,
+                                                     prompt_len),
+                                          params, cs, tok, prompt_len, max_new, graph=graph)
+        out[graph] = (gen, logs, ops.design_counts(), time.perf_counter() - t0)
+    del copy
+    (g_gen, g_log, g_designs, g_wall), (e_gen, e_log, e_designs, e_wall) = out[True], out[False]
+    assert np.array_equal(g_gen, e_gen), (cfg.name, g_gen, e_gen)
+    assert g_designs == e_designs, (g_designs, e_designs)
+    return {"steps": n, "tokens_equal": True,
+            "max_abs_logit_diff": float((g_log - e_log).abs().max()),
+            "max_abs_logit": float(e_log.abs().max()), "graph_wall_s": g_wall,
+            "eager_wall_s": e_wall, "designs": g_designs}
 
 
 def _slice_parity(cfg, ops) -> dict:
@@ -1362,22 +1479,21 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    device = _device_kernels(prof)
     marks = [e for e in device if "spin_kernel" in e.name]
     assert marks, "the trace lost the marker kernel"
-    start = marks[-1].time_range.end
+    start = marks[-1].end
     by_kind = {"flash_attention": 0.0, "flash_step": 0.0, "matmul": 0.0, "gmm": 0.0,
                "gemm": 0.0, "other": 0.0}
     count = dict.fromkeys(by_kind, 0)
     by_name: dict[str, float] = {}
     n = 0
     for e in device:
-        if (e.time_range.start < start or "Loading" in e.name or "Buffer" in e.name
+        if (e.start < start or "Loading" in e.name or "Buffer" in e.name
                 or e.name in ranges):  # a range's span on the device timeline, not a kernel
             continue
         n += 1
-        ms = e.time_range.elapsed_us() / 1e3
+        ms = e.ms
         name = e.name.lower()
         step = "true>" in name or "lb1e" in name  # flash_*_kernel<..., STEP>
         flash = any(k in name for k in ("flash_fwd_kernel", "flash_wgmma_kernel",
@@ -1406,6 +1522,14 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
             "by_kind_ms": {k: round(v, 4) for k, v in by_kind.items()},
             "by_kind_count": count,
             "top_kernels_ms": [(k, round(v, 4)) for k, v in top]}
+
+
+def _traced_launches(prof: dict) -> dict[str, int]:
+    """A ``_profile`` trace's launches of this port's kernels, named as
+    ``ops.launch_counts`` names them."""
+    c = prof["by_kind_count"]
+    return {"flash_attention": c["flash_attention"], "flash_attention_step": c["flash_step"],
+            "matmul": c["matmul"], "gmm": c["gmm"]}
 
 
 def _bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
@@ -1619,14 +1743,13 @@ def _device_ms(fn, iters: int, match: str | None) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in _after_spin(prof)
-             if match is None or match in e.name]
+    times = [e.ms for e in _after_spin(prof) if match is None or match in e.name]
     if match is None:
         assert times, "no kernel in the trace"
-        return sum(times) / iters / 1e3
+        return sum(times) / iters
     # the trace may drop an event at its edge; never more than one a call
     assert 0 < len(times) <= iters, (match, len(times), iters)
-    return sum(times) / len(times) / 1e3
+    return sum(times) / len(times)
 
 
 def _fill_trace_start() -> None:
@@ -1641,17 +1764,39 @@ def _fill_trace_start() -> None:
     torch.cuda.synchronize()
 
 
+class _Kernel(NamedTuple):
+    """One device event of a trace: its name, start and end (ns)."""
+    name: str
+    start: int
+    end: int
+
+    @property
+    def ms(self) -> float:
+        return (self.end - self.start) / 1e6
+
+
+def _device_kernels(prof) -> list:
+    """The device events of a finished torch.profiler trace, in time order,
+    read from its raw kineto events: ``prof.events()`` builds the
+    profiler's Python event tree first, which for a trace of 10^5 launches
+    (xlstm's prefill) takes tens of seconds."""
+    from torch.autograd import DeviceType
+
+    return sorted((_Kernel(e.name(), e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)()),
+                  key=lambda e: e.start)
+
+
 def _after_spin(prof) -> list:
     """The device kernels of ``prof`` that start after its last spin
     kernel (``_fill_trace_start``), in time order."""
-    from torch.autograd import DeviceType
-
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    device = _device_kernels(prof)
     marks = [e for e in device if "spin_kernel" in e.name]
     assert marks, "the trace lost the spin kernel"
-    start = marks[-1].time_range.end
-    return [e for e in device if e.time_range.start >= start]
+    start = marks[-1].end
+    return [e for e in device if e.start >= start]
 
 
 def _attention_backward_ms(ref, q, k, v, kw) -> float:
@@ -1881,14 +2026,24 @@ def ring_rank(rank: int, world: int) -> dict:
     return res
 
 
-def _ring_path() -> dict:
+def ring_a2a_rank(rank: int, world: int) -> dict:
+    """One gloo rank of phases 11 and 16, one spawn for both (for the run's
+    time limit): the ring path, then the a2a path."""
+    return {"ring": ring_rank(rank, world), "a2a": a2a_rank(rank, world)}
+
+
+def _ring_path() -> tuple[dict, tuple]:
+    """Phase 11, and phase 16's ranks: ``(ring results, (a2a ranks, the
+    spawn's wall))``; ``_a2a_path`` checks the a2a ranks."""
     from repro_torch.launch.mesh import spawn
 
+    assert RING_RANKS == A2A_RANKS
     torch.cuda.empty_cache()  # the ranks share this card
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ranks = spawn(RING_RANKS, ring_rank, tmpdir=tmp, backend="gloo", timeout=600)
+        both = spawn(RING_RANKS, ring_a2a_rank, tmpdir=tmp, backend="gloo", timeout=600)
         t_spawn = time.perf_counter() - t0
+    ranks = [r["ring"] for r in both]
     res = {"ranks": RING_RANKS, "spawn_s": t_spawn}
     for name in RING_DTYPES:
         per_rank = [r[name] for r in ranks]
@@ -1919,9 +2074,9 @@ def _ring_path() -> dict:
                      "launches_total": total, "max_abs_logit_diff": diff,
                      "max_abs_logit": scale, "tol_rel": RING_TOL[name],
                      "wall_s": [r["wall_s"] for r in per_rank], "issued": r0["issued"]}
-    log("ring", f"both dtypes, all ranks in {t_spawn:.1f} s; schedule: "
-                f"{ranks[0]['float32']['schedule']}")
-    return res
+    log("ring", f"both dtypes, all ranks (the ring's and phase 16's a2a work) in "
+                f"{t_spawn:.1f} s; schedule: {ranks[0]['float32']['schedule']}")
+    return res, ([r["a2a"] for r in both], t_spawn)
 
 
 def _gmm_shapes(qcfg, mcfg) -> dict[str, tuple[int, int, int, int]]:
@@ -2101,14 +2256,9 @@ def a2a_rank(rank: int, world: int) -> dict:
     return out
 
 
-def _a2a_path() -> dict:
-    from repro_torch.launch.mesh import spawn
-
-    torch.cuda.empty_cache()  # the ranks share this card
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ranks = spawn(A2A_RANKS, a2a_rank, tmpdir=tmp, backend="gloo", timeout=600)
-        t_spawn = time.perf_counter() - t0
+def _a2a_path(ranks: list, t_spawn: float) -> dict:
+    """Phase 16's checks of its ranks, run in phase 11's spawn
+    (``ring_a2a_rank``; ``t_spawn`` is that spawn's wall)."""
     r0 = ranks[0]
     for r in ranks:
         assert r["issued_equals_static"], "issued collectives differ from the static trace"
@@ -2131,7 +2281,7 @@ def _a2a_path() -> dict:
                f"({kinds}), equal to the static trace; a2a rule bytes {r0['a2a_bytes']}; "
                f"max|a2a - dense| = {diff:.3e} (max|logit| {scale:.3f}); rank walls "
                f"{[round(r['wall_s'], 3) for r in ranks]} s (host-staged gloo, not a "
-               f"speed path); all ranks in {t_spawn:.1f} s")
+               f"speed path); spawned with phase 11's ranks, {t_spawn:.1f} s for both")
     log("a2a", f"schedule: {r0['schedule']}")
     return {"ranks": A2A_RANKS, "launches_per_rank": [r["launches"] for r in ranks],
             "designs_per_rank": [r["designs"] for r in ranks],
@@ -2526,7 +2676,9 @@ LOGIT_TOL = 5e-2
 class _RouteLog:
     """While ``calls`` is a list, every MoE routing of the model stack
     (``models.moe._route``) appends the experts it picked, (tokens, top_k)
-    on the CPU.  ``close`` puts the routing function back."""
+    on the device: no host read, so a captured decode step keeps them in
+    tensors that every replay refills.  ``close`` puts the routing function
+    back."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -2537,18 +2689,10 @@ class _RouteLog:
         def route(p, xt, cfg):
             topw, tope, aux = self._route(p, xt, cfg)
             if self.calls is not None:
-                self.calls.append(tope.detach().cpu())
+                self.calls.append(tope.detach())
             return topw, tope, aux
 
         moe._route = route
-
-    def run(self, fn):
-        """``fn()`` and the routings it made, one (tokens, top_k) per layer."""
-        self.calls = []
-        try:
-            return fn(), self.calls
-        finally:
-            self.calls = None
 
     def close(self):
         self._moe._route = self._route
@@ -2558,37 +2702,55 @@ def _sequential(cfg, params, prompt: np.ndarray, max_new: int, kv_len: int, devi
                 force: np.ndarray | None = None, routes: _RouteLog | None = None,
                 companion: np.ndarray | None = None):
     """One request alone through ``launch.serve``'s steps (the exact-length
-    prefill, ``prepare_decode_caches``, decode steps, as ``serve`` runs
-    them): the argmax at each position and the logits behind it (float32,
-    on the CPU).  Greedy without ``force``; with ``force`` every step is fed
-    ``force[i]`` instead (teacher forcing), so position i's logits condition
-    on that prefix.  With ``routes``, also the experts each decode step
-    picked for the token, (layers, top_k) per position (None at position 0,
-    the prefill's).  With ``companion`` (a prompt of the same length) the
-    request runs as row 0 of a batch of two, the companion decoding
-    greedily beside it: what serving it in a batch does to its rounding."""
+    prefill, ``prepare_decode_caches``, the compiled decode step
+    ``greedy_step``, as ``serve`` runs them): the argmax at each position
+    and the logits behind it (float32, on the CPU).  Greedy without
+    ``force``; with ``force`` every step is fed ``force[i]`` instead
+    (teacher forcing), so position i's logits condition on that prefix.
+    With ``routes``, also the experts each decode step picked for the
+    token, (layers, top_k) per position (None at position 0, the
+    prefill's), kept on the device by the step and read after it.  With
+    ``companion`` (a prompt of the same length) the request runs as row 0
+    of a batch of two, the companion decoding greedily beside it: what
+    serving it in a batch does to its rounding."""
+    from repro_torch.core.gspmd import full
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
 
     prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    held: dict = {}
+
+    def tapped(params, tokens, caches, pos):
+        if routes is not None:
+            routes.calls = []
+        out = decode(params, tokens, caches, pos)
+        held["last"] = full(out[0])[:, -1]  # a graph's replay refills it
+        if routes is not None:
+            held["experts"], routes.calls = routes.calls, None
+        return out
+
     toks, logs, experts = [], [], [None]
     rows = prompt[None] if companion is None else np.stack([prompt, companion])
     with torch.inference_mode():
         logits, caches = prefill(params, {"tokens": torch.as_tensor(rows, device=device)})
         caches = serve_mod.prepare_decode_caches(cfg, caches, len(prompt), kv_len)
+        last, run = logits[:, -1], None
         for i in range(max_new):
-            logs.append(logits[0, -1].float().cpu())
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            logs.append(last[0].to("cpu", torch.float32, copy=True))  # ``last`` is refilled
+            tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
             toks.append(int(tok[0, 0]))
             if force is not None:
                 tok[0, 0] = int(force[i])
             if i + 1 < max_new:
-                step = lambda: decode(params, tok, caches, len(prompt) + i)  # noqa: E731
-                if routes is None:
-                    logits, caches = step()
+                if run is None:
+                    run = serve_mod.greedy_step(tapped, params, caches, tok, len(prompt))
                 else:
-                    (logits, caches), calls = routes.run(step)
-                    experts.append(torch.stack([c[0] for c in calls]))
+                    run.inputs["tokens"].copy_(tok)
+                    run.inputs["pos"].fill_(len(prompt) + i)
+                run()
+                last = held["last"]
+                if routes is not None:
+                    experts.append(torch.stack([c[0] for c in held["experts"]]).cpu())
     return np.asarray(toks, np.int32), logs, experts
 
 
@@ -2598,7 +2760,11 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
     token, then its row of every decode step; with ``routes``, also the
     experts each decode step picked for its token, as ``_sequential``.  The
     steps are the engine's own (the registry's prefill entry,
-    ``make_paged_serve_step`` and the greedy argmax on the device)."""
+    ``make_paged_serve_step`` and the greedy argmax on the device).  The
+    decode step does device work only, so the engine captures and replays
+    it as its graph: the step keeps its logits and routings in tensors
+    (the graph's, refilled by every replay), which each decode phase reads
+    after the step."""
     from repro_torch.launch import steps
 
     rec: dict[int, list] = {}
@@ -2621,20 +2787,30 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
         ent.step = step
         return ent
 
+    held: dict = {}
+
     def decode(params, tokens, caches, tables, pos):
-        step = lambda: decode_base(params, tokens, caches, tables, pos)  # noqa: E731
-        if routes is None:
-            (logits, caches), calls = step(), None
-        else:
-            (logits, caches), calls = routes.run(step)
-        for i, req in enumerate(eng.slots):
-            if req is not None:
-                rec[req.rid].append(logits[i, -1].float().cpu())
-                if calls is not None:
-                    rec_experts[req.rid].append(torch.stack([c[i] for c in calls]))
+        if routes is not None:
+            routes.calls = []
+        logits, caches = decode_base(params, tokens, caches, tables, pos)
+        held["logits"] = logits[:, -1].float()
+        if routes is not None:
+            held["experts"], routes.calls = routes.calls, None
         return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32), caches
 
-    reg.prefill, eng._decode = prefill, decode
+    phase = eng._decode_phase
+
+    def decode_phase():
+        live = [(i, req.rid) for i, req in enumerate(eng.slots) if req is not None]
+        phase()
+        logits = held["logits"].to("cpu", copy=True)  # the graph refills it
+        calls = [c.to("cpu", copy=True) for c in held["experts"]] if routes is not None else None
+        for i, rid in live:
+            rec[rid].append(logits[i])
+            if calls is not None:
+                rec_experts[rid].append(torch.stack([c[i] for c in calls]))
+
+    reg.prefill, eng._decode, eng._decode_phase = prefill, decode, decode_phase
     return rec, rec_experts
 
 
@@ -2708,11 +2884,15 @@ def _engine_run(cfg, params, prompts, max_new, *, batch: int, block: int, max_se
     ops.reset_launch_counts()
     res, metrics = eng.run()
     launches, designs = ops.launch_counts(), ops.design_counts()
+    # the decode step replays one CUDA graph: its first step eager, captured at the second
+    assert eng.graph and eng._step.replays == metrics.decode_steps - 1, (
+        eng.graph, eng._step.replays, metrics.decode_steps)
     return eng, res, metrics, {"launches": launches, "designs": designs,
+                               "replays": eng._step.replays,
                                "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
-def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_seq: int,
+def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int,
                   lens: list[int], max_new: int, seed: int = 0, device="cuda",
                   baseline: bool = False) -> dict:
     """``cfg`` at full width and depth (bf16, random weights from ``seed``)
@@ -2723,8 +2903,11 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     near-tie rule), flash launches = layers x prefills, gmm launches =
     MoE products x layers x (prefills + decode steps), every bf16 launch of
     the wgmma design, registry compiles = distinct buckets + 1 decode cell.
-    Then one engine decode step with every slot live, profiled beside the
-    dense serve loop's decode step (phase 5 or 14).  With ``baseline``, the
+    The decode step replays its graph (``eng._step.replays`` = decode steps
+    - 1 a run).  Then one engine decode step with every slot live, counted
+    and profiled as a replay and eagerly (the same step function), beside
+    the dense serve loop's decode step, graphed and eager (``dense``: phase
+    5's, 14's or 24's profile).  With ``baseline``, the
     logit limit is measured first: each request served alone against the
     same request served as one row of a batch of two (a seeded companion
     prompt of its length beside it), teacher-forced alike; the engine is
@@ -2735,6 +2918,7 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
 
+    dense_decode, dense_graph = dense["decode_step"], dense["decode_step_graph"]
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=seed, device=device)
     torch.cuda.synchronize()
@@ -2780,7 +2964,7 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
         for p in prompts:
             rec_eng.submit(p, max_new)
         rec_res, _ = rec_eng.run()
-        del rec_eng
+        del rec_eng._decode_phase, rec_eng  # the tap's wrapper holds the engine: a cycle
         seq = []
         for rid, p in enumerate(prompts):
             assert ((rec_res[rid] >= 0) & (rec_res[rid] < cfg.vocab_padded)).all()
@@ -2815,18 +2999,34 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
                                      rec_experts[rid] if routes else None,
                                      seq[rid][2] if routes else None, limit=limit)
             for rid, p in enumerate(prompts)]
-    # one engine decode step, every slot live, profiled
-    for p in prompts[:slots]:
-        eng.submit(p, max_new)
+    # one engine decode step, every slot live, counted and profiled: a
+    # replay of its graph, then the same step eager (the engine's own step
+    # function, ``graph=False``) on the same caches
+    from repro_torch.launch import steps
+
+    for p in prompts[:slots]:  # live through the 10 decode phases below
+        eng.submit(p, max(max_new, 11))
     with torch.inference_mode():
         eng._admit_phase()
         assert all(s is not None for s in eng.slots)
+        graphed = eng._step
         ops.reset_launch_counts()
         eng._decode_phase()
-        step_launches = ops.launch_counts()
+        step_launches, step_designs = ops.launch_counts(), ops.design_counts()
         prof = _profile(eng._decode_phase)
+        eng._step = steps.GraphedStep(graphed.fn, graphed.state, graphed.inputs, graph=False)
+        ops.reset_launch_counts()
+        eng._decode_phase()
+        eager_launches, eager_designs = ops.launch_counts(), ops.design_counts()
+        prof_eager = _profile(eng._decode_phase)
+        eng._step = graphed
     assert step_launches["gmm"] == moe_per_layer * cfg.n_layers, step_launches
     assert step_launches["flash_attention"] == 0, step_launches
+    assert (step_launches, step_designs) == (eager_launches, eager_designs), (
+        step_designs, eager_designs)
+    assert step_designs["gmm"]["wgmma"] == step_launches["gmm"], step_designs
+    traced = _traced_launches(prof)  # one replay's trace, against the counters
+    assert traced == _traced_launches(prof_eager) == step_launches, (traced, step_launches)
     log("engine", f"{cfg.name} bf16, {slots} slots, block {block}, max_seq {max_seq}, "
                   f"{len(lens)} requests (prompts {lens}, buckets {buckets}), {max_new} new "
                   f"each; params made in {t_init:.1f} s")
@@ -2847,7 +3047,13 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
     assert not failures, failures
     # the limit tells a request served from another context apart
     assert min(h["min_rel_diff_to_other_request"] for h in held) > limit, held
-    for name, br in (("engine decode step", prof), ("dense decode step", dense_decode)):
+    log("engine", f"{cfg.name}: {run2['replays']} graph replays of {summary['decode_steps']} "
+                  f"decode steps in the second run; one replay launched {step_launches} by design "
+                  f"{step_designs} (counted), {traced} (its trace), the eager step the same")
+    for name, br in (("engine decode step (graph)", prof),
+                     ("engine decode step (eager)", prof_eager),
+                     ("dense decode step (graph)", dense_graph),
+                     ("dense decode step (eager)", dense_decode)):
         log("profile", f"{cfg.name} {name}: wall {br['wall_ms']:.3f} ms, device busy "
                        f"{br['device_ms']:.3f} ms (idle share {br['idle_share']:.3f}), "
                        f"{br['kernels']} kernels; device ms by kind {br['by_kind_ms']}")
@@ -2861,8 +3067,11 @@ def _engine_phase(cfg, ops, dense_decode: dict, *, slots: int, block: int, max_s
            "max_memory_allocated": run2["max_memory_allocated"], "pool_bytes": pool_bytes,
            "against_sequential": held, "generations": {r: res[r].tolist() for r in res},
            "batch_baseline_rel": base_rel, "logit_limit_rel": limit,
-           "decode_step_launches": step_launches, "profile_decode_step": prof,
-           "dense_decode_step": dense_decode,
+           "decode_step_launches": step_launches, "decode_step_designs": step_designs,
+           "traced_decode_step_launches": traced,
+           "replays": run2["replays"], "profile_decode_step": prof,
+           "profile_decode_step_eager": prof_eager,
+           "dense_decode_step": dense_decode, "dense_decode_step_graph": dense_graph,
            # the static verifier over every live bucket (phase 30 reads it)
            "registry_analysis": {
                "/".join(str(k) for k in key): {
@@ -4131,8 +4340,9 @@ MESH_BUDGET_BYTES = 60e9
 
 
 def _greedy(cfg, params, toks, max_new: int):
-    """The one-rank greedy serve loop on the card: (generations, every
-    step's last-position logits (b, max_new, v) float32 on the host)."""
+    """The one-rank greedy serve loop on the card, as ``serve()`` runs it
+    (its decode step one CUDA graph): (generations, every step's
+    last-position logits (b, max_new, v) float32 on the host)."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps
 
@@ -4141,16 +4351,13 @@ def _greedy(cfg, params, toks, max_new: int):
     with torch.inference_mode():
         logits, caches = prefill(params, {"tokens": toks})
         caches = serve_mod.prepare_decode_caches(cfg, caches, plen, plen + max_new)
-        kept = [logits[:, -1].float().cpu()]
-
-        def step(params, tok, caches, pos):
-            logits, caches = decode(params, tok, caches, pos)
-            kept.append(logits[:, -1].float().cpu())
-            return logits, caches
-
+        logs = torch.full((max_new, toks.shape[0], logits.shape[-1]), float("nan"),
+                          device=logits.device)
+        logs[0] = logits[:, -1].float()
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        gen, _, _ = serve_mod.decode_loop(step, params, caches, tok, plen, max_new)
-    return gen, torch.stack(kept, 1)
+        gen, _, _ = serve_mod.decode_loop(_logit_tap(decode, logs, plen - 1), params,
+                                          caches, tok, plen, max_new)
+    return gen, logs.transpose(0, 1).cpu()
 
 
 def _forced(cfg, params, toks, gen: np.ndarray, *, policy=None, mesh=None):
@@ -5003,7 +5210,9 @@ def _tapped_engine(cfg, spec: dict, *, mesh=None, params=None,
     its launches by design (counts set to 0 just before ``run``).  With
     ``force`` ({rid: tokens}) every admission and decode step hands the
     engine those tokens instead of its own (teacher forcing), so its
-    logits condition on the same prefixes as the run that made them."""
+    logits condition on the same prefixes as the run that made them.  The
+    taps read the host, so the step runs eagerly (``graph=False``, as every
+    step on a mesh does)."""
     from repro_torch.core import tree
     from repro_torch.core.gspmd import full
     from repro_torch.kernels import ops
@@ -5014,7 +5223,7 @@ def _tapped_engine(cfg, spec: dict, *, mesh=None, params=None,
     prompts = _mesh_engine_prompts(cfg, spec)
     max_seq = spec["lens"][1] + spec["max_new"]
     eng = ServingEngine(cfg, batch=spec["slots"], max_seq=max_seq, block=spec["block"],
-                        params=params, mesh=mesh, device="cuda")
+                        params=params, mesh=mesh, device="cuda", graph=False)
     for p in prompts:
         eng.submit(p, spec["max_new"])
     rec: dict = {}

@@ -21,7 +21,12 @@ kernels); the ring step, which updates its carry in place, raises.
 served them (``"wgmma"``, ``"ffma"`` or ``"template"`` for every kernel:
 the forward attention, the ring step, matmul and gmm; picked by each
 wrapper's shape rule), and ``reset_launch_counts()``
-sets them all to 0.
+sets them all to 0.  A wrapper bumps its counter when it runs, and under
+a CUDA graph it runs only while the graph is captured, which launches
+nothing: ``launch.steps.GraphedStep`` takes the counts of its capture
+back (``snapshot_counts``, ``counts_since``, ``restore_counts``) and adds
+them on every replay (``add_counts``), so the counters still say what
+the card ran.
 
 The forward attention, matmul and gmm launch through operators
 (``repro_torch::flash_attention``, ``::matmul``, ``::gmm``), so that
@@ -141,10 +146,45 @@ def fake_design_counts() -> dict[str, dict[str, int]]:
             "gmm": dict(_gmm.gmm.fake_designs)}
 
 
+_COUNTED = {"flash_attention": _fa.flash_attention,
+            "flash_attention_step": _fa.flash_attention_step,
+            "matmul": _mm.matmul, "gmm": _gmm.gmm}
+
+
+def snapshot_counts() -> dict[str, tuple[int, dict[str, int]]]:
+    """Every kernel's launch counter and its launches by design, as they
+    stand (``counts_since``, ``restore_counts``)."""
+    return {name: (fn.launches, dict(fn.designs)) for name, fn in _COUNTED.items()}
+
+
+def counts_since(snap: dict) -> dict[str, tuple[int, dict[str, int]]]:
+    """The launches, and the launches by design, counted since ``snap``."""
+    now = snapshot_counts()
+    return {name: (n - snap[name][0],
+                   {d: c - snap[name][1][d] for d, c in designs.items()})
+            for name, (n, designs) in now.items()}
+
+
+def restore_counts(snap: dict) -> None:
+    """Every counter back to ``snap``."""
+    for name, (n, designs) in snap.items():
+        _COUNTED[name].launches = n
+        _COUNTED[name].designs = dict(designs)
+
+
+def add_counts(delta: dict) -> None:
+    """Add ``delta`` (``counts_since``'s) to the counters: the launches of
+    one replay of a captured graph."""
+    for name, (n, designs) in delta.items():
+        fn = _COUNTED[name]
+        fn.launches += n
+        for d, c in designs.items():
+            fn.designs[d] += c
+
+
 def reset_launch_counts() -> None:
     """Every launch counter, and every count of fake calls, to 0."""
-    for fn in (_fa.flash_attention, _fa.flash_attention_step, _mm.matmul,
-               _gmm.gmm):
+    for fn in _COUNTED.values():
         fn.launches = 0
         fn.designs = dict.fromkeys(fn.designs, 0)
         if hasattr(fn, "fake_designs"):

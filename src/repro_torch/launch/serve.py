@@ -6,7 +6,10 @@ cache hit -> ``policy()``), then prefills the batch of prompts in one
 forward (one flash-attention kernel launch per layer on a card), copies the
 collected K/V into preallocated decode caches and decodes greedily, writing
 each step's K/V into those caches in place.  Sliding-window archs keep
-ring-buffer caches.
+ring-buffer caches.  On a card the decode step and its argmax replay one
+CUDA graph per step, captured once a call (``steps.GraphedStep``), as the
+reference jits its decode step and donates the caches;
+``serve(graph=False)`` decodes eagerly.
 
 With ``--executor shard_map`` the cell's program is also compiled for the
 explicit-collective executor on the one-rank mesh, and its static
@@ -141,14 +144,37 @@ def _placed_decode_caches(cfg, prefill_caches, prompt_len, kv_len, policy,
     return out
 
 
+def greedy_step(decode, params, caches, tokens, pos: int, *,
+                graph: bool | None = None) -> steps.GraphedStep:
+    """``decode(params, tokens, caches, pos) -> (logits, caches)`` and the
+    greedy argmax as one ``steps.GraphedStep`` over fixed token and
+    position buffers (copies of ``tokens`` and of ``pos`` as a 0-d device
+    tensor), the caches written in place: on a card a CUDA graph unless
+    ``graph`` is ``False`` (a step on a mesh is given ``False``, the answer
+    ``steps.use_graph`` gives for it).  Its one output is the next tokens
+    (b, 1) int32."""
+    def step(caches, tokens, pos):
+        out, _ = decode(params, tokens, caches, pos)
+        return torch.argmax(full(out)[:, -1], dim=-1)[:, None].to(torch.int32)
+
+    return steps.GraphedStep(
+        step, caches, {"tokens": tokens, "pos": torch.full(
+            (), pos, dtype=torch.long, device=tokens.device)},
+        graph=graph)
+
+
 def decode_loop(decode, params, caches, first_tok, prompt_len: int,
-                max_new: int):
+                max_new: int, *, graph: bool | None = None):
     """Greedy decode: ``max_new`` tokens total — the prefill's argmax plus
     ``max_new - 1`` decode steps, every step's logits consumed.
 
-    Tokens stay **on the device** and are fetched with a single host
-    transfer at the end, so the host never waits on a step; the next step
-    reads the greedy argmax from device memory.
+    The steps run as one ``greedy_step``: on a card a CUDA graph, captured
+    at the second step and replayed from there (``graph=False``, as a mesh
+    is given, runs every step eagerly).  Before each step the last step's
+    token is copied into the token buffer and the position filled in on
+    the device; each step's token is cloned out of the fixed output
+    buffer.  Tokens stay **on the device** and are fetched with a single
+    host transfer at the end, so the host never waits on a step.
 
     Returns ``(generations (b, max_new) int32, caches, decode_steps)``.
     """
@@ -156,19 +182,21 @@ def decode_loop(decode, params, caches, first_tok, prompt_len: int,
     if max_new <= 0:
         return np.zeros((b, 0), np.int32), caches, 0
     outs = [first_tok]
-    tok = first_tok
-    n_steps = 0
-    for i in range(max_new - 1):
-        logits, caches = decode(params, tok, caches, prompt_len + i)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        outs.append(tok)
-        n_steps += 1
-    return torch.cat(outs, dim=1).cpu().numpy(), caches, n_steps
+    if max_new > 1:
+        run = greedy_step(decode, params, caches, first_tok, prompt_len,
+                          graph=graph)
+        for i in range(max_new - 1):
+            if i:
+                run.inputs["tokens"].copy_(outs[-1])
+                run.inputs["pos"].fill_(prompt_len + i)
+            outs.append(run()[0].clone())
+    return torch.cat(outs, dim=1).cpu().numpy(), caches, max_new - 1
 
 
 def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
           kv_len: int | None = None, params=None, seed: int = 0,
-          plan_cache=None, device=None, executor: str = "gspmd"):
+          plan_cache=None, device=None, executor: str = "gspmd",
+          graph: bool | None = None):
     """prompts: (b, prompt_len) int32.  Returns (generations (b, max_new),
     stats).
 
@@ -190,9 +218,16 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
     or ``params`` given whole) are placed by ``param_shardings``, and every
     rank returns the whole generations.  ``stats["param_bytes"]`` is this
     rank's share of the weights.
+
+    ``graph``: the decode step and its greedy argmax replay one CUDA graph
+    per step on a card with no mesh (``decode_loop``, ``steps.use_graph``:
+    the reference jits its decode step and donates the caches); ``False``
+    decodes eagerly, ``True`` raises where no graph can be captured (the
+    CPU, a mesh of more than one rank).  The prefill runs eagerly.
     """
     placed = mesh is not None and mesh.world_size > 1
     dev = mesh.device if mesh is not None else resolve_device(device)
+    graph = steps.use_graph(graph, dev, mesh)  # raises before any work
     b, prompt_len = prompts.shape
     kv_len = kv_len or (cfg.kv_len(ShapeConfig("serve", "decode",
                                                prompt_len + max_new, b)))
@@ -222,10 +257,6 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
     prefill = steps.make_prefill_step(cfg, policy=policy, mesh=mesh)
     serve_step = steps.make_serve_step(cfg, policy=policy, mesh=mesh)
 
-    def decode(params, tok, caches, pos):
-        logits, caches = serve_step(params, tok, caches, pos)
-        return full(logits), caches
-
     # DTensor views cannot be made of inference tensors: no_grad on a mesh
     with torch.no_grad() if placed else torch.inference_mode():
         tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
@@ -240,13 +271,14 @@ def serve(cfg, prompts: np.ndarray, *, max_new: int = 32, mesh=None,
 
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         t0 = time.perf_counter()
-        gen, caches, decode_steps = decode_loop(decode, params, caches, tok,
-                                                prompt_len, max_new)
+        gen, caches, decode_steps = decode_loop(serve_step, params, caches,
+                                                tok, prompt_len, max_new,
+                                                graph=graph)
         _sync(dev)
         t_decode = time.perf_counter() - t0
     return gen, {"device": str(dev), "t_plan_s": t_plan,
                  "t_prefill_s": t_prefill, "t_decode_s": t_decode,
-                 "decode_steps": decode_steps,
+                 "decode_steps": decode_steps, "graph": graph,
                  "tok_per_s": b * decode_steps / max(t_decode, 1e-9),
                  "plan_cost": compiled.plan.cost,
                  "policy": dict(policy.label_axes),

@@ -160,20 +160,25 @@ def init_kv_cache(cfg, batch: int, length: int, dtype,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
+def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos,
                      cfg, *, mesh=None) -> tuple[torch.Tensor, KVCache]:
-    """One decode step.  x: (b, 1, d_model); pos: absolute position.
+    """One decode step.  x: (b, 1, d_model); pos: the absolute position, a
+    0-d integer tensor on the cache's device (the reference's traced
+    scalar) or an int, which is converted to one.
 
     The step's K/V are written **in place** into the preallocated cache
     (the reference returns a new buffer from ``dynamic_update_slice``); the
     returned cache is the same object.  Sliding-window archs use the cache
     as a ring buffer (slot = pos % W) and attend with window masking on
     absolute positions reconstructed from the ring; full-attention archs
-    write at slot = pos.
+    write at slot = pos.  The slot and the masks are computed on the device
+    and the write takes a tensor index (``index_copy_``), so no value of
+    ``pos`` reaches the host: one captured CUDA graph serves every step
+    (``launch.steps.GraphedStep``).
     """
     S = cache.k.shape[1]
-    positions = torch.full((1,), pos, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    pos = as_position(pos, x.device)
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos.reshape(1))
 
     slot = (pos % S) if cfg.window else pos
     idx = torch.arange(S, device=x.device)
@@ -185,8 +190,8 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
         valid = idx <= pos
 
     def core(q, k_new, v_new, ck, cv, **kw):
-        ck[:, slot] = k_new[:, 0]
-        cv[:, slot] = v_new[:, 0]
+        ck.index_copy_(1, slot.reshape(1), k_new.to(ck.dtype))
+        cv.index_copy_(1, slot.reshape(1), v_new.to(cv.dtype))
         o = _decode_attend(q.transpose(1, 2), ck.transpose(1, 2),
                            cv.transpose(1, 2), valid, **kw)
         return o.transpose(1, 2)
@@ -199,7 +204,16 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: int,
     return out, cache
 
 
-def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh, slot: int,
+def as_position(pos, device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: an int is
+    filled in on the device (a kernel argument, no host-to-device copy), a
+    tensor cast where it is not int64 yet."""
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.long).reshape(())
+    return torch.full((), int(pos), dtype=torch.long, device=device)
+
+
+def _decode_placed(core, q, k_new, v_new, cache: KVCache, mesh, slot,
                    valid):
     """``core`` on each rank's (batch, kv-head) blocks of the DTensor
     cache, written in place: q and this step's K/V are placed as the cache
@@ -258,9 +272,13 @@ def _decode_time_split(q, k_new, v_new, cache: KVCache, mesh, spec, te, slot,
     axes = gspmd.entry_axes(te)
     span = ck.shape[1]
     lo = mesh.linear_index(axes) * span
-    if lo <= slot < lo + span:
-        ck[:, slot - lo] = kl[:, 0]
-        cv[:, slot - lo] = vl[:, 0]
+    # the slot's index in this block, clamped: a rank whose block does not
+    # hold it writes back the row it has (no value of ``slot`` is read)
+    local = slot - lo
+    here = (local >= 0) & (local < span)
+    at = local.clamp(0, span - 1).reshape(1)
+    for c, row in ((ck, kl), (cv, vl)):
+        c.index_copy_(1, at, torch.where(here, row.to(c.dtype), c.index_select(1, at)))
     m, l, o = _decode_partial(ql.transpose(1, 2), ck.transpose(1, 2),
                               cv.transpose(1, 2), valid[lo:lo + span], **kw)
 

@@ -767,14 +767,19 @@ def _decode_layers(params, tokens, caches, cfg, attend, policy=None,
     return _cst(lm_logits(x, _head(params)), "b s v", policy, mesh)
 
 
-def decode_step(params, tokens, caches, pos: int, cfg, *, policy=None,
+def decode_step(params, tokens, caches, pos, cfg, *, policy=None,
                 mesh=None):
     """One token for the whole batch.  tokens (b, 1); pos the absolute
-    position.  Writes this step's K/V and recurrent states into ``caches``
-    in place and returns (logits (b, 1, v), caches).  On a mesh of more
-    than one rank the parameters and caches are DTensors
+    position, a 0-d integer tensor on the device (the reference's traced
+    scalar) or an int.  Writes this step's K/V and recurrent states into
+    ``caches`` in place and returns (logits (b, 1, v), caches).  No value
+    of a tensor ``pos`` reaches the host on one rank, so the step can be
+    captured once and replayed (``launch.steps.GraphedStep``).  On a mesh
+    of more than one rank the parameters and caches are DTensors
     (``place_caches``), each rank writes its cache blocks, and the logits
     come back as a DTensor."""
+    pos = attn_mod.as_position(pos, tokens.device)  # once a step, not once a layer
+
     def attend(p, h, kv):
         return attn_mod.attention_decode(p, h, kv, pos, cfg, mesh=mesh)[0]
 

@@ -206,4 +206,6 @@ class BucketRegistry:
             tok = torch.argmax(full(logits)[:, -1], dim=-1)[:, None]
             return tok.to(torch.int32), caches
 
+        # the engine compiles it (``steps.GraphedStep``): where the
+        # reference jits it with the caches donated
         return decode_step

@@ -11,17 +11,25 @@ and the recurrent states of hymba and xLSTM blocks into the slot's rows;
 and block tables mean requests join and leave mid-flight without any
 replanning; (3) evict finished requests and return their blocks.
 
+The decode step (the paged step and its greedy argmax) is compiled as
+the reference jits it with its caches donated: on a card with no mesh it
+replays one CUDA graph per step (``launch.steps.GraphedStep``, captured at
+the engine's second decode step), reading the tokens, block tables and
+positions from fixed device buffers and writing the pools and states in
+place; ``graph=False`` runs it eagerly, as the CPU and a mesh always do.
+
 Generated tokens stay on the device (the decode step argmaxes on the
-device and the per-step token tensors are accumulated); the host fetches
-everything once at drain, so the loop never waits on a decode step.  The
+device and each step's tokens are cloned out of its fixed output buffer
+into the step log); the host fetches everything once at drain, so the
+loop never waits on a decode step.  The
 one host sync per request is the prefill's argmax, which defines the time
 to first token.  Length-based eviction is the default; passing ``eos_id``
 enables early exit at the cost of one host sync per step (opt-in).
 
 The block tables and positions live on the host as numpy arrays that the
-loop mutates after every step; each step takes a fresh device copy of
-them (through a new pinned buffer on a card), so an asynchronous copy
-never reads an array the host has already changed.
+loop mutates after every step; each step copies them into the step's
+device buffers through a new pinned buffer on a card, so an asynchronous
+copy never reads an array the host has already changed.
 
 On a ``launch.mesh.Mesh`` of more than one rank every rank of the process
 group builds the engine with the same arguments, submits the same
@@ -43,6 +51,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.gspmd import full
+from repro_torch.launch import steps
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import resolve_device
 from repro_torch.serving.buckets import BucketRegistry
@@ -105,15 +114,24 @@ class ServeMetrics:
         }
 
 
-def _fresh(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A device copy of ``a`` that shares no memory with it, so the caller
-    may mutate ``a`` at once: on a card an asynchronous copy out of a new
-    pinned buffer (the caching host allocator keeps that buffer until the
-    copy is done), on the CPU a clone."""
+def _fresh_into(buf: torch.Tensor, a: np.ndarray) -> None:
+    """Copy ``a`` into the device buffer ``buf`` so that the caller may
+    mutate ``a`` at once: on a card asynchronously out of a new pinned
+    buffer (the caching host allocator keeps it until the copy is done),
+    on the CPU synchronously."""
     t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.clone().to(device)
+    if buf.device.type == "cuda":
+        buf.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(t)
+
+
+def _fresh(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A new device copy of ``a`` (``_fresh_into``): the caller may mutate
+    ``a`` at once."""
+    buf = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, device=device)
+    _fresh_into(buf, a)
+    return buf
 
 
 class ServingEngine:
@@ -154,15 +172,27 @@ class ServingEngine:
         A ``launch.mesh.Mesh`` (default: the one-device mesh).  On more
         than one rank the registry plans on its axes and the engine runs
         on DTensors, as the module docstring says.
+    graph:
+        ``None`` (default): the decode step replays a CUDA graph on a card
+        with no mesh and runs eagerly elsewhere (``steps.use_graph``);
+        ``False``: eagerly everywhere; ``True``: the graph, raising where
+        none can be captured.  The step is built at the first decode step
+        from ``self._decode`` and ``self.params`` as they are then (a
+        caller may replace ``_decode`` before, to tap it: with a graph,
+        what it does on the device is captured at the second step and
+        replayed after).
     """
 
     def __init__(self, cfg, *, batch: int = 4, max_seq: int = 128,
                  block: int = 16, n_blocks: int | None = None, params=None,
                  seed: int = 0, plan_cache=None, bucket: str = "auto",
-                 eos_id: int | None = None, device=None, mesh=None):
+                 eos_id: int | None = None, device=None, mesh=None,
+                 graph: bool | None = None):
         placed = mesh is not None and mesh.world_size > 1
         self.mesh = mesh if placed else None
         self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.graph = steps.use_graph(graph, self.device, self.mesh)
+        self._step = None  # the compiled decode step, made at the first one
         self.cfg = cfg
         self.batch = batch
         self.block = block
@@ -286,10 +316,29 @@ class ServingEngine:
         if req.max_new == 1:
             self._evict(req)
 
+    def _compiled_step(self) -> steps.GraphedStep:
+        if self._step is None:
+            decode, params = self._decode, self.params  # no cycle through self
+
+            def step(caches, tokens, tables, pos):
+                return decode(params, tokens, caches, tables, pos)[0]
+
+            dev = self.device
+            self._step = steps.GraphedStep(
+                step, self.caches,
+                {"tokens": self.tokens,
+                 "tables": torch.zeros(self.tables.shape, dtype=torch.int32, device=dev),
+                 "pos": torch.zeros(self.pos.shape, dtype=torch.int32, device=dev)},
+                graph=self.graph)
+        return self._step
+
     def _decode_phase(self):
-        tok, self.caches = self._decode(
-            self.params, self.tokens, self.caches,
-            _fresh(self.tables, self.device), _fresh(self.pos, self.device))
+        run = self._compiled_step()
+        run.inputs["tokens"].copy_(self.tokens)
+        _fresh_into(run.inputs["tables"], self.tables)
+        _fresh_into(run.inputs["pos"], self.pos)
+        # the fixed output buffer is overwritten by the next step: log a clone
+        tok = run()[0].clone()
         self.tokens = tok
         self._step_log.append(tok)
         self.metrics.decode_steps += 1

@@ -6,8 +6,10 @@ serving path on
 the card against the CPU (the serve loop and the continuous-batching
 engine), a reduced llama program through the
 explicit-collective executor on the one-card mesh, the ring on two
-gloo ranks that share the card, and a donated executor call's allocator
-peak against the memory pass.
+gloo ranks that share the card, a donated executor call's allocator
+peak against the memory pass, and the compiled decode step (one CUDA
+graph replayed per step) against the eager step, through ``serve()``'s
+loop and the engine.
 
 Imports torch and the port only, so it runs on a machine without jax:
 
@@ -1023,11 +1025,14 @@ def _engine_run(cfg, params, prompts, max_new, device):
     generations and, for every decode step, the last-position logits of
     the slots that held a request.  The step is the registry's (the paged
     decode step, then a greedy argmax on the device), with the logits
-    copied out on the way."""
+    copied out on the way: a host read, so the step runs eagerly
+    (``graph=False``; the graphed step against it:
+    ``test_graphed_engine_equals_eager_engine_on_card``)."""
     from repro_torch.launch import steps
     from repro_torch.serving import ServingEngine
 
-    eng = ServingEngine(cfg, batch=2, max_seq=40, block=8, params=params, device=device)
+    eng = ServingEngine(cfg, batch=2, max_seq=40, block=8, params=params, device=device,
+                        graph=False)
     base = steps.make_paged_serve_step(cfg)
     logs = []
 
@@ -1182,3 +1187,100 @@ def test_donated_executor_call_peak_equals_memory_pass(cuda):
         torch.cuda.empty_cache()
     assert torch.equal(outs[True]["logits"], outs[False]["logits"])
     assert peaks[True] < peaks[False], peaks
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step: one CUDA graph replayed per step
+# ---------------------------------------------------------------------------
+
+def _logit_tap(decode, logs, prompt_len: int):
+    """``decode`` that also writes each step's last-position logits into
+    row ``pos - prompt_len`` of ``logs`` (steps, b, v) float32 on the card,
+    indexed by the position tensor: a replayed graph writes every step's
+    row, as the eager step does."""
+    def tapped(params, tokens, caches, pos):
+        logits, caches = decode(params, tokens, caches, pos)
+        logs.index_copy_(0, (pos - prompt_len).view(1), logits[:, -1].float()[None])
+        return logits, caches
+
+    return tapped
+
+
+GRAPH_CASES = [("llama-7b", "float32"), ("qwen2-moe-a2.7b", "float32"),
+               ("qwen2-moe-a2.7b", "bfloat16"), ("hymba-1.5b", "float32"),
+               ("xlstm-125m", "float32"), ("paligemma-3b", "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dt", GRAPH_CASES)
+def test_graphed_decode_equals_eager_decode_on_card(arch, dt, cuda):
+    """Reduced configs (qwen2-moe in bf16 too: its gmm launches take the
+    wgmma design inside the graph): ``decode_loop`` from two copies of one
+    prefill's caches, 9 decode steps captured and replayed
+    (``graph=True``: a failed capture fails the test) and 9 eager.  The
+    tokens and every step's logits are equal, and so are the launches by
+    design (the replays' counted from the capture's); hymba's prompt of 20
+    decodes past its window of 16."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dt)
+    params = tf.init_params(cfg, seed=4, device=cuda)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 20)).astype(np.int32)
+    max_new = 10
+    with torch.inference_mode():
+        logits, caches = steps.make_prefill_step(cfg)(
+            params, {"tokens": torch.as_tensor(prompts, device=cuda)})
+        caches = port_serve.prepare_decode_caches(cfg, caches, 20, 20 + max_new)
+        copy = tree.map(torch.clone, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        got = {}
+        for graph, cs in ((True, caches), (False, copy)):
+            logs = torch.full((max_new - 1, 2, logits.shape[-1]), float("nan"), device=cuda)
+            ops.reset_launch_counts()
+            gen, _, n = port_serve.decode_loop(
+                _logit_tap(steps.make_serve_step(cfg), logs, 20), params, cs, tok, 20,
+                max_new, graph=graph)
+            torch.cuda.synchronize()
+            got[graph] = (gen, logs.cpu(), ops.design_counts())
+    (g_gen, g_log, g_designs), (e_gen, e_log, e_designs) = got[True], got[False]
+    diff = float((g_log - e_log).abs().max())
+    print(f"{arch} {dt}: graphed against eager, max|logit diff| = {diff:.3e}")
+    np.testing.assert_array_equal(g_gen, e_gen)
+    assert diff == 0.0
+    assert g_designs == e_designs
+    per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
+    assert sum(g_designs["gmm"].values()) == per_layer * cfg.n_layers * (max_new - 1)
+    if cfg.moe and dt == "bfloat16":
+        assert g_designs["gmm"]["wgmma"] == per_layer * cfg.n_layers * (max_new - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-7b", "qwen2-moe-a2.7b", "hymba-1.5b", "xlstm-125m"])
+def test_graphed_engine_equals_eager_engine_on_card(arch, cuda):
+    """The engine's default step on a card (a graph captured at its second
+    decode step) against ``graph=False``: three requests through two slots,
+    the same weights; generations and launches by design equal."""
+    from repro_torch.serving import ServingEngine
+
+    cfg = reduced(get_config(arch))
+    params = tf.init_params(cfg, seed=6, device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in (21, 9, 30)]
+    out = {}
+    for graph in (None, False):
+        eng = ServingEngine(cfg, batch=2, max_seq=40, block=8, params=params, device=cuda,
+                            graph=graph)
+        for p, n in zip(prompts, (6, 9, 5)):
+            eng.submit(p, n)
+        ops.reset_launch_counts()
+        res, m = eng.run()
+        out[graph] = (res, ops.design_counts(), m.decode_steps)
+        assert eng.graph is (graph is None)
+        if graph is None:
+            assert eng._step.replays == m.decode_steps - 1
+    (g_res, g_designs, g_steps), (e_res, e_designs, e_steps) = out[None], out[False]
+    assert g_steps == e_steps and sorted(g_res) == sorted(e_res) == [0, 1, 2]
+    for rid in e_res:
+        np.testing.assert_array_equal(g_res[rid], e_res[rid])
+    assert g_designs == e_designs
