@@ -37,7 +37,11 @@
    graph, each counted (the replay's launches by design) and under
    torch.profiler (device busy time, idle share, device time by kernel
    kind; the replay's and the eager step's traces hold the counted
-   launches of this port's kernels);
+   launches of this port's kernels); then the prefill as one CUDA graph
+   (``serve()``'s own prefill runs eagerly: one call a serve never
+   reaches a capture), its replay's logits bit-equal to the eager
+   prefill's, its launches counted and read from its trace, profiled
+   beside the eager prefill;
 6. slice parity: full width, 2 layers, float32, the same weights on the
    card (kernel path) and on the CPU (plain path);
 7. matmul parity: the kernel against its plain version at the reference
@@ -107,7 +111,9 @@
    gradient leaf of ``loss_fn`` (1e-4 relative; 1e-4 x max|g| a leaf),
    then one ``make_train_step`` on each side (loss and grad norm, 1e-4
    relative), 2 layers x 2 flash launches each (forward and remat
-   recompute);
+   recompute); then three steps on the card through
+   ``launch.train.compiled_train_step`` as a CUDA graph and twice eagerly,
+   the graph's losses and parameters within the eager runs' spread;
 18. train llama-7b at full width (bf16) with 8 of its 32 layers (the
    parameters, gradients and f32 AdamW moments of all 32 would fill the
    card), batch 4, seq 512, cosine schedule, 8 steps through
@@ -116,9 +122,13 @@
    and wall time, peak memory, flash launches per step (all wgmma), a
    finite and falling loss, the checkpoint restored through
    ``CheckpointManager.restore_latest`` bit-equal to the state in memory;
+   the step a CUDA graph (7 replays of 8 steps, the AdamW step counter 8);
    then one warmed step under torch.profiler (device busy time, idle
    share, device time by kind, inside the plain attention backward and
-   inside the optimizer);
+   inside the optimizer), eagerly and as a replay (its trace's flash
+   launches equal to the counted 16); then the same run twice eagerly
+   (``graph=False``): the graphed run's losses and final parameters within
+   the two eager runs' spread, the peaks beside each other;
 19. the paper's Experiment 2 at AmazonCat-14K sizes (597,540 features,
    8,192 hidden, 14,588 labels, batch 512, float32): the FFNN graph built
    here with the port's ``EinGraph``, ``Program.grad(wrt=["W1", "W2"])``
@@ -131,8 +141,12 @@
    weights) through ``repro_torch.serving.ServingEngine``: 4 slots,
    blocks of 16, max_seq 528, 8 requests with prompt lengths from seed 0
    in 192..512 (both pow2 buckets, 256 and 512), 16 new tokens each; a
-   first engine over a new plan-cache file, a second over the same file
-   (hits only; its run gives the timings); launch counters set to 0 just
+   first engine, eager (``graph=False``), over a new plan-cache file, a
+   second, graphed, over the same file (hits only; its run gives the
+   timings; its generations equal the eager run's, its peak memory within
+   one prefill of the eager run's; each bucket's prefill with its
+   admission a CUDA graph from the bucket's second use, in one shared
+   pool, the replays counted a bucket); launch counters set to 0 just
    before each run and read just after (32 flash launches a prefill, all
    wgmma); registry compiles = buckets + 1; a third run copies out the
    logits behind every token, and each request is held against the serve
@@ -1291,6 +1305,28 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
             "decode_step_graph": _profile(graphed),
         }
         del graphed
+        # the prefill as one CUDA graph, beside the eager call (serve()'s
+        # own runs eagerly: one call a serve never reaches a capture): the
+        # replay's logits bit-equal to the eager call's, its launches
+        # counted (the capture's) and read from its trace
+        prefill_graph = steps.GraphedStep(
+            lambda _, tokens: prefill(params, {"tokens": tokens})[0], None,
+            {"tokens": tokens}, graph=True)
+        prefill_graph()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (replayed,) = prefill_graph()  # the capture, then its first replay
+        torch.cuda.synchronize()
+        t_prefill_capture = time.perf_counter() - t0
+        got_prefill_replay = ops.launch_counts()
+        assert got_prefill_replay == per_prefill, (got_prefill_replay, per_prefill)
+        assert torch.equal(replayed, logits), f"{cfg.name}: prefill graph != eager"
+        breakdown["prefill_graph"] = _profile(prefill_graph)
+        traced_prefill = _traced_launches(breakdown["prefill_graph"])
+        assert traced_prefill == _traced_launches(breakdown["prefill"]) == per_prefill, (
+            traced_prefill, per_prefill)
+        del prefill_graph, replayed
         # what the card ran in one replay, read from its trace (a graph's
         # kernels show one by one), against the counters' per-replay
         # launches (the capture's, added a replay) and the eager step's trace
@@ -1322,6 +1358,10 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
                  f"max_memory_allocated={peak} launches={launches} by design {designs}; "
                  f"per prefill {got_prefill}, per decode step {got_decode}")
     log("serve", f"generations[0] = {gen[0].tolist()}")
+    log("serve", f"{cfg.name}: the prefill as a CUDA graph: its capture and first replay "
+                 f"{t_prefill_capture:.4f} s, logits bit-equal to the eager prefill's; one "
+                 f"replay launched {got_prefill_replay} (counted), {traced_prefill} (its "
+                 f"trace)")
     log("serve", f"{cfg.name}: one replay of the decode graph launched {got_replay} by "
                  f"design {replay_designs} (counted), {traced} (its trace); graphed against eager from one prefill's caches, "
                  f"{against['steps']} steps: tokens equal, max|logit diff| "
@@ -1336,6 +1376,9 @@ def _serve_phase(cfg, ops, b: int = 4, prompt_len: int = 512, max_new: int = 16,
                 "launches_per_graph_replay": got_replay,
                 "designs_per_graph_replay": replay_designs,
                 "traced_launches_per_graph_replay": traced,
+                "prefill_graph_capture_s": t_prefill_capture,
+                "launches_per_prefill_replay": got_prefill_replay,
+                "traced_launches_per_prefill_replay": traced_prefill,
                 "graph_against_eager": against, "n_params": n_params,
                 "flash_design": flash_design,
                 "batch": b, "prompt_len": prompt_len, "max_new": max_new,
@@ -1456,7 +1499,11 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     of the unprofiled wall time (tracing itself slows the host down).
     A trace started late in a process can lose its first device events, so
     ``_fill_trace_start`` and the first call only fill that window, and a
-    spin kernel between the calls marks where the read call starts.
+    spin kernel between the calls marks where the read call starts.  A
+    trace can also come back short of an event or of all of a call's: the
+    kernels counted by kind are the more of the two traced calls'
+    (``by_kind_count``, which ``_traced_launches`` reads), and a trace
+    with no kernel after its marker is taken again (at most twice more).
     ``ranges`` names ``record_function`` ranges whose kernels' device time
     is reported too (``range_ms``, the read call's half of the ranges;
     those kernels also count in their kinds), for which the host's ops are
@@ -1471,42 +1518,39 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
-    with profile(activities=activities) as prof:
-        _fill_trace_start()
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1 << 16)  # the marker
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    device = _device_kernels(prof)
-    marks = [e for e in device if "spin_kernel" in e.name]
-    assert marks, "the trace lost the marker kernel"
-    start = marks[-1].end
+    for attempt in range(3):
+        with profile(activities=activities) as prof:
+            _fill_trace_start()
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1 << 16)  # the marker
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        device = _device_kernels(prof)
+        marks = [e for e in device if "spin_kernel" in e.name]
+        assert marks, "the trace lost the marker kernel"
+        start, first_start = marks[-1].end, marks[-2].end if len(marks) > 1 else None
+        if any(e.start >= start for e in device):
+            break
+        log("trace", f"trace {attempt + 1} holds no kernel after its marker; tracing again")
     by_kind = {"flash_attention": 0.0, "flash_step": 0.0, "matmul": 0.0, "gmm": 0.0,
                "gemm": 0.0, "other": 0.0}
     count = dict.fromkeys(by_kind, 0)
+    first_count = dict.fromkeys(by_kind, 0)  # the first traced call's, by kind
     by_name: dict[str, float] = {}
     n = 0
     for e in device:
-        if (e.start < start or "Loading" in e.name or "Buffer" in e.name
+        if ("Loading" in e.name or "Buffer" in e.name or "spin_kernel" in e.name
                 or e.name in ranges):  # a range's span on the device timeline, not a kernel
+            continue
+        if e.start < start:
+            if first_start is not None and e.start >= first_start:
+                first_count[_kernel_kind(e.name)] += 1
             continue
         n += 1
         ms = e.ms
-        name = e.name.lower()
-        step = "true>" in name or "lb1e" in name  # flash_*_kernel<..., STEP>
-        flash = any(k in name for k in ("flash_fwd_kernel", "flash_wgmma_kernel",
-                                        "flash_ffma_kernel"))
-        ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel",
-                                       "mm_ffma_kernel"))
-        grouped = "kernel<true" in name or "kernelilb1e" in name  # <GROUPED, ...>
-        kind = ("flash_step" if flash and step else
-                "flash_attention" if flash else
-                "gmm" if ours and grouped else
-                "matmul" if ours else
-                "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
-                else "other")
+        kind = _kernel_kind(e.name)
         by_kind[kind] += ms
         count[kind] += 1
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
@@ -1520,8 +1564,27 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms, "kernels": n, "range_ms": range_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "by_kind_ms": {k: round(v, 4) for k, v in by_kind.items()},
-            "by_kind_count": count,
+            "by_kind_count": {k: max(v, first_count[k]) for k, v in count.items()},
             "top_kernels_ms": [(k, round(v, 4)) for k, v in top]}
+
+
+def _kernel_kind(name: str) -> str:
+    """What a device kernel of a trace is: this port's flash forward or
+    ring step, matmul or gmm (any design), a cuBLAS or CUTLASS product,
+    or other."""
+    name = name.lower()
+    step = "true>" in name or "lb1e" in name  # flash_*_kernel<..., STEP>
+    flash = any(k in name for k in ("flash_fwd_kernel", "flash_wgmma_kernel",
+                                    "flash_ffma_kernel"))
+    ours = any(k in name for k in ("mm_f32_kernel", "mm_bf16_kernel", "mm_wgmma_kernel",
+                                   "mm_ffma_kernel"))
+    grouped = "kernel<true" in name or "kernelilb1e" in name  # <GROUPED, ...>
+    return ("flash_step" if flash and step else
+            "flash_attention" if flash else
+            "gmm" if ours and grouped else
+            "matmul" if ours else
+            "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
+            else "other")
 
 
 def _traced_launches(prof: dict) -> dict[str, int]:
@@ -1738,12 +1801,17 @@ def _device_ms(fn, iters: int, match: str | None) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _fill_trace_start()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.ms for e in _after_spin(prof) if match is None or match in e.name]
+    for attempt in range(3):  # a trace has come back without its last events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _fill_trace_start()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.ms for e in _after_spin(prof) if match is None or match in e.name]
+        if times:
+            break
+        log("trace", f"trace {attempt + 1} holds no kernel after its marker ({match}); "
+                     f"tracing again")
     if match is None:
         assert times, "no kernel in the trace"
         return sum(times) / iters
@@ -2366,7 +2434,59 @@ def _train_parity(cfg, ops) -> dict:
                         f"{worst['max_abs_err'] / worst['max_abs_grad']:.3e} of its max|g|")
     res.update({"rel_err": errs, "grad_leaves": leaf_errs, "launches": gpu["launches"],
                 "designs": gpu["designs"], "loss": gpu["loss"], "grad_norm": gpu["grad_norm"]})
+    res["graph_against_eager"] = _train_graph_against_eager(cfg2, cpu_params, toks, ops)
     return res
+
+
+def _max_dist(a: list, b: list) -> float:
+    """max |a_i - b_i| over two lists of tensors (or floats) alike."""
+    return max(float((torch.as_tensor(x).float() - torch.as_tensor(y).float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _train_graph_against_eager(cfg, cpu_params, toks, ops, n_steps: int = 3) -> dict:
+    """Phase 17 (cont.): ``steps.make_train_step`` of ``cfg`` from
+    ``cpu_params`` on the card, ``n_steps`` steps on ``toks`` (tokens and
+    labels), through ``launch.train.compiled_train_step``: twice eagerly
+    (``graph=False``) and once as a CUDA graph (its first step eager, the
+    second captured, the rest replays).  The graph's losses and final
+    parameters are held to the spread of the two eager runs (max|graph -
+    eager| <= max|eager - eager again|: bit-equal where the eager runs
+    are), and its launches by design (the replays' counted from the
+    capture) to an eager run's."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw_init
+
+    batch = {k: torch.as_tensor(toks, device="cuda") for k in ("tokens", "labels")}
+    runs = {}
+    for name, graph in (("eager", False), ("eager_again", False), ("graph", True)):
+        params = tree.map(lambda t: t.to("cuda", copy=True), cpu_params)
+        step = train_mod.compiled_train_step(steps.make_train_step(cfg), params,
+                                             adamw_init(params), batch, graph=graph)
+        ops.reset_launch_counts()
+        losses = [float(step()[0]) for _ in range(n_steps)]
+        runs[name] = (losses, tree.leaves(params), ops.design_counts(), step.replays)
+        del step, params
+    (g_loss, g_par, g_designs, g_replays) = runs["graph"]
+    (e_loss, e_par, e_designs, _), (a_loss, a_par, _, _) = runs["eager"], runs["eager_again"]
+    out = {"steps": n_steps, "losses": {k: v[0] for k, v in runs.items()},
+           "loss_spread": _max_dist(e_loss, a_loss), "loss_diff": _max_dist(g_loss, e_loss),
+           "param_spread": _max_dist(e_par, a_par), "param_diff": _max_dist(g_par, e_par),
+           "replays": g_replays, "designs": g_designs["flash_attention"]}
+    del runs, g_par, e_par, a_par
+    torch.cuda.empty_cache()
+    assert g_replays == n_steps - 1, g_replays
+    assert g_designs == e_designs, (g_designs, e_designs)
+    assert out["loss_diff"] <= out["loss_spread"], out
+    assert out["param_diff"] <= out["param_spread"], out
+    log("train-parity", f"the compiled train step, {n_steps} steps as a CUDA graph ({g_replays} "
+                        f"replays) against eager: losses {g_loss} / {e_loss}; max|graph - "
+                        f"eager| {out['loss_diff']:.3e} (loss), {out['param_diff']:.3e} "
+                        f"(parameters); two eager runs apart by {out['loss_spread']:.3e}, "
+                        f"{out['param_spread']:.3e}; flash by design {out['designs']}")
+    return out
 
 
 TRAIN_LAYERS = 8  # of llama-7b's 32: all 32 with grads and f32 moments would fill the card
@@ -2378,8 +2498,12 @@ OPT_RANGE = "adamw_update"
 def _train_phase(cfg, ops, fa) -> dict:
     """Train ``cfg`` at full width with ``TRAIN_LAYERS`` layers, bf16, batch
     4, seq 512 through ``launch.train.train`` (cosine schedule, a plan-cache
-    file and a checkpoint directory under chiprun_out/); restore the
-    checkpoint; profile one more warmed step."""
+    file and a checkpoint directory under chiprun_out/), its step a CUDA
+    graph (the first step eager, the second captured, the rest replays);
+    restore the checkpoint; profile one more warmed step, eagerly and as a
+    replay of the compiled step; then train twice more with
+    ``graph=False``: the graphed run's losses and final parameters held
+    to the two eager runs' spread, its peak memory beside theirs."""
     import shutil
 
     from repro_torch.checkpoint import CheckpointManager
@@ -2398,15 +2522,20 @@ def _train_phase(cfg, ops, fa) -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     store.unlink(missing_ok=True)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # before the run: what its peak is net of
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     run = train_mod.train(cfg8, shape, steps_total=TRAIN_STEPS, ckpt_dir=str(ckpt),
                           plan_cache=str(store), device="cuda", log_every=1)
     wall = time.perf_counter() - t0
     launches, designs = ops.launch_counts(), ops.design_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     params, opt_state = run["params"], run["opt_state"]
+    # the step replayed its graph from the second step on
+    assert run["replays"] == TRAIN_STEPS - 1, run["replays"]
+    assert int(opt_state.step) == TRAIN_STEPS, int(opt_state.step)
     n_params = sum(t.numel() for t in tree.leaves(params))
     per_step = launches["flash_attention"] / TRAIN_STEPS
     # every layer: its forward, and its recompute in the backward (remat)
@@ -2444,7 +2573,9 @@ def _train_phase(cfg, ops, fa) -> dict:
                  f"({per_step:g} a step) by design {designs['flash_attention']}; checkpoint "
                  f"step {step}, {n_leaves} leaves, {ckpt_bytes} bytes on disk, restored "
                  f"bit-equal in {t_restore:.1f} s")
-    # where the time goes: one more step, warmed, timed, profiled
+    graphed_params = [t.clone() for t in tree.leaves(params)]  # the profile trains on
+    # where the time goes: one more step, warmed, timed, profiled; eagerly,
+    # then as a replay of the compiled step
     lr_fn = lambda s: cosine_schedule(s, peak_lr=3e-4, warmup=1, total=TRAIN_STEPS)  # noqa: E731
     step_fn = steps.make_train_step(cfg8, lr_fn=lr_fn)
     hb = train_mod.SyntheticLM(cfg8.vocab, 512, 4, seed=0).global_batch_at(TRAIN_STEPS)
@@ -2467,6 +2598,16 @@ def _train_phase(cfg, ops, fa) -> dict:
     finally:
         fa.FlashAttention.backward = staticmethod(backward)
         steps.adamw_update = update
+    graph_step = train_mod.compiled_train_step(step_fn, params, opt_state, batch, graph=True)
+    graph_step()
+    ops.reset_launch_counts()
+    graph_step()  # the capture, then its first replay
+    replay_launches = ops.launch_counts()
+    prof_graph = _profile(graph_step)
+    traced = _traced_launches(prof_graph)
+    assert replay_launches == traced == _traced_launches(prof), (replay_launches, traced)
+    assert replay_launches["flash_attention"] == 2 * TRAIN_LAYERS, replay_launches
+    del graph_step
     bwd_ms, opt_ms = prof["range_ms"][ATT_BWD_RANGE], prof["range_ms"][OPT_RANGE]
     log("profile", f"{cfg.name} {TRAIN_LAYERS}-layer train step: wall {prof['wall_ms']:.3f} ms, "
                    f"device busy {prof['device_ms']:.3f} ms (idle share "
@@ -2475,6 +2616,11 @@ def _train_phase(cfg, ops, fa) -> dict:
                    f"({bwd_ms / prof['device_ms']:.3f} of device time); AdamW with its clip "
                    f"{opt_ms:.3f} ms ({opt_ms / prof['device_ms']:.3f}); top "
                    f"{prof['top_kernels_ms'][:4]}")
+    log("profile", f"{cfg.name} {TRAIN_LAYERS}-layer train step as a CUDA graph replay: wall "
+                   f"{prof_graph['wall_ms']:.3f} ms, device busy {prof_graph['device_ms']:.3f} "
+                   f"ms (idle share {prof_graph['idle_share']:.3f}), {prof_graph['kernels']} "
+                   f"kernels; device ms by kind {prof_graph['by_kind_ms']}; launches "
+                   f"{replay_launches} (counted), {traced} (its trace)")
     res = {"layers": TRAIN_LAYERS, "n_params": n_params, "steps": run["steps"],
            "wall_s": wall, "max_memory_allocated": peak, "launches": launches,
            "designs": designs, "flash_launches_per_step": per_step,
@@ -2482,10 +2628,50 @@ def _train_phase(cfg, ops, fa) -> dict:
                           "restore_s": t_restore, "bit_equal": True},
            "profile": prof, "attention_backward_ms": bwd_ms,
            "attention_backward_share": bwd_ms / prof["device_ms"],
-           "optimizer_ms": opt_ms, "optimizer_share": opt_ms / prof["device_ms"]}
+           "optimizer_ms": opt_ms, "optimizer_share": opt_ms / prof["device_ms"],
+           "profile_graph": prof_graph, "launches_per_replay": replay_launches,
+           "traced_launches_per_replay": traced, "replays": run["replays"],
+           "max_memory_reserved": reserved, "peak_over_held": peak - held}
     del params, opt_state, run, batch
     gc.collect()
     torch.cuda.empty_cache()
+    # the same run twice more, eagerly: the graphed run within their spread
+    eager = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        er = train_mod.train(cfg8, shape, steps_total=TRAIN_STEPS, plan_cache=str(store),
+                             device="cuda", log_every=TRAIN_STEPS, graph=False)
+        assert er["replays"] == 0
+        eager.append({"losses": [st["loss"] for st in er["steps"]],
+                      "walls": [st["wall_s"] for st in er["steps"]],
+                      "params": tree.leaves(er["params"]),
+                      "peak": torch.cuda.max_memory_allocated() - before,
+                      "reserved": torch.cuda.max_memory_reserved()})
+        del er
+        gc.collect()
+        torch.cuda.empty_cache()
+    (e1, e2) = eager
+    spread = {"loss": _max_dist(e1["losses"], e2["losses"]),
+              "params": _max_dist(e1["params"], e2["params"])}
+    diff = {"loss": _max_dist(losses, e1["losses"]),
+            "params": _max_dist(graphed_params, e1["params"])}
+    del graphed_params, e1["params"], e2["params"]
+    torch.cuda.empty_cache()
+    walls = [st["wall_s"] for st in res["steps"]]
+    log("train", f"graphed against eager, {TRAIN_STEPS} steps: max|graph - eager| {diff} "
+                 f"(losses, parameters), two eager runs apart by {spread}; step walls from "
+                 f"the third step graphed {[round(w, 4) for w in walls[2:]]} s, eager "
+                 f"{[round(w, 4) for w in e1['walls'][2:]]} s; peak memory over what was "
+                 f"allocated before the run graphed {peak - held} B (reserved {reserved} B), "
+                 f"eager {e1['peak']} / {e2['peak']} B (reserved {e1['reserved']} / "
+                 f"{e2['reserved']} B)")
+    assert diff["loss"] <= spread["loss"] and diff["params"] <= spread["params"], (diff, spread)
+    res.update({"graph_against_eager": {"diff": diff, "spread": spread,
+                                        "eager_losses": [e1["losses"], e2["losses"]],
+                                        "eager_walls": [e1["walls"], e2["walls"]],
+                                        "eager_peaks": [e1["peak"], e2["peak"]],
+                                        "eager_reserved": [e1["reserved"], e2["reserved"]]}})
     res["memory_allocated_after"] = torch.cuda.memory_allocated()
     log("train", f"device memory left allocated after the phase: "
                  f"{res['memory_allocated_after']} bytes")
@@ -2760,18 +2946,22 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
     token, then its row of every decode step; with ``routes``, also the
     experts each decode step picked for its token, as ``_sequential``.  The
     steps are the engine's own (the registry's prefill entry,
-    ``make_paged_serve_step`` and the greedy argmax on the device).  The
-    decode step does device work only, so the engine captures and replays
-    it as its graph: the step keeps its logits and routings in tensors
+    ``make_paged_serve_step`` and the greedy argmax on the device).  Both
+    taps do device work only, so the engine captures and replays its
+    bucket prefills and its decode step as graphs: the prefill tap copies
+    its logits into a buffer made here, which each admission reads after
+    the step, and the decode step keeps its logits and routings in tensors
     (the graph's, refilled by every replay), which each decode phase reads
-    after the step."""
+    after the step.  The wrappers hold the engine: delete
+    ``eng._prefill_into`` and ``eng._decode_phase`` before dropping it."""
+    from repro_torch.core.gspmd import full
     from repro_torch.launch import steps
 
     rec: dict[int, list] = {}
     rec_experts: dict[int, list] = {}
     reg, decode_base = eng.registry, steps.make_paged_serve_step(eng.cfg)
-    order = iter(range(1 << 30))  # admissions come in request order (a FIFO queue)
-    get_prefill = reg.prefill
+    get_prefill, prefill_into = reg.prefill, eng._prefill_into
+    first = torch.empty((eng.cfg.vocab_padded,), dtype=torch.float32, device=eng.device)
 
     def prefill(prompt_len, batch=1):
         ent = get_prefill(prompt_len, batch)
@@ -2780,12 +2970,15 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
 
         def step(params, batch, last_index):
             logits, caches = base(params, batch, last_index)
-            rid = next(order)
-            rec[rid], rec_experts[rid] = [logits[0, -1].float().cpu()], [None]
+            first.copy_(full(logits)[0, -1].float())  # a replay refills it
             return logits, caches
 
         ent.step = step
         return ent
+
+    def admitted(req, slot, blocks):
+        prefill_into(req, slot, blocks)
+        rec[req.rid], rec_experts[req.rid] = [first.to("cpu", copy=True)], [None]
 
     held: dict = {}
 
@@ -2811,6 +3004,7 @@ def _record_logits(eng, routes: _RouteLog | None = None) -> tuple[dict, dict]:
                 rec_experts[rid].append(torch.stack([c[i] for c in calls]))
 
     reg.prefill, eng._decode, eng._decode_phase = prefill, decode, decode_phase
+    eng._prefill_into = admitted
     return rec, rec_experts
 
 
@@ -2868,15 +3062,23 @@ def _hold_against_sequential(what: str, got: np.ndarray, got_logits: list,
 
 
 def _engine_run(cfg, params, prompts, max_new, *, batch: int, block: int, max_seq: int,
-                store: str, ops, device="cuda"):
-    """A ``ServingEngine`` on ``device`` over a plan-cache file: every
-    request submitted, the launch counters set to 0 just before ``run``
-    and read just after, the peak memory of the run."""
+                store: str, ops, device="cuda", graph: bool | None = None):
+    """A ``ServingEngine`` on ``device`` over a plan-cache file (``graph``
+    as the engine takes it): every request submitted, the launch counters
+    set to 0 just before ``run`` and read just after, the peak memory of
+    the run (allocated, and reserved from an emptied cache).  With graphs,
+    the decode step and every bucket's prefill with its admission replay
+    them: a step's first call eager, its second captured, every call after
+    the first a replay; the bucket graphs share one memory pool."""
+    from collections import Counter
+
     from repro_torch.core.plancache import PlanCache
     from repro_torch.serving import ServingEngine
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # before the requests' clocks start
     eng = ServingEngine(cfg, batch=batch, max_seq=max_seq, block=block, params=params,
-                        plan_cache=PlanCache.open(store), device=device)
+                        plan_cache=PlanCache.open(store), device=device, graph=graph)
     for p, n in zip(prompts, max_new):
         eng.submit(p, n)
     torch.cuda.synchronize()
@@ -2884,27 +3086,60 @@ def _engine_run(cfg, params, prompts, max_new, *, batch: int, block: int, max_se
     ops.reset_launch_counts()
     res, metrics = eng.run()
     launches, designs = ops.launch_counts(), ops.design_counts()
-    # the decode step replays one CUDA graph: its first step eager, captured at the second
-    assert eng.graph and eng._step.replays == metrics.decode_steps - 1, (
-        eng.graph, eng._step.replays, metrics.decode_steps)
+    graphed = graph is None
+    assert eng.graph is graphed, (eng.graph, graph)
+    assert eng._step.replays == (metrics.decode_steps - 1 if graphed else 0), (
+        eng._step.replays, metrics.decode_steps)
+    uses = Counter(eng.registry.bucket_len(len(p)) for p in prompts)
+    prefills = {key[2]: run for key, run in eng._prefills.items()}
+    assert sorted(prefills) == sorted(uses), (sorted(prefills), uses)
+    for n, run in prefills.items():
+        assert run.replays == (uses[n] - 1 if graphed else 0), (n, run.replays, uses[n])
+        assert (run._graph is not None) == (graphed and uses[n] > 1), n
+        assert run.pool is eng._pool and (eng._pool is not None) == graphed
     return eng, res, metrics, {"launches": launches, "designs": designs,
                                "replays": eng._step.replays,
-                               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                               "prefill_uses": dict(uses),
+                               "prefill_replays": {n: r.replays for n, r in prefills.items()},
+                               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                               "max_memory_reserved": torch.cuda.max_memory_reserved()}
+
+
+def _prefill_footprint(eng, n: int) -> int:
+    """Bytes one eager bucketed prefill of ``n`` tokens allocates beyond
+    what is allocated before it (its caches, logits and intermediates),
+    through the engine's registry entry."""
+    ent = eng.registry.prefill(n)
+    tokens = torch.zeros((1, ent.key[2]), dtype=torch.int32, device=eng.device)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = ent.step(eng.params, {"tokens": tokens}, n - 1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak - before
 
 
 def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int,
                   lens: list[int], max_new: int, seed: int = 0, device="cuda",
                   baseline: bool = False) -> dict:
     """``cfg`` at full width and depth (bf16, random weights from ``seed``)
-    served by the continuous-batching engine on the card: a first engine
-    over a new plan-cache file, then a second over the same file (plans
-    with hits only, its run read for the timings).  Checks: each request's
+    served by the continuous-batching engine on the card: a first engine,
+    eager (``graph=False``), over a new plan-cache file, then a second,
+    graphed, over the same file (plans with hits only, its run read for
+    the timings).  Checks: each request's
     generation against the sequential serve of that request alone (the
     near-tie rule), flash launches = layers x prefills, gmm launches =
     MoE products x layers x (prefills + decode steps), every bf16 launch of
     the wgmma design, registry compiles = distinct buckets + 1 decode cell.
-    The decode step replays its graph (``eng._step.replays`` = decode steps
-    - 1 a run).  Then one engine decode step with every slot live, counted
+    The graphed run's decode step replays its graph (``eng._step.replays``
+    = decode steps - 1), and so does each bucket's prefill with its
+    admission from the bucket's second use (``_engine_run``); its
+    generations equal the eager run's, and its peak memory is within one
+    prefill of the longest prompt of the eager run's.  Then one engine
+    decode step with every slot live, counted
     and profiled as a replay and eagerly (the same step function), beside
     the dense serve loop's decode step, graphed and eager (``dense``: phase
     5's, 14's or 24's profile).  With ``baseline``, the
@@ -2929,11 +3164,14 @@ def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int
     kw = dict(batch=slots, block=block, max_seq=max_seq, ops=ops, device=device)
     with tempfile.TemporaryDirectory() as tmp:
         store = str(Path(tmp) / "plans.json")
-        eng, first, m1, run1 = _engine_run(cfg, params, prompts, news, store=store, **kw)
+        # the first run eager (graph=False): the baseline of the graphed second
+        eng, first, m1, run1 = _engine_run(cfg, params, prompts, news, store=store,
+                                           graph=False, **kw)
         buckets = sorted({eng.registry.bucket_len(n) for n in lens})
         stats1 = eng.registry.stats
         assert stats1.compiles == len(buckets) + 1, (stats1, buckets)
         assert stats1.plan_cache_hits == 0, stats1
+        footprint = _prefill_footprint(eng, max(lens))
         del eng
         eng, res, m, run2 = _engine_run(cfg, params, prompts, news, store=store, **kw)
         summary, ttft = m.summary(), [m.ttft_s[r] for r in sorted(m.ttft_s)]
@@ -2951,7 +3189,14 @@ def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int
             assert run["designs"][kernel]["wgmma"] == run["launches"][kernel], run["designs"]
     assert m.prefills == m1.prefills == len(lens), (m.prefills, m1.prefills)
     assert m.tokens_generated == len(lens) * max_new, m.tokens_generated
+    # graphed (the bucket prefills with their admission, the decode step)
+    # against eager: the same kernels in the same order, so the same tokens
     same = all(np.array_equal(first[r], res[r]) for r in res)
+    assert same and sorted(first) == sorted(res), (first, res)
+    # the bucket graphs share one pool: the graphed run's peak within one
+    # bucket's prefill of the eager run's
+    assert run2["max_memory_allocated"] <= run1["max_memory_allocated"] + footprint, (
+        run2["max_memory_allocated"], run1["max_memory_allocated"], footprint)
     # the KV pools, and the per-slot recurrent states where the arch has them
     pool_bytes = sum(t.nbytes for t in tree.leaves(eng.caches))
     # a third run that copies out the logits behind every token, and each
@@ -2964,7 +3209,8 @@ def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int
         for p in prompts:
             rec_eng.submit(p, max_new)
         rec_res, _ = rec_eng.run()
-        del rec_eng._decode_phase, rec_eng  # the tap's wrapper holds the engine: a cycle
+        # the taps' wrappers hold the engine: a cycle
+        del rec_eng._decode_phase, rec_eng._prefill_into, rec_eng
         seq = []
         for rid, p in enumerate(prompts):
             assert ((rec_res[rid] >= 0) & (rec_res[rid] < cfg.vocab_padded)).all()
@@ -3030,12 +3276,21 @@ def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int
     log("engine", f"{cfg.name} bf16, {slots} slots, block {block}, max_seq {max_seq}, "
                   f"{len(lens)} requests (prompts {lens}, buckets {buckets}), {max_new} new "
                   f"each; params made in {t_init:.1f} s")
-    log("engine", f"first run (cold plan-cache file): {m1.summary()}; registry {stats1}")
-    log("engine", f"second run (the same file): {summary}; registry {stats2}; generations "
-                  f"equal to the first run's: {same}, to the logit-recording run's: {same_rec}")
-    log("engine", f"TTFT per request (s): {[round(t, 4) for t in ttft]}")
+    ttft1 = [m1.ttft_s[r] for r in sorted(m1.ttft_s)]
+    log("engine", f"first run (eager, cold plan-cache file): {m1.summary()}; registry {stats1}")
+    log("engine", f"second run (graphed, the same file): {summary}; registry {stats2}; "
+                  f"generations equal to the eager run's: {same}, to the logit-recording "
+                  f"run's: {same_rec}")
+    log("engine", f"TTFT per request (s), graphed: {[round(t, 4) for t in ttft]}; eager: "
+                  f"{[round(t, 4) for t in ttft1]}")
+    log("engine", f"bucket prefills with their admission, graphed run: uses "
+                  f"{run2['prefill_uses']}, replays {run2['prefill_replays']} (captured at "
+                  f"each bucket's second use), one shared pool")
     log("engine", f"launches {run2['launches']}, by design {run2['designs']}; peak memory "
-                  f"{run2['max_memory_allocated']} B, pool {pool_bytes} B")
+                  f"graphed {run2['max_memory_allocated']} B (reserved "
+                  f"{run2['max_memory_reserved']} B), eager {run1['max_memory_allocated']} B "
+                  f"(reserved {run1['max_memory_reserved']} B), one prefill of {max(lens)} "
+                  f"tokens {footprint} B; pool {pool_bytes} B")
     log("engine", f"against serve() of each request alone, teacher-forced on the engine's "
                   f"tokens: positions compared before the first routing difference "
                   f"{[h['routing_stop'] for h in held]}, tokens before the first flip "
@@ -3060,6 +3315,12 @@ def _engine_phase(cfg, ops, dense: dict, *, slots: int, block: int, max_seq: int
     out = {"slots": slots, "block": block, "max_seq": max_seq, "prompt_lens": lens,
            "max_new": max_new, "buckets": buckets, "t_init_s": t_init,
            "first_run": m1.summary(), "summary": summary, "ttft_s": ttft,
+           "ttft_s_eager": ttft1, "prefill_uses": run2["prefill_uses"],
+           "prefill_replays": run2["prefill_replays"],
+           "max_memory_allocated_eager": run1["max_memory_allocated"],
+           "max_memory_reserved": run2["max_memory_reserved"],
+           "max_memory_reserved_eager": run1["max_memory_reserved"],
+           "prefill_footprint": footprint,
            "registry_first": dataclasses.asdict(stats1),
            "registry_second": dataclasses.asdict(stats2), "same_as_first_run": same,
            "same_as_recording_run": same_rec,

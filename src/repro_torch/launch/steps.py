@@ -1,17 +1,21 @@
 """Step functions shared by the trainer and the server: ``train_step``
 (fwd + bwd + AdamW), ``prefill_step`` and ``serve_step``, and the serving
 tier's ``bucket_prefill_step`` and ``paged_serve_step``; and
-``GraphedStep``, which compiles a decode step the way the reference's
-``jax.jit(..., donate_argnums=(2,))`` compiles it: one CUDA graph,
-captured once and replayed every step, reading fixed input buffers and
-writing the caches in place.
+``GraphedStep``, which compiles a step the way the reference's
+``jax.jit(..., donate_argnums=...)`` compiles it: one CUDA graph,
+captured once and replayed every call, reading fixed input buffers and
+writing its state (caches, parameters and moments) in place.
 
-The reference jit-compiles every step.  Here the decode steps of
-``launch.serve.serve`` and ``serving.ServingEngine`` replay a graph on a
-card (``use_graph``); the prefills and the train step run eagerly.
+The reference jit-compiles every step.  Here, on a card with no mesh
+(``use_graph``), the decode steps of ``launch.serve.serve`` and
+``serving.ServingEngine``, the engine's bucket prefills with their
+admission (one graph a bucket) and ``launch.train.train``'s step replay a
+graph; ``serve()``'s one-shot prefill runs eagerly (one call a ``serve``
+never reaches a capture), and so does every step on a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -32,9 +36,13 @@ def make_train_step(cfg, *, policy=None, mesh=None,
     unit rematerialized as the policy says, ``loss_fn``), then
     ``adamw_update``, which writes the parameters and moments in place.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``
-    as 0-d tensors.  ``batch`` holds ``tokens`` and ``labels``, and
-    ``prefix_embeds`` where the config has a prefix (``loss_fn`` reads
-    it).
+    as 0-d tensors on the device.  ``batch`` holds ``tokens`` and
+    ``labels``, and ``prefix_embeds`` where the config has a prefix
+    (``loss_fn`` reads it).  ``lr_fn`` maps the step counter (a 0-d
+    tensor on the device) to the learning rate, as the reference's traced
+    step does: a tensor computed from it, or a float, which is a constant
+    (a captured step replays the value it was captured with).  The step
+    does no host read, so ``GraphedStep`` can capture it (``train``).
 
     On a mesh of more than one rank the parameters and moments are
     DTensors (``transformer.place_params``, ``adamw_init``) and so is the
@@ -63,12 +71,15 @@ def make_train_step(cfg, *, policy=None, mesh=None,
             grads = [g.redistribute(p.device_mesh, p.placements)
                      for g, p in zip(grads, leaves)]
         grads = _like(params, grads)
-        lr = lr_fn(opt_state.step)
+        step = opt_state.step
+        lr = lr_fn(step)
+        if not isinstance(lr, torch.Tensor):  # a fill, legal under capture
+            lr = torch.full((), lr, dtype=torch.float32, device=step.device)
         params, opt_state, gnorm = adamw_update(
             params, grads, opt_state, lr, weight_decay=weight_decay)
         metrics = {k: full(v).detach() for k, v in metrics.items()}
         metrics.update({"loss": full(loss).detach(), "grad_norm": gnorm,
-                        "lr": torch.as_tensor(lr, dtype=torch.float32)})
+                        "lr": lr.to(torch.float32)})
         return params, opt_state, metrics
 
     return train_step
@@ -108,11 +119,12 @@ def make_serve_step(cfg, *, policy=None, mesh=None) -> Callable:
 
 def make_bucket_prefill_step(cfg, *, policy=None, mesh=None) -> Callable:
     """Prefill over a bucket-padded prompt: ``prefill_step`` except that the
-    LM head runs at ``last_index`` (the last *real* token) instead of the
-    final, padded, position.  Structurally the same graph, so the two share
-    a plan-cache entry per shape cell."""
+    LM head runs at ``last_index`` (the last *real* token: an int, or a
+    0-d integer tensor on the device, as the reference traces it) instead
+    of the final, padded, position.  Structurally the same graph, so the
+    two share a plan-cache entry per shape cell."""
 
-    def bucket_prefill_step(params, batch, last_index: int):
+    def bucket_prefill_step(params, batch, last_index):
         logits, caches, _ = tf.forward(params, batch["tokens"], cfg,
                                        prefix_embeds=batch.get("prefix_embeds"),
                                        policy=policy, mesh=mesh,
@@ -139,12 +151,12 @@ def make_paged_serve_step(cfg, *, policy=None, mesh=None) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# The compiled decode step
+# The compiled step
 # ---------------------------------------------------------------------------
 
 
 def use_graph(graph: bool | None, device, mesh=None) -> bool:
-    """Whether a decode step runs as a captured CUDA graph.  ``graph=None``
+    """Whether a step runs as a captured CUDA graph.  ``graph=None``
     (the default, as the reference jits by default) captures on a card
     with no mesh of more than one rank and runs eagerly elsewhere: on the
     CPU there is nothing to capture, and on a mesh gloo's collectives and
@@ -158,18 +170,36 @@ def use_graph(graph: bool | None, device, mesh=None) -> bool:
         return capturable
     if graph and not capturable:
         where = "a mesh of more than one rank" if placed else f"{device}"
-        raise ValueError(f"a CUDA graph of the decode step was asked for on "
+        raise ValueError(f"a CUDA graph of the step was asked for on "
                          f"{where}: only a step on one card is captured "
                          "(graph=None runs it eagerly there)")
     return bool(graph)
 
 
+_SIDE: dict = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one side stream of ``device`` on which every step warms up and
+    is captured.  The caching allocator keeps a freed block for the stream
+    it was made on, in a graph's pool too: on one stream each warm-up
+    reuses the blocks the last one freed, and each capture into a shared
+    pool the blocks the other graphs left, where a stream a step would
+    allocate them all afresh (cudaMalloc) and grow the pool by each."""
+    device = torch.device(device)
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
+
+
 class GraphedStep:
-    """``fn(state, **inputs)`` compiled as the reference jits a decode
-    step.  ``state`` is what the step writes in place (the caches: the
-    port's form of ``donate_argnums=(2,)``); ``fn`` reads everything else
-    it needs (the parameters) from its closure, and returns a tensor or a
-    tuple of tensors.  The graph bakes in the addresses of all of them.
+    """``fn(state, **inputs)`` compiled as the reference jits a step.
+    ``state`` is what the step writes in place (the caches of a decode
+    step or of an admission, the parameters and moments of a train step:
+    the port's form of ``donate_argnums``); ``fn`` reads everything else
+    it needs (the parameters of a serving step) from its closure, and
+    returns a tensor or a tuple of tensors.  The graph bakes in the
+    addresses of all of them.
 
     ``inputs`` gives the fixed input buffers (``self.inputs``, copies of
     the tensors given: tokens, positions, block tables), which callers
@@ -177,8 +207,9 @@ class GraphedStep:
     fixed output buffers (``self.outputs``), overwritten by the next call:
     a caller that keeps an output past it clones it.
 
-    With a graph (``use_graph``), the first call runs ``fn`` eagerly on a
-    side stream, as PyTorch's graph capture wants its warm-up: the kernels
+    With a graph (``use_graph``), the first call runs ``fn`` eagerly on
+    the side stream (``side_stream``), as PyTorch's graph capture wants its
+    warm-up: the kernels
     are built and the libraries' handles made there, never under capture.
     That call is a real step, on the real state.  The second call captures
     ``fn`` into one ``torch.cuda.CUDAGraph`` and replays it, and every
@@ -189,11 +220,21 @@ class GraphedStep:
     ``fn`` eagerly and copies its outputs into the same fixed buffers, so
     the CPU runs the plumbing the card runs, aliasing included.  ``graph``
     is taken as ``use_graph`` takes it with no mesh: a step on a mesh is
-    given the rule's answer for it (``False``)."""
+    given the rule's answer for it (``False``).
+
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``) lets several steps'
+    graphs share one memory pool for what they allocate while they run,
+    as the engine's bucket prefills do.  That is safe because every
+    output and every piece of state lives outside the pool (the fixed
+    buffers are made by the eager first call, the state by the caller),
+    so nothing a graph leaves behind is in it, and because the graphs
+    replay one at a time on one stream: each replay may overwrite all of
+    the pool.  A caller that keeps a tensor made inside ``fn`` past the
+    call breaks the first condition."""
 
     def __init__(self, fn: Callable, state, inputs: dict, *,
-                 graph: bool | None = None):
-        self.fn, self.state = fn, state
+                 graph: bool | None = None, pool=None):
+        self.fn, self.state, self.pool = fn, state, pool
         self.inputs = {k: v.detach().clone() for k, v in inputs.items()}
         self.device = next(iter(self.inputs.values())).device
         self.graphed = use_graph(graph, self.device)
@@ -211,7 +252,7 @@ class GraphedStep:
         if self.outputs is not None:
             self._capture()
             return self._replay()
-        side, main = torch.cuda.Stream(self.device), torch.cuda.current_stream(self.device)
+        side, main = side_stream(self.device), torch.cuda.current_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self._fill(self.fn(self.state, **self.inputs))
@@ -235,14 +276,27 @@ class GraphedStep:
                 fixed.copy_(o)
 
     def _capture(self) -> None:
+        """Capture ``fn`` on the side stream, as ``torch.cuda.graph`` does
+        but without its synchronize and its emptying of the device and
+        pinned host caches, which free every cached block: the calls after
+        each capture would allocate afresh."""
         before = ops.snapshot_counts()
         graph = torch.cuda.CUDAGraph()
+        side = side_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
         try:
-            with torch.cuda.graph(graph):
-                out = self.fn(self.state, **self.inputs)
-                out = out if isinstance(out, tuple) else (out,)
-                for fixed, o in zip(self.outputs, out):
-                    fixed.copy_(o)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    out = self.fn(self.state, **self.inputs)
+                    out = out if isinstance(out, tuple) else (out,)
+                    for fixed, o in zip(self.outputs, out):
+                        fixed.copy_(o)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):  # the capture is void
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
             self._counts = ops.counts_since(before)
         finally:
             ops.restore_counts(before)  # capture launches nothing

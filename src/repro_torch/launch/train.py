@@ -40,6 +40,16 @@ with ``--device cpu``); a checkpoint it writes restarts on any mesh:
 ``--pp > 1`` prints the static pipeline summary of the forward program
 (stages, bubble, handoff wire); the step itself runs the unpipelined plan,
 as in the reference.
+
+The step is compiled as the reference jits it with the parameters and
+moments donated: on a card with no mesh it replays one CUDA graph
+(``steps.GraphedStep``: the first step eager, the second captured, every
+later step a replay), the batch copied into fixed device buffers, the
+parameters, moments and step counter written in place, the metrics read
+from fixed output buffers after each step.  ``train(graph=False)`` runs
+it eagerly; the CPU and a mesh of more than one rank always do, through
+the same buffers.  A checkpoint saves the tensors the graph writes; a
+restore makes the step after it.
 """
 from __future__ import annotations
 
@@ -74,14 +84,16 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
           schedule: str = "cosine", peak_lr: float = 3e-4,
           log_every: int = 10, seed: int = 0, plan_cache=None,
           executor: str = "gspmd", pp: int = 1, microbatches: int = 1,
-          device=None) -> dict:
+          device=None, graph: bool | None = None) -> dict:
     """Train ``cfg`` for ``steps_total`` steps on batches of ``shape``.
 
     Returns ``{"history": [(step, loss) every log_every steps and at the
     end], "steps": [per step: step, loss, ce, grad_norm, lr, wall_s],
-    "params", "opt_state"}``; ``wall_s`` is the step's host time ending in
-    a synchronize.  ``device`` defaults to the card (``mesh.device`` where
-    a mesh is given); the weights are seeded random ones made there.
+    "params", "opt_state", "replays"}``; ``wall_s`` is the step's host time
+    ending in a synchronize, ``replays`` how many steps replayed the
+    compiled step's CUDA graph (0 where it runs eagerly).  ``device``
+    defaults to the card (``mesh.device`` where a mesh is given); the
+    weights are seeded random ones made there.
     ``plan_cache`` is a ``PlanCache`` or a path to its JSON store.  With
     ``pp > 1`` the static pipeline summary over ``pp`` stages and
     ``microbatches`` is printed first.
@@ -93,11 +105,17 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     made first.  The AdamW moments are restored under the parameters'
     placements: the reference restores them unplaced and lets ``jit``
     place them, but in the port a plain tensor cannot meet a DTensor in
-    the step."""
+    the step.
+
+    ``graph`` is ``steps.use_graph``'s: ``None`` replays the step as a
+    CUDA graph on a card with no mesh of more than one rank and runs it
+    eagerly elsewhere, ``False`` runs it eagerly, ``True`` asks for the
+    graph and raises where there is none (the module docstring)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     mesh = mesh or Mesh(ONE_DEVICE_MESH, device=dev)
     axes = dict(mesh.sizes)
     placed = mesh.world_size > 1
+    graph = steps.use_graph(graph, dev, mesh)
     if pp > 1:
         _print_pipeline_summary(cfg, shape, axes, pp, microbatches)
     # warm-start planning from the persistent cache: on restart the §8 DP
@@ -147,6 +165,7 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
         opt_state = adamw_init(params)
 
     history, per_step = [], []
+    run = None  # the compiled step, made at the first step (after a restore)
     t0 = time.time()
     for step in range(start, steps_total):
         hb = data.global_batch_at(step)
@@ -155,9 +174,14 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
             host["prefix_embeds"] = np.random.default_rng(step).normal(
                 size=(shape.batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
         batch = place_batch(host, policy, mesh)
+        if run is None:
+            run = compiled_train_step(step_fn, params, opt_state, batch, graph=graph)
+        else:
+            for k, v in batch.items():
+                run.inputs[k].copy_(v)
         _sync(dev)
         ts = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        metrics = dict(zip(METRICS, run()))
         _sync(dev)
         wall = time.perf_counter() - ts
         loss = float(metrics["loss"])
@@ -176,7 +200,25 @@ def train(cfg, shape: ShapeConfig, *, steps_total: int = 100,
     if mgr is not None:
         mgr.save(steps_total, (params, opt_state), blocking=True)
     return {"history": history, "steps": per_step, "params": params,
-            "opt_state": opt_state}
+            "opt_state": opt_state, "replays": run.replays if run is not None else 0}
+
+
+#: the train step's metrics, in the order of the compiled step's outputs
+METRICS = ("loss", "ce", "aux", "grad_norm", "lr")
+
+
+def compiled_train_step(step_fn, params, opt_state, batch: dict, *,
+                        graph: bool | None = None) -> steps.GraphedStep:
+    """``step_fn`` (``steps.make_train_step``'s) as a ``GraphedStep``: the
+    state is ``(params, opt_state)``, written in place; the inputs are
+    fixed copies of ``batch``'s entries, which the caller ``copy_``s the
+    next batch into; each call returns the ``METRICS`` as 0-d tensors in
+    fixed output buffers."""
+    def fn(state, **batch):
+        _, _, metrics = step_fn(*state, batch)
+        return tuple(metrics[k] for k in METRICS)
+
+    return steps.GraphedStep(fn, (params, opt_state), batch, graph=graph)
 
 
 def _print_pipeline_summary(cfg, shape: ShapeConfig, intra_axes: dict,

@@ -580,7 +580,10 @@ def _rematerialized(unit, remat):
         kw = {}
     else:
         raise ValueError(f"remat must be True, False or 'dots', got {remat!r}")
-    return lambda x, u: checkpoint(unit, x, u, use_reentrant=False, **kw)
+    # no unit draws random numbers, so there is no RNG state to stash; and
+    # reading the card's generator is illegal under a CUDA graph's capture
+    return lambda x, u: checkpoint(unit, x, u, use_reentrant=False,
+                                   preserve_rng_state=False, **kw)
 
 
 def _embed_tokens(params, tokens, prefix_embeds, cfg, policy=None,
@@ -608,9 +611,11 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, policy=None,
     SSMState) for hymba, MLSTMState or SLSTMState.
     ``last_logit_only`` computes the LM head for the final position only
     (prefill serving never needs the (b, s, v) logits); ``logit_index``
-    (an int) generalizes it to any single position — the serving tier's
+    (an int, or a 0-d integer tensor on the device: the reference's traced
+    scalar) generalizes it to any single position — the serving tier's
     bucketed prefill pads the prompt to the bucket length and takes the
-    logit at the last real token.  ``remat`` is the
+    logit at the last real token, and a captured prefill reads it from a
+    fixed buffer.  ``remat`` is the
     reference's: ``True`` recomputes each unit (one pattern period) in the
     backward from its input, ``"dots"`` keeps the unit's matrix products
     and recomputes the rest, ``False`` (the default, what serving runs)
@@ -650,9 +655,21 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, policy=None,
     if last_logit_only:
         x = x[:, -1:]
     elif logit_index is not None:
-        x = x.narrow(1, int(logit_index), 1)
+        x = _at_position(x, logit_index)
     logits = _cst(lm_logits(x, _head(params)), "b s v", policy, mesh)
     return logits, caches, aux
+
+
+def _at_position(x, index):
+    """``x[:, index:index + 1]`` (the reference's ``dynamic_slice_in_dim``):
+    a 0-d tensor ``index`` is read on the device (``index_select``, no
+    host sync), an int by ``narrow``.  On DTensors the index is read on
+    the host: a mesh runs eagerly."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(index, torch.Tensor) and not isinstance(x, DTensor):
+        return x.index_select(1, index.reshape(1).to(device=x.device, dtype=torch.long))
+    return x.narrow(1, int(index), 1)
 
 
 def loss_fn(params, batch, cfg, *, policy=None, mesh=None, remat=None):

@@ -78,16 +78,19 @@ def compress_grads(grads, generator: torch.Generator):
 def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0):
-    """One AdamW step with global-norm clipping.  Writes the parameters and
-    the moments in place and returns ``(params, AdamWState, grad norm)``.
-    ``lr`` is a float or a 0-d tensor."""
+    """One AdamW step with global-norm clipping.  Writes the parameters,
+    the moments and the step counter in place (where the reference
+    donates them: a captured step replays on the same tensors, so a new
+    counter would never advance) and returns ``(params, AdamWState, grad
+    norm)``.  ``lr`` is a float or a 0-d tensor."""
     with torch.no_grad():
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        step = state.step + 1
+        step = state.step.add_(1)
         stepf = step.to(torch.float32)
         b1c = 1 - torch.full_like(stepf, b1) ** stepf
         b2c = 1 - torch.full_like(stepf, b2) ** stepf
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
+        lr = (lr.to(device=stepf.device, dtype=torch.float32)
+              if isinstance(lr, torch.Tensor) else torch.full_like(stepf, lr))
         for p, g, m, v in zip(tree.leaves(params), tree.leaves(grads),
                               tree.leaves(state.m), tree.leaves(state.v)):
             p, g, m, v = (_local(t) for t in (p, g, m, v))

@@ -28,8 +28,9 @@ def wsd_schedule(step, *, peak_lr: float, warmup: int, stable: int,
     step = _f32(step)
     warm = peak_lr * step / max(warmup, 1)
     prog = torch.clamp((step - warmup - stable) / max(decay, 1), 0.0, 1.0)
-    dec = peak_lr * torch.pow(torch.tensor(floor_frac, dtype=torch.float32,
-                                           device=step.device), prog)
+    # the base made on the device (a fill, not a host copy: legal under a
+    # CUDA graph's capture)
+    dec = peak_lr * torch.pow(torch.full_like(step, floor_frac), prog)
     return torch.where(step < warmup, warm,
                        torch.where(step < warmup + stable,
                                    torch.full_like(step, peak_lr), dec))

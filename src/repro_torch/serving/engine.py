@@ -11,19 +11,37 @@ and the recurrent states of hymba and xLSTM blocks into the slot's rows;
 and block tables mean requests join and leave mid-flight without any
 replanning; (3) evict finished requests and return their blocks.
 
-The decode step (the paged step and its greedy argmax) is compiled as
-the reference jits it with its caches donated: on a card with no mesh it
-replays one CUDA graph per step (``launch.steps.GraphedStep``, captured at
-the engine's second decode step), reading the tokens, block tables and
-positions from fixed device buffers and writing the pools and states in
-place; ``graph=False`` runs it eagerly, as the CPU and a mesh always do.
+The steps are compiled as the reference jits them with the caches
+donated, each as a ``launch.steps.GraphedStep``: on a card with no mesh
+each replays a CUDA graph, reading its inputs from fixed device buffers
+and writing the pools and states in place; ``graph=False`` runs them
+eagerly, as the CPU and a mesh always do, through the same buffers.
+
+* The decode step (the paged step and its greedy argmax): one graph,
+  captured at the engine's second decode step.
+* A bucket's prefill, its argmax and the admission of its caches into
+  the pool (the reference's jitted bucket prefill, ``last_index`` traced,
+  and its jitted admission, ``slot`` traced and the caches donated): one
+  graph a bucket, keyed by the bucket's key and captured at the bucket's
+  second use, reading the padded prompt, ``last_index``, the table row,
+  ``slot`` and the decode token buffer; it returns the first token and the
+  token buffer with it seeded.  One graph keeps the per-layer prefill
+  caches inside it.  The bucket graphs share one memory pool (they replay
+  one at a time on one stream, and nothing they leave behind is in it:
+  ``GraphedStep``).  They bake in this engine's pool addresses, so the
+  engine owns them, not the registry's entries.  A capture costs about
+  two eager calls (the step's Python under capture, then the graph's
+  instantiation), so a bucket's graph pays back over its next few
+  replays, and an exact bucket used once runs eagerly, as before.
 
 Generated tokens stay on the device (the decode step argmaxes on the
 device and each step's tokens are cloned out of its fixed output buffer
 into the step log); the host fetches everything once at drain, so the
 loop never waits on a decode step.  The
 one host sync per request is the prefill's argmax, which defines the time
-to first token.  Length-based eviction is the default; passing ``eos_id``
+to first token (the first token comes out of the same graph as the
+admission, so TTFT includes the admission's copies).  Length-based
+eviction is the default; passing ``eos_id``
 enables early exit at the cost of one host sync per step (opt-in).
 
 The block tables and positions live on the host as numpy arrays that the
@@ -126,14 +144,6 @@ def _fresh_into(buf: torch.Tensor, a: np.ndarray) -> None:
         buf.copy_(t)
 
 
-def _fresh(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A new device copy of ``a`` (``_fresh_into``): the caller may mutate
-    ``a`` at once."""
-    buf = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, device=device)
-    _fresh_into(buf, a)
-    return buf
-
-
 class ServingEngine:
     """Continuous batching over a paged KV pool.
 
@@ -173,14 +183,17 @@ class ServingEngine:
         than one rank the registry plans on its axes and the engine runs
         on DTensors, as the module docstring says.
     graph:
-        ``None`` (default): the decode step replays a CUDA graph on a card
-        with no mesh and runs eagerly elsewhere (``steps.use_graph``);
-        ``False``: eagerly everywhere; ``True``: the graph, raising where
-        none can be captured.  The step is built at the first decode step
-        from ``self._decode`` and ``self.params`` as they are then (a
-        caller may replace ``_decode`` before, to tap it: with a graph,
-        what it does on the device is captured at the second step and
-        replayed after).
+        ``None`` (default): the decode step and each bucket's prefill with
+        its admission replay a CUDA graph on a card with no mesh and run
+        eagerly elsewhere (``steps.use_graph``); ``False``: eagerly
+        everywhere; ``True``: the graphs, raising where none can be
+        captured.  The decode step is built at the first decode step from
+        ``self._decode`` and ``self.params`` as they are then, a bucket's
+        step at the bucket's first use from its registry entry's ``step``,
+        ``self._admit`` and ``self.params`` (a caller may replace them
+        before, to tap them: with a graph, what a tap does on the device
+        is captured at the second call and replayed after, and a tap that
+        reads the host cannot be captured).
     """
 
     def __init__(self, cfg, *, batch: int = 4, max_seq: int = 128,
@@ -193,6 +206,8 @@ class ServingEngine:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.graph = steps.use_graph(graph, self.device, self.mesh)
         self._step = None  # the compiled decode step, made at the first one
+        self._prefills: dict[tuple, steps.GraphedStep] = {}  # by bucket key
+        self._pool = None  # the bucket graphs' shared memory pool
         self.cfg = cfg
         self.batch = batch
         self.block = block
@@ -289,12 +304,17 @@ class ServingEngine:
     def _prefill_into(self, req: Request, slot: int, blocks: list[int]):
         t0 = time.perf_counter()
         plen = len(req.prompt)
-        ent = self.registry.prefill(plen)
-        padded = np.zeros((1, ent.key[2]), np.int32)
+        run = self._compiled_prefill(self.registry.prefill(plen))
+        padded = np.zeros(run.inputs["tokens"].shape, np.int32)
         padded[0, :plen] = req.prompt
-        logits, pre_caches = ent.step(
-            self.params, {"tokens": _fresh(padded, self.device)}, plen - 1)
-        tok0 = torch.argmax(full(logits)[:, -1], dim=-1).to(torch.int32)  # (1,)
+        row = np.zeros((self.W,), np.int32)
+        row[:len(blocks)] = blocks
+        _fresh_into(run.inputs["tokens"], padded)
+        run.inputs["last_index"].fill_(plen - 1)
+        _fresh_into(run.inputs["blocks"], row)
+        run.inputs["slot"].fill_(slot)
+        run.inputs["slot_tokens"].copy_(self.tokens)
+        tok0, seeded = run()
         # TTFT is defined at the first token's availability: sync here (one
         # per request, not per step)
         req.first_tok = int(tok0[0])
@@ -302,19 +322,43 @@ class ServingEngine:
         self.metrics.ttft_s[req.rid] = req.ttft_s
         self.metrics.prefills += 1
 
-        row = np.zeros((self.W,), np.int32)
-        row[:len(blocks)] = blocks
         self.tables[slot] = row
         self.pos[slot] = plen
-        self.caches, self.tokens = self._admit(
-            self.caches, pre_caches, _fresh(row, self.device), slot, tok0,
-            self.tokens)
+        # the fixed output buffer is rewritten by the bucket's next call
+        self.tokens = seeded.clone()
         req.slot, req.blocks = slot, blocks
         req.step_start = len(self._step_log)
         self.slots[slot] = req
         self.metrics.t_prefill_s += time.perf_counter() - t0
         if req.max_new == 1:
             self._evict(req)
+
+    def _compiled_prefill(self, ent) -> steps.GraphedStep:
+        """The bucket's prefill, argmax and admission as one compiled step
+        (the module docstring), made at the bucket's first use."""
+        run = self._prefills.get(ent.key)
+        if run is not None:
+            return run
+        prefill, admit, params = ent.step, self._admit, self.params
+
+        def step(caches, tokens, last_index, blocks, slot, slot_tokens):
+            logits, pre_caches = prefill(params, {"tokens": tokens}, last_index)
+            tok0 = torch.argmax(full(logits)[:, -1], dim=-1).to(torch.int32)  # (1,)
+            _, seeded = admit(caches, pre_caches, blocks, slot, tok0, slot_tokens)
+            return tok0, seeded
+
+        if self.graph and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        dev, index = self.device, torch.zeros((), dtype=torch.long, device=self.device)
+        run = steps.GraphedStep(
+            step, self.caches,
+            {"tokens": torch.zeros((1, ent.key[2]), dtype=torch.int32, device=dev),
+             "last_index": index, "blocks": torch.zeros((self.W,), dtype=torch.int32,
+                                                        device=dev),
+             "slot": index, "slot_tokens": self.tokens},
+            graph=self.graph, pool=self._pool)
+        self._prefills[ent.key] = run
+        return run
 
     def _compiled_step(self) -> steps.GraphedStep:
         if self._step is None:

@@ -97,28 +97,39 @@ def _scatter_kv(pool: PagedKVCache, k, v, blocks) -> PagedKVCache:
     return pool
 
 
-def _set_slot(state, src, slot: int):
-    """Copy a batch-1 prefill state tree into row ``slot`` of the stacked
-    decode state tree in place (leaves (L, b, ...) <- (L, 1, ...)).
+def _set_slot(state, src, slot):
+    """Copy a batch-1 prefill state tree into row ``slot`` (an int, or a
+    0-d integer tensor on the device, which a captured admission reads
+    there) of the stacked decode state tree in place (leaves (L, b, ...)
+    <- (L, 1, ...)).
 
     On a mesh a state leaf is a DTensor whose batch dim (1) may be split:
     the prefill's row is redistributed to the leaf's placements with that
     dim whole, and only the ranks whose batch block holds ``slot`` write
     it, at its index in their block (DTensor has no write of one row of a
-    split dim)."""
+    split dim); there ``slot`` is read on the host (a mesh runs eagerly)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     for d, x in zip(tree.leaves(state), tree.leaves(src)):
         if not isinstance(d, DTensor):
-            d[:, slot] = x[:, 0]
+            if isinstance(slot, torch.Tensor):
+                d.index_copy_(1, _index(slot, d), x.to(d.dtype))
+            else:
+                d[:, slot] = x[:, 0]
             continue
         pl = [Replicate() if p.is_shard(1) else p for p in d.placements]
         x = x.redistribute(d.device_mesh, pl).to_local()
         block = d.to_local()
         lo = _row_offset(d, block)
+        slot = int(slot)
         if lo <= slot < lo + block.shape[1]:
             block[:, slot - lo] = x[:, 0]
     return state
+
+
+def _index(slot: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d ``slot`` as the (1,) int64 index ``index_copy_`` takes."""
+    return slot.reshape(1).to(device=like.device, dtype=torch.long)
 
 
 def _row_offset(d, block) -> int:
@@ -138,8 +149,11 @@ def make_admit_fn(cfg):
     caches and seed its first token.
 
     Signature: ``admit(caches, pre_caches, blocks, slot, tok0, tokens) ->
-    (caches, tokens)`` with ``blocks`` the (W,) int table row, ``slot`` an
-    int, ``tok0`` the prefill argmax (1,) int32.  The pools and states may
+    (caches, tokens)`` with ``blocks`` the (W,) int table row on the
+    device, ``slot`` an int or a 0-d integer tensor on the device (the
+    reference's traced scalar: the engine's captured admission reads it
+    from a fixed buffer), ``tok0`` the prefill argmax (1,) int32.  The
+    pools and states may
     be DTensors (an engine on a mesh); the tokens are whole on every rank.
     Per pattern position, an ``attn`` block's KV goes into the pool under
     the table row; a ``hymba`` block's KV likewise, and its SSM state into
@@ -166,7 +180,10 @@ def make_admit_fn(cfg):
             else:  # mlstm / slstm: per-slot recurrent state rows
                 _set_slot(cache, pre, slot)
         tokens = tokens.clone()
-        tokens[slot, 0] = tok0[0]
+        if isinstance(slot, torch.Tensor):
+            tokens.index_copy_(0, _index(slot, tokens), tok0.view(1, 1).to(tokens.dtype))
+        else:
+            tokens[slot, 0] = tok0[0]
         return caches, tokens
 
     return admit

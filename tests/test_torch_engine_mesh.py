@@ -143,7 +143,7 @@ def engine_case(arch, params_np, mesh) -> dict:
         return out, caches
 
     def admit_logged(caches, pre, blocks, slot, tok0, tokens):
-        slots.append(slot)
+        slots.append(int(slot))  # a 0-d tensor: the bucket step's fixed buffer
         return admit(caches, pre, blocks, slot, tok0, tokens)
 
     eng._admit = admit_logged

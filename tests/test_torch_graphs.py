@@ -340,12 +340,20 @@ def test_counter_snapshot_arithmetic():
 class _FakeGraph:
     """``torch.cuda.CUDAGraph`` stand-in: capture records the calls the
     body makes of ``_fake_launch``'s kernel, and a replay does the device
-    work (here: the step's arithmetic) without running the Python again."""
+    work (here: the step's arithmetic, set by ``on_end``) without running
+    the Python again."""
 
     captures = 0
+    on_end = None
 
     def __init__(self):
         self.work = None
+
+    def capture_begin(self, pool=None):
+        _FakeGraph.captures += 1
+
+    def capture_end(self):
+        _FakeGraph.on_end(self)
 
     def replay(self):
         self.work()
@@ -364,15 +372,14 @@ def test_graphed_step_counts_the_warm_up_and_each_replay(monkeypatch):
         runs.append(int(step_in))
         return step_in * 2
 
-    @contextlib.contextmanager
-    def graph(g):
-        _FakeGraph.captures += 1
-        yield
+    def on_end(g):
         g.work = lambda: run.outputs[0].copy_(run.inputs["step_in"] * 2)
 
+    monkeypatch.setattr(_FakeGraph, "on_end", staticmethod(on_end))
+    monkeypatch.setattr(steps, "_SIDE", {})
     stream = types.SimpleNamespace(wait_stream=lambda other: None)
     fake_cuda = types.SimpleNamespace(
-        CUDAGraph=_FakeGraph, graph=graph, Stream=lambda device: stream,
+        CUDAGraph=_FakeGraph, Stream=lambda device: stream,
         current_stream=lambda device: stream, stream=lambda s: contextlib.nullcontext())
     monkeypatch.setattr(steps.torch, "cuda", fake_cuda)
     ops.reset_launch_counts()
@@ -394,6 +401,43 @@ def test_graphed_step_counts_the_warm_up_and_each_replay(monkeypatch):
     assert runs == [5, 6] and run.replays == 4
     assert ops.launch_counts()["gmm"] == 3 * 5
     assert ops.design_counts()["gmm"]["wgmma"] == 15
+    ops.reset_launch_counts()
+
+
+def test_graphed_step_failed_capture_raises_and_keeps_no_graph(monkeypatch):
+    """A step whose Python fails under capture (as a host read does on a
+    card): the call raises, the capture is ended, no graph is kept, the
+    counters lose the capture's launches, and the step does not run
+    eagerly instead."""
+    ended = []
+
+    def on_end(g):
+        ended.append(g)
+
+    monkeypatch.setattr(_FakeGraph, "on_end", staticmethod(on_end))
+    monkeypatch.setattr(steps, "_SIDE", {})
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(steps.torch, "cuda", types.SimpleNamespace(
+        CUDAGraph=_FakeGraph, Stream=lambda device: stream,
+        current_stream=lambda device: stream, stream=lambda s: contextlib.nullcontext()))
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+    calls = []
+
+    def fn(state, step_in):
+        _fake_launch()
+        calls.append(int(step_in))
+        if len(calls) > 1:
+            raise RuntimeError("operation not permitted when stream is capturing")
+        return step_in + 1
+
+    ops.reset_launch_counts()
+    run = steps.GraphedStep(fn, None, {"step_in": torch.tensor(1)}, graph=False)
+    run.graphed = True  # as on a card (the capture is faked)
+    run()
+    with pytest.raises(RuntimeError, match="capturing"):
+        run()
+    assert len(ended) == 1 and run._graph is None and run.replays == 0
+    assert calls == [1, 1] and ops.launch_counts()["gmm"] == 1
     ops.reset_launch_counts()
 
 

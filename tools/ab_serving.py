@@ -11,8 +11,8 @@ Runs go A, B, B, A, so that a drift of the card's clocks shows on both
 sides.  Each prints its numbers as one JSON line; the script prints every
 run's line, then one JSON object of the least of each side's two runs:
 the serve call's ``t_prefill_s``, the profiled prefill's wall and device
-milliseconds, and the engine's TTFT per request and mean TTFT (its
-second, warm run).  Each checkout builds its kernels into its own
+milliseconds, and the engine's TTFT per request, mean TTFT, tok/s and
+prefill seconds (its second, warm run); the most of tok/s.  Each checkout builds its kernels into its own
 ``build/``.  Needs one card.
 """
 from __future__ import annotations
@@ -38,13 +38,15 @@ torch.set_float32_matmul_precision("highest")
 cfg = get_config("llama-7b")
 serve = cs._serve_phase(cfg, ops)
 lens = np.random.default_rng(0).integers(192, 513, size=8).tolist()
-eng = cs._engine_phase(cfg, ops, serve["profile"]["decode_step"], slots=4, block=16,
+eng = cs._engine_phase(cfg, ops, serve["profile"], slots=4, block=16,
                        max_seq=528, lens=lens, max_new=16)
 pf = serve["profile"]["prefill"]
 print("AB " + json.dumps({"t_prefill_s": serve["t_prefill_s"],
                           "prefill_wall_ms": pf["wall_ms"], "prefill_device_ms": pf["device_ms"],
                           "ttft_s": eng["ttft_s"],
-                          "mean_ttft_s": sum(eng["ttft_s"]) / len(eng["ttft_s"])}))
+                          "mean_ttft_s": sum(eng["ttft_s"]) / len(eng["ttft_s"]),
+                          "engine_tok_per_s": eng["summary"]["tok_per_s"],
+                          "engine_t_prefill_s": eng["summary"]["t_prefill_s"]}))
 """
 
 
@@ -74,7 +76,9 @@ def main() -> int:
     for side in "AB":
         mine = [r for r in runs if r["side"] == side]
         best[side] = {k: min(r[k] for r in mine) for k in
-                      ("t_prefill_s", "prefill_wall_ms", "prefill_device_ms", "mean_ttft_s")}
+                      ("t_prefill_s", "prefill_wall_ms", "prefill_device_ms", "mean_ttft_s",
+                       "engine_t_prefill_s")}
+        best[side]["engine_tok_per_s"] = max(r["engine_tok_per_s"] for r in mine)
         best[side]["ttft_s"] = min(mine, key=lambda r: r["mean_ttft_s"])["ttft_s"]
     print(json.dumps(best))
     if args.out is not None:
