@@ -81,12 +81,14 @@
    logits against the one-card dense run of the same dtype;
 12. gmm parity: the grouped-matmul kernel against ``ref.gmm`` at the
    reference tests' shapes, ragged shapes, expert-strided views, and
-   qwen2-moe's prefill and decode and mixtral's expert shapes, float32
-   (1e-4, atol x8) and bf16 (3e-2, atol x8), each case with its design;
+   qwen2-moe's prefill and decode and mixtral's expert shapes (its w1 and
+   w2 at b=4, s=512, capacity 640, and its w1 in a decode step, capacity
+   128: phase 36 serves it), float32 (1e-4, atol x8) and bf16 (3e-2, atol
+   x8), each case with its design;
 13. gmm timing (CUDA events) in bf16 at qwen2-moe's w1 and w2 prefill
-   shapes, its decode shape and mixtral's, and in float32 at qwen2-moe's
-   w1: kernel, template design, plain version, ``torch.bmm`` and the
-   bound;
+   shapes, its decode shape and mixtral's three, and in float32 at
+   qwen2-moe's w1: kernel, template design, plain version, ``torch.bmm``
+   and the bound;
 14. serve qwen2-moe-a2.7b at full width and depth (bf16, batch 4, prompt
    512, 16 new tokens, 60 experts padded to 64, top-4, shared expert),
    planned through a plan-cache file, counters set to 0 just before the
@@ -211,12 +213,14 @@
    engine in float32 at full width and depth, held against ``serve()`` at
    1e-4 x max|logit| with no unexplained token flip; and the engine parity
    of phase 22 for xlstm-125m width.  The kernels line gives every kernel's
-   zoo launches by design (``ops.design_counts()`` over phases 24-28);
+   zoo launches by design (``ops.design_counts()`` over phases 24-28 and
+   36);
 29. the pipelined path: llama-7b's prefill graph of phase 10 (b=4, s=512)
    compiled with ``pipeline=PipelineSpec(stages=p, microbatches=m)`` on a
    ``{"pp": p}`` mesh of p gloo ranks sharing the card (handoffs staged
    through the host), (p, m) = (1, 1) on one rank, then (2, 1), (2, 4) and
-   (4, 2), each in float32 and bf16: the static schedules against the
+   (4, 2) (p = 2 and p = 4 in two spawns side by side), each in float32
+   and bf16: the static schedules against the
    reference's (stages, handoff elems, bubble); on every rank the logits
    bit for bit equal to the unpipelined compile of the stitched plan on the
    same mesh, m x (8 matmul, 1 flash) launches, all ffma in float32 and all
@@ -245,7 +249,7 @@
    8 matmul + 1 flash launches a rank (ffma in float32, wgmma in bf16),
    the collectives DTensor issued by kind and bytes (``CommLog``) beside
    shard_map's static trace, the rank walls; (b) a train step at
-   llama-7b width, 2 layers, float32, b=2, s=128, on 2 ranks: data
+   llama-7b width, 1 layer, float32, b=2, s=128, on 2 ranks: data
    parallel on {"data": 2} (reduced llama's plan at that cell: the batch
    on data, the weights stored on it, Partial gradients reduce-scattered
    into their shards) and tensor parallel on {"model": 2} (llama-7b's
@@ -253,14 +257,14 @@
    every gradient against the one-rank step on the card (1e-4), the
    parameters after AdamW (within 1e-4 x lr and one float32 ulp where the
    gradient clears 30 x its tolerance, within 2 x lr, one step either way,
-   below that); (c) llama-7b at full width, 4 of its 32 layers (bf16; cut
-   from 32 to 8, then to 4, for the run's time limit)
+   below that); (c) llama-7b at full width, 2 of its 32 layers (bf16; cut
+   from 32 to 8, then to 4, then to 2, for the run's time limit)
    served on 4 ranks, mesh (1, 4), b=4, prompt 512, 16 new, after the
    one-rank reference ran alone: each rank's weight bytes, peak memory;
    the serve loop fed the one-rank tokens, every step's logits against the
    one-rank run (the first within 2e-2 of max|logit|, each later one
    within the larger of that and twice the noise floor: the one-rank bf16
-   run against the same weights in float32, printed per step); a 4-layer
+   run against the same weights in float32, printed per step); a 2-layer
    float32 slice fed its one-rank tokens the same way, every step within
    1e-4 of max|logit|; ``serve(mesh=)``'s generations token for token (a
    divergence must sit on a top-2 margin under 2e-2 of max|logit|, and is
@@ -307,7 +311,8 @@
    4-layer float32 slice against one rank within 1e-4 at every step, 18
    gmm launches a rank a step on (16, C, ·) blocks (wgmma); then
    ``serve(mesh=)`` under its own plan, at that depth where its blocks fit;
-   (b) hymba-1.5b at full size on (2, 2), prompt 2048, and (c)
+   (b) hymba-1.5b at full width, 8 of its 32 layers, on (2, 2), prompt
+   2048, and (c)
    xlstm-125m on {data: 2}, prompt 512, the same checks; (d) 2-layer
    float32 train steps at full width on 2 ranks (b=2, s=128; qwen2-moe's
    1 layer, for the run's time limit): qwen2-moe
@@ -333,7 +338,8 @@
    and {model: 2} on a fake 2-rank group against their gloo ranks, as
    32(c) (but the all-to-alls' bytes, summed over the two ranks: the
    abstract run routes every expert an even share, the card's its own).
-   (d) runs beside (b) and (c), and (e) beside (a), for the run's time
+   (d)'s hymba and xlstm cells run in one spawn beside (a) and (e), its
+   qwen2-moe cells in another beside (b) and (c), for the run's time
    limit.  The kernels line gives
    phase 33's launches a rank by design (``mesh_blocks_launches_per_rank``);
 34. the serving engine's paged decode on a mesh, and buffer donation:
@@ -367,7 +373,7 @@
 35. checkpoints of a run on a mesh, and the gspmd executor's repairs:
    Its ranks start before phase 34 and run beside it, for the run's time
    limit; what this process runs of it follows phase 34.
-   (a) phase 31(b)'s cell (llama-7b at full width, 2 layers, float32, b=2,
+   (a) phase 31(b)'s cell (llama-7b at full width, 1 layer, float32, b=2,
    s=128) through ``launch.train.train(mesh=, ckpt_dir=)`` on 2 gloo ranks
    sharing the card: 3 steps on {data: 2} under ``train``'s own plan with
    a checkpoint at step 2 (rank 0 writes, from leaves gathered one at a
@@ -396,6 +402,29 @@
    paged pool (KV block 16), every step within 1e-4 of max|logit| of one
    rank's.  The kernels line gives phase 35's launches a rank
    (``ckpt_mesh_launches_per_rank``, ``gspmd_repairs_launches_per_rank``).
+
+36. (run after 28, before the mesh phases) the six zoo configs that had
+   never run on the card: minicpm-2b (tied embeddings, 36 heads of 64),
+   musicgen-large (GELU FFN, not gated), nemotron-4-15b (squared-ReLU FFN,
+   not gated; GQA 6:1), yi-9b (GQA 8:1) at full depth, mixtral-8x7b (top-2
+   of 8 experts, window 4096) and qwen1.5-110b (GQA 8:1, q/k/v biases) at
+   8 layers (``DENSE_SERVES``: whole they do not fit one card), each at
+   full width.  (d) the forward kernel at each one's prefill attention
+   (b=4, s=512, causal) in bf16 (wgmma) and float32 (ffma) against its
+   plain version (2e-2, 2e-5), then the bf16 layouts timed as phase 23
+   times the zoo's, beside SDPA (``enable_gqa``); (a) each one served as
+   phase 5 serves llama-7b (bf16, b=4, prompt 512, 16 new, seed-0
+   weights), one at a time: flash launches a prefill one a layer (40, 48,
+   32, 48, 8, 8), mixtral's gmm 24 a prefill and a decode step and 384 a
+   request, every launch wgmma, the prefill and the decode step each a
+   CUDA graph replayed beside eager with bit-equal logits and traces equal
+   to the counters, each profiled; (b) each one at full width, 2 layers,
+   float32, b=1, s=128, weights from seed 36 made on the card and copied
+   to the host, the card against the CPU as phase 27 (logits and loss
+   1e-4, every gradient leaf 1e-3 x its max|g|); (c) one block period of
+   nemotron-4-15b's and minicpm-2b's prefill EinGraph (b=4, s=512) in
+   bf16 through ``executor="shard_map"`` on the one-rank mesh against the
+   dense run, as phase 27 runs hymba's and paligemma's;
 
 Phase 4 also times the forward kernel at one engine prefill, (1, 32, 512,
 128) causal, in bf16 (wgmma) and in float32 (ffma), each with the
@@ -915,6 +944,11 @@ def main() -> int:
     results["engine_hymba_f32"] = _engine_f32_full(hymba, ops, slots=2, block=16,
                                                    max_seq=1520, lens=hymba_lens, max_new=8)
     results["engine_parity_xlstm"] = _engine_parity(get_config("xlstm-125m"), ops)
+
+    # 36. minicpm-2b, musicgen-large, nemotron-4-15b, yi-9b whole, mixtral-8x7b and
+    # qwen1.5-110b at 8 layers: served, held against the CPU, the executor, the layouts
+    results["dense_zoo"] = _dense_zoo_phase(fa, ops, ref)
+    dz = results["dense_zoo"]
     zoo_designs = _zoo_design_counts(results)
     # every flash launch of the zoo takes wgmma (bf16) or ffma (float32), none the template
     assert zoo_designs["flash_attention"]["template"] == 0, zoo_designs["flash_attention"]
@@ -954,6 +988,7 @@ def main() -> int:
     m32 = results["matmul_timing"]["float32"]
     gt, g32 = results["gmm_timing"]["w1_prefill"], results["gmm_timing"]["w1_prefill_f32"]
     gdec = results["gmm_timing"]["w1_decode"]
+    mx = dz["serve"]["mixtral-8x7b"]
     e16, e32 = results["timing_engine"]["bfloat16"], results["timing_engine"]["float32"]
     f32b4, st32 = results["timing_f32"], results["step_timing_f32"]
     ring32 = results["ring"]["float32"]
@@ -1005,6 +1040,19 @@ def main() -> int:
                                 for a, r in results["zoo_serve"].items()},
          "zoo_serve_designs": {a: _path_design(r["designs"]["flash_attention"])
                                for a, r in results["zoo_serve"].items()},
+         "dense_zoo": {name: {k: z[k] for k in ("design", "device_ms", "template_device_ms",
+                                                "plain_ms", "library_device_ms",
+                                                "library_kernels", "bound_ms", "bound_by",
+                                                "max_abs_err")}
+                       for name, z in dz["flash"]["timing"].items()},
+         "dense_serve_launches": {a: r["launches"]["flash_attention"]
+                                  for a, r in dz["serve"].items()},
+         "dense_serve_per_prefill": {a: r["launches_per_prefill"]["flash_attention"]
+                                     for a, r in dz["serve"].items()},
+         "dense_serve_designs": {a: _path_design(r["designs"]["flash_attention"])
+                                 for a, r in dz["serve"].items()},
+         "dense_parity_launches": {a: r["launches"]["flash_attention"]
+                                   for a, r in dz["parity"].items()},
          "zoo_launches_by_design": zoo_designs["flash_attention"],
          "pipeline_launches": sum(pipe_designs["flash_attention"].values()),
          "pipeline_design": pipe_designs["flash_attention"],
@@ -1062,7 +1110,8 @@ def main() -> int:
          "ffnn_launches_per_step": results["ffnn"]["matmul_launches_per_step"],
          "ffnn_design": _path_design(results["ffnn"]["designs"]["matmul"]),
          "zoo_executor_launches": {a: r["launches"]["matmul"]
-                                   for a, r in results["zoo_executor"].items()},
+                                   for a, r in (results["zoo_executor"]
+                                                | dz["executor"]).items()},
          "zoo_launches_by_design": zoo_designs["matmul"],
          "pipeline_launches": sum(pipe_designs["matmul"].values()),
          "pipeline_design": pipe_designs["matmul"],
@@ -1109,6 +1158,18 @@ def main() -> int:
              results["engine_moe"]["traced_decode_step_launches"]["gmm"],
          "engine_graph_replays": results["engine_moe"]["replays"],
          "zoo_launches_by_design": zoo_designs["gmm"],
+         "mixtral_serve": {
+             "layers": mx["layers"], "launches": mx["launches"]["gmm"],
+             "per_prefill": mx["launches_per_prefill"]["gmm"],
+             "per_decode_step": mx["launches_per_decode_step"]["gmm"],
+             "per_graph_replay": mx["launches_per_graph_replay"]["gmm"],
+             "traced_per_graph_replay": mx["traced_launches_per_graph_replay"]["gmm"],
+             "design": _path_design(mx["designs"]["gmm"])},
+         "mixtral": {name: {k: results["gmm_timing"][name][k]
+                            for k in ("shape", "kernel_ms", "template_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
+                     for name in ("mixtral_w1", "mixtral_w2", "mixtral_w1_decode")},
+         "mixtral_parity_launches": dz["parity"]["mixtral-8x7b"]["launches"]["gmm"],
          "mesh_blocks_launches_per_rank": mb["gmm"]},
     ]}
     kernels["kernels"][1]["zoo_launches_by_design"] = zoo_designs["flash_attention_step"]
@@ -1116,6 +1177,7 @@ def main() -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    log("done", f"every phase in {time.perf_counter() - T0:.0f} s (limit 1,200 s)")
 
     print(smi)
     print(json.dumps(kernels))
@@ -1126,12 +1188,16 @@ def main() -> int:
 
 def _zoo_design_counts(results: dict) -> dict:
     """Every kernel's launches by design over the zoo's counted runs
-    (phases 24-28): the three serve calls, the prefix prefill excluded (it
-    ran with the counters of its own check), the slice parities, the two
+    (phases 24-28 and 36): the serve calls, the prefix prefill excluded (it
+    ran with the counters of its own check), the slice parities, the
     executor calls and both engines' second runs."""
+    dense = results["dense_zoo"]
     runs = [r["designs"] for r in results["zoo_serve"].values()]
+    runs += [r["designs"] for r in dense["serve"].values()]
     runs += [{"flash_attention": r["designs"]} for r in results["zoo_parity"].values()]
+    runs += [r["designs"] for r in dense["parity"].values()]
     runs += [r["designs"] for r in results["zoo_executor"].values()]
+    runs += [r["designs"] for r in dense["executor"].values()]
     runs += [results["engine_hymba"]["designs"], results["engine_hymba_f32"]["designs"],
              results["engine_parity_xlstm"]["designs"]]
     out = {k: dict.fromkeys(DESIGNS_ALL, 0) for k in ("flash_attention", "flash_attention_step",
@@ -1503,7 +1569,8 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     trace can also come back short of an event or of all of a call's: the
     kernels counted by kind are the more of the two traced calls'
     (``by_kind_count``, which ``_traced_launches`` reads), and a trace
-    with no kernel after its marker is taken again (at most twice more).
+    that lost its marker, or whose read call holds no kernel or fewer than
+    the first call, is taken again (at most twice more).
     ``ranges`` names ``record_function`` ranges whose kernels' device time
     is reported too (``range_ms``, the read call's half of the ranges;
     those kernels also count in their kinds), for which the host's ops are
@@ -1529,11 +1596,18 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
             torch.cuda.synchronize()
         device = _device_kernels(prof)
         marks = [e for e in device if "spin_kernel" in e.name]
-        assert marks, "the trace lost the marker kernel"
+        if not marks:
+            log("trace", f"trace {attempt + 1} lost its marker kernel; tracing again")
+            continue
         start, first_start = marks[-1].end, marks[-2].end if len(marks) > 1 else None
-        if any(e.start >= start for e in device):
+        kernels = [e.start for e in device if not _not_a_kernel(e.name, ranges)]
+        n_read = sum(t >= start for t in kernels)
+        n_first = sum(first_start is not None and first_start <= t < start for t in kernels)
+        if n_read and n_read >= n_first:
             break
-        log("trace", f"trace {attempt + 1} holds no kernel after its marker; tracing again")
+        log("trace", f"trace {attempt + 1} holds {n_read} kernels after its marker, "
+                     f"{n_first} in the call before; tracing again")
+    assert marks, "three traces lost the marker kernel"
     by_kind = {"flash_attention": 0.0, "flash_step": 0.0, "matmul": 0.0, "gmm": 0.0,
                "gemm": 0.0, "other": 0.0}
     count = dict.fromkeys(by_kind, 0)
@@ -1541,8 +1615,7 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
     by_name: dict[str, float] = {}
     n = 0
     for e in device:
-        if ("Loading" in e.name or "Buffer" in e.name or "spin_kernel" in e.name
-                or e.name in ranges):  # a range's span on the device timeline, not a kernel
+        if _not_a_kernel(e.name, ranges):
             continue
         if e.start < start:
             if first_start is not None and e.start >= first_start:
@@ -1566,6 +1639,13 @@ def _profile(fn, ranges: tuple[str, ...] = ()) -> dict:
             "by_kind_ms": {k: round(v, 4) for k, v in by_kind.items()},
             "by_kind_count": {k: max(v, first_count[k]) for k, v in count.items()},
             "top_kernels_ms": [(k, round(v, 4)) for k, v in top]}
+
+
+def _not_a_kernel(name: str, ranges: tuple[str, ...]) -> bool:
+    """A device event of a ``_profile`` trace that is no kernel of the
+    traced call: a memory event, the marker spin, or a range's span on the
+    device timeline."""
+    return "Loading" in name or "Buffer" in name or "spin_kernel" in name or name in ranges
 
 
 def _kernel_kind(name: str) -> str:
@@ -1797,23 +1877,16 @@ def _device_ms(fn, iters: int, match: str | None) -> float:
     started late in a process can lose its first device events, so
     ``_fill_trace_start`` fills that window first, and only the kernels
     after it are read."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):  # a trace has come back without its last events
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _fill_trace_start()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.ms for e in _after_spin(prof) if match is None or match in e.name]
-        if times:
-            break
-        log("trace", f"trace {attempt + 1} holds no kernel after its marker ({match}); "
-                     f"tracing again")
+
+    def body():
+        for _ in range(iters):
+            fn()
+
+    times = [e.ms for e in _traced_after_spin(body, match)
+             if match is None or match in e.name]
     if match is None:
-        assert times, "no kernel in the trace"
         return sum(times) / iters
     # the trace may drop an event at its edge; never more than one a call
     assert 0 < len(times) <= iters, (match, len(times), iters)
@@ -1857,14 +1930,27 @@ def _device_kernels(prof) -> list:
                   key=lambda e: e.start)
 
 
-def _after_spin(prof) -> list:
-    """The device kernels of ``prof`` that start after its last spin
-    kernel (``_fill_trace_start``), in time order."""
-    device = _device_kernels(prof)
-    marks = [e for e in device if "spin_kernel" in e.name]
-    assert marks, "the trace lost the spin kernel"
-    start = marks[-1].end
-    return [e for e in device if e.start >= start]
+def _traced_after_spin(body, match: str | None = None) -> list:
+    """``body`` run under torch.profiler after ``_fill_trace_start``: the
+    device kernels that start after its last spin kernel, in time order.
+    A trace has come back without its last events, and without the spin
+    kernel: one that holds no kernel after the spin (none whose name holds
+    ``match``, if given) is taken again, at most twice more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _fill_trace_start()
+            body()
+            torch.cuda.synchronize()
+        device = _device_kernels(prof)
+        marks = [e for e in device if "spin_kernel" in e.name]
+        after = [e for e in device if marks and e.start >= marks[-1].end]
+        if any(match is None or match in e.name for e in after):
+            return after
+        log("trace", f"trace {attempt + 1} holds {len(marks)} spin kernels and "
+                     f"{len(after)} kernels after them ({match}); tracing again")
+    raise AssertionError(f"three traces without a kernel after the spin ({match})")
 
 
 def _attention_backward_ms(ref, q, k, v, kw) -> float:
@@ -2150,15 +2236,19 @@ def _ring_path() -> tuple[dict, tuple]:
 def _gmm_shapes(qcfg, mcfg) -> dict[str, tuple[int, int, int, int]]:
     """(e, c, k, n) of the expert products on the MoE path: qwen2-moe's w1
     and w2 at b=4, s=512 (T = 2048 tokens) and in a decode step (T = 4),
-    and mixtral's w1 at b=4, s=512 (a timing shape: one card does not
-    hold mixtral).  c is the dispatch capacity of ``models/moe.py``."""
+    and mixtral's w1 and w2 at b=4, s=512 and its w1 in a decode step (the
+    shapes of phase 36's mixtral serve, 8 of its 32 layers).  c is the
+    dispatch capacity of ``models/moe.py``."""
     from repro_torch.models.moe import _capacity
 
     e, d, f = qcfg.n_e, qcfg.d_model, qcfg.d_ff
     cp, cd = _capacity(2048, qcfg), _capacity(4, qcfg)
+    me, md, mf = mcfg.n_e, mcfg.d_model, mcfg.d_ff
+    mp, mdec = _capacity(2048, mcfg), _capacity(4, mcfg)
     return {"w1_prefill": (e, cp, d, f), "w2_prefill": (e, cp, f, d),
             "w1_decode": (e, cd, d, f), "w2_decode": (e, cd, f, d),
-            "mixtral_w1": (mcfg.n_e, _capacity(2048, mcfg), mcfg.d_model, mcfg.d_ff)}
+            "mixtral_w1": (me, mp, md, mf), "mixtral_w2": (me, mp, mf, md),
+            "mixtral_w1_decode": (me, mdec, md, mf)}
 
 
 def _gmm_inputs(e, c, k, n, dt, seed=0):
@@ -2234,7 +2324,7 @@ def _gmm_timing(qcfg, mcfg, ops, ref) -> dict:
         item = x.element_size()
         nbytes, nops = (e * c * k + e * k * n + e * c * n) * item, 2 * e * c * k * n
         bound_ms, bound_by = _bound(nbytes, nops, dt)
-        slow = name == "mixtral_w1" or dt == torch.float32
+        slow = name.startswith("mixtral") or dt == torch.float32
         iters = 10 if slow else 50
         design = mm.design(x, w)
         assert design == ("wgmma" if dt == torch.bfloat16 else "ffma"), design
@@ -3433,29 +3523,26 @@ def _sdpa_call(case, q, k, v):
 def _kernel_names(fn) -> list[str]:
     """The device kernels one warmed call of ``fn`` launches (names cut to
     90 characters): which backend a library call took."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _fill_trace_start()
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name[:90] for e in _after_spin(prof)})
+    return sorted({e.name[:90] for e in _traced_after_spin(fn)})
 
 
-def _zoo_flash_timing(fa, ops, ref) -> dict:
-    """Phase 23: the forward kernel at hymba's and paligemma's prefill
-    shapes (bf16, the wgmma design), at paligemma's float32 slice and at its
-    prefill shape in float32 (the ffma design): held against its plain
-    version, then its device time, SDPA's device time on the same function
-    in the same type (its backend named by its kernels), the template's
-    device time (its C entry), the plain version's time by events and the
-    bound."""
+ZOO_FLASH_CASES = {"hymba": HYMBA_PREFILL, "paligemma": PALIGEMMA_PREFILL,
+                   "paligemma_f32": PALIGEMMA_F32_SLICE,
+                   "paligemma_f32_b4": PALIGEMMA_PREFILL_F32}
+
+
+def _zoo_flash_timing(fa, ops, ref, cases: dict = ZOO_FLASH_CASES) -> dict:
+    """Phase 23 (and 36(d)): the forward kernel at each of ``cases``: by
+    default hymba's and paligemma's prefill shapes (bf16, the wgmma
+    design), paligemma's float32 slice and its prefill shape in float32
+    (the ffma design): held against its plain version, then its device
+    time, SDPA's device time on the same function in the same type (its
+    backend named by its kernels), the template's device time (its C
+    entry), the plain version's time by events and the bound."""
     res = {}
-    for name, case in (("hymba", HYMBA_PREFILL), ("paligemma", PALIGEMMA_PREFILL),
-                       ("paligemma_f32", PALIGEMMA_F32_SLICE),
-                       ("paligemma_f32_b4", PALIGEMMA_PREFILL_F32)):
+    for name, case in cases.items():
         q, k, v, kw = _inputs(case, seed=23)
         design = fa.design(q, k, v)
         assert design == _expected_flash_design(case), (name, design)
@@ -3542,33 +3629,23 @@ class _PlainAttention:
 
 
 def _value_and_grads(cfg, cpu_params, batch_np: dict, dev: str, ops, plain: bool = False):
-    """Logits of ``forward`` and ``loss_fn`` with every gradient leaf, on
-    ``dev`` (``plain``: the card without the flash kernel), with the flash
-    launches of the forward and of the loss and its backward."""
+    """``_logits_loss_grads`` on a copy of ``cpu_params`` on ``dev``
+    (``plain``: the card without the flash kernel), the gradients on the
+    host, with the flash launches and designs alone."""
     from repro_torch.core import tree
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import transformer as tf
 
     params = tree.map(lambda t: t.to(dev, copy=True), cpu_params)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
     if plain:
         attn_mod.ops = _PlainAttention(ops)
     try:
-        ops.reset_launch_counts()
-        with torch.no_grad():
-            logits, _, _ = tf.forward(params, batch["tokens"], cfg,
-                                      prefix_embeds=batch.get("prefix_embeds"))
-        fwd = ops.launch_counts()["flash_attention"]
-        leaves = [p.requires_grad_(True) for p in tree.leaves(params)]
-        loss, _ = tf.loss_fn(params, batch, cfg)  # remat on: the reference's default
-        grads = torch.autograd.grad(loss, leaves)
+        out = _logits_loss_grads(cfg, params, batch_np, ops)
     finally:
         attn_mod.ops = ops
-    out = {"logits": logits.float().cpu(), "loss": float(loss.detach()),
-           "grads": [g.float().cpu() for g in grads],
-           "launches": (fwd, ops.launch_counts()["flash_attention"] - fwd),
-           "designs": ops.design_counts()["flash_attention"]}
-    del params, grads, leaves, loss, logits
+    out.update(grads=[g.float().cpu() for g in out["grads"]],
+               launches=out["launches"]["flash_attention"],
+               designs=out["designs"]["flash_attention"])
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -3659,13 +3736,17 @@ def _zoo_slice_parity(ops) -> dict:
     return out
 
 
-def _zoo_executor(ops) -> dict:
-    """Phase 27 (cont.): one block period of hymba's prefill EinGraph (b=4,
-    s=2048) and of paligemma's (b=4, s=512) in bf16 through
-    ``executor="shard_map"`` on the one-rank mesh, against the dense run:
-    every clean contraction through the matmul kernel (wgmma), one flash
-    launch (wgmma: hymba at head dim 64, paligemma at 256); the scans and the MoE
-    stubs are ``models.opaque_stubs``' deterministic stand-ins."""
+ZOO_EXECUTOR_CASES = (("hymba-1.5b", 2048), ("paligemma-3b", 512))
+
+
+def _zoo_executor(ops, cases=ZOO_EXECUTOR_CASES) -> dict:
+    """Phase 27 (cont.; and 36(c)): one block period of each case's prefill
+    EinGraph at b=4 and its sequence length, by default hymba's (s=2048)
+    and paligemma's (s=512), in bf16 through ``executor="shard_map"`` on
+    the one-rank mesh, against the dense run: every clean contraction
+    through the matmul kernel (wgmma), one flash launch (wgmma: hymba at
+    head dim 64, paligemma at 256); the scans and the MoE stubs are
+    ``models.opaque_stubs``' deterministic stand-ins."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import spmd
@@ -3676,7 +3757,7 @@ def _zoo_executor(ops) -> dict:
     make_stub_opaques()
     mesh = Mesh({"data": 1, "model": 1}, device="cuda")
     out = {}
-    for arch, seq in (("hymba-1.5b", 2048), ("paligemma-3b", 512)):
+    for arch, seq in cases:
         cfg = get_config(arch)
         prog = program_for(cfg, ShapeConfig("serve", "prefill", seq, 4))
         g = prog.graph
@@ -3771,6 +3852,239 @@ def _engine_f32_full(cfg, ops, *, slots: int, block: int, max_seq: int, lens: li
     return {"prompt_lens": lens, "max_new": max_new, "against_sequential": held,
             "launches": launches, "designs": designs,
             "generations": {r: res[r].tolist() for r in res}}
+
+
+# ---------------------------------------------------------------------------
+# 36. the six zoo configs that had never run on the card (run after 28)
+# ---------------------------------------------------------------------------
+
+# the layers each config is served with at full width, None for all of
+# them: mixtral-8x7b (93.41 GB in bf16) and qwen1.5-110b (222.42 GB) do not
+# fit one card whole; at 8 layers they take 23.74 and 26.73 GB
+DENSE_SERVES = {"minicpm-2b": None, "musicgen-large": None, "nemotron-4-15b": None,
+                "yi-9b": None, "mixtral-8x7b": 8, "qwen1.5-110b": 8}
+# 36(b): b=1 and a short sequence, so that the float32 vocabulary heads (up
+# to 256,000 x 6,144) stay cheap on the host
+DENSE_SLICE_SEQ = 128
+# 36(c): the non-gated squared-ReLU FFN at 6144 x 24576, and the tied head
+DENSE_EXECUTOR_CASES = (("nemotron-4-15b", 512), ("minicpm-2b", 512))
+
+
+def _prefill_case(cfg, dt=torch.bfloat16) -> tuple:
+    """The attention of ``cfg``'s prefill at b=4, s=512, causal: (b, hq,
+    hkv, sq, sk, d, causal, window, dtype); a window no shorter than the
+    prompt does not bind (mixtral's 4096), so the case is plain causal."""
+    window = cfg.window if 0 < cfg.window < 512 else 0
+    return (4, cfg.n_heads, cfg.n_kv_heads, 512, 512, cfg.hd, True, window, dt)
+
+
+def _dense_flash(fa, ops, ref) -> dict:
+    """36(d): the forward kernel at each config's prefill attention (b=4,
+    s=512), bf16 (the wgmma design) and float32 (the ffma design), against
+    its plain version; then the bf16 layouts timed beside SDPA as phase 23
+    times the zoo's."""
+    from repro_torch.configs import get_config
+
+    parity = []
+    for arch in DENSE_SERVES:
+        for dt in (torch.bfloat16, torch.float32):
+            case = _prefill_case(get_config(arch), dt=dt)
+            q, k, v, kw = _inputs(case, seed=36)
+            got, design = _served_by(ops, "flash_attention", lambda: ops.flash_attention(
+                q, k, v, impl="kernel", **kw))
+            assert design == fa.design(q, k, v) == _expected_flash_design(case), (arch, design)
+            err = _max_err(got, ref.attention(q, k, v, **kw), TOL[dt],
+                           f"flash at {arch}'s prefill {case[:8]} {dt}")
+            parity.append({"arch": arch, "case": str(case), "design": design,
+                           "max_abs_err": err})
+            log("dense-flash", f"{arch} {case[:8]} {dt} (GQA {case[1] // case[2]}:1) "
+                               f"[{design}]: max|kernel - plain| = {err:.3e} (tol {TOL[dt]}) ok")
+            del q, k, v, got
+    torch.cuda.empty_cache()
+    timing = _zoo_flash_timing(fa, ops, ref, {arch: _prefill_case(get_config(arch))
+                                              for arch in DENSE_SERVES})
+    return {"parity": parity, "timing": timing}
+
+
+def _dense_serve(ops) -> dict:
+    """36(a): each config served as phase 5 serves llama-7b (bf16, b=4,
+    prompt 512, 16 new, seed-0 weights), one at a time."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, layers in DENSE_SERVES.items():
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        depth = (f"all {full.n_layers} layers" if cfg.n_layers == full.n_layers else
+                 f"{cfg.n_layers} of its {full.n_layers} layers, cut for one card (whole "
+                 f"{2 * full.param_count() / 1e9:.2f} GB in bf16, cut "
+                 f"{2 * cfg.param_count() / 1e9:.2f} GB)")
+        log("dense-serve", f"{arch}: full width, {depth}; {cfg.n_heads} query heads over "
+                           f"{cfg.n_kv_heads} KV heads of {cfg.hd}, {cfg.act} FFN "
+                           f"{'gated' if cfg.gated_ffn else 'not gated'} {cfg.d_model} x "
+                           f"{cfg.d_ff}, tied embeddings {cfg.tie_embeddings}, qkv bias "
+                           f"{cfg.qkv_bias}, vocabulary {cfg.vocab} padded to "
+                           f"{cfg.vocab_padded}")
+        if cfg.window:
+            log("dense-serve", f"{arch}: its window of {cfg.window} does not bind at prompt "
+                               f"512 + 16 new (phase 24's hymba is where a window binds)")
+        t0 = time.perf_counter()
+        res = _serve_phase(cfg, ops)
+        per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
+        assert res["launches_per_prefill"]["flash_attention"] == cfg.n_layers, res
+        assert res["launches_per_prefill"]["gmm"] == per_layer * cfg.n_layers, res
+        assert res["launches_per_decode_step"]["gmm"] == per_layer * cfg.n_layers, res
+        # the decode graph's logits bit-equal to the eager step's, every step
+        assert res["graph_against_eager"]["max_abs_logit_diff"] == 0.0, res["graph_against_eager"]
+        res.update({"layers": cfg.n_layers, "layers_whole": full.n_layers,
+                    "phase_s": time.perf_counter() - t0})
+        log("dense-serve", f"{arch} in {res['phase_s']:.1f} s")
+        out[arch] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _logits_loss_grads(cfg, params, batch_np: dict, ops) -> dict:
+    """``forward``'s logits (with the batch's prefix embeddings, if any),
+    ``loss_fn`` and its gradient leaves (left on the parameters' device) at
+    ``params`` as they lie, with the kernels' launches of the forward and
+    of the loss with its backward."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tf
+
+    leaves = tree.leaves(params)
+    batch = {k: torch.as_tensor(v, device=leaves[0].device) for k, v in batch_np.items()}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _, _ = tf.forward(params, batch["tokens"], cfg,
+                                  prefix_embeds=batch.get("prefix_embeds"))
+    fwd = ops.launch_counts()
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = tf.loss_fn(params, batch, cfg)  # remat on: the reference's default
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    total = ops.launch_counts()
+    return {"logits": logits.float().cpu(), "loss": float(loss.detach()), "grads": grads,
+            "launches": {k: (fwd[k], total[k] - fwd[k]) for k in ("flash_attention", "gmm")},
+            "designs": ops.design_counts()}
+
+
+def _dense_slice_parity(ops) -> dict:
+    """36(b): each config at full width, 2 layers, float32, b=1, s =
+    DENSE_SLICE_SEQ, weights from seed 36 made on the card and copied to
+    the host: the card (the kernels) against the CPU (the plain path), as
+    phase 27: the logits (ZOO_TOL x max|logit|), the loss (ZOO_TOL
+    relative) and every gradient leaf (ZOO_GRAD_TOL x its max|g|), all
+    finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tf
+
+    cfgs = {arch: dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+            for arch in DENSE_SERVES}
+    # one page-locked buffer as large as the largest slice takes each copy
+    # to the host: a pageable copy into fresh pages ran at 2.4 GB/s
+    flat = torch.empty(max(sum(t.numel() for t in tree.leaves(tf.init_params(c, device="meta")))
+                           for c in cfgs.values()), pin_memory=True)
+    out = {}
+    for arch, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, seed=36, device="cuda")
+        toks = np.random.default_rng(36).integers(0, cfg.vocab, size=(1, DENSE_SLICE_SEQ))
+        batch = {"tokens": toks.astype(np.int32), "labels": toks.astype(np.int32)}
+        card = _logits_loss_grads(cfg, params, batch, ops)
+        torch.cuda.synchronize()
+        walls = {"card": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        host = _host_views(flat, params)  # the same weights on the host
+        del params
+        walls["copy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _logits_loss_grads(cfg, host, batch, ops)
+        walls["cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the forward, then the loss's forward and its remat recompute
+        gmm_fwd = ((3 if cfg.gated_ffn else 2) * cfg.n_layers) if cfg.moe else 0
+        assert card["launches"] == {"flash_attention": (2, 4), "gmm": (gmm_fwd, 2 * gmm_fwd)}, (
+            arch, card["launches"])
+        assert cpu["launches"] == {"flash_attention": (0, 0), "gmm": (0, 0)}, cpu["launches"]
+        for kernel, n in (("flash_attention", 6), ("gmm", 3 * gmm_fwd)):
+            assert card["designs"][kernel]["ffma"] == n, (arch, card["designs"])
+        assert card["logits"].shape == (1, DENSE_SLICE_SEQ, cfg.vocab_padded)
+        assert bool(torch.isfinite(card["logits"]).all()), arch
+        scale = float(cpu["logits"].abs().max())
+        lg_err = float((card["logits"] - cpu["logits"]).abs().max()) / scale
+        loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        g_errs = []
+        for g, c in zip(card["grads"], cpu["grads"]):  # leaf by leaf, on the card
+            c = c.to("cuda")
+            assert bool(torch.isfinite(g).all()), arch
+            g_errs.append(float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30))
+            del c
+        walls["compare"] = time.perf_counter() - t0
+        names = [f"leaf {i} {tuple(c.shape)}" for i, c in enumerate(cpu["grads"])]
+        worst = max(range(len(g_errs)), key=lambda i: g_errs[i])
+        log("dense-parity", f"{arch} width, 2 layers, f32, b=1, s={DENSE_SLICE_SEQ}: max|logit "
+                            f"diff| / max|logit| {lg_err:.3e} (limit {ZOO_TOL}); loss card "
+                            f"{card['loss']:.7f} CPU {cpu['loss']:.7f} (relative "
+                            f"{loss_err:.3e}); {len(g_errs)} gradient leaves, worst "
+                            f"{names[worst]} at {g_errs[worst]:.3e} of its max|g| (limit "
+                            f"{ZOO_GRAD_TOL}); launches (forward, loss and grad) "
+                            f"{card['launches']}, flash by design "
+                            f"{card['designs']['flash_attention']}; walls (weights made and the "
+                            f"card's half, their copy to the host, the host's half, the "
+                            f"gradients compared on the card) "
+                            f"{ {k: round(v, 1) for k, v in walls.items()} } s")
+        assert lg_err <= ZOO_TOL and loss_err <= ZOO_TOL, (arch, lg_err, loss_err)
+        assert g_errs[worst] <= ZOO_GRAD_TOL, (arch, names[worst], g_errs[worst])
+        out[arch] = {"seq": DENSE_SLICE_SEQ, "logit_rel_err": lg_err, "loss": card["loss"],
+                     "loss_rel_err": loss_err, "grad_rel_errs": g_errs,
+                     "launches": card["launches"],
+                     "designs": {k: card["designs"][k] for k in ("flash_attention", "gmm")},
+                     "walls_s": walls}
+        del card, cpu, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    del flat
+    return out
+
+
+def _host_views(flat, params) -> dict:
+    """``params`` copied into views of the page-locked float32 ``flat``,
+    leaf after leaf: a tree of host tensors of their shapes."""
+    from repro_torch.core import tree
+
+    off = 0
+
+    def one(t):
+        nonlocal off
+        view = flat[off:off + t.numel()].view(t.shape).detach()
+        off += t.numel()
+        return view.copy_(t, non_blocking=True)
+
+    host = tree.map(one, params)
+    torch.cuda.synchronize()
+    return host
+
+
+def _dense_zoo_phase(fa, ops, ref) -> dict:
+    """Phase 36: (d) the flash layouts, (a) the serves, (b) the 2-layer
+    float32 slices card against CPU, (c) two prefill graphs through the
+    shard_map executor (see the module doc)."""
+    res, walls = {}, {}
+    for part, run in (("flash", lambda: _dense_flash(fa, ops, ref)),
+                      ("serve", lambda: _dense_serve(ops)),
+                      ("parity", lambda: _dense_slice_parity(ops)),
+                      ("executor", lambda: _zoo_executor(ops, DENSE_EXECUTOR_CASES))):
+        t0 = time.perf_counter()
+        res[part] = run()
+        walls[part] = time.perf_counter() - t0
+    res["walls_s"] = walls
+    log("dense", f"phase 36's parts' walls {({k: round(v, 1) for k, v in walls.items()})} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3869,10 +4183,16 @@ def _pipeline_path(cfg) -> dict:
     torch.cuda.empty_cache()  # the ranks share this card
     t0 = time.perf_counter()
     ranks = {1: [pipeline_rank(0, 1, [(1, 1)])]}  # one rank: no process group
-    for p in (2, 4):
-        with tempfile.TemporaryDirectory() as tmp:
-            ranks[p] = spawn(p, pipeline_rank, [c for c in PIPE_CASES if c[0] == p],
-                             tmpdir=tmp, backend="gloo", timeout=400)
+
+    def run(p, tmp):
+        return spawn(p, pipeline_rank, [c for c in PIPE_CASES if c[0] == p], tmpdir=tmp,
+                     backend="gloo", timeout=400)
+
+    # p = 2 and p = 4 side by side since phase 36 came (the run's time
+    # limit): 37.4 s one after the other, 18.2 s side by side (one H100)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        started = {p: pool.submit(run, p, Path(tmp) / f"p{p}") for p in (2, 4)}
+        ranks.update({p: f.result() for p, f in started.items()})
     t_all = time.perf_counter() - t0
     designs_total = {k: dict.fromkeys(DESIGNS_ALL, 0) for k in ("flash_attention", "matmul")}
     res = {"static": static, "wall_s": t_all}
@@ -4177,8 +4497,9 @@ MESH_TRAIN_CELLS = {"data2": ("llama-7b", {"data": 2}, "reduced"),
 # phase 33(d): the MoE, hymba and xLSTM blocks' steps; a dict is a manual
 # policy: qwen2-moe expert parallel, its batch and its experts on "data"
 # (tokens to the experts' rank by all-to-all), and its experts on "model".  The
-# qwen2-moe cells (44 and 58 GB of the card for their two ranks) go last:
-# phase 33 runs these steps beside hymba's and xlstm's serves (23 GB)
+# qwen2-moe cells (44 and 58 GB of the card for their two ranks) run in a
+# spawn of their own beside hymba's and xlstm's serves, the others in one
+# beside qwen2-moe's serve (``_block_mesh_phase``)
 BLOCK_TRAIN_CELLS = {"hymba/data2": ("hymba-1.5b", {"data": 2}, "own"),
                      "xlstm/data2": ("xlstm-125m", {"data": 2}, "own"),
                      "qwen2-moe/data2": ("qwen2-moe-a2.7b", {"data": 2},
@@ -4203,7 +4524,7 @@ ADAM_CLEAR = 30
 
 def mesh_train_rank(rank: int, world: int, cells: dict) -> dict:
     """One gloo rank of phase 31(b) or 33(d): each cell's architecture at
-    full width, 2 layers, float32, b=2, s=128.  Rank 0 first runs each
+    full width, ``TRAIN_CELL_LAYERS`` layers, float32, b=2, s=128.  Rank 0 first runs each
     architecture's one-rank step on the card alone (the others wait at a
     barrier), then every rank runs the sharded step of every cell; rank 0
     holds the loss, every gradient and every parameter after AdamW against
@@ -4373,8 +4694,10 @@ def _block_bytes(t) -> int:
 
 # layers of a train cell (phase 31(b), 33(d), 35(a)): 2 (xlstm: one mLSTM
 # and one sLSTM block); qwen2-moe 1, for the run's time limit
-# (its cells were the longest part of phase 33)
-TRAIN_CELL_LAYERS = {"qwen2-moe-a2.7b": 1}
+# (its cells were the longest part of phase 33); llama-7b 1, for the run's
+# time limit once phase 36 came (35(a)'s spawns, which run beside phase
+# 34, were the last phase's longest part: 102-116 s of them)
+TRAIN_CELL_LAYERS = {"qwen2-moe-a2.7b": 1, "llama-7b": 1}
 
 
 def _mesh_train_cfg(arch: str = "llama-7b"):
@@ -4561,11 +4884,13 @@ def _experts_whole_check(cell: str, arch: str, ranks: list, ref_loss: float) -> 
 # what a serve cell runs: the architecture at full size (bf16) on a mesh
 # of gloo ranks sharing the card, under the plan's policy (None) or a
 # manual one; a float32 slice of its first layers on the same mesh
-# llama-7b at 4 of its 32 layers, cut from 32 to 8, then to 4 (the run's
-# time limit: phase 33 serves three more models this way, phase 35 came)
-MESH_SERVE = {"arch": "llama-7b", "layers": 4, "mesh": {"data": 1, "model": 4},
+# llama-7b at 2 of its 32 layers, cut from 32 to 8, then to 4 (the run's
+# time limit: phase 33 serves three more models this way, phase 35 came),
+# then to 2 with its float32 slice (phase 36 came: 31(c) runs after 31(a)
+# beside 31(b); its spawn took 81.1 s at 4 layers, 30.9 s at 2, one H100)
+MESH_SERVE = {"arch": "llama-7b", "layers": 2, "mesh": {"data": 1, "model": 4},
               "policy": None, "b": 4, "prompt_len": 512, "max_new": 16,
-              "slice_layers": 4, "max_share": 0.3, "floor_first": False}
+              "slice_layers": 2, "max_share": 0.3, "floor_first": False}
 # phase 33(a)-(c): qwen2-moe's experts on "model" (then serve(mesh=)'s own
 # plan too), hymba at phase 24's prompt, xlstm data parallel
 # At full depth in bf16 these three are chaotic: the one-rank bf16 run's
@@ -4580,16 +4905,19 @@ MESH_SERVE = {"arch": "llama-7b", "layers": 4, "mesh": {"data": 1, "model": 4},
 # qwen2-moe at 3 of its 24 layers, for the run's time limit: on one H100
 # at 700 W the whole run took 1,276 s of its 1,200 at 24 layers, and up
 # to 1,111 s at 12; at 6 with phase 35 added, 1,238-1,268 s (PERF.md).
-# hymba's and xlstm's serves run beside
-# (d)'s train steps, which take longer, so their depth costs no time.
+# hymba at 8 of its 32 layers (phase 36 came): its serve and xlstm's run
+# beside (d)'s qwen2-moe cells (44 and 58 GB of the card for their two
+# ranks), which start once (a) and (e) are done; at 32 layers hymba's
+# ranks held the host for 59 s of them (chip_smoke on one H100).  Each float32
+# slice keeps 4 pattern units.
 BLOCK_SERVES = {
-    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=3,
+    "qwen2-moe": dict(MESH_SERVE, arch="qwen2-moe-a2.7b", layers=3, slice_layers=4,
                       policy={"e": "model"}, own_policy=True, floor_first=True),
-    "hymba": dict(MESH_SERVE, arch="hymba-1.5b", layers=None,
+    "hymba": dict(MESH_SERVE, arch="hymba-1.5b", layers=8, slice_layers=4,
                   mesh={"data": 2, "model": 2}, prompt_len=2048, max_share=None,
                   floor_first=True),
-    "xlstm": dict(MESH_SERVE, arch="xlstm-125m", layers=None, mesh={"data": 2},
-                  max_share=None, floor_first=True),
+    "xlstm": dict(MESH_SERVE, arch="xlstm-125m", layers=None, slice_layers=4,
+                  mesh={"data": 2}, max_share=None, floor_first=True),
 }
 # a float32 slice held at every step to phase 10's float32 limit: at
 # float32 a misplaced block shows where bf16's rounding would hide it
@@ -5141,38 +5469,47 @@ def _block_mesh_phase(ops) -> dict:
     """Phase 33 (a)-(e): qwen2-moe, hymba and xlstm served at full width on
     meshes of gloo ranks sharing the card, their float32 train steps on 2
     ranks (``TRAIN_CELL_LAYERS``), and the a2a rule under the gspmd
-    executor.  qwen2-moe is served beside the executor's ranks (at 24
-    layers its float32 witness alone took 61 GB of the card); the train
-    steps' ranks then run beside hymba's and xlstm's serves (for the run's
-    time limit; the qwen2-moe steps, the largest, last)."""
+    executor.  qwen2-moe is served beside the executor's ranks and the
+    hymba and xlstm train cells' (at 24 layers its float32 witness alone
+    took 61 GB of the card); the qwen2-moe train cells' ranks then run
+    beside hymba's and xlstm's serves (for the run's time limit: two train
+    spawns, the first beside (a) and (e) since phase 36 came: 211 s with
+    one spawn after (a), 167 s so, one H100)."""
+    small = {c: v for c, v in BLOCK_TRAIN_CELLS.items() if not _mesh_train_cfg(v[0]).moe}
+    moe = {c: v for c, v in BLOCK_TRAIN_CELLS.items() if c not in small}
     out = {"serve": {}}
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        # (e)'s ranks beside qwen2-moe's serve (for the run's time
-        # limit; at 3 layers the serve holds under 20 GB of the card); done
-        # before (d)'s ranks start: beside qwen2-moe's cells they do not fit
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        # (e)'s ranks and the small cells' beside qwen2-moe's serve (at 3
+        # layers it holds under 20 GB of the card); (e) done before the
+        # qwen2-moe cells start: beside them it does not fit
         a2a = pool.submit(_gspmd_a2a)
-        train = None
+        train_small = pool.submit(_mesh_train, small)
+        train_moe = None
         for name, spec in BLOCK_SERVES.items():
             t0 = time.perf_counter()
             out["serve"][name] = _mesh_serve(spec)
             out["serve"][name]["phase_s"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
-            if train is None:
+            if train_moe is None:
                 out["gspmd_a2a"] = a2a.result()
-                train = pool.submit(_mesh_train, BLOCK_TRAIN_CELLS)
-        out["train"] = train.result()
+                train_moe = pool.submit(_mesh_train, moe)
+        trained = {**train_small.result(), **train_moe.result()}
+        out["train"] = {c: trained[c] for c in BLOCK_TRAIN_CELLS}
     return out
 
 
 def _mesh_phase(ops) -> dict:
     """Phase 31: (a) the gspmd executor, (b) the sharded train step, (c)
-    llama-7b served on a mesh — gloo ranks sharing the card; (b) and (c)
-    side by side since PR 25 (for the run's time limit; 50 GB at most
-    between them), so their walls are taken beside each other's."""
-    out = {"gspmd": _gspmd_executor(ops)}
+    llama-7b served on a mesh — gloo ranks sharing the card; (b) beside
+    (a), then beside (c) (for the run's time limit; 50 GB at most between
+    (b) and (c)), so their walls are taken beside each other's."""
+    out = {}
     with ThreadPoolExecutor(max_workers=1) as pool:
+        # (b) beside (a) since phase 36 came, and (c) at 2 layers: 144 s
+        # with (b) beside (c) alone, 76 s so (one H100)
         train = pool.submit(_mesh_train)
+        out["gspmd"] = _gspmd_executor(ops)
         out["serve"] = _mesh_serve()
         out["train"] = train.result()
     return out
@@ -5780,7 +6117,7 @@ def _engine_mesh_phase(cfg, ops) -> dict:
 # Phase 35: checkpoints of a run on a mesh; the gspmd executor's repairs
 # ---------------------------------------------------------------------------
 
-# 35(a): phase 31(b)'s cell (llama-7b at full width, 2 layers, float32,
+# 35(a): phase 31(b)'s cell (llama-7b at full width, 1 layer, float32,
 # b=2, s=128) through train(mesh=, ckpt_dir=): 3 steps on {data: 2} with a
 # checkpoint at step 2, then the run restarted from step 2 on each mesh
 # here (ranks of their own) and on one rank (the main process)
@@ -6143,7 +6480,7 @@ def _mesh_ckpt_start() -> dict:
     pool = ThreadPoolExecutor(4)
     walls: dict = {}
 
-    def cleanup():  # also where phase 34 fails: no 8 GB step left behind
+    def cleanup():  # also where phase 34 fails: no 5.6 GB step left behind
         pool.shutdown(wait=True)
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(root, ignore_errors=True)
@@ -6189,7 +6526,7 @@ def _mesh_ckpt_phase(started: dict) -> dict:
         ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
         manifest = json.loads((step_dir / "manifest.json").read_text())
     finally:
-        started["cleanup"]()  # 8 GB a step: 4 bytes a parameter, 3 times
+        started["cleanup"]()  # 5.6 GB a step: 4 bytes a parameter, 3 times
     dsplit_ranks = [r["dsplit"] for r in restart_ranks["model2"]]
     restarts = {name: [r[name] for r in ranks] for name, ranks in restart_ranks.items()}
     one_restart = run_ranks[0]["one"]
@@ -6236,7 +6573,8 @@ def _mesh_ckpt_phase(started: dict) -> dict:
     fl = r0["launches"]["flash_attention"]
     assert r0["designs"]["flash_attention"]["ffma"] == fl > 0, r0["designs"]
     save_peaks = [max(x["peak_bytes"] for x in t["gather"]) for t in run_taps]
-    log("mesh-ckpt", f"35(a) llama-7b width, 2 layers, f32, b=2, s=128 through train(mesh=, "
+    log("mesh-ckpt", f"35(a) llama-7b width, {_mesh_train_cfg().n_layers} layer(s), f32, b=2, "
+                     f"s=128 through train(mesh=, "
                      f"ckpt_dir=) on 2 gloo ranks sharing the card: uninterrupted on "
                      f"{CKPT_MESH['run']}, steps {[(s[0], s[1], s[2]) for s in full]} "
                      f"(walls {[round(s[3], 3) for s in full]} s); checkpoint of step 2: "

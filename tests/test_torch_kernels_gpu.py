@@ -654,8 +654,11 @@ def _moe_gmm_shapes():
 
     q, mx = get_config("qwen2-moe-a2.7b"), get_config("mixtral-8x7b")
     cp, cd = _capacity(2048, q), _capacity(4, q)
+    mp = _capacity(2048, mx)
     return [(q.n_e, cp, q.d_model, q.d_ff), (q.n_e, cp, q.d_ff, q.d_model),
-            (q.n_e, cd, q.d_model, q.d_ff), (mx.n_e, _capacity(2048, mx), mx.d_model, 1024)]
+            (q.n_e, cd, q.d_model, q.d_ff), (mx.n_e, mp, mx.d_model, 1024),
+            # mixtral-8x7b's w2 at b=4, s=512 and its w1 in a decode step
+            (mx.n_e, mp, mx.d_ff, mx.d_model), (mx.n_e, _capacity(4, mx), mx.d_model, mx.d_ff)]
 
 
 @pytest.mark.gpu
@@ -1085,6 +1088,12 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
     ((1, 25, 5, 1280, 1280, 64, True, 1024), "float32", "ffma"),      # hymba f32 parity
     ((2, 8, 1, 512, 512, 256, True, 0), "bfloat16", "wgmma"),         # paligemma, MQA 8:1
     ((1, 8, 1, 260, 260, 256, True, 0), "float32", "ffma"),           # f32, ragged
+    ((1, 36, 36, 256, 256, 64, True, 0), "bfloat16", "wgmma"),        # minicpm, 36 heads of 64
+    ((1, 36, 36, 256, 256, 64, True, 0), "float32", "ffma"),
+    ((1, 48, 8, 256, 256, 128, True, 0), "bfloat16", "wgmma"),        # nemotron, GQA 6:1
+    ((1, 48, 8, 256, 256, 128, True, 0), "float32", "ffma"),
+    ((1, 32, 4, 256, 256, 128, True, 0), "bfloat16", "wgmma"),        # yi, GQA 8:1
+    ((1, 32, 4, 256, 256, 128, True, 0), "float32", "ffma"),
 ]
 
 
@@ -1095,9 +1104,28 @@ ZOO_ATT_CASES = [  # ((b, hq, hkv, sq, sk, d, causal, window), dtype, design)
 def test_cuda_flash_zoo_shapes_match_plain_version(case, dt, design, cuda):
     """The model zoo's attention shapes: hymba's GQA 5:1 at head dim 64
     with a window of 1024 that binds past 1024 keys (wgmma in bf16, ffma
-    in float32), paligemma's MQA 8:1 at head dim 256 (wgmma in bf16, ffma
-    in float32)."""
+    in float32), paligemma's MQA 8:1 at head dim 256, minicpm's 36 heads
+    of 64 and the KV head of a group of 6 (nemotron) and of 8 (yi, qwen1.5)
+    (wgmma in bf16, ffma in float32)."""
     _check_flash(case, dt, design, cuda)
+
+
+@pytest.mark.gpu
+def test_nemotron_full_width_serves_with_a_bit_equal_decode_graph(cuda):
+    """nemotron-4-15b at full width, 2 of its 32 layers, bf16 (GQA 6:1, the
+    squared-ReLU FFN not gated, 256,000 words): ``serve()`` takes its
+    prefill's flash launches in the wgmma design and replays its decode
+    graph; ``decode_loop`` graphed and eager from one prefill's caches
+    give equal tokens and bit-equal logits at every step."""
+    cfg = dataclasses.replace(get_config("nemotron-4-15b"), n_layers=2)
+    params = tf.init_params(cfg, seed=31, device=cuda)
+    prompts = np.random.default_rng(31).integers(0, cfg.vocab, size=(2, 64)).astype(np.int32)
+    ops.reset_launch_counts()
+    gen, stats = port_serve.serve(cfg, prompts, max_new=6, params=params, device="cuda")
+    assert stats["graph"] is True and gen.shape == (2, 6)
+    assert ops.design_counts()["flash_attention"]["wgmma"] == ops.launch_counts()[
+        "flash_attention"] == 2
+    _graphed_against_eager(cfg, params, prompts, 8, cuda)
 
 
 @pytest.mark.gpu
@@ -1209,6 +1237,40 @@ def _logit_tap(decode, logs, prompt_len: int):
     return tapped
 
 
+def _graphed_against_eager(cfg, params, prompts, max_new: int, cuda) -> dict:
+    """``decode_loop`` from two copies of one prefill's caches, ``max_new -
+    1`` decode steps captured and replayed (``graph=True``: a failed
+    capture fails the test) and as many eager: the tokens and every step's
+    logits equal, and so are the launches by design (the replays' counted
+    from the capture's), which it returns."""
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+
+    b, s = prompts.shape
+    with torch.inference_mode():
+        logits, caches = steps.make_prefill_step(cfg)(
+            params, {"tokens": torch.as_tensor(prompts, device=cuda)})
+        caches = port_serve.prepare_decode_caches(cfg, caches, s, s + max_new)
+        copy = tree.map(torch.clone, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        got = {}
+        for graph, cs in ((True, caches), (False, copy)):
+            logs = torch.full((max_new - 1, b, logits.shape[-1]), float("nan"), device=cuda)
+            ops.reset_launch_counts()
+            gen, _, n = port_serve.decode_loop(
+                _logit_tap(steps.make_serve_step(cfg), logs, s), params, cs, tok, s,
+                max_new, graph=graph)
+            torch.cuda.synchronize()
+            got[graph] = (gen, logs.cpu(), ops.design_counts())
+    (g_gen, g_log, g_designs), (e_gen, e_log, e_designs) = got[True], got[False]
+    diff = float((g_log - e_log).abs().max())
+    print(f"{cfg.name} {cfg.dtype}: graphed against eager, max|logit diff| = {diff:.3e}")
+    np.testing.assert_array_equal(g_gen, e_gen)
+    assert diff == 0.0
+    assert g_designs == e_designs
+    return g_designs
+
+
 GRAPH_CASES = [("llama-7b", "float32"), ("qwen2-moe-a2.7b", "float32"),
                ("qwen2-moe-a2.7b", "bfloat16"), ("hymba-1.5b", "float32"),
                ("xlstm-125m", "float32"), ("paligemma-3b", "float32")]
@@ -1224,34 +1286,11 @@ def test_graphed_decode_equals_eager_decode_on_card(arch, dt, cuda):
     tokens and every step's logits are equal, and so are the launches by
     design (the replays' counted from the capture's); hymba's prompt of 20
     decodes past its window of 16."""
-    from repro_torch.core import tree
-    from repro_torch.launch import steps
-
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dt)
     params = tf.init_params(cfg, seed=4, device=cuda)
     prompts = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 20)).astype(np.int32)
     max_new = 10
-    with torch.inference_mode():
-        logits, caches = steps.make_prefill_step(cfg)(
-            params, {"tokens": torch.as_tensor(prompts, device=cuda)})
-        caches = port_serve.prepare_decode_caches(cfg, caches, 20, 20 + max_new)
-        copy = tree.map(torch.clone, caches)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        got = {}
-        for graph, cs in ((True, caches), (False, copy)):
-            logs = torch.full((max_new - 1, 2, logits.shape[-1]), float("nan"), device=cuda)
-            ops.reset_launch_counts()
-            gen, _, n = port_serve.decode_loop(
-                _logit_tap(steps.make_serve_step(cfg), logs, 20), params, cs, tok, 20,
-                max_new, graph=graph)
-            torch.cuda.synchronize()
-            got[graph] = (gen, logs.cpu(), ops.design_counts())
-    (g_gen, g_log, g_designs), (e_gen, e_log, e_designs) = got[True], got[False]
-    diff = float((g_log - e_log).abs().max())
-    print(f"{arch} {dt}: graphed against eager, max|logit diff| = {diff:.3e}")
-    np.testing.assert_array_equal(g_gen, e_gen)
-    assert diff == 0.0
-    assert g_designs == e_designs
+    g_designs = _graphed_against_eager(cfg, params, prompts, max_new, cuda)
     per_layer = (3 if cfg.gated_ffn else 2) if cfg.moe else 0
     assert sum(g_designs["gmm"].values()) == per_layer * cfg.n_layers * (max_new - 1)
     if cfg.moe and dt == "bfloat16":
